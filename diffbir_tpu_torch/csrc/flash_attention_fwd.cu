@@ -5,7 +5,9 @@
 // online softmax with fp32 running max m, running sum l and accumulator, the
 // probabilities rounded to the input dtype before the PV product (the sum l
 // keeps them unrounded), kv past Skv masked, and an l == 0 guard on the final
-// divide.
+// divide. Optionally the per-row logsumexp lse = m + log(l) (l == 0 guarded,
+// as _kernel's with_lse store) for the backward kernels, fp32 [B, H, Sq]; a
+// null lse pointer skips the store and nothing else changes.
 //
 // Design (first, simple version). One block covers ROWS query rows of one
 // (batch, head). Each query row belongs to G = D/32 consecutive lanes; a lane
@@ -49,7 +51,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <typename T, int D, int NT, int BK>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int Sq, int Skv,
+    T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Skv,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -159,11 +161,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) ob[4 * (g + G * c) + e] = from_f32<T>(acc[c][e] * l_inv);
   }
+  if (lse != nullptr && g == 0)
+    lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m + logf(l == 0.f ? 1.f : l);
 }
 
 template <typename T, int D, int NT, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int H, int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
   constexpr int ROWS = NT / (D / 32);
   constexpr int smem = 2 * BK * D * static_cast<int>(sizeof(float));
   auto kernel = flash_fwd_kernel<T, D, NT, BK>;
@@ -182,7 +186,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((Sq + ROWS - 1) / ROWS, B * H);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      static_cast<T*>(o), lse, H, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], scale);
   return cudaGetLastError();
 }
@@ -190,14 +194,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // Tile sizes per head dim: 128 or 256 threads, 32 dims per lane, and kv tiles
 // of 64 KB (32 KB at d=64) of fp32 k and v in shared memory.
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int Sq, int Skv, int D, const long long* st, float scale,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int H, int Sq, int Skv, int D, const long long* st, float scale,
                      cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64, 128, 64>(q, k, v, o, B, H, Sq, Skv, st, scale, stream);
-    case 128: return launch<T, 128, 128, 64>(q, k, v, o, B, H, Sq, Skv, st, scale, stream);
-    case 256: return launch<T, 256, 256, 32>(q, k, v, o, B, H, Sq, Skv, st, scale, stream);
-    case 512: return launch<T, 512, 256, 16>(q, k, v, o, B, H, Sq, Skv, st, scale, stream);
+    case 64: return launch<T, 64, 128, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, stream);
+    case 128: return launch<T, 128, 128, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, stream);
+    case 256: return launch<T, 256, 256, 32>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, stream);
+    case 512: return launch<T, 512, 256, 16>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -207,9 +211,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 extern "C" {
 
 // q, k, v: [B,S,H,D] with unit stride over D; strides (batch, seq, head) in
-// elements for q, k, v in that order. o: contiguous [B,Sq,H,D]. dtype: 0 fp32,
-// 1 bf16. Returns a cudaError_t (0 on success); the launch is asynchronous.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
+// elements for q, k, v in that order. o: contiguous [B,Sq,H,D]. lse: null, or
+// contiguous fp32 [B,H,Sq]. dtype: 0 fp32, 1 bf16. Returns a cudaError_t (0 on
+// success); the launch is asynchronous.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int dtype,
                         int B, int H, int Sq, int Skv, int D,
                         long long q_sb, long long q_ss, long long q_sh,
                         long long k_sb, long long k_ss, long long k_sh,
@@ -218,10 +224,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = dispatch<float>(q, k, v, o, B, H, Sq, Skv, D, st, scale, s); break;
-    case 1: err = dispatch<__nv_bfloat16>(q, k, v, o, B, H, Sq, Skv, D, st, scale, s); break;
+    case 0: err = dispatch<float>(q, k, v, o, lse_f, B, H, Sq, Skv, D, st, scale, s); break;
+    case 1: err = dispatch<__nv_bfloat16>(q, k, v, o, lse_f, B, H, Sq, Skv, D, st, scale, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -1,17 +1,19 @@
 """ControlLDM: the stage-2 generation module {UNet, VAE, CLIP, ControlNet}.
 
 Counterpart of the core of ``diffbir_tpu/models/cldm.py``: the sd21()/tiny()
-sizes, the ControlNet -> scaled residuals -> controlled UNet forward,
-``prepare_condition`` and the untiled VAE encode/decode. Images and latents
-enter and leave these methods NHWC, as in the JAX package; the modules run
-NCHW inside. Not ported yet: the denoise-loop hoisting of the cross-attention
-k/v and timestep tables (exact-math speed work), tiled VAE, posterior
-sampling, the turbo control cache and the quantised serving modes.
+sizes (with gradient checkpointing for training), the ControlNet -> scaled
+residuals -> controlled UNet forward, ``prepare_condition``, the untiled VAE
+encode (posterior mean or sample) and decode, and the ControlNet's
+initialisation from the UNet. Images and latents enter and leave these
+methods NHWC, as in the JAX package; the modules run NCHW inside. Not ported
+yet: the denoise-loop hoisting of the cross-attention k/v and timestep tables
+(exact-math speed work), tiled VAE, the turbo control cache and the quantised
+serving modes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -40,13 +42,16 @@ class ControlLDM(nn.Module):
         self.scale_factor = scale_factor
 
     @classmethod
-    def sd21(cls, dtype: torch.dtype = torch.bfloat16, device=None) -> "ControlLDM":
-        """SD2.1-base + IRControlNet sizes (configs/inference/cldm.yaml)."""
+    def sd21(cls, dtype: torch.dtype = torch.bfloat16, use_checkpoint: bool = False,
+             device=None) -> "ControlLDM":
+        """SD2.1-base + IRControlNet sizes (configs/inference/cldm.yaml);
+        ``use_checkpoint`` recomputes the UNet's and ControlNet's ResBlocks and
+        transformers in the backward (the training config's setting)."""
         return cls(
-            unet=UNetModel(dtype=dtype, device=device),
+            unet=UNetModel(dtype=dtype, use_checkpoint=use_checkpoint, device=device),
             vae=AutoencoderKL(dtype=dtype, device=device),
             clip=CLIPTextEncoder(dtype=dtype, device=device),
-            controlnet=ControlNet(dtype=dtype, device=device),
+            controlnet=ControlNet(dtype=dtype, use_checkpoint=use_checkpoint, device=device),
         )
 
     @classmethod
@@ -89,11 +94,24 @@ class ControlLDM(nn.Module):
         control = tuple(c * s for c, s in zip(control, control_scales))
         return _nhwc(self.unet(x, t, cond["c_txt"], control=control))
 
-    def vae_encode(self, image: torch.Tensor) -> torch.Tensor:
-        """image in [-1, 1] NHWC -> scaled latent NHWC: the posterior mean
-        (``sample=False`` in JAX; sampling is not ported yet)."""
-        mean, _ = self.vae.encode_moments(_nchw(image))
-        return _nhwc(mean) * self.scale_factor
+    def vae_encode(self, image: torch.Tensor, sample: bool = True,
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """image in [-1, 1] NHWC -> scaled latent NHWC. With ``sample`` a
+        posterior sample z = mean + exp(logvar / 2) * eps, eps standard normal
+        NHWC, passed in or drawn from ``generator`` in fp32, and cast to the
+        mean's dtype as the JAX package draws it; else the posterior mean."""
+        mean, logvar = self.vae.encode_moments(_nchw(image))
+        mean, logvar = _nhwc(mean), _nhwc(logvar)
+        if sample:
+            if eps is None:
+                if generator is None:
+                    raise ValueError("sampling the posterior needs a generator or eps")
+                eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+            if eps.shape != mean.shape:
+                raise ValueError(f"eps {tuple(eps.shape)} != latent {tuple(mean.shape)}")
+            mean = mean + torch.exp(0.5 * logvar) * eps.to(mean.device, mean.dtype)
+        return mean * self.scale_factor
 
     def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latent NHWC -> image in [-1, 1] NHWC (fp32)."""
@@ -105,4 +123,20 @@ class ControlLDM(nn.Module):
     def prepare_condition(self, cond_img: torch.Tensor, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
         """cond_img in [0, 1] NHWC; tokens [B, 77] int."""
         return dict(c_txt=self.encode_text(tokens),
-                    c_img=self.vae_encode(cond_img * 2 - 1))
+                    c_img=self.vae_encode(cond_img * 2 - 1, sample=False))
+
+    @torch.no_grad()
+    def load_controlnet_from_unet(self) -> None:
+        """Initialise the ControlNet from the (loaded) UNet: every ControlNet
+        key the UNet has is copied, the input conv's extra hint input channels
+        are zero, and the zero convs keep their init."""
+        unet = self.unet.state_dict()
+        for key, p in self.controlnet.state_dict().items():
+            src = unet.get(key)
+            if src is None:
+                continue
+            if src.shape == p.shape:
+                p.copy_(src)
+            else:  # input conv, OIHW: pad the input-channel axis with zeros
+                p.zero_()
+                p[:, :src.shape[1]].copy_(src)

@@ -6,6 +6,11 @@ ds 4/2/1, 64-wide heads, linear transformer projections, context 1024) and
 the ControlNet copy of its encoder with the hint concatenated at the input
 conv and 13 zero-conv residuals. Control residuals are a tuple argument.
 Attribute names equal the DiffBIR checkpoint keys.
+
+``use_checkpoint`` recomputes every ResBlock and SpatialTransformer in the
+backward instead of keeping its activations (the JAX package's ``nn.remat``
+around the same two modules), through non-reentrant
+``torch.utils.checkpoint``; it only acts while autograd records.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from .layers import (
@@ -158,14 +164,24 @@ class Upsample(nn.Module):
 
 class EmbedSequential(nn.ModuleList):
     """One UNet block: ResBlocks take the timestep embedding, transformers
-    the context, everything else the features alone."""
+    the context, everything else the features alone. With ``use_checkpoint``
+    the ResBlocks and transformers are recomputed in the backward."""
+
+    def __init__(self, layers, use_checkpoint: bool = False):
+        super().__init__(layers)
+        self.use_checkpoint = use_checkpoint
+
+    def _run(self, layer: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         for layer in self:
             if isinstance(layer, ResBlock):
-                x = layer(x, emb)
+                x = self._run(layer, x, emb)
             elif isinstance(layer, SpatialTransformer):
-                x = layer(x, context)
+                x = self._run(layer, x, context)
             else:
                 x = layer(x)
         return x
@@ -177,7 +193,7 @@ class _Encoder(nn.Module):
     def __init__(self, in_channels: int, model_channels: int, num_res_blocks: int,
                  attention_resolutions: Sequence[int], channel_mult: Sequence[int],
                  num_head_channels: int, transformer_depth: int, context_dim: int,
-                 dtype, device=None):
+                 dtype, use_checkpoint: bool = False, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         mc, ted = model_channels, model_channels * 4
@@ -198,14 +214,15 @@ class _Encoder(nn.Module):
                 ch = mult * mc
                 if ds in attention_resolutions:
                     layers.append(st(ch))
-                self.input_blocks.append(EmbedSequential(layers))
+                self.input_blocks.append(EmbedSequential(layers, use_checkpoint))
                 self.block_channels.append(ch)
             if level != len(channel_mult) - 1:
                 self.input_blocks.append(EmbedSequential([Downsample(ch, **kw)]))
                 self.block_channels.append(ch)
                 ds *= 2
         self.middle_block = EmbedSequential([
-            ResBlock(ch, ch, ted, dtype, device), st(ch), ResBlock(ch, ch, ted, dtype, device)])
+            ResBlock(ch, ch, ted, dtype, device), st(ch), ResBlock(ch, ch, ted, dtype, device)],
+            use_checkpoint)
         self.ds = ds
 
     def embed(self, timesteps: torch.Tensor) -> torch.Tensor:
@@ -221,10 +238,11 @@ class UNetModel(_Encoder):
                  attention_resolutions: Sequence[int] = (4, 2, 1),
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_head_channels: int = 64,
                  transformer_depth: int = 1, context_dim: int = 1024,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, use_checkpoint: bool = False,
+                 device=None):
         super().__init__(in_channels, model_channels, num_res_blocks, attention_resolutions,
                          channel_mult, num_head_channels, transformer_depth, context_dim,
-                         dtype, device)
+                         dtype, use_checkpoint, device)
         mc, ted = model_channels, model_channels * 4
         ch, ds = self.block_channels[-1], self.ds
         skips = list(self.block_channels)
@@ -240,7 +258,7 @@ class UNetModel(_Encoder):
                 if level and i == num_res_blocks:
                     layers.append(Upsample(ch, dtype, device))
                     ds //= 2
-                self.output_blocks.append(EmbedSequential(layers))
+                self.output_blocks.append(EmbedSequential(layers, use_checkpoint))
         self.out = nn.Sequential(
             GroupNorm32(ch, device=device), nn.SiLU(),
             conv(ch, out_channels, 3, dtype=torch.float32, device=device))
@@ -274,10 +292,11 @@ class ControlNet(_Encoder):
                  attention_resolutions: Sequence[int] = (4, 2, 1),
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_head_channels: int = 64,
                  transformer_depth: int = 1, context_dim: int = 1024,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, use_checkpoint: bool = False,
+                 device=None):
         super().__init__(in_channels + hint_channels, model_channels, num_res_blocks,
                          attention_resolutions, channel_mult, num_head_channels,
-                         transformer_depth, context_dim, dtype, device)
+                         transformer_depth, context_dim, dtype, use_checkpoint, device)
         kw = dict(dtype=dtype, device=device)
         self.zero_convs = nn.ModuleList(
             nn.Sequential(conv(c, c, 1, padding=0, **kw)) for c in self.block_channels)

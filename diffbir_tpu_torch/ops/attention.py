@@ -29,18 +29,20 @@ def plain_attention(
     mask: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Einsum attention with fp32 logits and softmax.
+    """Einsum attention with fp32 logits and softmax (float64 inputs stay
+    float64, so the CPU path can be gradient-checked).
 
     mask: broadcastable to [B, H, Sq, Skv], True = keep.
     bias: broadcastable additive bias (e.g. Swin relative position bias).
     """
     orig_dtype = q.dtype
+    acc = torch.promote_types(orig_dtype, torch.float32)
     scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc) * scale, k.to(acc))
     if bias is not None:
-        logits = logits + bias.float()
+        logits = logits + bias.to(acc)
     if mask is not None:
-        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+        logits = torch.where(mask, logits, torch.finfo(acc).min)
     weights = logits.softmax(dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(orig_dtype), v)
     return out.to(orig_dtype)

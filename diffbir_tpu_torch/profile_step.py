@@ -1,21 +1,27 @@
-"""Profile one denoise step of the port on a CUDA device.
+"""Profile one denoise step, or one stage-2 training step, of the port on a
+CUDA device.
 
-The step is the model call a 512x512 request makes 50 times: a full-width
-SD2.1 ControlLDM (UNet + IRControlNet, random bf16 weights from seed 0) at
-batch 2 on a 64x64 latent, classifier-free guidance folded into the batch.
-Prints
+The denoise step is the model call a 512x512 request makes 50 times: a
+full-width SD2.1 ControlLDM (UNet + IRControlNet, random bf16 weights from
+seed 0) at batch 2 on a 64x64 latent, classifier-free guidance folded into
+the batch. With ``--train`` the step is instead one stage-2 training step of
+``build_train_setup``, which ``chip_smoke.py`` drives too: gradient
+checkpointing, the ControlNet initialised from the UNet, a frozen realesrgan
+SwinIR cleaner, the v2.1 schedule with noise augmentation at 200, AdamW at
+lr 1e-5, batch 8 at 512x512. Prints
 
-- host and device time per step, with the flash kernel (K1) and with plain
-  attention, in the order plain, K1, K1, plain: the medians over 10 calls of
-  the host's enqueue time (call to return), of the wall time (call to device
-  sync) and of the device span between two CUDA events;
-- a ``torch.profiler`` view of 3 steps through K1: device time by kernel,
-  device kernels and ``aten::copy_`` calls per step, K1's device time, and the
-  device's busy share of the profiled window.
+- host and device time per step, with the flash kernels (K1, and K2a/K2b in
+  training) and with plain attention, in the order plain, kernel, kernel,
+  plain: the medians over 10 calls (5 when training) of the host's enqueue
+  time (call to return), of the wall time (call to device sync) and of the
+  device span between two CUDA events;
+- a ``torch.profiler`` view of 3 steps through the kernels: device time by
+  kernel, device kernels and ``aten::copy_`` calls per step, K1's, K2a's and
+  K2b's device time, and the device's busy share of the profiled window.
 
 Run from the repository root on a machine with a card:
 
-    python3 -m diffbir_tpu_torch.profile_step [--trace step_trace.json]
+    python3 -m diffbir_tpu_torch.profile_step [--train] [--trace step_trace.json]
 """
 
 from __future__ import annotations
@@ -23,17 +29,27 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
+from dataclasses import dataclass
+from typing import Callable
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from .models.cldm import ControlLDM
 from .models.layers import random_init_
+from .models.swinir import SwinIR
 from .pipeline import EOT, SOT
 from .sampler.base import cfg_model_call
+from .schedule import Schedule
+from .train import stage2
 
 LATENT, CFG, SEED = 64, 4.0, 0
-TIMED_STEPS, PROFILED_STEPS = 10, 3
+TIMED_STEPS, TIMED_TRAIN_STEPS, PROFILED_STEPS = 10, 5, 3
+TRAIN_BATCH, TRAIN_LR, NOISE_AUG = 8, 1e-5, 200
+# device kernel names of K1, K2a and K2b
+KERNELS = {"K1": "flash_fwd_kernel", "K2a": "flash_bwd_dq_kernel",
+           "K2b": "flash_bwd_dkv_kernel"}
 
 
 def build_step(seed: int, device: torch.device):
@@ -56,6 +72,63 @@ def build_step(seed: int, device: torch.device):
         return cfg_model_call(lambda xx, tt, cc: cldm(xx, tt, cc), x, t, cond, uncond, CFG)
 
     return cldm, step
+
+
+@dataclass
+class TrainSetup:
+    """The full-width stage-2 training setup and one fixed batch."""
+    cldm: ControlLDM
+    swinir: SwinIR
+    schedule: Schedule
+    cleaner: Callable[[torch.Tensor], torch.Tensor]
+    optimizer: stage2.MasterAdamW
+    train_step: Callable[..., dict]
+    batch: dict
+
+
+def build_train_setup(seed: int, device: torch.device, batch_size: int = TRAIN_BATCH,
+                      size: int = 8 * LATENT) -> TrainSetup:
+    """SD2.1 + IRControlNet (random bf16 weights from ``seed``, gradient
+    checkpointing, the ControlNet initialised from the UNet), the frozen
+    realesrgan SwinIR cleaner, the v2.1 schedule with noise augmentation at
+    200 and AdamW at lr 1e-5 over fp32 masters, as
+    ``configs/train/train_stage2_v2.1.yaml``; the batch is gt in [-1, 1] and
+    lq in [0, 1] from ``numpy.random.default_rng(seed)``, empty prompts."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cldm = ControlLDM.sd21(dtype=torch.bfloat16, use_checkpoint=True,
+                           device="meta").to_empty(device=device)
+    random_init_(cldm, gen)
+    cldm.load_controlnet_from_unet()
+    swinir = SwinIR(dtype=torch.bfloat16, device="meta").to_empty(device=device)
+    random_init_(swinir, gen).eval().requires_grad_(False)
+
+    def cleaner(lq):
+        return swinir(lq).clamp(0.0, 1.0)
+
+    schedule = Schedule.v21()
+    optimizer = stage2.init_train_state(cldm, TRAIN_LR)
+    train_step = stage2.make_train_step(cldm, schedule, optimizer, cleaner, NOISE_AUG)
+    rng = np.random.default_rng(seed)
+    tokens = torch.zeros(batch_size, cldm.clip.context_length, dtype=torch.long,
+                         device=device)
+    tokens[:, 0], tokens[:, 1] = SOT, EOT
+    batch = {"gt": torch.tensor(rng.uniform(-1, 1, (batch_size, size, size, 3)),
+                                dtype=torch.float32, device=device),
+             "lq": torch.tensor(rng.random((batch_size, size, size, 3)),
+                                dtype=torch.float32, device=device),
+             "tokens": tokens}
+    return TrainSetup(cldm, swinir, schedule, cleaner, optimizer, train_step, batch)
+
+
+def build_train_step(seed: int, device: torch.device):
+    """``build_train_setup``'s ControlLDM and one train step on its batch."""
+    setup = build_train_setup(seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def step():
+        return setup.train_step(setup.batch, gen)
+
+    return setup.cldm, step
 
 
 def time_steps(step, n: int) -> dict:
@@ -106,18 +179,21 @@ def profile_steps(step, n: int, trace: str | None) -> dict:
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     window = max(e for _, e in spans) - min(s for s, _ in spans)
     busy = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
-    k1 = [e.time_range.elapsed_us() for e in kernels if "flash_fwd_kernel" in e.name]
+    ours = {name: [e.time_range.elapsed_us() for e in kernels if symbol in e.name]
+            for name, symbol in KERNELS.items()}
     copies = sum(1 for e in events if e.name == "aten::copy_")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
     return {"table": table, "steps": n, "window_ms": window / 1e3,
             "busy_ms_per_step": busy / 1e3 / n, "kernels_per_step": len(kernels) / n,
-            "k1_ms_per_step": sum(k1) / 1e3 / n,
-            "k1_launches_per_step": len(k1) / n, "copies_per_step": copies / n,
-            "busy_share": busy / window}
+            "ms_per_step": {k: sum(v) / 1e3 / n for k, v in ours.items()},
+            "launches_per_step": {k: len(v) / n for k, v in ours.items()},
+            "copies_per_step": copies / n, "busy_share": busy / window}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile a stage-2 training step instead of a denoise step")
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the profiled steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -125,26 +201,33 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    cldm, step = build_step(SEED, device)
-    print(f"[profile] {torch.cuda.get_device_name(0)}; ControlLDM sd21 bf16, batch 2 "
-          f"(CFG {CFG} folded), {LATENT}x{LATENT} latent")
+    if args.train:
+        cldm, step = build_train_step(SEED, device)
+        timed = TIMED_TRAIN_STEPS
+        what = (f"stage-2 train step, batch {TRAIN_BATCH} at {8 * LATENT}x{8 * LATENT}, "
+                "checkpointing")
+    else:
+        cldm, step = build_step(SEED, device)
+        timed = TIMED_STEPS
+        what = f"batch 2 (CFG {CFG} folded), {LATENT}x{LATENT} latent"
+    print(f"[profile] {torch.cuda.get_device_name(0)}; ControlLDM sd21 bf16, {what}")
     for impl in ("plain", "auto", "auto", "plain"):
         cldm.set_attention_impl(impl)
-        r = time_steps(step, TIMED_STEPS)
-        name = "K1" if impl == "auto" else "plain"
-        print(f"[step] attention {name}: median of {TIMED_STEPS} steps: enqueue "
+        r = time_steps(step, timed)
+        name = "kernels" if impl == "auto" else "plain"
+        print(f"[step] attention {name}: median of {timed} steps: enqueue "
               f"{r['enqueue_ms']:.2f} ms, wall {r['wall_ms']:.2f} ms, "
               f"device span {r['device_ms']:.2f} ms")
     cldm.set_attention_impl("auto")
     p = profile_steps(step, PROFILED_STEPS, args.trace)
     print(p["table"])
-    print(f"[profile] {p['steps']} steps through K1 ({p['k1_launches_per_step']:.0f} K1 "
-          f"launches per step): device busy {p['busy_ms_per_step']:.2f} "
-          f"ms per step, {p['kernels_per_step']:.0f} device kernels per step, "
-          f"{p['copies_per_step']:.0f} aten::copy_ per step, K1 "
-          f"{p['k1_ms_per_step']:.2f} ms per step "
-          f"({p['k1_ms_per_step'] / p['busy_ms_per_step']:.1%} of busy); busy share of the "
-          f"{p['window_ms']:.2f} ms window {p['busy_share']:.3f}")
+    ours = ", ".join(
+        f"{k} {ms:.2f} ms in {p['launches_per_step'][k]:.0f} launches "
+        f"({ms / p['busy_ms_per_step']:.1%} of busy)" for k, ms in p["ms_per_step"].items())
+    print(f"[profile] {p['steps']} steps through the kernels: device busy "
+          f"{p['busy_ms_per_step']:.2f} ms per step, {p['kernels_per_step']:.0f} device "
+          f"kernels per step, {p['copies_per_step']:.0f} aten::copy_ per step; per step "
+          f"{ours}; busy share of the {p['window_ms']:.2f} ms window {p['busy_share']:.3f}")
     return 0
 
 

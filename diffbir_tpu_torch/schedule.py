@@ -1,9 +1,12 @@
-"""Diffusion noise-schedule math: host-side numpy, float64.
+"""Diffusion noise-schedule math: host-side numpy tables in float64, and the
+training-time forward process on tensors.
 
-The numpy parts of ``diffbir_tpu/schedule.py`` that the spaced sampler uses
-(linear betas, zero-terminal-SNR rescale, guided-diffusion respacing,
-spaced-sampler tables, CFG schedule), copied because this package does not
-import the JAX one.
+The numpy parts of ``diffbir_tpu/schedule.py`` that the spaced sampler and
+the stage-2 trainer use (linear betas, zero-terminal-SNR rescale,
+guided-diffusion respacing, spaced-sampler tables, CFG schedule), copied
+because this package does not import the JAX one; plus the ``Schedule``
+methods the trainer calls (``q_sample``, ``get_v``, ``target``, ``loss``),
+which gather fp32 tables by timestep as the JAX ones do.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def linear_betas(n_timestep: int, linear_start: float, linear_end: float) -> np.ndarray:
@@ -43,17 +47,73 @@ def space_timesteps(num_timesteps: int, count: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class Schedule:
-    """Training noise schedule; ``parameterization`` in {"eps", "v"}."""
+    """Training noise schedule; ``parameterization`` in {"eps", "v"},
+    ``loss_type`` in {"l2", "l1"}."""
 
     betas: np.ndarray  # float64 [T]
     parameterization: str = "eps"
+    loss_type: str = "l2"
+
+    @classmethod
+    def create(cls, timesteps: int = 1000, linear_start: float = 1e-4,
+               linear_end: float = 2e-2, zero_snr: bool = False,
+               parameterization: str = "eps", loss_type: str = "l2") -> "Schedule":
+        """Linear betas (the only beta schedule DiffBIR trains with),
+        optionally rescaled to zero terminal SNR."""
+        if parameterization not in ("eps", "v"):
+            raise ValueError(f"unknown parameterization {parameterization!r}")
+        if loss_type not in ("l2", "l1"):
+            raise ValueError(f"unknown loss type {loss_type!r}")
+        betas = linear_betas(timesteps, linear_start, linear_end)
+        if zero_snr:
+            betas = enforce_zero_terminal_snr(betas)
+        return cls(betas=betas, parameterization=parameterization, loss_type=loss_type)
 
     @classmethod
     def v21(cls) -> "Schedule":
         """DiffBIR v2.1: linear 0.00085..0.012 over 1000 steps, zero terminal
         SNR, v-parameterization (diffusion_v2.1.yaml)."""
-        betas = enforce_zero_terminal_snr(linear_betas(1000, 0.00085, 0.0120))
-        return cls(betas=betas, parameterization="v")
+        return cls.create(1000, linear_start=0.00085, linear_end=0.0120, zero_snr=True,
+                          parameterization="v")
+
+    @property
+    def num_timesteps(self) -> int:
+        return len(self.betas)
+
+    def _gather(self, table: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """The fp32 table's rows at integer timesteps t [B], shaped to
+        broadcast against a rank-``ndim`` batch."""
+        tab = torch.as_tensor(table, dtype=torch.float32, device=t.device)
+        out = tab[t.long()]
+        return out.reshape(out.shape + (1,) * (ndim - out.dim()))
+
+    def _coeffs(self, t: torch.Tensor, ndim: int):
+        ac = np.cumprod(1.0 - self.betas, axis=0)
+        return (self._gather(np.sqrt(ac), t, ndim),
+                self._gather(np.sqrt(1.0 - ac), t, ndim))
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """Forward diffusion: x_t = sqrt(ab_t) x0 + sqrt(1 - ab_t) eps."""
+        a, s = self._coeffs(t, x_start.dim())
+        return a * x_start + s * noise
+
+    def get_v(self, x: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """v-parameterization target: v = sqrt(ab) eps - sqrt(1 - ab) x0."""
+        a, s = self._coeffs(t, x.dim())
+        return a * noise - s * x
+
+    def target(self, x_start: torch.Tensor, noise: torch.Tensor,
+               t: torch.Tensor) -> torch.Tensor:
+        if self.parameterization == "eps":
+            return noise
+        return self.get_v(x_start, noise, t)
+
+    def loss(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Mean l2 or l1 over every element."""
+        if self.loss_type == "l2":
+            return ((pred - target) ** 2).mean()
+        return (pred - target).abs().mean()
 
 
 @dataclasses.dataclass(frozen=True)

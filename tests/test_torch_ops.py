@@ -234,7 +234,7 @@ def test_resize_short_edge_and_pad_match_jax():
 # --------------------------------------------------------------------------- #
 def test_port_imports_no_jax():
     code = ("import sys, diffbir_tpu_torch.pipeline, diffbir_tpu_torch.ops.flash_attention, "
-            "diffbir_tpu_torch.profile_step\n"
+            "diffbir_tpu_torch.profile_step, diffbir_tpu_torch.train.stage2\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'diffbir_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
