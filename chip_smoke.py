@@ -6,8 +6,10 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure exits non-zero before the last line is printed):
   0. device: the card's name and power limit; TF32 off for fp32 matmuls and
      convolutions, so fp32 comparisons are exact-math comparisons.
-  1. build the flash-attention kernels from diffbir_tpu_torch/csrc, one nvcc
-     per source, both started together: K1 (forward) and K2a/K2b (backward).
+  1. build every kernel from diffbir_tpu_torch/csrc, one nvcc per source, all
+     started together: K1/K3 (flash forward, plain and prescaled-q entry),
+     K2a/K2b (flash backward), K4 (int8 matmul), K6 (fused ResBlock), K7
+     (fused GEGLU FFN).
   2. K1 against its plain PyTorch version at the serving shapes and at the
      training path's frozen VAE encodes ([8,4096,1,512]), with median times of
      both and of the library call.
@@ -18,12 +20,29 @@ Phases (any failure exits non-zero before the last line is printed):
      limits (their power); median times of kernel, plain version and the
      library call (scaled_dot_product_attention forward, and its backward
      through autograd), beside the bound.
-  4. model call: one full-width SD2.1 ControlLDM forward (random bf16 weights)
+  4. the serving modes' kernels at the shapes of the 512x512 path (batch 2),
+     each against its plain version, each with a planted fault that must
+     fail the limits, and with median times of kernel, plain version and a
+     library yardstick beside the bound: K3 at the 4 self-attention shapes
+     (fault: q scaled twice), K4 at the 18 dense shapes (fault: the last
+     16-deep K slice dropped), K6 float and int8 at the 14 ResBlock sites
+     (fault: the last tap of conv2 skipped), K7 at the 4 FFN shapes (fault:
+     the last K slice of its first product dropped).
+  5. model call: one full-width SD2.1 ControlLDM forward (random bf16 weights)
      at batch 2 on a 64x64 latent, through K1 and through plain attention.
-  5. serving path: SwinIRPipeline.run on 512x512 uint8 LQs, 50 spaced steps,
+  6. serving path: SwinIRPipeline.run on 512x512 uint8 LQs, 50 spaced steps,
      CFG 4.0, the v2.1 schedule, distinct seeds, then one seed again; K1's
      launch count per request, latency, stage split and peak memory.
-  6. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
+  7. the serving modes: one full-width model call in the "fused" mode
+     (fused ResBlock + fused FFN + packed flash: K6, K7, K3) against the
+     unfused float path on the same weights, then SwinIRPipeline.run on 512x512
+     LQs in that mode; then a copy of the model with its UNet and ControlNet
+     quantised ("int8": int8 dense + fused ResBlock on int8 convs + packed:
+     K4, K6, K3), one model call against the unfused path on the dequantised
+     weights, and requests in that mode. Each model call records every
+     kernel call's shape and checks it against the site tables below; each
+     request checks its launch counts, latency, stage split and peak memory.
+  8. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
      IRControlNet with gradient checkpointing, ControlNet initialised from the
      UNet, frozen realesrgan SwinIR cleaner, v2.1 schedule, noise aug at 200,
      lr 1e-5), batch 8 at 512x512 from seeded numpy, empty prompts: 2 warm-up
@@ -35,7 +54,6 @@ The second-to-last line is a JSON list of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
-import concurrent.futures
 import json
 import os
 import statistics
@@ -73,6 +91,59 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 8, 2, 5
 # ~10x those. The same step with the attention sites' q/k/v gradients dropped
 # must fail them (the check's power is shown in the run).
 GRAD_COS_MIN, GRAD_NORM_REL_TOL = 0.9999, 2e-3
+# The serving modes, per model call at batch 2 (folded CFG) on a 64x64 latent:
+# K6 runs at every ResBlock, 32: the UNet's 8 input, 2 middle and 12 output
+# blocks (whose inputs concatenate the skips, hence Cin up to 2560) and the
+# ControlNet's 8 + 2, keyed (Cin, Cout, H = W);
+K6_SITES = {(320, 320, 64): 4, (960, 320, 64): 1, (640, 320, 64): 2, (320, 640, 32): 2,
+            (640, 640, 32): 2, (1920, 640, 32): 1, (1280, 640, 32): 1, (960, 640, 32): 1,
+            (640, 1280, 16): 2, (1280, 1280, 16): 2, (2560, 1280, 16): 2,
+            (1920, 1280, 16): 1, (1280, 1280, 8): 8, (2560, 1280, 8): 3}
+# the 23 transformers (7 at each of the levels 64^2, 32^2, 16^2: UNet 2 input
+# + 3 output, ControlNet 2; 2 in the middles at 8^2) hold one FFN (K7, keyed
+# tokens per image, width) and one self-attention site (K3, keyed tokens,
+# heads of 64) each;
+K7_SITES = {(4096, 320): 7, (1024, 640): 7, (256, 1280): 7, (64, 1280): 2}
+K3_SITES = {(4096, 5): 7, (1024, 10): 7, (256, 20): 7, (64, 20): 2}
+K6_PER_CALL, K7_PER_CALL, K3_PER_CALL = 32, 23, 23
+# K4 (int8 dense), keyed (M rows, K, N): per transformer 8 width-square
+# products on the 2*tokens rows (proj_in, self q/k/v/out, cross q/out,
+# proj_out), the cross k/v on the 2 x 77 text rows, GEGLU proj (N = 8 C) and
+# net.2 (K = 4 C); per ResBlock emb_layers.1 on the 2 timestep rows (Cout 320
+# at 7 blocks, 640 at 7, 1280 at 18): 23 x 12 + 32 = 308 per call.
+K4_PER_CALL = 308
+
+
+def k4_sites() -> dict:
+    sites = {}
+
+    def add(key, n):
+        sites[key] = sites.get(key, 0) + n
+
+    for tokens, c, n in ((4096, 320, 7), (1024, 640, 7), (256, 1280, 7), (64, 1280, 2)):
+        m = 2 * tokens
+        add((m, c, c), 8 * n)
+        add((154, 1024, c), 2 * n)
+        add((m, c, 8 * c), n)
+        add((m, 4 * c, c), n)
+    for c, n in ((320, 7), (640, 7), (1280, 18)):
+        add((2, 1280, c), n)
+    assert sum(sites.values()) == K4_PER_CALL
+    return sites
+
+
+K4_SITES = k4_sites()
+# Per request (STEPS model calls, plus K1 at the VAE's two d=512 sites):
+# "fused" (fused ResBlock + fused FFN + packed flash) and "int8" (int8 dense
+# + fused ResBlock on int8 convs + packed flash).
+PER_REQUEST = {
+    "serve": {"K1": K1_PER_REQUEST},
+    "serve_fused": {"K1": K1_VAE_SITES, "K3": K3_PER_CALL * STEPS, "K6": K6_PER_CALL * STEPS,
+                    "K7": K7_PER_CALL * STEPS},
+    "serve_int8": {"K1": K1_VAE_SITES, "K3": K3_PER_CALL * STEPS, "K4": K4_PER_CALL * STEPS,
+                   "K6": K6_PER_CALL * STEPS},
+}
+MODE_SEEDS = (1, 2)
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores, fp32 on the
 # CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -133,27 +204,36 @@ def phase_device():
           "| TF32 off for fp32 matmuls and cuDNN convolutions")
 
 
-def phase_build(fa):
-    """One nvcc per source, started together; K2b shares K2a's library."""
+# name -> CudaKernel of every kernel the port has, filled by main() once the
+# port is imported
+KERNELS = {}
+
+
+def phase_build():
+    """One nvcc per source, all started together, then every entry point
+    loaded (K1/K3 and K2a/K2b share a library each)."""
+    from diffbir_tpu_torch.ops import _cuda
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(kernel.load) for kernel in (fa.KERNEL, fa.KERNEL_DQ)]
-        for f in futures:
-            f.result()
-    fa.KERNEL_DKV.load()
-    print(f"[build] flash_attention_fwd.cu and flash_attention_bwd.cu built and loaded in "
+    _cuda.load_all(list(KERNELS.values()))
+    sources = sorted({k.source.name for k in KERNELS.values()})
+    print(f"[build] {', '.join(sources)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for kernel in (fa.KERNEL, fa.KERNEL_DQ):
+    seen = set()
+    for kernel in KERNELS.values():
+        if kernel.source in seen:
+            continue
+        seen.add(kernel.source)
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print("[build]", line.strip())
+                print(f"[build] {kernel.source.name}:", line.strip())
 
 
-def sdpa_fwd(q, k, v):
+def sdpa_fwd(q, k, v, scale=None):
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                          v.transpose(1, 2))
+                                          v.transpose(1, 2), scale=scale)
 
 
 def limit_of(ref, tol: float) -> float:
@@ -381,17 +461,26 @@ def phase_model_call(fa, cldm):
     check(rel <= MODEL_REL_TOL, f"model call through K1 disagrees: {rel}")
 
 
-def reset_counts(fa):
-    for kernel in (fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV):
+def reset_counts():
+    for kernel in KERNELS.values():
         kernel.launches = 0
 
 
-def counts(fa):
-    return fa.KERNEL.launches, fa.KERNEL_DQ.launches, fa.KERNEL_DKV.launches
+def counts() -> dict:
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
 
 
-def phase_slice(fa, cldm, swinir):
-    """The serving path; returns the launch counts of (K1, K2a, K2b) in it."""
+def launched_since(before: dict) -> dict:
+    """Launches per kernel since ``before`` (kernels with none left out)."""
+    now = counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def phase_slice(path: str, cldm, swinir, seeds, repeat: bool = True):
+    """The serving path in one mode: SwinIRPipeline.run on SIZE x SIZE LQs,
+    one request per seed (and the first seed again with ``repeat``); every
+    request must launch exactly PER_REQUEST[path]. Returns the launch counts
+    of the path's run."""
     import numpy as np
     import torch
 
@@ -400,36 +489,430 @@ def phase_slice(fa, cldm, swinir):
 
     pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), torch.device("cuda"))
     lqs = {s: np.random.default_rng(100 + s).integers(0, 256, (1, SIZE, SIZE, 3), dtype=np.uint8)
-           for s in SEEDS}
+           for s in seeds}
+    expected = PER_REQUEST[path]
     outs, lat = {}, []
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa)  # count only the serving path from here
-    for seed in SEEDS + SEEDS[:1]:
+    reset_counts()  # count only this path from here
+    for seed in tuple(seeds) + (seeds[:1] if repeat else ()):
         timings = {}
-        before = fa.KERNEL.launches
+        before = counts()
         t0 = time.perf_counter()
         out = pipe.run(lqs[seed], steps=STEPS, cfg_scale=CFG, seed=seed, timings=timings)
         dt = time.perf_counter() - t0
-        n = fa.KERNEL.launches - before
+        n = launched_since(before)
         split = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
-        print(f"[slice] seed {seed}: {dt:.3f} s ({split} s); K1 launches {n}")
-        check(n == K1_PER_REQUEST, f"expected {K1_PER_REQUEST} K1 launches, got {n}")
+        print(f"[{path}] seed {seed}: {dt:.3f} s ({split} s); launches "
+              + ", ".join(f"{k} {v}" for k, v in n.items()))
+        check(n == expected, f"{path}: expected launches {expected} per request, got {n}")
         check(out.shape == (1, SIZE, SIZE, 3) and out.dtype == np.uint8,
               f"bad output {out.shape} {out.dtype}")
         check(float(out.std()) > 1.0, f"constant output for seed {seed}")
         if seed in outs:
             check(np.array_equal(out, outs[seed]), "repeated seed gave a different output")
-            print(f"[slice] seed {seed} again: identical output")
+            print(f"[{path}] seed {seed} again: identical output")
         else:
             outs[seed] = out
             lat.append(dt)
-    launches = counts(fa)
-    check(launches[1:] == (0, 0), f"the serving path launched the backward: {launches}")
-    check(not np.array_equal(outs[SEEDS[0]], outs[SEEDS[1]]), "distinct seeds gave one output")
+    launches = counts()
+    if len(seeds) > 1:
+        check(not np.array_equal(outs[seeds[0]], outs[seeds[1]]), "distinct seeds gave one output")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[slice] per-request latency {', '.join(f'{x:.3f}' for x in lat)} s "
+    print(f"[{path}] per-request latency {', '.join(f'{x:.3f}' for x in lat)} s "
           f"(median {statistics.median(lat):.3f} s); peak device memory {peak:.2f} GiB")
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# the serving modes' kernels: K3, K4, K6, K7
+# --------------------------------------------------------------------------- #
+def err_limit(out, ref, tol: float):
+    """(max abs error of out against ref, the limit tol * max|ref|)."""
+    return (out.float() - ref.float()).abs().max().item(), limit_of(ref, tol)
+
+
+def show(out, ref, tol: float = BF16_TOL) -> str:
+    err, limit = err_limit(out, ref, tol)
+    return f"max_abs_err {err:.3e}, limit {limit:.3e} ({tol:g} x max|ref|)"
+
+
+def hold(label: str, out, ref, tol: float) -> float:
+    err, limit = err_limit(out, ref, tol)
+    check(err <= limit, f"{label} disagrees with its plain version: {err} > {limit}")
+    return err
+
+
+def planted(label: str, faulty, ref, tol: float) -> None:
+    """A planted fault must fail the limit the kernel is held to."""
+    err, limit = err_limit(faulty, ref, tol)
+    print(f"[{label.split()[0]}] planted fault ({label}): max err / limit {err / limit:.1f}")
+    check(err > limit, f"the limits do not catch {label}: {err} <= {limit}")
+
+
+def randomize_(module, gen):
+    """random_init_ (N(0, 1/fan_in) weights), then biases N(0, 0.1^2) and
+    norm scales 1 + N(0, 0.1^2), so every term of the block carries signal."""
+    import torch
+
+    from diffbir_tpu_torch.models.layers import random_init_
+
+    random_init_(module, gen)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() == 1:
+                noise = 0.1 * torch.randn(p.shape, generator=gen, device=gen.device)
+                p.copy_(noise + 1.0 if name.endswith("weight") else noise)
+    return module.eval()
+
+
+def k3_scaled_twice(fa, q, k, v):
+    """K3 with its fault planted: q rounded as bf16(q * d^-1/2) and the
+    logits scaled by d^-1/2 again."""
+    import torch
+
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        fa.KERNEL_PRESCALED.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                   None, 1, b, h, sq, k.shape[1], d, *fa._strides(q, k, v),
+                                   d ** -0.5, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def phase_k3(fa):
+    """K3 against its plain version at the four self-attention shapes of the
+    serving path (bf16); returns the kernel line's numbers at
+    [2,4096,5,64]."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_err, headline, per_call = 0.0, None, 0.0
+    for (tokens, heads), sites in K3_SITES.items():
+        q, k, v = (torch.randn(2, tokens, heads, 64, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        out = fa.flash_attention_fwd(q, k, v, prescale_q=True)
+        ref = fa.flash_attention_ref(q, k, v, prescale_q=True)
+        label = f"2x{tokens}x{heads}x64"
+        max_err = max(max_err, hold(f"K3 at {label}", out, ref, BF16_TOL))
+        iters = 5 if tokens >= 4096 else 20
+        ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, prescale_q=True), iters)
+        plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v, prescale_q=True), iters)
+        lib_ms = median_ms(lambda: sdpa_fwd(q, k, v, scale=64 ** -0.5), iters)
+        bms, by = bound_ms(2, 2, heads, tokens, tokens, 64, torch.bfloat16, nbytes(q, k, v, out))
+        per_call += sites * ms
+        print(f"[K3] {label} bf16 ({sites} sites per call): "
+              f"{show(out, ref)}; K3 "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA, same scale) "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if tokens == 4096:
+            planted("K3 scaling q twice", k3_scaled_twice(fa, q, k, v), ref, BF16_TOL)
+            headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": lib_ms}
+        del q, k, v, out, ref
+    print(f"[K3] per model call ({K3_PER_CALL} sites): {per_call:.3f} ms")
+    headline["max_abs_err"] = max_err
+    return headline
+
+
+def phase_k4(qm):
+    """K4 against its plain version at the 18 dense shapes of the int8 path
+    (bf16 activations); returns the kernel line's numbers at the GEGLU
+    projection of the 64^2 level, (8192, 320, 2560)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    max_err, headline, per_call = 0.0, None, 0.0
+    for (m, k, n), sites in K4_SITES.items():
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        w_q, scale = qm.quantize_weight(w.to(torch.bfloat16))
+        w_deq = (w_q.float() * scale).to(torch.bfloat16)
+        out = qm.quant_matmul(x, w_q, scale)
+        ref = qm.quant_matmul_ref(x, w_q, scale)
+        label = f"({m}, {k}, {n})"
+        max_err = max(max_err, hold(f"K4 at {label}", out, ref, BF16_TOL))
+        iters = 10 if m * k * n > 2 ** 32 else 20
+        ms = median_ms(lambda: qm.quant_matmul(x, w_q, scale), iters)
+        plain_ms = median_ms(lambda: qm.quant_matmul_ref(x, w_q, scale), iters)
+        lib_ms = median_ms(lambda: x @ w_deq, iters)
+        t_ops = 2.0 * m * k * n / PEAK_FLOPS["bfloat16"]
+        t_bytes = nbytes(x, w_q, scale, out) / PEAK_BYTES
+        bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        per_call += sites * ms
+        print(f"[K4] (M, K, N) {label} ({sites} per call): "
+              f"{show(out, ref)}; K4 "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (x @ dequantised bf16 W) "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if (m, k, n) == (8192, 320, 2560):
+            planted("K4 dropping the last K slice",
+                    qm.quant_matmul(x[:, :-16].contiguous(), w_q[:-16].contiguous(), scale),
+                    ref, BF16_TOL)
+            headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": lib_ms}
+    print(f"[K4] per model call ({K4_PER_CALL} sites): {per_call:.3f} ms")
+    headline["max_abs_err"] = max_err
+    return headline
+
+
+def int8_params(fr, p: dict) -> dict:
+    """The int8 twin of a float K6 parameter dict (OIHW -> HWIO, quantised)."""
+    q = {k: v for k, v in p.items() if not k.startswith("w")}
+    for name, scale in (("w1", "s1"), ("w2", "s2"), ("w_skip", "s_skip")):
+        if name in p:
+            q[name + "_q"], q[scale] = fr.quantize_conv_weight(p[name].permute(2, 3, 1, 0))
+    return q
+
+
+def without_last_tap(p: dict) -> dict:
+    """conv2 without its last tap (ky = kx = 2), in either weight mode."""
+    p = dict(p)
+    if "w2_q" in p:
+        p["w2_q"] = p["w2_q"].clone()
+        p["w2_q"][2, 2] = 0
+    else:
+        p["w2"] = p["w2"].clone()
+        p["w2"][:, :, 2, 2] = 0
+    return p
+
+
+def phase_k6(fr):
+    """K6, float and int8 weights, against its plain version at the 14
+    ResBlock sites of the serving path (bf16, batch 2); the library
+    yardstick is the unfused ResBlock module (GroupNorm, SiLU and cuDNN
+    convolutions: several library calls). Returns the kernel line's numbers
+    at (320, 320, 64^2) in float mode."""
+    import torch
+
+    from diffbir_tpu_torch.models.unet import ResBlock
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    max_err, headline = 0.0, None
+    per_call = {"float": 0.0, "int8": 0.0}
+    for (cin, cout, hw), sites in K6_SITES.items():
+        block = randomize_(ResBlock(cin, cout, 1280, torch.bfloat16, device="cuda"), gen)
+        x = torch.randn(2, cin, hw, hw, generator=gen, device="cuda").to(torch.bfloat16)
+        emb = torch.randn(2, 1280, generator=gen, device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            e = block.emb_layers(emb)
+            p = block.fused_params()
+            lib_ms = median_ms(lambda: block(x, emb), 10)
+        params = {"float": p, "int8": int8_params(fr, p)}
+        label = f"({cin}, {cout}, {hw}^2)"
+        flops = 2.0 * 2 * hw * hw * cout * (9 * cin + 9 * cout + (cin if cin != cout else 0))
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        for mode, pm in params.items():
+            out = fr.fused_resblock(x, e, pm)
+            ref = fr.fused_resblock_ref(x, e, pm)
+            max_err = max(max_err, hold(f"K6 {mode} at {label}", out, ref, BF16_TOL))
+            ms = median_ms(lambda: fr.fused_resblock(x, e, pm), 10)
+            plain_ms = median_ms(lambda: fr.fused_resblock_ref(x, e, pm), 10)
+            t_bytes = nbytes(x, e, out, *pm.values()) / PEAK_BYTES
+            bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+            per_call[mode] += sites * ms
+            print(f"[K6] {mode} {label} ({sites} per call): "
+                  f"{show(out, ref)}; "
+                  f"K6 {ms:.4f} ms, plain {plain_ms:.4f} ms, library (unfused ResBlock module, "
+                  f"several calls) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            if (cin, cout, hw) == (320, 320, 64):
+                planted(f"K6 {mode} skipping the last tap of conv2",
+                        fr.fused_resblock(x, e, without_last_tap(pm)), ref, BF16_TOL)
+                if mode == "float":
+                    headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                                "bound_by": by, "library_ms": lib_ms}
+        del block, x, params, p
+    print(f"[K6] per model call ({K6_PER_CALL} ResBlocks): float {per_call['float']:.3f} ms, "
+          f"int8 {per_call['int8']:.3f} ms")
+    headline["max_abs_err"] = max_err
+    return headline
+
+
+def phase_k7(ff):
+    """K7 against its plain version at the four FFN shapes of the serving
+    path (bf16, batch 2); the library yardstick is the unfused FeedForward
+    module. Returns the kernel line's numbers at (8192 rows, d = 320)."""
+    import torch
+
+    from diffbir_tpu_torch.models.unet import FeedForward
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    max_err, headline, per_call = 0.0, None, 0.0
+    for (tokens, d), sites in K7_SITES.items():
+        ffm = randomize_(FeedForward(d, torch.bfloat16, device="cuda"), gen)
+        x = torch.randn(2 * tokens, d, generator=gen, device="cuda").to(torch.bfloat16)
+        proj, down = ffm.net[0].proj, ffm.net[2]
+        args = (x, proj.weight, proj.bias, down.weight, down.bias)
+        with torch.no_grad():
+            out = ff.fused_ffn(*args)
+            ref = ff.fused_ffn_ref(*args)
+            label = f"({2 * tokens}, {d})"
+            max_err = max(max_err, hold(f"K7 at {label}", out, ref, BF16_TOL))
+            ms = median_ms(lambda: ff.fused_ffn(*args), 10)
+            plain_ms = median_ms(lambda: ff.fused_ffn_ref(*args), 10)
+            lib_ms = median_ms(lambda: ffm(x), 10)
+        n, inner = 2 * tokens, 4 * d
+        t_ops = 6.0 * n * d * inner / PEAK_FLOPS["bfloat16"]
+        t_bytes = nbytes(out, *args) / PEAK_BYTES
+        bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        per_call += sites * ms
+        print(f"[K7] (rows, d) {label} ({sites} per call): "
+              f"{show(out, ref)}; K7 "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (unfused FeedForward module) "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if d == 320:  # the last 16 columns of x and of W1 zero: that slice's products drop
+            x_f, w1_f = x.clone(), proj.weight.clone()
+            x_f[:, -16:], w1_f[:, -16:] = 0, 0
+            with torch.no_grad():
+                faulty = ff.fused_ffn(x_f, w1_f, proj.bias, down.weight, down.bias)
+            planted("K7 dropping the last K slice of its first product", faulty, ref, BF16_TOL)
+            headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": lib_ms}
+    print(f"[K7] per model call ({K7_PER_CALL} FFNs): {per_call:.3f} ms")
+    headline["max_abs_err"] = max_err
+    return headline
+
+
+# --------------------------------------------------------------------------- #
+# the serving modes end to end
+# --------------------------------------------------------------------------- #
+def record_sites(cldm):
+    """Forward hooks on the UNet and ControlNet that record the shape of each
+    K3, K4, K6 and K7 call of a model call, keyed as the site tables; returns
+    (records, the hooks' handles)."""
+    from collections import Counter
+
+    from diffbir_tpu_torch.models.layers import QuantLinear
+    from diffbir_tpu_torch.models.unet import CrossAttention, FeedForward, ResBlock
+
+    rec = {name: Counter() for name in ("K3", "K4", "K6", "K7")}
+
+    def hook(name, key):
+        return lambda mod, inp, out: rec[name].update([key(mod, inp, out)])
+
+    handles = []
+    for root in (cldm.unet, cldm.controlnet):
+        for m in root.modules():
+            if isinstance(m, ResBlock) and m.fused:
+                handles.append(m.register_forward_hook(hook(
+                    "K6", lambda m, i, o: (i[0].shape[1], o.shape[1], i[0].shape[2]))))
+            elif isinstance(m, FeedForward) and m.fused:
+                handles.append(m.register_forward_hook(hook(
+                    "K7", lambda m, i, o: tuple(i[0].shape[1:]))))
+            elif isinstance(m, CrossAttention) and m.flash_layout == "packed":
+                handles.append(m.register_forward_hook(hook(  # self-attention: no context
+                    "K3", lambda m, i, o: (i[0].shape[1], m.heads) if len(i) == 1 else None)))
+            elif isinstance(m, QuantLinear):
+                handles.append(m.register_forward_hook(hook(
+                    "K4", lambda m, i, o: (i[0].numel() // i[0].shape[-1], *m.weight_q.shape))))
+    return rec, handles
+
+
+def mode_call(label: str, model, inputs, ref, expected: dict, tables: dict):
+    """One model call of ``model`` in a serving mode on ``inputs`` (x, t,
+    cond): its launches, the shape of every kernel call against the site
+    tables, and its output against ``ref`` (the unfused float path)."""
+    import torch
+
+    x, t, cond = inputs
+    rec, handles = record_sites(model)
+    try:
+        with torch.no_grad():
+            before = counts()
+            out = model(x, t, cond).float()
+            torch.cuda.synchronize()
+            n = launched_since(before)
+    finally:
+        for h in handles:
+            h.remove()
+    rec = {k: {site: c for site, c in v.items() if site is not None} for k, v in rec.items()}
+    print(f"[{label}] model call launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
+    check(n == expected, f"{label}: expected launches {expected} per model call, got {n}")
+    for name, table in tables.items():
+        check(rec[name] == table, f"{label}: {name} sites {rec[name]} != the table {table}")
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite model output")
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    print(f"[{label}] ControlLDM forward [2,64,64,4]: against the unfused float path, "
+          f"relative max err {rel:.3e} (tol {MODEL_REL_TOL:g}); every kernel call at a site "
+          f"of the tables")
+    check(rel <= MODEL_REL_TOL, f"{label}: the model call disagrees: {rel}")
+
+
+def unfused_call(cldm, inputs):
+    import torch
+
+    cldm.set_fused(resblock=False, ffn=False)
+    cldm.set_flash_layout("folded")
+    with torch.no_grad():
+        return cldm(*inputs).float()
+
+
+def dequantise_into(float_cldm, int8_cldm) -> None:
+    """Overwrite the float model's weights at every int8 site of the int8
+    model with the dequantised values (w_q * scale, in the float dtype)."""
+    import torch
+
+    from diffbir_tpu_torch.models.layers import QuantConv, QuantLinear
+
+    with torch.no_grad():
+        for fr_root, q_root in ((float_cldm.unet, int8_cldm.unet),
+                                (float_cldm.controlnet, int8_cldm.controlnet)):
+            for name, m in q_root.named_modules():
+                if isinstance(m, QuantLinear):
+                    w = (m.weight_q.float() * m.weight_scale).T  # [in, out] -> [out, in]
+                elif isinstance(m, QuantConv):
+                    w = (m.weight_q.float() * m.weight_scale).permute(3, 2, 0, 1)  # -> OIHW
+                else:
+                    continue
+                target = fr_root.get_submodule(name).weight
+                target.copy_(w.to(target.dtype))
+
+
+def phase_modes(cldm, swinir):
+    """The two serving modes: a model call each against the unfused float
+    path, then requests; returns {path: launch counts of its requests}."""
+    import copy
+
+    import torch
+
+    from diffbir_tpu_torch.models.cldm import quantize_conv_params, quantize_dense_params
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(2, 64, 64, 4, generator=gen, device="cuda")
+    c_img = torch.randn(2, 64, 64, 4, generator=gen, device="cuda")
+    with torch.no_grad():
+        cond = {"c_txt": cldm.encode_text(empty_tokens(2)), "c_img": c_img}
+    inputs = (x, torch.tensor([999.0, 500.0], device="cuda"), cond)
+    launches = {}
+
+    # "fused": fused ResBlock + fused FFN + packed flash, on the float weights
+    ref = unfused_call(cldm, inputs)
+    cldm.set_fused(resblock=True, ffn=True)
+    cldm.set_flash_layout("packed")
+    mode_call("serve_fused", cldm, inputs, ref,
+              {"K3": K3_PER_CALL, "K6": K6_PER_CALL, "K7": K7_PER_CALL},
+              {"K3": K3_SITES, "K6": K6_SITES, "K7": K7_SITES})
+    launches["serve_fused"] = phase_slice("serve_fused", cldm, swinir, MODE_SEEDS, repeat=False)
+
+    # "int8": the UNet and ControlNet quantised in place (dense, then convs)
+    cldm.set_fused(resblock=False, ffn=False)
+    cldm.set_flash_layout("folded")
+    t0 = time.perf_counter()
+    int8 = quantize_dense_params(copy.deepcopy(cldm))
+    int8.set_fused(resblock=True, ffn=False)
+    quantize_conv_params(int8)
+    int8.set_flash_layout("packed")
+    torch.cuda.synchronize()
+    print(f"[serve_int8] copied and quantised in {time.perf_counter() - t0:.2f} s")
+    dequantise_into(cldm, int8)
+    ref = unfused_call(cldm, inputs)
+    mode_call("serve_int8", int8, inputs, ref,
+              {"K3": K3_PER_CALL, "K4": K4_PER_CALL, "K6": K6_PER_CALL},
+              {"K3": K3_SITES, "K4": K4_SITES, "K6": K6_SITES})
+    launches["serve_int8"] = phase_slice("serve_int8", int8, swinir, MODE_SEEDS, repeat=False)
+    del int8
+    return launches
+
+
 
 
 def controlnet_grad(cldm, loss_fn, batch, draws):
@@ -453,8 +936,8 @@ def compare_grads(a, p):
 
 
 def phase_train(fa):
-    """The training path; returns the launch counts of (K1, K2a, K2b) in its
-    timed and warm-up steps."""
+    """The training path; returns the launch counts of its timed and warm-up
+    steps."""
     import numpy as np
     import torch
 
@@ -479,26 +962,26 @@ def phase_train(fa):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa)  # count only the training path from here
+    reset_counts()  # count only the training path from here
     step_s = []
     for i in range(TRAIN_WARMUP + TRAIN_TIMED):
-        before = counts(fa)
+        before = counts()
         t0 = time.perf_counter()
         m = setup.train_step(setup.batch, gen)
         loss, gnorm = m["loss"].item(), m["grad_norm"].item()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        n = tuple(a - b for a, b in zip(counts(fa), before))
+        n = launched_since(before)
         kind = "warm-up" if i < TRAIN_WARMUP else "timed"
         print(f"[train] step {i} ({kind}): loss {loss:.5f}, grad norm {gnorm:.5f}, "
-              f"{dt:.3f} s; launches K1 {n[0]}, K2a {n[1]}, K2b {n[2]}")
+              f"{dt:.3f} s; launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
         check(np.isfinite(loss) and np.isfinite(gnorm), f"non-finite loss or grad norm at {i}")
-        check(n == (K1_PER_TRAIN_STEP, K2_SITES_PER_TRAIN_STEP, K2_SITES_PER_TRAIN_STEP),
-              f"expected ({K1_PER_TRAIN_STEP}, {K2_SITES_PER_TRAIN_STEP}, "
-              f"{K2_SITES_PER_TRAIN_STEP}) launches per step, got {n}")
+        expected = {"K1": K1_PER_TRAIN_STEP, "K2a": K2_SITES_PER_TRAIN_STEP,
+                    "K2b": K2_SITES_PER_TRAIN_STEP}
+        check(n == expected, f"expected launches {expected} per step, got {n}")
         if i >= TRAIN_WARMUP:
             step_s.append(dt)
-    launches = counts(fa)
+    launches = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(step_s)
     print(f"[train] batch {TRAIN_BATCH} at {SIZE}x{SIZE}: timed steps "
@@ -574,45 +1057,57 @@ def main() -> int:
         return 1
     try:
         from diffbir_tpu_torch.ops import flash_attention as fa
+        from diffbir_tpu_torch.ops import fused_ffn as ff
+        from diffbir_tpu_torch.ops import fused_resblock as fr
+        from diffbir_tpu_torch.ops import quant_matmul as qm
     except ImportError as e:
         print(f"chip_smoke: FAIL: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
         return 1
+    KERNELS.update(K1=fa.KERNEL, K2a=fa.KERNEL_DQ, K2b=fa.KERNEL_DKV, K3=fa.KERNEL_PRESCALED,
+                   K4=qm.KERNEL, K6=fr.KERNEL, K7=ff.KERNEL)
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() == 1,
               f"expected one visible card, got {torch.cuda.device_count()}")
         phase_device()
-        phase_build(fa)
-        k1 = phase_kernel(fa)
+        phase_build()
+        numbers = {"K1": phase_kernel(fa)}
         k2 = phase_backward_kernels(fa)
+        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], K3=phase_k3(fa), K4=phase_k4(qm),
+                       K6=phase_k6(fr), K7=phase_k7(ff))
+        torch.cuda.empty_cache()
         cldm, swinir = build_models()
         phase_model_call(fa, cldm)
-        serve = phase_slice(fa, cldm, swinir)
+        paths = {"serve": phase_slice("serve", cldm, swinir, SEEDS)}
+        paths.update(phase_modes(cldm, swinir))
         del cldm, swinir
         torch.cuda.empty_cache()
-        train = phase_train(fa)
+        paths["train"] = phase_train(fa)
+        for path, expected in PER_REQUEST.items():  # no other kernel ran on a serving path
+            check(all(n == 0 for k, n in paths[path].items() if k not in expected),
+                  f"{path} launched other kernels: {paths[path]}")
     except (SmokeFailure, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    src = "diffbir_tpu_torch/csrc/"
-    kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
-         "replaces": "diffbir_tpu/ops/flash_attention.py:81",
-         "launches": serve[0] + train[0],
-         "launches_by_path": {"serve": serve[0], "train": train[0]}, **k1},
-        {"name": "flash_attention_bwd_dq", "route": "cuda",
-         "source": src + "flash_attention_bwd.cu",
-         "replaces": "diffbir_tpu/ops/flash_attention.py:371",
-         "launches": serve[1] + train[1],
-         "launches_by_path": {"serve": serve[1], "train": train[1]}, **k2["dq"]},
-        {"name": "flash_attention_bwd_dkv", "route": "cuda",
-         "source": src + "flash_attention_bwd.cu",
-         "replaces": "diffbir_tpu/ops/flash_attention.py:410",
-         "launches": serve[2] + train[2],
-         "launches_by_path": {"serve": serve[2], "train": train[2]}, **k2["dkv"]},
-    ]
+    src, ref = "diffbir_tpu_torch/csrc/", "diffbir_tpu/ops/"
+    entries = (
+        ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:81"),
+        ("K2a", "flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:371"),
+        ("K2b", "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "flash_attention.py:410"),
+        ("K3", "flash_attention_fwd_prescaled", "flash_attention_fwd.cu",
+         "flash_attention.py:229"),
+        ("K4", "quant_matmul", "quant_matmul.cu", "quant_matmul.py:45"),
+        ("K6", "fused_resblock", "fused_resblock.cu", "fused_resblock.py:141"),
+        ("K7", "fused_ffn", "fused_ffn.cu", "fused_ffn.py:91"),
+    )
+    kernels = []
+    for key, name, source, replaces in entries:
+        by_path = {path: n[key] for path, n in paths.items()}
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": ref + replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **numbers[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))

@@ -9,6 +9,12 @@
 // as _kernel's with_lse store) for the backward kernels, fp32 [B, H, Sq]; a
 // null lse pointer skips the store and nothing else changes.
 //
+// The same kernel is K3, the forward of the packed layout
+// (_flash_attention_impl_packed -> _kernel_packed), through the entry
+// flash_attention_fwd_prescaled: q is loaded as q_scale * q rounded once to
+// the input dtype (bf16(q * d^-1/2)) and the logits are scaled by `scale`
+// (1 there). The plain entry passes q_scale = 1, which changes no value.
+//
 // Design (first, simple version). One block covers ROWS query rows of one
 // (batch, head). Each query row belongs to G = D/32 consecutive lanes; a lane
 // owns 32 of the D dims of q and of the accumulator in registers, as 8 float4
@@ -55,7 +61,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    float scale) {
+    float q_scale, float scale) {
   constexpr int G = D / 32;     // lanes per query row
   constexpr int ROWS = NT / G;  // query rows per block
   constexpr int NC = 8;         // float4 chunks per lane (32 dims)
@@ -83,7 +89,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int dim = 4 * (g + G * c) + e;
-      qr[c][e] = valid ? to_f32<T>(qb[row * q_ss + dim]) : 0.f;
+      qr[c][e] = valid ? to_f32<T>(from_f32<T>(to_f32<T>(qb[row * q_ss + dim]) * q_scale)) : 0.f;
       acc[c][e] = 0.f;
     }
   }
@@ -167,7 +173,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
 template <typename T, int D, int NT, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int H, int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
+                   int H, int Sq, int Skv, const long long* st, float q_scale, float scale,
+                   cudaStream_t stream) {
   constexpr int ROWS = NT / (D / 32);
   constexpr int smem = 2 * BK * D * static_cast<int>(sizeof(float));
   auto kernel = flash_fwd_kernel<T, D, NT, BK>;
@@ -187,7 +194,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, H, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], scale);
+      st[7], st[8], q_scale, scale);
   return cudaGetLastError();
 }
 
@@ -195,15 +202,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // of 64 KB (32 KB at d=64) of fp32 k and v in shared memory.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                     int H, int Sq, int Skv, int D, const long long* st, float scale,
-                     cudaStream_t stream) {
+                     int H, int Sq, int Skv, int D, const long long* st, float q_scale,
+                     float scale, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64, 128, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, stream);
-    case 128: return launch<T, 128, 128, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, stream);
-    case 256: return launch<T, 256, 256, 32>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, stream);
-    case 512: return launch<T, 512, 256, 16>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, stream);
+    case 64: return launch<T, 64, 128, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, q_scale, scale, stream);
+    case 128: return launch<T, 128, 128, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, q_scale, scale, stream);
+    case 256: return launch<T, 256, 256, 32>(q, k, v, o, lse, B, H, Sq, Skv, st, q_scale, scale, stream);
+    case 512: return launch<T, 512, 256, 16>(q, k, v, o, lse, B, H, Sq, Skv, st, q_scale, scale, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// q, k, v, o, lse, dtype and strides as flash_attention_fwd below; q is
+// rounded once as q_scale * q and the logits are scaled by `scale`.
+int run(const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B,
+        int H, int Sq, int Skv, int D, const long long* st, float q_scale, float scale,
+        void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
+  cudaError_t err;
+  switch (dtype) {
+    case 0:
+      err = dispatch<float>(q, k, v, o, lse_f, B, H, Sq, Skv, D, st, q_scale, scale, s);
+      break;
+    case 1:
+      err = dispatch<__nv_bfloat16>(q, k, v, o, lse_f, B, H, Sq, Skv, D, st, q_scale, scale, s);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -222,16 +250,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
                         long long v_sb, long long v_ss, long long v_sh,
                         float scale, void* stream) {
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
-  cudaError_t err;
-  switch (dtype) {
-    case 0: err = dispatch<float>(q, k, v, o, lse_f, B, H, Sq, Skv, D, st, scale, s); break;
-    case 1: err = dispatch<__nv_bfloat16>(q, k, v, o, lse_f, B, H, Sq, Skv, D, st, scale, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return run(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, 1.f, scale, stream);
+}
+
+// K3: as flash_attention_fwd, with q loaded as bf16(q_scale * q) (for the
+// packed layout: q_scale = d^-1/2 and scale = 1 in bf16).
+int flash_attention_fwd_prescaled(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int dtype,
+                                  int B, int H, int Sq, int Skv, int D,
+                                  long long q_sb, long long q_ss, long long q_sh,
+                                  long long k_sb, long long k_ss, long long k_sh,
+                                  long long v_sb, long long v_ss, long long v_sh,
+                                  float q_scale, float scale, void* stream) {
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  return run(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, q_scale, scale, stream);
 }
 
 const char* cuda_error_string(int code) {

@@ -5,10 +5,17 @@ sizes (with gradient checkpointing for training), the ControlNet -> scaled
 residuals -> controlled UNet forward, ``prepare_condition``, the untiled VAE
 encode (posterior mean or sample) and decode, and the ControlNet's
 initialisation from the UNet. Images and latents enter and leave these
-methods NHWC, as in the JAX package; the modules run NCHW inside. Not ported
-yet: the denoise-loop hoisting of the cross-attention k/v and timestep tables
-(exact-math speed work), tiled VAE, the turbo control cache and the quantised
-serving modes.
+methods NHWC, as in the JAX package; the modules run NCHW inside.
+
+The opt-in serving modes of the JAX CLI (``--fused_resblock``,
+``--quant_conv``, ``--quant_dense``, ``--fused_ffn`` and
+``DIFFBIR_TPU_FLASH_LAYOUT=packed``) are constructor flags of ``sd21()`` and
+``tiny()``; ``quantize_dense_params`` and ``quantize_conv_params`` turn a
+float model's UNet and ControlNet into the int8 layout in place, after the
+cast to the compute dtype, in the order of the JAX loop
+(``inference/loop.py``). Not ported yet: the denoise-loop hoisting of the
+cross-attention k/v and timestep tables (exact-math speed work), tiled VAE
+and the turbo control cache.
 """
 
 from __future__ import annotations
@@ -18,9 +25,16 @@ from typing import Dict, Mapping, Optional, Sequence, Union
 import torch
 from torch import nn
 
+from ..ops.fused_resblock import quantize_conv_weight
+from ..ops.quant_matmul import QuantLinear
 from .clip import CLIPTextEncoder
-from .unet import ControlNet, UNetModel
+from .layers import Linear, QuantConv
+from .unet import ControlNet, CrossAttention, FeedForward, ResBlock, UNetModel
 from .vae import AutoencoderKL
+
+# the JAX _QUANT_DENSE_TAILS: the dense sites of the int8 serving mode
+QUANT_DENSE_TAILS = ("to_q", "to_k", "to_v", "to_out.0", "proj", "net.2", "proj_in",
+                     "proj_out", "emb_layers.1")
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -43,29 +57,74 @@ class ControlLDM(nn.Module):
 
     @classmethod
     def sd21(cls, dtype: torch.dtype = torch.bfloat16, use_checkpoint: bool = False,
-             device=None) -> "ControlLDM":
+             device=None, quant_dense: bool = False, fused_resblock: bool = False,
+             quant_conv: bool = False, fused_ffn: bool = False,
+             flash_layout: str = "folded") -> "ControlLDM":
         """SD2.1-base + IRControlNet sizes (configs/inference/cldm.yaml);
         ``use_checkpoint`` recomputes the UNet's and ControlNet's ResBlocks and
-        transformers in the backward (the training config's setting)."""
-        return cls(
-            unet=UNetModel(dtype=dtype, use_checkpoint=use_checkpoint, device=device),
+        transformers in the backward (the training config's setting). The
+        other flags are the serving modes (see the module's notes); the int8
+        ones build empty int8 holders, filled by loading a quantised state
+        dict."""
+        modes = dict(quant_dense=quant_dense, fused_resblock=fused_resblock,
+                     quant_conv=quant_conv, fused_ffn=fused_ffn)
+        model = cls(
+            unet=UNetModel(dtype=dtype, use_checkpoint=use_checkpoint, device=device, **modes),
             vae=AutoencoderKL(dtype=dtype, device=device),
             clip=CLIPTextEncoder(dtype=dtype, device=device),
-            controlnet=ControlNet(dtype=dtype, use_checkpoint=use_checkpoint, device=device),
+            controlnet=ControlNet(dtype=dtype, use_checkpoint=use_checkpoint, device=device,
+                                  **modes),
         )
+        model.set_flash_layout(flash_layout)
+        return model
 
     @classmethod
-    def tiny(cls, dtype: torch.dtype = torch.float32, device=None) -> "ControlLDM":
-        """The JAX package's small test config (still a true f8 VAE)."""
+    def tiny(cls, dtype: torch.dtype = torch.float32, device=None, quant_dense: bool = False,
+             fused_resblock: bool = False, quant_conv: bool = False, fused_ffn: bool = False,
+             flash_layout: str = "folded") -> "ControlLDM":
+        """The JAX package's small test config (still a true f8 VAE), with
+        the serving modes of ``sd21``."""
         kw = dict(model_channels=32, num_head_channels=16, channel_mult=(1, 2),
-                  attention_resolutions=(2, 1), context_dim=64, dtype=dtype, device=device)
-        return cls(
+                  attention_resolutions=(2, 1), context_dim=64, dtype=dtype, device=device,
+                  quant_dense=quant_dense, fused_resblock=fused_resblock,
+                  quant_conv=quant_conv, fused_ffn=fused_ffn)
+        model = cls(
             unet=UNetModel(**kw),
             vae=AutoencoderKL(ch=32, ch_mult=(1, 1, 1, 1), num_res_blocks=1, dtype=dtype,
                               device=device),
             clip=CLIPTextEncoder(width=64, heads=4, layers=3, dtype=dtype, device=device),
             controlnet=ControlNet(hint_channels=4, **kw),
         )
+        model.set_flash_layout(flash_layout)
+        return model
+
+    def _denoisers(self):
+        """The modules of the UNet and the ControlNet (the serving modes'
+        scope; the VAE and CLIP stay as they are)."""
+        for root in (self.unet, self.controlnet):
+            yield from root.modules()
+
+    def set_flash_layout(self, layout: str) -> None:
+        """"folded" (K1) or "packed" (K3 where it applies) at every UNet and
+        ControlNet attention site."""
+        if layout not in ("folded", "packed"):
+            raise ValueError(f"unknown flash layout {layout!r}")
+        for m in self._denoisers():
+            if isinstance(m, CrossAttention):
+                m.flash_layout = layout
+
+    def set_fused(self, resblock: bool, ffn: bool) -> None:
+        """Switch the fused ResBlock (K6) and fused FFN (K7) modes on or off
+        without touching a weight (the same tensors serve both). The FFN
+        stays unfused where its dense sites are int8, as in JAX; int8 conv
+        weights need the fused ResBlock."""
+        for m in self._denoisers():
+            if isinstance(m, ResBlock):
+                if m.quant_conv and not resblock:
+                    raise ValueError("quant_conv requires the fused ResBlock path")
+                m.fused = resblock
+            elif isinstance(m, FeedForward):
+                m.fused = ffn and not isinstance(m.net[2], QuantLinear)
 
     def set_attention_impl(self, impl: str) -> None:
         """"auto" (flash kernel where a call qualifies) or "plain" for every
@@ -140,3 +199,57 @@ class ControlLDM(nn.Module):
             else:  # input conv, OIHW: pad the input-channel axis with zeros
                 p.zero_()
                 p[:, :src.shape[1]].copy_(src)
+
+
+def _replace(root: nn.Module, name: str, new: nn.Module) -> None:
+    parent, _, child = name.rpartition(".")
+    setattr(root.get_submodule(parent) if parent else root, child, new)
+
+
+@torch.no_grad()
+def quantize_dense_params(cldm: ControlLDM) -> ControlLDM:
+    """Turn the UNet's and ControlNet's dense sites (``QUANT_DENSE_TAILS``)
+    into int8 ``QuantLinear`` layers in place, quantised from their current
+    weights per output channel (``ops.quant_matmul.quantize_weight``), and
+    the FFNs unfused (the JAX FeedForward runs the fused kernel in float mode
+    only). Biases, norms and convs stay float; the VAE and CLIP are left as
+    they are. The counterpart of the JAX ``quantize_dense_params``: the
+    result loads the state dict of ``sd21(quant_dense=True)``."""
+    for root in (cldm.unet, cldm.controlnet):
+        for name, mod in list(root.named_modules()):
+            if isinstance(mod, Linear) and any(
+                    name == t or name.endswith("." + t) for t in QUANT_DENSE_TAILS):
+                _replace(root, name, QuantLinear.from_linear(mod))
+            elif isinstance(mod, FeedForward):
+                mod.fused = False
+    return cldm
+
+
+@torch.no_grad()
+def quantize_conv_params(cldm: ControlLDM) -> ControlLDM:
+    """Turn every UNet and ControlNet ResBlock conv (``in_layers.2``,
+    ``out_layers.3``, ``skip_connection``) into an int8 ``QuantConv`` in
+    place, quantised per output channel over taps and Cin
+    (``ops.fused_resblock.quantize_conv_weight``), in the JAX HWIO layout.
+    The ResBlocks must be fused (int8 convs exist only inside K6). The
+    counterpart of the JAX ``quantize_conv_params``; composes with
+    ``quantize_dense_params``."""
+    for root in (cldm.unet, cldm.controlnet):
+        for name, block in list(root.named_modules()):
+            if not isinstance(block, ResBlock) or block.quant_conv:
+                continue
+            if not block.fused:
+                raise ValueError("quant_conv requires the fused ResBlock path")
+            for attr in ("in_layers.2", "out_layers.3", "skip_connection"):
+                c = block.get_submodule(attr)
+                if isinstance(c, nn.Identity):
+                    continue
+                out_ch, in_ch, k, _ = c.weight.shape
+                holder = QuantConv(in_ch, out_ch, k, dtype=c.weight.dtype,
+                                   device=c.weight.device)
+                holder.weight_q, holder.weight_scale = quantize_conv_weight(
+                    c.weight.permute(2, 3, 1, 0))  # OIHW -> HWIO
+                holder.bias.copy_(c.bias)
+                _replace(block, attr, holder)
+            block.quant_conv = True
+    return cldm

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant_matmul import QuantLinear  # noqa: F401  (the int8 dense layer)
+
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
     """Sinusoidal timestep embedding in fp32, [cos, sin] order."""
@@ -119,6 +121,23 @@ def conv(
 def dense(in_dim: int, out_dim: int, bias: bool = True,
           dtype: torch.dtype = torch.float32, device=None) -> Linear:
     return Linear(in_dim, out_dim, bias=bias, dtype=dtype, device=device)
+
+
+class QuantConv(nn.Module):
+    """Holder of one int8 conv for the fused ResBlock's serving mode (the JAX
+    ``_ConvParams(quant=True)`` scope): ``weight_q`` int8 in the JAX HWIO
+    layout (kernel, kernel, in, out), ``weight_scale`` fp32 [out] (see
+    ``ops.fused_resblock.quantize_conv_weight``) and ``bias`` in the model's
+    dtype. It has no forward of its own: K6 reads it."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.register_buffer("weight_q", torch.zeros(kernel, kernel, in_ch, out_ch,
+                                                     dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale", torch.ones(out_ch, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, dtype=dtype, device=device),
+                                 requires_grad=False)
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:

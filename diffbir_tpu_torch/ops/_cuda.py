@@ -3,8 +3,10 @@
 Each kernel source has a plain C entry point. It is compiled with ``nvcc`` for
 Hopper (``sm_90a``) into ``build/torch_kernels/`` at the repository root (a
 directory ``.gitignore`` lists), named by a hash of the source and flags, and
-loaded with ``ctypes``. There is no fallback: a missing ``nvcc`` or a failed
-build raises.
+loaded with ``ctypes``. The name's hash covers the source, every shared
+header in ``csrc/`` (``*.cuh``, which a source may include) and the flags, so
+an edited header rebuilds every source. There is no fallback: a missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -40,21 +43,31 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
+def build_key(source: Path) -> str:
+    """Hash of the source, of every ``csrc/*.cuh`` header (in name order) and
+    of the flags: the library's name."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def build(source: Path) -> tuple[Path, str]:
-    """Compile ``source`` unless a library of the same source and flags is
-    already built. Returns (library path, compiler log; "" when cached)."""
+    """Compile ``source`` unless a library of the same source, headers and
+    flags is already built. Returns (library path, compiler log; "" when
+    cached)."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             f"cannot build {source.name}: nvcc not found (set CUDA_HOME or put "
             "nvcc on the PATH)"
         )
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{source.stem}-{build_key(source)}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     proc = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
@@ -105,3 +118,16 @@ class CudaKernel:
             msg = self._lib.cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
         self.launches += 1
+
+
+def load_all(kernels: Sequence[CudaKernel]) -> None:
+    """Build the distinct sources of ``kernels`` at once (one ``nvcc`` each,
+    all started together), then load every entry point."""
+    import concurrent.futures
+
+    sources = sorted({k.source for k in kernels})
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        logs = dict(zip(sources, pool.map(lambda s: build(s)[1], sources)))
+    for kernel in kernels:
+        kernel.load()
+        kernel.build_log = kernel.build_log or logs[kernel.source]

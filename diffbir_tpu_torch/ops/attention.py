@@ -7,7 +7,10 @@ before the PV product.
 
 Dispatch: every self-attention call (Skv == Sq) without mask or bias and with
 d in {64, 128, 256, 512} goes to ``flash_attention`` (the CUDA kernel for a
-CUDA tensor, its plain version for a CPU tensor). Everything else is plain
+CUDA tensor, its plain version for a CPU tensor). ``layout="packed"`` (the
+JAX package's ``DIFFBIR_TPU_FLASH_LAYOUT=packed``) runs those calls through
+K3, K1 with q pre-scaled once in bf16, where the JAX packed kernel runs: a
+forward without gradient and Sq <= 1024 or Sq % 1024 == 0. Everything else is plain
 math: cross-attention to the 77 text tokens, SwinIR window attention (bias and
 shift mask) and CLIP causal attention. The TPU dispatch thresholds are not
 carried over; the port sets its own from H100 measurements.
@@ -20,6 +23,14 @@ from typing import Optional
 import torch
 
 FLASH_HEAD_DIMS = (64, 128, 256, 512)
+FLASH_LAYOUTS = ("folded", "packed")
+
+
+def packed_applies(sq: int) -> bool:
+    """Whether the JAX packed kernel takes Sq query rows: one 1024-row q
+    block or whole ones (``_flash_attention_impl_packed`` sends the rest to
+    the folded kernel)."""
+    return sq <= 1024 or sq % 1024 == 0
 
 
 def plain_attention(
@@ -28,16 +39,19 @@ def plain_attention(
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Einsum attention with fp32 logits and softmax (float64 inputs stay
     float64, so the CPU path can be gradient-checked).
 
     mask: broadcastable to [B, H, Sq, Skv], True = keep.
     bias: broadcastable additive bias (e.g. Swin relative position bias).
+    scale: the logits' scale, d^-1/2 by default.
     """
     orig_dtype = q.dtype
     acc = torch.promote_types(orig_dtype, torch.float32)
-    scale = q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc) * scale, k.to(acc))
     if bias is not None:
         logits = logits + bias.to(acc)
@@ -55,11 +69,15 @@ def attention(
     mask: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     impl: str = "auto",
+    layout: str = "folded",
 ) -> torch.Tensor:
     """Dispatching attention used by all models. ``impl``: "auto" (flash
-    where the call qualifies) or "plain" (always the plain math)."""
+    where the call qualifies) or "plain" (always the plain math).
+    ``layout``: "folded" (K1) or "packed" (K3 where it applies, see above)."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    if layout not in FLASH_LAYOUTS:
+        raise ValueError(f"unknown flash layout {layout!r}")
     flash = (
         impl == "auto" and mask is None and bias is None
         and k.shape[1] == q.shape[1] and q.shape[-1] in FLASH_HEAD_DIMS
@@ -68,4 +86,6 @@ def attention(
         return plain_attention(q, k, v, mask=mask, bias=bias)
     from .flash_attention import flash_attention
 
+    if layout == "packed" and packed_applies(q.shape[1]):
+        return flash_attention(q, k, v, prescale_q=True)
     return flash_attention(q, k, v)

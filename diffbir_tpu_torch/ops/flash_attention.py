@@ -5,7 +5,15 @@ Replaces the Pallas TPU kernels of ``diffbir_tpu/ops/flash_attention.py``:
 ``_kernel`` (K1, launched by ``_flash_attention_impl``, with its optional
 logsumexp output) and ``_dq_kernel`` (K2a) + ``_dkv_kernel`` (K2b), launched by
 ``_flash_attention_bwd_impl``; ``flash_attention`` is the counterpart of its
-``custom_vjp``. The kernels are ``csrc/flash_attention_fwd.cu`` and
+``custom_vjp``. K3, the packed-layout forward ``_kernel_packed`` (launched by
+``_flash_attention_impl_packed``), is K1 with one option, ``prescale_q``: in
+bf16, q is rounded once as bf16(q * d^-1/2) and the logits are not scaled
+again (``_kernel_packed`` l.243-250); in fp32 the option changes nothing, as
+there. The packed kernel's [B,S,H*D] tiles are what K1 already reads through
+strides, so K3 is a second entry point of ``csrc/flash_attention_fwd.cu``
+with its own launch count, not a second kernel. It is forward-only: the JAX
+custom-VJP forward always takes the folded kernel, and so does
+``FlashAttention``. The kernels are ``csrc/flash_attention_fwd.cu`` and
 ``csrc/flash_attention_bwd.cu``, built for ``sm_90a`` at first use.
 
 What bounds them on an H100: at the main path's shapes ([2,4096,5,64] in the
@@ -47,6 +55,14 @@ KERNEL = CudaKernel(
      _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64,
      ctypes.c_float, _ptr],
 )
+KERNEL_PRESCALED = CudaKernel(
+    "flash_attention_fwd.cu",
+    "flash_attention_fwd_prescaled",
+    [_ptr, _ptr, _ptr, _ptr, _ptr, _i32,
+     _i32, _i32, _i32, _i32, _i32,
+     _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64,
+     ctypes.c_float, ctypes.c_float, _ptr],
+)
 KERNEL_DQ = CudaKernel(
     "flash_attention_bwd.cu",
     "flash_attention_bwd_dq",
@@ -62,9 +78,14 @@ KERNEL_DKV = CudaKernel(
 # --------------------------------------------------------------------------- #
 # plain versions
 # --------------------------------------------------------------------------- #
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: the same math as ``plain_attention`` without
-    mask or bias."""
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        prescale_q: bool = False) -> torch.Tensor:
+    """Plain version of K1 (and with ``prescale_q`` of K3): the same math as
+    ``plain_attention`` without mask or bias; with ``prescale_q`` a bf16 q
+    is rounded once as bf16(q * d^-1/2) and the logits are not scaled."""
+    if prescale_q and q.dtype == torch.bfloat16:
+        q = (q.float() * q.shape[-1] ** -0.5).to(torch.bfloat16)
+        return plain_attention(q, k, v, scale=1.0)
     return plain_attention(q, k, v)
 
 
@@ -175,26 +196,35 @@ def _strides(*ts: torch.Tensor) -> list:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        with_lse: bool = False):
+                        with_lse: bool = False, prescale_q: bool = False):
     """K1: o [B,Sq,H,D] (contiguous), and with ``with_lse`` also lse [B,H,Sq]
-    fp32. A CPU tensor goes to the plain version; a CUDA tensor launches the
+    fp32; with ``prescale_q`` K3 (q rounded once as bf16(q * d^-1/2), no
+    lse). A CPU tensor goes to the plain version; a CUDA tensor launches the
     kernel or raises (bf16 or fp32, one dtype and device for all three, unit
     stride over D)."""
     _check(q, k, v)
+    if with_lse and prescale_q:
+        raise ValueError("the prescaled-q forward (K3) has no lse output")
     if not _on_kernel_device(q, k, v):
-        return flash_attention_lse_ref(q, k, v) if with_lse else flash_attention_ref(q, k, v)
+        if with_lse:
+            return flash_attention_lse_ref(q, k, v)
+        return flash_attention_ref(q, k, v, prescale_q=prescale_q)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            _DTYPE_CODES[q.dtype], b, h, sq, skv, d, *_strides(q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        KERNEL.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None,
-            _DTYPE_CODES[q.dtype], b, h, sq, skv, d, *_strides(q, k, v),
-            d ** -0.5, stream,
-        )
+        if prescale_q:
+            # fp32: the packed kernel's logits are scaled as K1's
+            bf16 = q.dtype == torch.bfloat16
+            KERNEL_PRESCALED.launch(*args, d ** -0.5 if bf16 else 1.0,
+                                    1.0 if bf16 else d ** -0.5, stream)
+        else:
+            KERNEL.launch(*args, d ** -0.5, stream)
     return (out, lse) if with_lse else out
 
 
@@ -287,12 +317,15 @@ class FlashAttention(torch.autograd.Function):
         return flash_attention_bwd(q, k, v, o, lse, g)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    prescale_q: bool = False) -> torch.Tensor:
     """q [B,Sq,H,D]; k, v [B,Skv,H,D] -> [B,Sq,H,D] (contiguous), differentiable.
 
     Where no gradient is needed (serving, or inputs that need none) this is
-    one K1 launch without lse; otherwise K1 with lse under the autograd
-    Function, whose backward launches K2a and K2b."""
+    one K1 launch without lse (K3 with ``prescale_q``); otherwise K1 with lse
+    under the autograd Function, whose backward launches K2a and K2b
+    (``prescale_q`` is then ignored, as the JAX custom-VJP forward ignores
+    the packed layout)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v)
-    return flash_attention_fwd(q, k, v)
+    return flash_attention_fwd(q, k, v, prescale_q=prescale_q)

@@ -1,5 +1,7 @@
-"""The flash-attention kernels (K1 forward, K2a/K2b backward) on a CUDA
-device, against their plain versions and against the CPU.
+"""The kernels on a CUDA device, against their plain versions and against
+the CPU: flash attention (K1 forward, K2a/K2b backward, K3 the prescaled-q
+forward), the int8 matmul (K4), the fused ResBlock (K6) and the fused GEGLU
+FFN (K7); the build key; the serving modes' autograd and a small model.
 
 These tests need a card: they skip without one. The GPU machine has no JAX,
 and ``tests/conftest.py`` imports it, so run them there without the conftest:
@@ -7,10 +9,16 @@ and ``tests/conftest.py`` imports it, so run them there without the conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import shutil
+
 import pytest
 import torch
 
+from diffbir_tpu_torch.ops import _cuda
 from diffbir_tpu_torch.ops import flash_attention as fa
+from diffbir_tpu_torch.ops import fused_ffn as ffn
+from diffbir_tpu_torch.ops import fused_resblock as fr
+from diffbir_tpu_torch.ops import quant_matmul as qm
 
 pytestmark = pytest.mark.gpu
 
@@ -31,6 +39,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -222,3 +231,177 @@ def test_small_fp32_controlnet_gradients_match_cpu(cuda):
     assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-4 * max(1.0, abs(res["cpu"][0]))
     for a, c in zip(res["cuda"][1], res["cpu"][1]):
         assert (a - c).abs().max().item() <= 1e-3 * max(c.abs().max().item(), 1e-12)
+
+
+# --------------------------------------------------------------------------- #
+# the serving modes' kernels: K3, K4, K6, K7
+# --------------------------------------------------------------------------- #
+def _close(out, ref, tol):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err, limit = (out.float() - ref.float()).abs().max().item(), _limit(ref, tol)
+    assert err <= limit, (err, limit)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 3, 64), (1, 130, 2, 128), (2, 64, 20, 64)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
+def test_prescaled_flash_matches_plain_version(cuda, shape, dtype, tol):
+    """K3 (one launch on its own count, none on K1's) against the prescaled
+    plain version; in fp32 it is K1, bit for bit."""
+    q, k, v = _qkv(cuda, shape[0], shape[1], shape[1], shape[2], shape[3], dtype)
+    before = (fa.KERNEL.launches, fa.KERNEL_PRESCALED.launches)
+    out = fa.flash_attention(q, k, v, prescale_q=True)
+    torch.cuda.synchronize()
+    assert (fa.KERNEL.launches, fa.KERNEL_PRESCALED.launches) == (before[0], before[1] + 1)
+    _close(out, fa.flash_attention_ref(q, k, v, prescale_q=True), tol)
+    if dtype == torch.float32:
+        assert torch.equal(out, fa.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("m,k,n", [(154, 320, 640), (2, 1280, 320), (130, 100, 70)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
+def test_quant_matmul_matches_plain_version(cuda, m, k, n, dtype, tol):
+    """K4 at ragged and 320-wide shapes; x rounded to bf16 on both sides, so
+    fp32 agrees to the sum order."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w_q, scale = qm.quantize_weight(torch.randn(k, n, generator=g, device=cuda))
+    before = qm.KERNEL.launches
+    out = qm.quant_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert qm.KERNEL.launches == before + 1
+    _close(out, qm.quant_matmul_ref(x, w_q, scale), tol)
+
+
+def _resblock_case(cuda, cin, cout, h, w, dtype, quant, seed=4):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * s)
+
+    p = dict(gn1_scale=1 + rnd(cin, s=0.1), gn1_bias=rnd(cin, s=0.1),
+             w1=rnd(cout, cin, 3, 3, s=0.1).to(dtype), b1=rnd(cout, s=0.1).to(dtype),
+             gn2_scale=1 + rnd(cout, s=0.1), gn2_bias=rnd(cout, s=0.1),
+             w2=rnd(cout, cout, 3, 3, s=0.1).to(dtype), b2=rnd(cout, s=0.1).to(dtype))
+    if cin != cout:
+        p["w_skip"], p["b_skip"] = rnd(cout, cin, 1, 1, s=0.2).to(dtype), rnd(cout).to(dtype)
+    if quant:
+        for name, scale in (("w1", "s1"), ("w2", "s2"), ("w_skip", "s_skip")):
+            if name in p:
+                p[name + "_q"], p[scale] = fr.quantize_conv_weight(
+                    p.pop(name).float().permute(2, 3, 1, 0))
+    x = (rnd(2, cin, h, w) + 0.5).to(dtype)
+    e = rnd(2, cout).to(dtype)
+    return x, e, p
+
+
+@pytest.mark.parametrize("cin,cout,h,w", [(64, 64, 6, 5), (32, 64, 8, 8), (64, 32, 9, 13)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
+def test_fused_resblock_matches_plain_version(cuda, cin, cout, h, w, quant, dtype, tol):
+    """K6, float and int8 weights, identity and 1x1 skip, ragged images."""
+    x, e, p = _resblock_case(cuda, cin, cout, h, w, dtype, quant)
+    before = fr.KERNEL.launches
+    out = fr.fused_resblock(x, e, p)
+    torch.cuda.synchronize()
+    assert fr.KERNEL.launches == before + 1
+    _close(out, fr.fused_resblock_ref(x, e, p), tol)
+
+
+@pytest.mark.parametrize("n,d", [(70, 64), (24, 320)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
+def test_fused_ffn_matches_plain_version(cuda, n, d, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    inner = 4 * d
+    x = torch.randn(n, d, generator=g, device=cuda).to(dtype)
+    w1 = (torch.randn(2 * inner, d, generator=g, device=cuda) * d ** -0.5).to(dtype)
+    b1 = (torch.randn(2 * inner, generator=g, device=cuda) * 0.1).to(dtype)
+    w2 = (torch.randn(d, inner, generator=g, device=cuda) * inner ** -0.5).to(dtype)
+    b2 = (torch.randn(d, generator=g, device=cuda) * 0.1).to(dtype)
+    before = ffn.KERNEL.launches
+    out = ffn.fused_ffn(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert ffn.KERNEL.launches == before + 1
+    _close(out, ffn.fused_ffn_ref(x, w1, b1, w2, b2), tol)
+
+
+def test_touching_a_header_rebuilds(cuda, tmp_path, monkeypatch):
+    """The library's name covers csrc/*.cuh: after an edit to the shared
+    header the source builds into a new library instead of loading the old."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, src)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    first, log = _cuda.build(src / "quant_matmul.cu")
+    assert first.exists() and log
+    assert _cuda.build(src / "quant_matmul.cu") == (first, "")
+    header = src / "tile_gemm.cuh"
+    header.write_text(header.read_text() + "\n// touched\n")
+    second, log = _cuda.build(src / "quant_matmul.cu")
+    assert second != first and second.exists() and log
+
+
+def test_fused_modes_gradients_match_cpu(cuda):
+    """The float fused ResBlock and FFN under autograd on the card (K6 / K7
+    forward, the recomputed plain version backward) against the CPU."""
+    x, e, p = _resblock_case(cuda, 32, 64, 6, 7, torch.float32, quant=False)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    w1 = torch.randn(512, 64, generator=g, device=cuda) * 0.1
+    w2 = torch.randn(64, 256, generator=g, device=cuda) * 0.1
+    b1, b2 = torch.randn(512, device=cuda), torch.randn(64, device=cuda)
+    xf = torch.randn(30, 64, generator=g, device=cuda)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = (fr.KERNEL.launches, ffn.KERNEL.launches)
+        leaves = {k: v.detach().to(dev).requires_grad_() for k, v in p.items()}
+        xs, es = (t.detach().to(dev).requires_grad_() for t in (x, e))
+        out = fr.fused_resblock(xs, es, leaves)
+        fl = [t.detach().to(dev).requires_grad_() for t in (xf, w1, b1, w2, b2)]
+        out2 = ffn.fused_ffn(*fl)
+        (out.square().sum() + out2.square().sum()).backward()
+        launched = (fr.KERNEL.launches - before[0], ffn.KERNEL.launches - before[1])
+        res[dev.type] = ([t.grad.cpu() for t in (xs, es, *leaves.values(), *fl)], launched)
+    assert res["cuda"][1] == (1, 1) and res["cpu"][1] == (0, 0)
+    for a, c in zip(res["cuda"][0], res["cpu"][0]):
+        assert (a - c).abs().max().item() <= 1e-4 * max(c.abs().max().item(), 1e-12)
+
+
+def test_small_fp32_model_in_the_serving_modes_matches_cpu(cuda):
+    """A small fp32 ControlLDM (head dim 64) in the fused mode (K6, K7, K3)
+    and in the int8 mode (K4, K6 int8, K3) on the card and on the CPU, same
+    weights. The fused forward agrees to fp32 sums (1e-3 of its largest
+    value); the int8 one to 1e-2, since K4 rounds activations to bf16 and
+    sums in another order move some of them by one bf16 step."""
+    import copy
+
+    from diffbir_tpu_torch.models.cldm import (ControlLDM, quantize_conv_params,
+                                               quantize_dense_params)
+    from diffbir_tpu_torch.models.clip import CLIPTextEncoder
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.unet import ControlNet, UNetModel
+    from diffbir_tpu_torch.models.vae import AutoencoderKL
+
+    kw = dict(model_channels=64, num_head_channels=64, channel_mult=(1, 2),
+              attention_resolutions=(2, 1), context_dim=64, num_res_blocks=1,
+              fused_resblock=True, fused_ffn=True)
+    cpu = ControlLDM(unet=UNetModel(**kw), vae=AutoencoderKL(ch=64, ch_mult=(1, 1, 1, 1),
+                     num_res_blocks=1), clip=CLIPTextEncoder(width=64, heads=4, layers=3),
+                     controlnet=ControlNet(**kw))
+    random_init_(cpu, torch.Generator().manual_seed(3)).eval()
+    cpu.set_flash_layout("packed")
+    int8 = quantize_conv_params(quantize_dense_params(copy.deepcopy(cpu)))
+    gen = torch.Generator().manual_seed(4)
+    x, c_img = torch.randn(2, 16, 16, 4, generator=gen), torch.randn(2, 16, 16, 4, generator=gen)
+    cond = {"c_txt": torch.randn(2, 77, 64, generator=gen), "c_img": c_img}
+    t = torch.tensor([999.0, 21.0])
+    kernels = (fa.KERNEL_PRESCALED, qm.KERNEL, fr.KERNEL, ffn.KERNEL)
+    # 12 ResBlocks and 10 transformers (UNet 8 + 7, ControlNet 4 + 3); 12
+    # K4 sites per transformer and one per ResBlock
+    for model, tol, launched in ((cpu, 1e-3, (10, 0, 12, 10)), (int8, 1e-2, (10, 132, 12, 0))):
+        with torch.no_grad():
+            ref = model(x, t, cond)
+            gpu = copy.deepcopy(model).to(cuda)
+            before = [k.launches for k in kernels]
+            out = gpu(x.to(cuda), t.to(cuda), {k: v.to(cuda) for k, v in cond.items()})
+            torch.cuda.synchronize()
+        assert tuple(k.launches - b for k, b in zip(kernels, before)) == launched
+        assert bool(torch.isfinite(out).all())
+        assert (out.cpu() - ref).abs().max().item() <= tol * ref.abs().max().item()

@@ -233,10 +233,15 @@ def test_resize_short_edge_and_pad_match_jax():
 # guards
 # --------------------------------------------------------------------------- #
 def test_port_imports_no_jax():
-    code = ("import sys, diffbir_tpu_torch.pipeline, diffbir_tpu_torch.ops.flash_attention, "
-            "diffbir_tpu_torch.profile_step, diffbir_tpu_torch.train.stage2\n"
+    """Every module of the port (walked, not listed) and chip_smoke.py import
+    nothing of JAX, flax or the JAX package."""
+    code = ("import importlib, pkgutil, sys, diffbir_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(diffbir_tpu_torch.__path__,\n"
+            "                                               'diffbir_tpu_torch.')]\n"
+            "for name in names + ['chip_smoke']:\n"
+            "    importlib.import_module(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'diffbir_tpu')]\n"
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(len(names), bad); sys.exit(1 if bad or len(names) < 20 else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
