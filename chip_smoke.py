@@ -8,11 +8,12 @@ Phases (any failure exits non-zero before the last line is printed):
      convolutions, so fp32 comparisons are exact-math comparisons.
   1. build every kernel from diffbir_tpu_torch/csrc, one nvcc per source, all
      started together: K1/K3 (flash forward, plain and prescaled-q entry),
-     K2a/K2b (flash backward), K4 (int8 matmul), K6 (fused ResBlock), K7
-     (fused GEGLU FFN).
-  2. K1 against its plain PyTorch version at the serving shapes and at the
-     training path's frozen VAE encodes ([8,4096,1,512]), with median times of
-     both and of the library call.
+     K2a/K2b (flash backward), K4 (int8 matmul), K5 (packed-int4 matmul), K6
+     (fused ResBlock), K7 (fused GEGLU FFN).
+  2. K1 against its plain PyTorch version at the serving shapes, at the
+     training path's frozen VAE encodes ([8,4096,1,512]) and at the
+     captioner's vision tower ([1,577,16,64]), with median times of both and
+     of the library call.
   3. K1 with its logsumexp, K2a (dq) and K2b (dk, dv) against their plain
      versions at the training shapes (batch 8), a ragged, a strided and an
      fp32 case and d = 128/256/512; the backward run twice must give
@@ -20,14 +21,18 @@ Phases (any failure exits non-zero before the last line is printed):
      limits (their power); median times of kernel, plain version and the
      library call (scaled_dot_product_attention forward, and its backward
      through autograd), beside the bound.
-  4. the serving modes' kernels at the shapes of the 512x512 path (batch 2),
+  4. the serving modes' and the captioner's kernels at their paths' shapes,
      each against its plain version, each with a planted fault that must
      fail the limits, and with median times of kernel, plain version and a
      library yardstick beside the bound: K3 at the 4 self-attention shapes
-     (fault: q scaled twice), K4 at the 18 dense shapes (fault: the last
-     16-deep K slice dropped), K6 float and int8 at the 14 ResBlock sites
-     (fault: the last tap of conv2 skipped), K7 at the 4 FFN shapes (fault:
-     the last K slice of its first product dropped).
+     of the 512x512 path (batch 2; fault: q scaled twice), K4 at its 18
+     dense shapes and at the int8 captioner's 6 (fault: the last 16-deep K
+     slice dropped), K5 (packed-int4 matmul) at the LLaVA-1.5-7B prefill
+     (M = 624) and decode (M = 1) shapes of the 7 big linears, a ragged and
+     an fp32 case (fault: the two scale groups of every window swapped), K6
+     float and int8 at the 14 ResBlock sites (fault: the last tap of conv2
+     skipped), K7 at the 4 FFN shapes (fault: the last K slice of its first
+     product dropped).
   5. model call: one full-width SD2.1 ControlLDM forward (random bf16 weights)
      at batch 2 on a 64x64 latent, through K1 and through plain attention.
   6. serving path: SwinIRPipeline.run on 512x512 uint8 LQs, 50 spaced steps,
@@ -42,7 +47,17 @@ Phases (any failure exits non-zero before the last line is printed):
      weights, and requests in that mode. Each model call records every
      kernel call's shape and checks it against the site tables below; each
      request checks its launch counts, latency, stage split and peak memory.
-  8. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
+  8. the LLaVA-1.5-7B captioner at full width (CLIP ViT-L/14-336 +
+     projector + Llama-7B, random bf16 weights from seed 0 generated on the
+     card), a seeded 512x512
+     LQ, a 624-row prompt of stand-in ids, 60 greedy tokens with an EOS that
+     never matches, in the modes int4 (K5), int8 (K4) and bf16: exact launch
+     counts, stage times, tokens/s and peak memory per mode; for int4 and
+     int8, teacher forcing of the generated ids through the same model on
+     the plain products (logits within a relative limit, ids equal to the
+     plain argmax wherever its top-2 margin exceeds it). Then one captioned
+     request: the int4 caption of the LQ, then SwinIRPipeline.run on it.
+  9. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
      IRControlNet with gradient checkpointing, ControlNet initialised from the
      UNet, frozen realesrgan SwinIR cleaner, v2.1 schedule, noise aug at 200,
      lr 1e-5), batch 8 at 512x512 from seeded numpy, empty prompts: 2 warm-up
@@ -144,6 +159,34 @@ PER_REQUEST = {
                    "K6": K6_PER_CALL * STEPS},
 }
 MODE_SEEDS = (1, 2)
+# The LLaVA-1.5-7B captioner: 35 prompt ids before the image (BOS first), its
+# 576 patch embeddings, 13 ids after (the 624 prefill rows of
+# scripts/bench_llava.py), 60 new tokens; the EOS id never matches, so every
+# caption runs the prefill and 59 decode steps (the 60th token's step is
+# skipped). K5 (int4) or K4 (int8) runs at the 7 big linears of the 32
+# layers in each of those 60 passes; K1 at the tower's 23 layers that run.
+CAPTION_PRE, CAPTION_POST, CAPTION_NEW, NEVER_EOS = 35, 13, 60, -1
+CAPTION_ROWS = CAPTION_PRE + 576 + CAPTION_POST
+LLAMA_LAYERS = 32
+QUANT_PER_CAPTION = 7 * LLAMA_LAYERS * CAPTION_NEW
+K1_PER_CAPTION = 23
+CAPTION_PATHS = {
+    "caption_int4": {"K1": K1_PER_CAPTION, "K5": QUANT_PER_CAPTION},
+    "caption_int8": {"K1": K1_PER_CAPTION, "K4": QUANT_PER_CAPTION},
+    "caption_bf16": {"K1": K1_PER_CAPTION},
+    "captioned_request": {"K1": K1_PER_CAPTION + K1_PER_REQUEST, "K5": QUANT_PER_CAPTION},
+}
+# (M, K, N) of the 7 linears per layer and pass: q/k/v/o, gate/up, down;
+# M = 624 in the prefill, 1 in each of the 59 decode steps
+LLAVA_SITES = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
+# the teacher-forced check: the kernel path's logits at the 60 generated
+# positions against the plain products' on the same ids, error limit
+# CAPTION_REL_TOL x max|plain logits|. Both paths round every activation to
+# bf16 and differ in sum order (and decode against prefill), so a
+# difference grows through 32 layers: measured 1.85e-2 on an H100 in both
+# quantised modes. The float model's logits on the same ids must fail the
+# limit against the int4 path's plain products (the check's power).
+CAPTION_REL_TOL = 3e-2
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores, fp32 on the
 # CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -183,6 +226,22 @@ def bound_ms(products: int, b: int, h: int, sq: int, skv: int, d: int, dtype,
     t_ops = flops / PEAK_FLOPS[str(dtype)[6:]]
     t_bytes = n_bytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gemm_bound(m: int, k: int, n: int, *tensors):
+    """(ms, "operations" or "bytes") of an M x K x N product that reads and
+    writes ``tensors`` once, against the bf16 tensor-core peak."""
+    t_ops = 2.0 * m * k * n / PEAK_FLOPS["bfloat16"]
+    t_bytes = nbytes(*tensors) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def per_caption_ms(times: dict) -> float:
+    """Kernel ms per caption from per-shape ms keyed (M, K, N): the prefill
+    once and 59 decode steps, 32 layers each."""
+    return LLAMA_LAYERS * sum(
+        c * (times[(CAPTION_ROWS, k, n)] + (CAPTION_NEW - 1) * times[(1, k, n)])
+        for (k, n), c in LLAVA_SITES.items())
 
 
 def nbytes(*ts) -> int:
@@ -242,16 +301,17 @@ def limit_of(ref, tol: float) -> float:
 
 
 def phase_kernel(fa):
-    """K1 against its plain version at the serving shapes and at the frozen
-    VAE encodes' batch-8 shape of training; returns the kernel line's numbers
-    at [2,4096,5,64] bf16."""
+    """K1 against its plain version at the serving shapes, at the frozen
+    VAE encodes' batch-8 shape of training and at the captioner's vision
+    tower ([1,577,16,64]); returns the kernel line's numbers at
+    [2,4096,5,64] bf16."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [((2, 4096, 5, 64), torch.bfloat16), ((2, 1024, 10, 64), torch.bfloat16),
              ((2, 256, 20, 64), torch.bfloat16), ((2, 64, 20, 64), torch.bfloat16),
              ((1, 4096, 1, 512), torch.bfloat16), ((8, 4096, 1, 512), torch.bfloat16),
-             ((2, 4000, 5, 64), torch.bfloat16),
+             ((2, 4000, 5, 64), torch.bfloat16), ((1, 577, 16, 64), torch.bfloat16),
              ((1, 1000, 1, 512), torch.bfloat16), ((2, 1024, 10, 64), torch.float32),
              ("strided", torch.bfloat16)]
     max_err, headline = 0.0, None
@@ -275,9 +335,10 @@ def phase_kernel(fa):
         b, sq, h, d = q.shape
         bms, by = bound_ms(2, b, h, sq, sq, d, dtype, nbytes(q, k, v, out))
         lib = ""
-        if shape == (2, 4096, 5, 64):
+        if shape in ((2, 4096, 5, 64), (1, 577, 16, 64)):  # the UNet's, the vision tower's
             lib_ms = median_ms(lambda: sdpa_fwd(q, k, v))
             lib = f", library {lib_ms:.4f} ms"
+        if shape == (2, 4096, 5, 64):
             headline = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
         print(f"[kernel] K1 {label} {str(dtype)[6:]}: max_abs_err {err:.3e}, max|ref| "
@@ -617,13 +678,16 @@ def phase_k3(fa):
 
 def phase_k4(qm):
     """K4 against its plain version at the 18 dense shapes of the int8 path
-    (bf16 activations); returns the kernel line's numbers at the GEGLU
-    projection of the 64^2 level, (8192, 320, 2560)."""
+    and the 6 of the int8 captioner (bf16 activations); returns the kernel
+    line's numbers at the GEGLU projection of the 64^2 level,
+    (8192, 320, 2560)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    max_err, headline, per_call = 0.0, None, 0.0
-    for (m, k, n), sites in K4_SITES.items():
+    max_err, headline, per_call, caption = 0.0, None, 0.0, {}
+    cases = [(shape, f"{sites} per call") for shape, sites in K4_SITES.items()]
+    cases += [((m, k, n), "captioner") for m in (CAPTION_ROWS, 1) for k, n in LLAVA_SITES]
+    for (m, k, n), where in cases:
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
         w_q, scale = qm.quantize_weight(w.to(torch.bfloat16))
@@ -636,11 +700,12 @@ def phase_k4(qm):
         ms = median_ms(lambda: qm.quant_matmul(x, w_q, scale), iters)
         plain_ms = median_ms(lambda: qm.quant_matmul_ref(x, w_q, scale), iters)
         lib_ms = median_ms(lambda: x @ w_deq, iters)
-        t_ops = 2.0 * m * k * n / PEAK_FLOPS["bfloat16"]
-        t_bytes = nbytes(x, w_q, scale, out) / PEAK_BYTES
-        bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-        per_call += sites * ms
-        print(f"[K4] (M, K, N) {label} ({sites} per call): "
+        bms, by = gemm_bound(m, k, n, x, w_q, scale, out)
+        if where == "captioner":
+            caption[(m, k, n)] = ms
+        else:
+            per_call += K4_SITES[(m, k, n)] * ms
+        print(f"[K4] (M, K, N) {label} ({where}): "
               f"{show(out, ref)}; K4 "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (x @ dequantised bf16 W) "
               f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
@@ -650,7 +715,9 @@ def phase_k4(qm):
                     ref, BF16_TOL)
             headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib_ms}
-    print(f"[K4] per model call ({K4_PER_CALL} sites): {per_call:.3f} ms")
+        del x, w, w_q, scale, w_deq, out, ref
+    print(f"[K4] per model call ({K4_PER_CALL} sites): {per_call:.3f} ms; per int8 caption "
+          f"({QUANT_PER_CAPTION} launches): {per_caption_ms(caption):.3f} ms")
     headline["max_abs_err"] = max_err
     return headline
 
@@ -914,6 +981,251 @@ def phase_modes(cldm, swinir):
 
 
 
+# --------------------------------------------------------------------------- #
+# the LLaVA-1.5-7B captioner: K5 at its shapes, then captions
+# --------------------------------------------------------------------------- #
+def swapped_groups(scale):
+    """scale_g [K/128, N] with the two groups of every 256-row window
+    swapped: K5 run on it is a group-index fault."""
+    k2, n = scale.shape
+    return scale.reshape(k2 // 2, 2, n).flip(1).reshape(k2, n).contiguous()
+
+
+def phase_k5(qm):
+    """K5 against its plain version at the captioner's shapes (bf16 x), a
+    ragged case in each form and fp32 x; the planted fault at the prefill
+    and the decode shape. Returns the kernel line's numbers at the decode
+    shape (1, 4096, 4096)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [(m, k, n) for m in (CAPTION_ROWS, 1) for k, n in LLAVA_SITES]
+    cases = ([(s, torch.bfloat16) for s in shapes] + [((77, 4096, 4001), torch.bfloat16),
+             ((3, 4096, 4001), torch.bfloat16), ((CAPTION_ROWS, 4096, 4096), torch.float32),
+             ((1, 4096, 4096), torch.float32)])
+    max_err, headline, times = 0.0, None, {}
+    for (m, k, n), dtype in cases:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        packed, scale = qm.quantize_weight_int4(w)
+        del w
+        w_deq = qm.unpack_int4(packed).reshape(k // 128, 128, n).float().mul_(
+            scale[:, None]).reshape(k, n).to(torch.bfloat16)
+        out = qm.quant_matmul_int4(x, packed, scale)
+        ref = qm.quant_matmul_int4_ref(x, packed, scale)
+        label = f"({m}, {k}, {n}) {str(dtype)[6:]}"
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        err = hold(f"K5 at {label}", out, ref, tol)
+        iters = 10 if m > 8 else 50
+        ms = median_ms(lambda: qm.quant_matmul_int4(x, packed, scale), iters)
+        plain_ms = median_ms(lambda: qm.quant_matmul_int4_ref(x, packed, scale), iters)
+        lib_ms = median_ms(lambda: x.to(torch.bfloat16) @ w_deq, iters)
+        bms, by = gemm_bound(m, k, n, x, packed, scale, out)
+        print(f"[K5] (M, K, N) {label}: {show(out, ref, tol)}; K5 {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (x @ dequantised bf16 W) {lib_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+        if dtype == torch.bfloat16:
+            max_err = max(max_err, err)
+            times[(m, k, n)] = ms
+        if (m, k, n) in ((CAPTION_ROWS, 4096, 4096), (1, 4096, 4096)) and dtype == torch.bfloat16:
+            planted(f"K5 at M = {m} with the scale groups of each window swapped",
+                    qm.quant_matmul_int4(x, packed, swapped_groups(scale)), ref, tol)
+            if m == 1:
+                headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                            "library_ms": lib_ms}
+        del x, packed, scale, w_deq, out, ref
+    print(f"[K5] per caption ({QUANT_PER_CAPTION} launches): {per_caption_ms(times):.3f} ms")
+    headline["max_abs_err"] = max_err
+    return headline
+
+
+def build_llava():
+    """LLaVA-1.5-7B in bf16 with random weights from seed 0, generated on
+    the card parameter by parameter (N(0, 1/fan_in), norms 1, biases 0);
+    then an int4 and an int8 copy (``quantize_llama_`` in place)."""
+    import copy
+
+    import torch
+
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.llava import Llava, quantize_llama_
+
+    t0 = time.perf_counter()
+    model = Llava.llava15_7b(dtype=torch.bfloat16, device="meta").to_empty(device="cuda")
+    random_init_(model, torch.Generator(device="cuda").manual_seed(0)).eval()
+    models = {"caption_bf16": model}
+    for bits in (4, 8):
+        models[f"caption_int{bits}"] = quantize_llama_(copy.deepcopy(model), bits)
+    torch.cuda.synchronize()
+    sizes = ", ".join(f"{path[8:]} {nbytes(*m.parameters(), *m.buffers()) / 2**30:.2f} GiB"
+                      for path, m in models.items())
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[llava] LLaVA-1.5-7B {n / 1e9:.3f} B params, random bf16 from seed 0, built, "
+          f"copied and quantised in {time.perf_counter() - t0:.2f} s ({sizes})")
+    return models
+
+
+def caption_inputs():
+    """The seeded 512x512 LQ and the stand-in prompt ids (BOS = 1 first)."""
+    import numpy as np
+
+    rng = np.random.default_rng(300)
+    lq = rng.integers(0, 256, (1, SIZE, SIZE, 3), dtype=np.uint8)
+    pre = [1] + rng.integers(3, 32000, CAPTION_PRE - 1).tolist()
+    return lq, pre, rng.integers(3, 32000, CAPTION_POST).tolist()
+
+
+class plain_products:
+    """Within it, every K4 and K5 site of the port runs its plain version."""
+
+    def __init__(self, qm):
+        self.qm = qm
+
+    def __enter__(self):
+        self.saved = self.qm.quant_matmul, self.qm.quant_matmul_int4
+        self.qm.quant_matmul = self.qm.quant_matmul_ref
+        self.qm.quant_matmul_int4 = self.qm.quant_matmul_int4_ref
+
+    def __exit__(self, *exc):
+        self.qm.quant_matmul, self.qm.quant_matmul_int4 = self.saved
+
+
+def teacher_forced(path, qm, cap, lq, tokens, step_logits, float_lm):
+    """The generated ids through the same model on the plain products in one
+    prefill: logits at the 60 generated positions against the kernel path's
+    within CAPTION_REL_TOL x max|plain logits|, and each id equal to the
+    plain argmax wherever the plain top-2 margin exceeds that limit. The
+    float model (``float_lm``) on the same ids must fail the limit in the
+    int4 mode."""
+    import torch
+
+    lm = cap.model.language_model
+    with torch.no_grad(), plain_products(qm):
+        embeds = cap.prompt_embeds(lq)
+        seq = torch.cat([embeds, lm.model.embed_tokens(tokens[:, :-1])], dim=1)
+        plain = lm(seq)[0, embeds.shape[1] - 1:].float()
+        unquantised = float_lm(seq)[0, embeds.shape[1] - 1:].float()
+    kernel = torch.cat(step_logits).float()
+    limit = CAPTION_REL_TOL * plain.abs().max().item()
+    err = (kernel - plain).abs().max().item()
+    err_float = (unquantised - plain).abs().max().item()
+    top2 = plain.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > limit
+    same = bool(torch.equal(tokens[0][clear], plain.argmax(-1)[clear]))
+    agree = int((tokens[0] == plain.argmax(-1)).sum())
+    print(f"[{path}] teacher forcing on the plain products: logits max err {err:.3e}, limit "
+          f"{limit:.3e} ({CAPTION_REL_TOL:g} x max|plain|); ids equal to the plain argmax at "
+          f"{agree}/{CAPTION_NEW} positions, at all {int(clear.sum())} with a top-2 margin above "
+          f"the limit: {same}; the float model on the same ids: max err {err_float:.3e} "
+          f"({err_float / limit:.1f} x the limit)")
+    check(err <= limit, f"{path}: kernel logits disagree with the plain products: {err} > {limit}")
+    check(same, f"{path}: an id differs from the plain argmax where the margin is clear")
+    if path == "caption_int4":
+        check(err_float > limit, f"the limit does not see int4 quantisation: {err_float} <= {limit}")
+
+
+def phase_caption(path, qm, model, lq, pre, post, float_lm):
+    """One caption of the LQ in one mode (after a warm-up caption): launch
+    counts, stage times, tokens/s, memory; teacher forcing for the quantised
+    modes. Returns (launch counts, ids)."""
+    import torch
+
+    from diffbir_tpu_torch.captioners.llava import LLaVACaptioner
+
+    cap = LLaVACaptioner(model, pre, post, max_new_tokens=CAPTION_NEW, eos_id=NEVER_EOS)
+    cap.generate(lq[0])  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    timings, step_logits = {}, []
+    reset_counts()  # count only this caption from here
+    t0 = time.perf_counter()
+    tokens = cap.generate(lq[0], timings=timings, step_logits=step_logits)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts()
+    ran = {k: v for k, v in launches.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    weights = nbytes(*model.parameters(), *model.buffers()) / 2**30
+    steps = timings["decode_steps"]
+    print(f"[{path}] caption {dt:.3f} s: vision {1e3 * timings['vision']:.2f} ms, prefill "
+          f"({CAPTION_ROWS} rows) {1e3 * timings['prefill']:.2f} ms, decode "
+          f"{1e3 * timings['decode'] / steps:.3f} ms per token over {steps} steps; "
+          f"{CAPTION_NEW / (timings['prefill'] + timings['decode']):.2f} tokens/s after the "
+          f"tower; device memory: this mode's weights {weights:.2f} GiB + the caption's "
+          f"{peak - resident:.2f} GiB above what was resident ({resident:.2f} GiB, every mode's "
+          f"model and the SD models), peak {peak:.2f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in ran.items()))
+    check(steps == CAPTION_NEW - 1, f"{path}: {steps} decode steps")
+    check(ran == CAPTION_PATHS[path], f"{path}: expected launches {CAPTION_PATHS[path]}, got {ran}")
+    check(tokens.shape == (1, CAPTION_NEW) and int(tokens.min()) >= 0
+          and int(tokens.max()) < 32000, f"{path}: bad ids {tokens}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in step_logits), f"{path}: non-finite logits")
+    print(f"[{path}] ids {tokens[0].tolist()}")
+    if path != "caption_bf16":
+        teacher_forced(path, qm, cap, lq[0], tokens, step_logits, float_lm)
+    return launches, tokens
+
+
+def phase_captioned_request(model, cldm, swinir, lq, pre, post):
+    """The int4 caption of the LQ, then the default SwinIRPipeline.run on the
+    same LQ, both models resident. The SD prompt stays the empty-prompt ids
+    (the caption ids cannot be tokenised for CLIP without the vocabulary)."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.captioners.llava import LLaVACaptioner
+    from diffbir_tpu_torch.pipeline import SwinIRPipeline
+    from diffbir_tpu_torch.schedule import Schedule
+
+    cap = LLaVACaptioner(model, pre, post, max_new_tokens=CAPTION_NEW, eos_id=NEVER_EOS)
+    pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # count only this request from here
+    t0 = time.perf_counter()
+    ids = cap(lq[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    timings = {}
+    out = pipe.run(lq, steps=STEPS, cfg_scale=CFG, seed=1, timings=timings)
+    t2 = time.perf_counter()
+    launches = counts()
+    ran = {k: v for k, v in launches.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[captioned_request] caption {t1 - t0:.3f} s ({len(ids)} ids), restore "
+          f"{t2 - t1:.3f} s, total {t2 - t0:.3f} s; peak device memory {peak:.2f} GiB; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in ran.items()))
+    print(f"[captioned_request] caption ids {ids}")
+    check(ran == CAPTION_PATHS["captioned_request"],
+          f"captioned_request: expected launches {CAPTION_PATHS['captioned_request']}, got {ran}")
+    check(len(ids) == CAPTION_NEW, f"captioned_request: {len(ids)} ids")
+    check(out.shape == (1, SIZE, SIZE, 3) and out.dtype == np.uint8 and float(out.std()) > 1.0,
+          f"captioned_request: bad output {out.shape} {out.dtype}")
+    return launches
+
+
+def phase_llava(qm, cldm, swinir):
+    """The three caption modes and the captioned request; returns {path:
+    launch counts}."""
+    import torch
+
+    models = build_llava()
+    lq, pre, post = caption_inputs()
+    launches, ids = {}, {}
+    for path in ("caption_int4", "caption_int8", "caption_bf16"):
+        launches[path], ids[path] = phase_caption(path, qm, models[path], lq, pre, post,
+                                                  models["caption_bf16"].language_model)
+    same = {p: int((ids[p] == ids["caption_bf16"]).sum()) for p in ("caption_int4", "caption_int8")}
+    print(f"[llava] ids equal to the bf16 caption's: int4 {same['caption_int4']}/{CAPTION_NEW}, "
+          f"int8 {same['caption_int8']}/{CAPTION_NEW} (random weights: no quality claim)")
+    del models["caption_int8"], models["caption_bf16"]
+    torch.cuda.empty_cache()
+    launches["captioned_request"] = phase_captioned_request(
+        models["caption_int4"], cldm, swinir, lq, pre, post)
+    return launches
+
+
 
 def controlnet_grad(cldm, loss_fn, batch, draws):
     """The ControlNet's flattened gradient of one loss (zeros for a tensor
@@ -1065,7 +1377,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     KERNELS.update(K1=fa.KERNEL, K2a=fa.KERNEL_DQ, K2b=fa.KERNEL_DKV, K3=fa.KERNEL_PRESCALED,
-                   K4=qm.KERNEL, K6=fr.KERNEL, K7=ff.KERNEL)
+                   K4=qm.KERNEL, K5=qm.KERNEL_INT4, K6=fr.KERNEL, K7=ff.KERNEL)
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() == 1,
@@ -1075,16 +1387,17 @@ def main() -> int:
         numbers = {"K1": phase_kernel(fa)}
         k2 = phase_backward_kernels(fa)
         numbers.update(K2a=k2["dq"], K2b=k2["dkv"], K3=phase_k3(fa), K4=phase_k4(qm),
-                       K6=phase_k6(fr), K7=phase_k7(ff))
+                       K5=phase_k5(qm), K6=phase_k6(fr), K7=phase_k7(ff))
         torch.cuda.empty_cache()
         cldm, swinir = build_models()
         phase_model_call(fa, cldm)
         paths = {"serve": phase_slice("serve", cldm, swinir, SEEDS)}
         paths.update(phase_modes(cldm, swinir))
+        paths.update(phase_llava(qm, cldm, swinir))
         del cldm, swinir
         torch.cuda.empty_cache()
         paths["train"] = phase_train(fa)
-        for path, expected in PER_REQUEST.items():  # no other kernel ran on a serving path
+        for path, expected in {**PER_REQUEST, **CAPTION_PATHS}.items():  # and no other kernel
             check(all(n == 0 for k, n in paths[path].items() if k not in expected),
                   f"{path} launched other kernels: {paths[path]}")
     except (SmokeFailure, RuntimeError) as e:
@@ -1099,6 +1412,7 @@ def main() -> int:
         ("K3", "flash_attention_fwd_prescaled", "flash_attention_fwd.cu",
          "flash_attention.py:229"),
         ("K4", "quant_matmul", "quant_matmul.cu", "quant_matmul.py:45"),
+        ("K5", "quant_matmul_int4", "quant_matmul_int4.cu", "quant_matmul.py:232"),
         ("K6", "fused_resblock", "fused_resblock.cu", "fused_resblock.py:141"),
         ("K7", "fused_ffn", "fused_ffn.cu", "fused_ffn.py:91"),
     )

@@ -81,10 +81,12 @@ class GroupNorm32(nn.Module):
 
 
 class LayerNormFp32(nn.LayerNorm):
-    """LayerNorm with fp32 statistics, output in the input dtype."""
+    """LayerNorm with fp32 statistics and affine, output in the input dtype;
+    the parameters are stored in ``dtype`` (fp32 by default)."""
 
-    def __init__(self, dim: int, eps: float = 1e-5, device=None):
-        super().__init__(dim, eps=eps, device=device, dtype=torch.float32)
+    def __init__(self, dim: int, eps: float = 1e-5, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=eps, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(

@@ -17,7 +17,6 @@ Not ported yet, and refused with NotImplementedError: samplers other than
 
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -28,6 +27,7 @@ from .models.swinir import SwinIR
 from .sampler.spaced import SpacedSampler
 from .schedule import Schedule
 from .utils.common import (
+    StageClock,
     bicubic_resize,
     pad_to_multiples_of,
     resize_short_edge_to,
@@ -41,24 +41,6 @@ def build_sampler(sampler_type: str, schedule: Schedule, rescale_cfg: bool) -> S
     if sampler_type != "spaced":
         raise NotImplementedError(f"sampler {sampler_type!r} is not ported yet")
     return SpacedSampler(schedule.betas, schedule.parameterization, rescale_cfg)
-
-
-class _StageClock:
-    """Seconds per pipeline stage, each stage ended by a device sync; a
-    no-op when no dict is given."""
-
-    def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
-        self.out, self.device = out, device
-        self.t = time.perf_counter()
-
-    def lap(self, stage: str) -> None:
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[stage] = self.out.get(stage, 0.0) + now - self.t
-        self.t = now
 
 
 class Pipeline:
@@ -99,13 +81,13 @@ class Pipeline:
         generator: Optional[torch.Generator] = None,
         x_T: Optional[torch.Tensor] = None,
         noise_table: Optional[torch.Tensor] = None,
-        clock: Optional[_StageClock] = None,
+        clock: Optional[StageClock] = None,
     ) -> torch.Tensor:
         """Stage 2 on a [0, 1] NHWC condition image -> [-1, 1] NHWC fp32.
 
         Noise comes from ``generator`` (x_T first, then one draw per step) or
         from ``x_T`` and ``noise_table`` together."""
-        clock = clock or _StageClock(None, self.device)
+        clock = clock or StageClock(None, self.device)
         cldm = self.cldm
         bs, h0, w0, _ = cond_img.shape
         cond_img = pad_to_multiples_of(cond_img, 64)
@@ -171,7 +153,7 @@ class Pipeline:
         if sampler_kwargs:
             raise NotImplementedError(
                 f"not ported yet (tiling, turbo, other samplers): {sorted(sampler_kwargs)}")
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         lq_t = torch.as_tensor(np.asarray(lq), device=self.device).float().div(255.0).clamp(0, 1)
         self.set_output_size(tuple(lq_t.shape[1:3]))
         cond_img = self.apply_cleaner(lq_t)

@@ -1,5 +1,5 @@
-"""Profile one denoise step, or one stage-2 training step, of the port on a
-CUDA device.
+"""Profile one denoise step, one stage-2 training step, or one decode step
+of the LLaVA-1.5-7B captioner, of the port on a CUDA device.
 
 The denoise step is the model call a 512x512 request makes 50 times: a
 full-width SD2.1 ControlLDM (UNet + IRControlNet, random bf16 weights from
@@ -8,20 +8,25 @@ the batch. With ``--train`` the step is instead one stage-2 training step of
 ``build_train_setup``, which ``chip_smoke.py`` drives too: gradient
 checkpointing, the ControlNet initialised from the UNet, a frozen realesrgan
 SwinIR cleaner, the v2.1 schedule with noise augmentation at 200, AdamW at
-lr 1e-5, batch 8 at 512x512. Prints
+lr 1e-5, batch 8 at 512x512. With ``--caption BITS`` (4, 8 or 16) it is one
+greedy decode step of LLaVA-1.5-7B (random bf16 weights from seed 0, the big
+linears on K5 at 4 bits, on K4 at 8) after a 624-row prefill, as
+``chip_smoke.py``'s captions run 59 of them. Prints
 
 - host and device time per step, with the flash kernels (K1, and K2a/K2b in
   training) and with plain attention, in the order plain, kernel, kernel,
   plain: the medians over 10 calls (5 when training) of the host's enqueue
   time (call to return), of the wall time (call to device sync) and of the
   device span between two CUDA events;
+  (a decode step is timed through the kernels only);
 - a ``torch.profiler`` view of 3 steps through the kernels: device time by
-  kernel, device kernels and ``aten::copy_`` calls per step, K1's, K2a's and
-  K2b's device time, and the device's busy share of the profiled window.
+  kernel, device kernels and ``aten::copy_`` calls per step, the device time
+  of each of the port's kernels that ran, and the device's busy share of the
+  profiled window.
 
 Run from the repository root on a machine with a card:
 
-    python3 -m diffbir_tpu_torch.profile_step [--train] [--trace step_trace.json]
+    python3 -m diffbir_tpu_torch.profile_step [--train | --caption 4] [--trace step_trace.json]
 """
 
 from __future__ import annotations
@@ -47,9 +52,11 @@ from .train import stage2
 LATENT, CFG, SEED = 64, 4.0, 0
 TIMED_STEPS, TIMED_TRAIN_STEPS, PROFILED_STEPS = 10, 5, 3
 TRAIN_BATCH, TRAIN_LR, NOISE_AUG = 8, 1e-5, 200
-# device kernel names of K1, K2a and K2b
+# the captioner's decode step: after a prompt of 35 + 576 + 13 rows
+CAPTION_ROWS, CAPTION_NEW = 624, 60
+# device kernel names of K1, K2a, K2b, K4 and K5
 KERNELS = {"K1": "flash_fwd_kernel", "K2a": "flash_bwd_dq_kernel",
-           "K2b": "flash_bwd_dkv_kernel"}
+           "K2b": "flash_bwd_dkv_kernel", "K4": "quant_matmul_kernel", "K5": "int4_"}
 
 
 def build_step(seed: int, device: torch.device):
@@ -131,6 +138,30 @@ def build_train_step(seed: int, device: torch.device):
     return setup.cldm, step
 
 
+def build_decode_step(seed: int, device: torch.device, bits: int):
+    """LLaVA-1.5-7B in bf16 (random from ``seed``, quantised in place at 4 or
+    8 bits), its KV caches filled by a prefill of CAPTION_ROWS random rows,
+    and one decode step at the next position."""
+    from .models.llava import Llava, quantize_llama_
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Llava.llava15_7b(dtype=torch.bfloat16, device="meta").to_empty(device=device)
+    random_init_(model, gen).eval()
+    if bits != 16:
+        quantize_llama_(model, bits)
+    lm = model.language_model
+    embeds = torch.randn(1, CAPTION_ROWS, lm.cfg.dim, generator=gen, device=device)
+    with torch.no_grad():
+        _, cache = lm.prefill(embeds.to(torch.bfloat16), CAPTION_ROWS + CAPTION_NEW)
+    token = torch.ones(1, dtype=torch.long, device=device)
+
+    @torch.no_grad()
+    def step():
+        return lm.decode_step(token, CAPTION_ROWS, cache)
+
+    return step
+
+
 def time_steps(step, n: int) -> dict:
     """Medians over n calls, each started on an idle device."""
     for _ in range(2):
@@ -194,6 +225,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--train", action="store_true",
                     help="profile a stage-2 training step instead of a denoise step")
+    ap.add_argument("--caption", type=int, choices=(4, 8, 16), default=None,
+                    help="profile a decode step of the LLaVA-1.5-7B captioner at these bits")
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the profiled steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -201,6 +234,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    if args.caption is not None:
+        step = build_decode_step(SEED, device, args.caption)
+        print(f"[profile] {torch.cuda.get_device_name(0)}; LLaVA-1.5-7B decode step at "
+              f"{args.caption} bits after a {CAPTION_ROWS}-row prefill")
+        r = time_steps(step, TIMED_STEPS)
+        print(f"[step] median of {TIMED_STEPS} decode steps: enqueue {r['enqueue_ms']:.2f} ms, "
+              f"wall {r['wall_ms']:.2f} ms, device span {r['device_ms']:.2f} ms")
+        report(profile_steps(step, PROFILED_STEPS, args.trace))
+        return 0
     if args.train:
         cldm, step = build_train_step(SEED, device)
         timed = TIMED_TRAIN_STEPS
@@ -219,16 +261,21 @@ def main(argv=None) -> int:
               f"{r['enqueue_ms']:.2f} ms, wall {r['wall_ms']:.2f} ms, "
               f"device span {r['device_ms']:.2f} ms")
     cldm.set_attention_impl("auto")
-    p = profile_steps(step, PROFILED_STEPS, args.trace)
+    report(profile_steps(step, PROFILED_STEPS, args.trace))
+    return 0
+
+
+def report(p: dict) -> None:
     print(p["table"])
     ours = ", ".join(
         f"{k} {ms:.2f} ms in {p['launches_per_step'][k]:.0f} launches "
-        f"({ms / p['busy_ms_per_step']:.1%} of busy)" for k, ms in p["ms_per_step"].items())
+        f"({ms / p['busy_ms_per_step']:.1%} of busy)" for k, ms in p["ms_per_step"].items()
+        if p["launches_per_step"][k])
     print(f"[profile] {p['steps']} steps through the kernels: device busy "
           f"{p['busy_ms_per_step']:.2f} ms per step, {p['kernels_per_step']:.0f} device "
           f"kernels per step, {p['copies_per_step']:.0f} aten::copy_ per step; per step "
-          f"{ours}; busy share of the {p['window_ms']:.2f} ms window {p['busy_share']:.3f}")
-    return 0
+          f"{ours or 'none of the port kernels'}; busy share of the {p['window_ms']:.2f} ms "
+          f"window {p['busy_share']:.3f}")
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ antialiasing.)
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,3 +103,21 @@ def pad_to_multiples_of(x: torch.Tensor, multiple: int) -> torch.Tensor:
     if ph == 0 and pw == 0:
         return x
     return F.pad(x, (0, 0, 0, pw, 0, ph))
+
+
+class StageClock:
+    """Seconds per stage of a request, each stage ended by a device sync; a
+    no-op when no dict is given."""
+
+    def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
+        self.out, self.device = out, device
+        self.t = time.perf_counter()
+
+    def lap(self, stage: str) -> None:
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[stage] = self.out.get(stage, 0.0) + now - self.t
+        self.t = now

@@ -22,6 +22,10 @@ read one tensor:
 
 Every other leaf becomes fp32.
 
+The LLaVA captioner's functional trees (lists of layers, HF key names) go
+through ``llava_to_state_dict`` instead; its quantised scopes hold ``w_q`` or
+``w_q4``, so a LayerNorm's ``scale`` is never taken for a quantised one.
+
 The tree is plain nested dicts of numpy arrays (``jax.device_get`` of a flax
 tree), so this module needs no JAX.
 """
@@ -82,4 +86,74 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, leaf, quant in _flatten(tree):
         key, v = convert_leaf(path, leaf, quant)
         out[key] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# LLaVA: the JAX package's functional trees (``models/llava.py``)
+# --------------------------------------------------------------------------- #
+# quantised linears: int8 {w_q [K, N], scale [N]}, packed int4 {w_q4 [K/2, N],
+# scale_g [K/128, N]}; both stay in the JAX layout
+_LLAVA_QUANT_LEAVES = {"w_q": ("weight_q", np.int8), "scale": ("weight_scale", np.float32),
+                       "w_q4": ("weight_q4", np.int8),
+                       "scale_g": ("weight_scale_g", np.float32),
+                       "bias": ("bias", np.float32)}
+
+
+def _walk(tree, path: Tuple[str, ...] = ()):
+    """(path, leaf, in a quantised linear?) for every leaf; list items are
+    path components '0', '1', ..."""
+    quant = "w_q" in tree or "w_q4" in tree
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _walk(val, path + (key,))
+        elif isinstance(val, (list, tuple)):
+            for i, item in enumerate(val):
+                yield from _walk(item, path + (key, str(i)))
+        else:
+            yield path + (key,), val, quant
+
+
+def llava_to_state_dict(llama: Mapping[str, Any], vision: Mapping[str, Any],
+                        projector: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The three JAX LLaVA trees (``init_llama_params`` or
+    ``load_llava_params`` form, float, int8 or int4) -> the state dict of
+    ``models.llava.Llava`` (the HF ``llava-hf/llava-1.5-7b-hf`` keys):
+
+    - llama -> ``language_model.model.*``, its ``lm_head`` ->
+      ``language_model.lm_head``; vision -> ``vision_tower.vision_model.*``,
+      its ``layers`` -> ``encoder.layers``; projector ->
+      ``multi_modal_projector.*``; list items -> ``.{i}.``;
+    - ``kernel`` -> ``weight``: dense (I, O) -> (O, I), the patch conv HWIO ->
+      OIHW; LayerNorm ``scale`` -> ``weight``; ``class_embedding`` and the
+      embeddings' and RMSNorms' ``weight`` as they are;
+    - quantised linears in the JAX layout: ``w_q`` -> ``weight_q`` (int8),
+      ``scale`` -> ``weight_scale``, ``w_q4`` -> ``weight_q4`` (int8),
+      ``scale_g`` -> ``weight_scale_g``.
+
+    Every float leaf becomes fp32."""
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, tree in (("language_model.model", llama), ("vision_tower.vision_model", vision),
+                         ("multi_modal_projector", projector)):
+        for path, leaf, quant in _walk(tree):
+            *mods, name = path
+            base = prefix
+            if prefix == "language_model.model" and mods[0] == "lm_head":
+                base = "language_model"
+            elif prefix == "vision_tower.vision_model" and mods and mods[0] == "layers":
+                mods[0] = "encoder.layers"
+            if quant:
+                if name not in _LLAVA_QUANT_LEAVES:
+                    raise KeyError(f"unexpected leaf {'.'.join(path)} in a quantised linear")
+                name, dtype = _LLAVA_QUANT_LEAVES[name]
+                v = np.asarray(leaf, dtype=dtype)
+            else:
+                v = np.asarray(leaf, dtype=np.float32)
+                if name == "kernel":
+                    v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+                    name = "weight"
+                elif name == "scale":
+                    name = "weight"
+            key = ".".join([base, *mods, name])
+            out[key] = torch.from_numpy(np.ascontiguousarray(v))
     return out

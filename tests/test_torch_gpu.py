@@ -1,7 +1,8 @@
 """The kernels on a CUDA device, against their plain versions and against
 the CPU: flash attention (K1 forward, K2a/K2b backward, K3 the prescaled-q
-forward), the int8 matmul (K4), the fused ResBlock (K6) and the fused GEGLU
-FFN (K7); the build key; the serving modes' autograd and a small model.
+forward), the int8 matmul (K4), the packed-int4 matmul (K5), the fused
+ResBlock (K6) and the fused GEGLU FFN (K7); the build key; the serving modes'
+autograd and a small model; a small LLaVA captioner.
 
 These tests need a card: they skip without one. The GPU machine has no JAX,
 and ``tests/conftest.py`` imports it, so run them there without the conftest:
@@ -405,3 +406,84 @@ def test_small_fp32_model_in_the_serving_modes_matches_cpu(cuda):
         assert tuple(k.launches - b for k, b in zip(kernels, before)) == launched
         assert bool(torch.isfinite(out).all())
         assert (out.cpu() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+# --------------------------------------------------------------------------- #
+# the captioner: K5 and a small LLaVA
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("m,k,n", [(1, 512, 512), (1, 768, 70), (3, 256, 130), (9, 512, 64),
+                                   (37, 768, 130)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
+def test_quant_matmul_int4_matches_plain_version(cuda, m, k, n, dtype, tol):
+    """K5 in its GEMV form (M <= 8; N % 4 == 0 and ragged N) and its tile
+    form (ragged M and N); x and the dequantised weight rounded to bf16 on
+    both sides, so fp32 agrees to the sum order."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    packed, scale = qm.quantize_weight_int4(torch.randn(k, n, generator=g, device=cuda))
+    before = qm.KERNEL_INT4.launches
+    out = qm.quant_matmul_int4(x, packed, scale)
+    torch.cuda.synchronize()
+    assert qm.KERNEL_INT4.launches == before + 1
+    _close(out, qm.quant_matmul_int4_ref(x, packed, scale), tol)
+    assert torch.equal(out, qm.quant_matmul_int4(x, packed, scale))  # no atomics
+    with pytest.raises(ValueError, match="K %"):
+        qm.quant_matmul_int4(x[:, :128], packed[:64], scale[:1])
+
+
+def test_int4_linear_on_the_card_matches_cpu(cuda):
+    lin = torch.nn.Linear(512, 96)
+    torch.nn.init.normal_(lin.weight, std=0.05)
+    layer = qm.Int4Linear.from_linear(lin)
+    x = torch.randn(2, 3, 512)
+    with torch.no_grad():
+        ref = layer(x)
+        out = layer.to(cuda)(x.to(cuda))
+    assert out.device.type == "cuda"
+    _close(out.cpu(), ref, 1e-5)
+
+
+def test_small_llava_captioner_matches_cpu(cuda):
+    """A small fp32 LLaVA (head dims 64: K1 in the vision tower) captions one
+    image on the card and on the CPU, float and int4 (K5 at every one of its
+    7 x 2 linears in the prefill and in each decode step). Teacher forcing
+    on the CPU's ids: logits within 1e-3 x max|ref| (float) or 1e-2 (int4:
+    activations rounded to bf16 before each product), and equal ids wherever
+    the CPU's top-2 margin exceeds that limit."""
+    import copy
+
+    import numpy as np
+
+    from diffbir_tpu_torch.captioners.llava import LLaVACaptioner
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.llava import (ClipVisionConfig, Llava, LlamaConfig,
+                                                quantize_llama_)
+
+    cfg = LlamaConfig(dim=256, n_layers=2, n_heads=4, ffn_dim=512, vocab_size=256)
+    vcfg = ClipVisionConfig(image_size=112, patch_size=14, width=128, layers=3, heads=2,
+                            mlp_dim=256)
+    float_model = random_init_(Llava(cfg, vcfg), torch.Generator().manual_seed(3)).eval()
+    image = np.random.default_rng(0).integers(0, 256, (90, 130, 3), dtype=np.uint8)
+    for bits, tol in ((16, 1e-3), (4, 1e-2)):
+        model = float_model if bits == 16 else quantize_llama_(copy.deepcopy(float_model), 4)
+        caps = {dev: LLaVACaptioner(copy.deepcopy(model), [1, 7, 8], [9, 10], max_new_tokens=5,
+                                    eos_id=-1, device=dev) for dev in ("cpu", "cuda")}
+        before = (fa.KERNEL.launches, qm.KERNEL_INT4.launches)
+        tokens = caps["cuda"].generate(image)
+        torch.cuda.synchronize()
+        launched = (fa.KERNEL.launches - before[0], qm.KERNEL_INT4.launches - before[1])
+        assert launched == (2, 14 * 5 if bits == 4 else 0)
+        ref_tokens = caps["cpu"].generate(image)
+        logits = {}
+        for dev, cap in caps.items():
+            with torch.no_grad():
+                embeds = cap.prompt_embeds(image)
+                seq = torch.cat([embeds, cap.model.language_model.model.embed_tokens(
+                    ref_tokens[:, :-1].to(dev))], dim=1)
+                logits[dev] = cap.model.language_model(seq)[0, embeds.shape[1] - 1:].cpu()
+        ref = logits["cpu"]
+        limit = tol * ref.abs().max().item()
+        assert (logits["cuda"] - ref).abs().max().item() <= limit
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > limit
+        assert torch.equal(tokens[0].cpu()[clear], ref_tokens[0][clear])
