@@ -8,19 +8,25 @@ Phases (any failure exits non-zero before the last line is printed):
      convolutions, so fp32 comparisons are exact-math comparisons.
   1. build every kernel from diffbir_tpu_torch/csrc, one nvcc per source, all
      started together: K1/K3 (flash forward, plain and prescaled-q entry),
-     K2a/K2b (flash backward), K4 (int8 matmul), K5 (packed-int4 matmul), K6
-     (fused ResBlock), K7 (fused GEGLU FFN).
+     K2a/K2b (flash backward: the tensor-core entries for bf16 at d = 64 and
+     128, the CUDA-core entries K2a_cc/K2b_cc for fp32 and d = 256/512), K4
+     (int8 matmul), K5 (packed-int4 matmul), K6 (fused ResBlock), K7 (fused
+     GEGLU FFN); the count of HGMMA/HMMA instructions in the tensor-core
+     entries (cuobjdump -sass, where the toolkit has it).
   2. K1 against its plain PyTorch version at the serving shapes, at the
      training path's frozen VAE encodes ([8,4096,1,512]) and at the
      captioner's vision tower ([1,577,16,64]), with median times of both and
      of the library call.
   3. K1 with its logsumexp, K2a (dq) and K2b (dk, dv) against their plain
-     versions at the training shapes (batch 8), a ragged, a strided and an
-     fp32 case and d = 128/256/512; the backward run twice must give
-     bit-identical gradients; a kernel that skips a kv tile must fail the
-     limits (their power); median times of kernel, plain version and the
-     library call (scaled_dot_product_attention forward, and its backward
-     through autograd), beside the bound.
+     versions at the training shapes (batch 8), ragged cases (Sq and Skv
+     multiples of neither tile, Sq != Skv, less than one tile), a strided
+     case (views of one projection, a strided dO), fp32 cases and d =
+     128/256/512, each saying by counter which entry ran; the backward run
+     twice must give bit-identical gradients; a kernel that skips a kv tile
+     must fail the limits (their power); median times of kernel, plain
+     version and the library call (scaled_dot_product_attention forward, and
+     its backward through autograd), beside the bound; at [8,4096,5,64] the
+     tensor-core entries beside the CUDA-core ones, with TFLOP/s.
   4. the serving modes' and the captioner's kernels at their paths' shapes,
      each against its plain version, each with a planted fault that must
      fail the limits, and with median times of kernel, plain version and a
@@ -62,7 +68,8 @@ Phases (any failure exits non-zero before the last line is printed):
      UNet, frozen realesrgan SwinIR cleaner, v2.1 schedule, noise aug at 200,
      lr 1e-5), batch 8 at 512x512 from seeded numpy, empty prompts: 2 warm-up
      and 5 timed steps; finite losses, only the ControlNet changes, K1/K2a/K2b
-     launches per step; then at batch 2 one step's ControlNet gradient through
+     launches per step (K2 on the tensor-core entries, none on the CUDA-core
+     ones); then at batch 2 one step's ControlNet gradient through
      K1+K2 against the same through plain attention, and the same with the
      attention sites' q/k/v gradients dropped must fail the limits.
 The second-to-last line is a JSON list of the kernels; the last line is
@@ -270,7 +277,8 @@ KERNELS = {}
 
 def phase_build():
     """One nvcc per source, all started together, then every entry point
-    loaded (K1/K3 and K2a/K2b share a library each)."""
+    loaded (K1/K3 and K2a/K2b and their CUDA-core entries share a library
+    each); the tensor-core instructions of the new K2a/K2b kernels."""
     from diffbir_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -286,6 +294,39 @@ def phase_build():
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {kernel.source.name}:", line.strip())
+    tensor_core_sass(_cuda)
+
+
+def tensor_core_sass(_cuda) -> None:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel function of
+    the backward's library, from cuobjdump -sass; the tensor-core K2a/K2b
+    kernels must have some."""
+    nvcc = _cuda.find_nvcc()
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.isfile(tool):
+        print("[build] cuobjdump not in the toolkit: SASS not counted")
+        return
+    lib = _cuda.build(KERNELS["K2a"].source)[0]
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "HMMA" in line
+    for name in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+        found = {f: c for f, c in counts.items() if name in f}
+        check(bool(found), f"no {name} in {lib.name}'s SASS")
+        for f, (hgmma, hmma) in found.items():
+            inst = f.split(name)[1][:6]  # ILi64 or ILi128: the head dim
+            print(f"[build] SASS {name}<{inst[3:].rstrip('E')}>: {hgmma} HGMMA, {hmma} HMMA")
+            check(hgmma > 0, f"{f} has no wgmma instruction")
+    cores = [c for f, c in counts.items() if "_tc_" not in f]
+    print(f"[build] SASS of the {len(cores)} CUDA-core instances: "
+          f"{sum(c[0] for c in cores)} HGMMA, {sum(c[1] for c in cores)} HMMA")
 
 
 def sdpa_fwd(q, k, v, scale=None):
@@ -375,16 +416,23 @@ def check_power(fa, q, k, v, g, o, lse, refs, limits):
 
 
 def phase_backward_kernels(fa):
-    """K1 with lse, K2a and K2b against their plain versions; returns the
-    kernel lines' numbers for K2a and K2b at [8,4096,5,64] bf16."""
+    """K1 with lse, K2a and K2b against their plain versions, each case on
+    the entries that ``bwd_entries`` names (by counter); returns the kernel
+    lines' numbers for K2a and K2b at [8,4096,5,64] bf16."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [((8, 4096, 5, 64), bf), ((8, 1024, 10, 64), bf), ((8, 256, 20, 64), bf),
-             ((8, 64, 20, 64), bf), ((2, 4000, 5, 64), bf), ("strided", bf),
-             ((2, 300, 4, 128), bf), ((1, 300, 2, 256), bf), ((1, 600, 1, 512), bf),
-             ((2, 1024, 10, 64), f32), ((1, 300, 1, 512), f32)]
+    # (B, Sq, Skv, H, D): the training shapes, ragged (multiples of neither
+    # 128-row tile; Sq != Skv; less than one tile), d = 128 to 512, fp32
+    cases = [((8, 4096, 4096, 5, 64), bf), ((8, 1024, 1024, 10, 64), bf),
+             ((8, 256, 256, 20, 64), bf), ((8, 64, 64, 20, 64), bf),
+             ((2, 4000, 4000, 5, 64), bf), ((2, 1000, 1000, 5, 64), bf),
+             ((1, 130, 77, 2, 64), bf), ("strided", bf), ((2, 300, 300, 4, 128), bf),
+             ((2, 1024, 1024, 8, 128), bf), ((1, 300, 300, 2, 256), bf),
+             ((1, 600, 600, 1, 512), bf), ((2, 1024, 1024, 10, 64), f32),
+             ((1, 300, 300, 1, 512), f32)]
+    entries = ("K2a", "K2b", "K2a_cc", "K2b_cc")
     max_err = {"dq": 0.0, "dkv": 0.0}
     headline = None
     for shape, dtype in cases:
@@ -393,15 +441,26 @@ def phase_backward_kernels(fa):
             q, k, v = (t.reshape(2, 4096, 5, 64) for t in qkv.chunk(3, dim=-1))
             g = torch.randn(2, 4096, 5, 128, generator=gen, device="cuda").to(dtype)[..., :64]
         else:
-            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                          for _ in range(4))
+            b, sq, skv, h, d = shape
+            q, g = (torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            k, v = (torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
         b, sq, h, d = q.shape
-        label = "x".join(map(str, q.shape)) + (" strided" if shape == "strided" else "")
+        skv = k.shape[1]
+        label = "x".join(map(str, q.shape)) + (f" vs {skv} kv rows" if skv != sq else "")
+        label += " strided" if shape == "strided" else ""
         tol = BF16_TOL if dtype == bf else FP32_TOL
 
         o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
         o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v)
+        before = {n: KERNELS[n].launches for n in entries}
         grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
+        moved = {n: KERNELS[n].launches - before[n] for n in entries}
+        tensor_cores = dtype == bf and d in fa.TC_HEAD_DIMS
+        want = ({"K2a": 1, "K2b": 1, "K2a_cc": 0, "K2b_cc": 0} if tensor_cores
+                else {"K2a": 0, "K2b": 0, "K2a_cc": 1, "K2b_cc": 1})
+        check(moved == want, f"K2 at {label} launched {moved}, expected {want}")
         again = fa.flash_attention_bwd(q, k, v, o, lse, g)
         torch.cuda.synchronize()
         check(all(torch.equal(a, c) for a, c in zip(grads, again)),
@@ -413,9 +472,9 @@ def phase_backward_kernels(fa):
             errs[name] = (out.float() - refs[name].float()).abs().max().item()
             check(errs[name] <= limits[name], f"{name} disagrees with its plain version at "
                   f"{label}: {errs[name]} > {limits[name]}")
-        if shape == (8, 4096, 5, 64):
+        if shape == (8, 4096, 4096, 5, 64):
             check_power(fa, q, k, v, g, o, lse, refs, limits)
-        if dtype == bf:
+        if tensor_cores:
             max_err["dq"] = max(max_err["dq"], errs["dq"])
             max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
 
@@ -433,7 +492,7 @@ def phase_backward_kernels(fa):
                                    iters),
         }
         lib_ms = None
-        if shape in ((8, 4096, 5, 64), (8, 1024, 10, 64)):
+        if shape in ((8, 4096, 4096, 5, 64), (8, 1024, 1024, 10, 64)):
             qt, kt, vt = (x.detach().clone().requires_grad_() for x in (q, k, v))
             out_lib = sdpa_fwd(qt, kt, vt)
             g_lib = g.transpose(1, 2)
@@ -441,23 +500,39 @@ def phase_backward_kernels(fa):
                                                            retain_graph=True), iters)
             t["library bwd"] = lib_ms
         in_bytes = nbytes(q, k, v, o, g, lse)
-        b_dq = bound_ms(3, b, h, sq, sq, d, dtype, in_bytes + nbytes(grads[0]))
-        b_dkv = bound_ms(4, b, h, sq, sq, d, dtype, in_bytes + nbytes(*grads[1:]))
-        b_all = bound_ms(5, b, h, sq, sq, d, dtype, in_bytes + nbytes(*grads))
-        print(f"[bwd] {label} {str(dtype)[6:]}: max err / limit " +
-              ", ".join(f"{n} {e:.3e} / {limits[n]:.3e}" for n, e in errs.items()) +
+        b_dq = bound_ms(3, b, h, sq, skv, d, dtype, in_bytes + nbytes(grads[0]))
+        b_dkv = bound_ms(4, b, h, sq, skv, d, dtype, in_bytes + nbytes(*grads[1:]))
+        b_all = bound_ms(5, b, h, sq, skv, d, dtype, in_bytes + nbytes(*grads))
+        entry = "tensor-core entries" if tensor_cores else "CUDA-core entries"
+        print(f"[bwd] {label} {str(dtype)[6:]} ({entry}, launches "
+              + ", ".join(f"{n} {x}" for n, x in moved.items() if x) + "): max err / limit "
+              + ", ".join(f"{n} {e:.3e} / {limits[n]:.3e}" for n, e in errs.items()) +
               f" (limit {tol:g} x max|ref|, lse {FP32_TOL:g} x max|ref|); "
               "backward bit-identical on a second run")
         print(f"[bwd] {label} {str(dtype)[6:]}: ms " +
               ", ".join(f"{n} {x:.4f}" for n, x in t.items()) +
               f"; bound K2a {b_dq[0]:.4f} ({b_dq[1]}, 3 products), K2b {b_dkv[0]:.4f} "
               f"({b_dkv[1]}, 4 products), whole backward {b_all[0]:.4f} ({b_all[1]}, 5 products)")
-        if shape == (8, 4096, 5, 64):
+        if shape == (8, 4096, 4096, 5, 64):
+            cc_dq = median_ms(lambda: fa.launch_dq(fa.KERNEL_DQ, q, k, v, o, lse, g), iters)
+            cc_dkv = median_ms(lambda: fa.launch_dkv(fa.KERNEL_DKV, q, k, v, o, lse, g), iters)
+            flops = 2.0 * b * h * sq * skv * d
+            rate = {n: p * flops / ms / 1e9 for n, p, ms in (
+                ("K2a", 3, t["K2a"]), ("K2b", 4, t["K2b"]), ("K2a_cc", 3, cc_dq),
+                ("K2b_cc", 4, cc_dkv))}
+            print(f"[bwd] headline {label} bf16: K2a tensor cores {t['K2a']:.4f} ms "
+                  f"({rate['K2a']:.1f} TFLOP/s) vs CUDA cores {cc_dq:.4f} ms "
+                  f"({rate['K2a_cc']:.1f} TFLOP/s), bound {b_dq[0]:.4f} ms; K2b tensor cores "
+                  f"{t['K2b']:.4f} ms ({rate['K2b']:.1f} TFLOP/s) vs CUDA cores {cc_dkv:.4f} ms "
+                  f"({rate['K2b_cc']:.1f} TFLOP/s), bound {b_dkv[0]:.4f} ms; library "
+                  f"backward (dq, dk, dv) {lib_ms:.4f} ms")
             headline = {
                 "dq": {"ms": t["K2a"], "plain_ms": t["plain K2a"], "bound_ms": b_dq[0],
-                       "bound_by": b_dq[1], "library_ms": lib_ms},
+                       "bound_by": b_dq[1], "library_ms": lib_ms,
+                       "cuda_core_entry": "flash_attention_bwd_dq", "cuda_core_ms": cc_dq},
                 "dkv": {"ms": t["K2b"], "plain_ms": t["plain K2b"], "bound_ms": b_dkv[0],
-                        "bound_by": b_dkv[1], "library_ms": lib_ms},
+                        "bound_by": b_dkv[1], "library_ms": lib_ms,
+                        "cuda_core_entry": "flash_attention_bwd_dkv", "cuda_core_ms": cc_dkv},
             }
         del q, k, v, g, o, lse, grads, again, refs
         torch.cuda.empty_cache()
@@ -1288,12 +1363,17 @@ def phase_train(fa):
         print(f"[train] step {i} ({kind}): loss {loss:.5f}, grad norm {gnorm:.5f}, "
               f"{dt:.3f} s; launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
         check(np.isfinite(loss) and np.isfinite(gnorm), f"non-finite loss or grad norm at {i}")
+        # K2 on the tensor-core entries, none on the CUDA-core ones (K2a_cc,
+        # K2b_cc: left out of n when 0)
         expected = {"K1": K1_PER_TRAIN_STEP, "K2a": K2_SITES_PER_TRAIN_STEP,
                     "K2b": K2_SITES_PER_TRAIN_STEP}
         check(n == expected, f"expected launches {expected} per step, got {n}")
         if i >= TRAIN_WARMUP:
             step_s.append(dt)
     launches = counts()
+    print(f"[train] {TRAIN_WARMUP + TRAIN_TIMED} steps: K2a {launches['K2a']} and K2b "
+          f"{launches['K2b']} launches on the tensor-core entries, {launches['K2a_cc']} and "
+          f"{launches['K2b_cc']} on the CUDA-core entries")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(step_s)
     print(f"[train] batch {TRAIN_BATCH} at {SIZE}x{SIZE}: timed steps "
@@ -1376,7 +1456,8 @@ def main() -> int:
         print(f"chip_smoke: FAIL: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
         return 1
-    KERNELS.update(K1=fa.KERNEL, K2a=fa.KERNEL_DQ, K2b=fa.KERNEL_DKV, K3=fa.KERNEL_PRESCALED,
+    KERNELS.update(K1=fa.KERNEL, K2a=fa.KERNEL_DQ_TC, K2b=fa.KERNEL_DKV_TC,
+                   K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV, K3=fa.KERNEL_PRESCALED,
                    K4=qm.KERNEL, K5=qm.KERNEL_INT4, K6=fr.KERNEL, K7=ff.KERNEL)
     t_start = time.perf_counter()
     try:
@@ -1407,8 +1488,9 @@ def main() -> int:
     src, ref = "diffbir_tpu_torch/csrc/", "diffbir_tpu/ops/"
     entries = (
         ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:81"),
-        ("K2a", "flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:371"),
-        ("K2b", "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "flash_attention.py:410"),
+        ("K2a", "flash_attention_bwd_dq_tc", "flash_attention_bwd.cu", "flash_attention.py:371"),
+        ("K2b", "flash_attention_bwd_dkv_tc", "flash_attention_bwd.cu",
+         "flash_attention.py:410"),
         ("K3", "flash_attention_fwd_prescaled", "flash_attention_fwd.cu",
          "flash_attention.py:229"),
         ("K4", "quant_matmul", "quant_matmul.cu", "quant_matmul.py:45"),

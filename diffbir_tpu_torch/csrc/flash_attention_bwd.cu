@@ -12,11 +12,49 @@
 // give p = 0 and q rows past Sq contribute nothing (the TPU pads them to
 // q = dO = 0).
 //
-// Design (first, simple version, the layout of the forward kernel K1). The two
-// kernels keep the TPU's split by accumulation axis; the TPU's sequential grid
+// Two designs in one source, each with its own entry points:
+// - on the tensor cores (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel;
+//   entries flash_attention_bwd_dq_tc / _dkv_tc): bf16 at d = 64 and 128,
+//   which is every backward the port's training path runs;
+// - on the CUDA cores (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; entries
+//   flash_attention_bwd_dq / _dkv): fp32 at any d, bf16 at d = 256 and 512.
+//   The tensor cores have no fp32 mode that keeps fp32's limit (TF32
+//   rounds), and no path of the port runs a backward at d >= 256 (the VAE is
+//   frozen in training).
+// Both keep the TPU's split by accumulation axis; the TPU's sequential grid
 // axis becomes a loop inside the block, so nothing carries between blocks and
 // no atomics are needed: every output row is written by exactly one block, and
 // gradients are bit-identical from run to run.
+//
+// What bounds them on an H100: at the training shapes (S = 4096, d = 64) the
+// dq kernel does 3 and the dk/dv kernel 4 products of 2*Sq*Skv*d flops per
+// head against a few MB of q, k, v, o and dO, so both are compute-bound, and
+// only the tensor cores (989 TFLOP/s in bf16, against 67 for fp32 FMAs on
+// the CUDA cores) come near that bound.
+//
+// Tensor-core design (wgmma m64n64k16 bf16 with fp32 accumulators in
+// registers; two warpgroups a block, each owning 64 output rows):
+// - dq: a block owns 128 query rows (q and dO staged once) and loops over
+//   64-row kv tiles. S = Q.K^T and dP = dO.V^T read both operands from shared
+//   memory (K-major); p and ds are formed on the accumulators; dQ += bf16(dS).K
+//   takes dS from registers as the A operand (the accumulator's layout is the
+//   A fragment's) and K as an MN-major B (the descriptor's transpose bit), so
+//   p and ds never leave registers. delta = rowsum(dO*O) once per row.
+// - dk/dv: a block owns 128 kv rows (k and v staged once) and loops over
+//   64-row q tiles, computing the transposed tiles directly: S^T = K.Q^T and
+//   dP^T = V.dO^T, then dV += bf16(P^T).dO and dK += bf16(dS^T).Q with A from
+//   registers. O is staged beside dO, and delta is formed once per q tile
+//   from shared memory.
+// - Tiles are bf16 in shared memory, in 64-column panels of 128-byte rows
+//   with the 128-byte XOR swizzle that wgmma's descriptors read, loaded with
+//   cp.async in two stages: the next kv (dq) or q (dk/dv) tile is in flight
+//   while the current one is multiplied. Rows past the end are zero-filled
+//   by the copy (src-size 0); kv columns past Skv get p = 0, and q rows past
+//   Sq contribute nothing (p = 0 in dk/dv, not stored in dq).
+// - At d = 128 the products over d (dQ, dK, dV) are issued per 64-column
+//   panel (n = 64), so one descriptor form serves both head dims.
+//
+// CUDA-core design (the layout of the forward kernel K1):
 // - dq: a block owns ROWS query rows of one (batch, head) and loops over kv
 //   tiles staged in shared memory as fp32. Each query row belongs to
 //   G = D/32 consecutive lanes; a lane keeps 32 of the D dims of q, dO and the
@@ -26,14 +64,7 @@
 //   accumulators (128 fp32 registers), which is what lets d = 512 run: the
 //   row is split over 16 lanes instead of held by one thread.
 // Each logit and each dp is a partial dot over the lane's 32 dims plus a
-// shuffle reduction over the G lanes; all products are fp32 FMAs on the CUDA
-// cores.
-//
-// What bounds it on an H100: at the training shapes (S = 4096, d = 64) the
-// dq kernel does 3 and the dk/dv kernel 4 products of 2*Sq*Skv*d flops per
-// head against a few MB of q, k, v, o and dO, so both are compute-bound; on
-// the CUDA cores they run at the fp32 FMA rate (67 TFLOP/s peak), not the
-// bf16 tensor-core rate. Moving the products onto wgmma is later work.
+// shuffle reduction over the G lanes; all products are fp32 FMAs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -307,6 +338,429 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernels (bf16, d = 64 or 128)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+constexpr int NT = 256;  // two warpgroups of 128 threads, 64 rows each
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of the 16-byte chunk c (columns 8c..8c+7) of row r in an
+// [R][D] bf16 tile: 64-column panels of R rows x 128 bytes, each chunk at
+// chunk (c % 8) ^ (r % 8) of its row. With the tile 1024-byte aligned this
+// is the layout of wgmma's 128-byte swizzle, read K-major (rows = M or N,
+// columns = K) or MN-major (rows = K, columns = N) alike.
+template <int R>
+__device__ __forceinline__ uint32_t chunk_off(int r, int c) {
+  return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  // src-size 0 writes 16 zero bytes: the ragged edge is zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// orders this thread's generic-proxy writes to shared memory (cp.async)
+// before the async proxy's reads (wgmma); a barrier follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + R) of a [rows][D] operand with row stride ss (elements)
+// into an [R][D] tile at shared address dst, asynchronously; rows at or past
+// nrows are zero-filled.
+template <int R, int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int64_t ss, int row0,
+                                          int nrows, int tid) {
+  constexpr int CH = D / 8;
+  static_assert((R * CH) % NT == 0, "bad tile");
+#pragma unroll
+  for (int n = 0; n < R * CH / NT; ++n) {
+    const int i = tid + n * NT;
+    const int r = i / CH, c = i % CH;
+    const bool full = row0 + r < nrows;
+    const bf16* g = full ? src + static_cast<int64_t>(row0 + r) * ss + c * 8 : src;
+    cp_async16(dst + chunk_off<R>(r, c), g, full);
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading offset 16 bytes (unused by these layouts), stride offset
+// 1024 bytes (from one group of 8 rows to the next), layout B128.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: rows r0..r0+63 of an [R][D] tile, K columns 16kk..16kk+15
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return desc(tile + (kk >> 2) * (R * 128) + r0 * 128 + (kk & 3) * 32);
+}
+// MN-major B: K rows 16kk..16kk+15 of an [R][D] tile, N columns of panel pn
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int pn, int kk) {
+  return desc(tile + pn * (R * 128) + kk * 16 * 128);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// ties the accumulators to the wait above, so that nothing reads them before
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define TC_ACC32(d)                                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+#define TC_D32                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64x64 fp32) = A.B (+ d if acc): A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_ACC32(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+// d (64x64 fp32) += A.B: A (64x16 bf16) from registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TC_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// sum of a*b over the 8 bf16 pairs of two 16-byte chunks
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 u = __bfloat1622float2(x[e]), w = __bfloat1622float2(y[e]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+// The accumulator of a 64x64 wgmma tile: thread (warp w of its warpgroup,
+// lane l) holds element i at row 16w + l/4 + 8*((i/2)%2), column
+// 8*(i/4) + 2*(l%4) + i%2. The A fragment of K columns 16kk..16kk+15 is
+// then the pairs (8kk, 8kk+1), (8kk+2, 8kk+3), (8kk+4, 8kk+5), (8kk+6, 8kk+7)
+// of such an accumulator rounded to bf16: p and ds feed the next product
+// from registers.
+
+// K2a: dq for 128 query rows of one (batch, head). At d = 64 two blocks fit
+// an SM (<= 128 registers, 66 KB of shared memory each), so one block's
+// exp and stores overlap the other's products.
+template <int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1) flash_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ o, const float* __restrict__ lse, const bf16* __restrict__ dout,
+    bf16* __restrict__ dq, int H, int Sq, int Skv, Strides st, float scale) {
+  constexpr int BQ = 128, BK = 64, KS = D / 16, NP = D / 64;
+  constexpr uint32_t QT = BQ * D * 2, KT = BK * D * 2;  // tile bytes
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t dos = qs + QT;
+  const uint32_t kvs = dos + QT;  // stage s: k at kvs + 2*KT*s, v KT after
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32, wrow = (tid % 128) / 32 * 16 + lane / 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const bf16* qb = q + b * st.sb[Q] + h * st.sh[Q];
+  const bf16* kb = k + b * st.sb[K] + h * st.sh[K];
+  const bf16* vb = v + b * st.sb[V] + h * st.sh[V];
+  const bf16* ob = o + b * st.sb[O] + h * st.sh[O];
+  const bf16* db = dout + b * st.sb[DO] + h * st.sh[DO];
+
+  load_tile<BQ, D>(qs, qb, st.ss[Q], q0, Sq, tid);
+  load_tile<BQ, D>(dos, db, st.ss[DO], q0, Sq, tid);
+  load_tile<BK, D>(kvs, kb, st.ss[K], 0, Skv, tid);
+  load_tile<BK, D>(kvs + KT, vb, st.ss[V], 0, Skv, tid);
+  cp_async_commit();
+
+  // lse (in log2 units) and delta = rowsum(dO * O) of this thread's two rows,
+  // each summed by the 4 lanes that share them
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wg * 64 + wrow + 8 * hr;
+    float part = 0.f;
+    if (row < Sq) {
+      const bf16* dr = db + static_cast<int64_t>(row) * st.ss[DO];
+      const bf16* orow = ob + static_cast<int64_t>(row) * st.ss[O];
+#pragma unroll
+      for (int c = lane % 4; c < D / 8; c += 4)
+        part += dot8(*reinterpret_cast<const uint4*>(dr + 8 * c),
+                     *reinterpret_cast<const uint4*>(orow + 8 * c));
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    delta[hr] = part;
+    lse2[hr] = row < Sq ? lse[(static_cast<int64_t>(b) * H + h) * Sq + row] * LOG2E : 0.f;
+  }
+
+  float acc[NP][32], s[32], dp[32];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const int nt = (Skv + BK - 1) / BK;
+
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) {  // the next kv tile into the other stage
+      const uint32_t nxt = kvs + 2 * KT * ((t + 1) & 1);
+      load_tile<BK, D>(nxt, kb, st.ss[K], (t + 1) * BK, Skv, tid);
+      load_tile<BK, D>(nxt + KT, vb, st.ss[V], (t + 1) * BK, Skv, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (and q, dO) have landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t ks = kvs + 2 * KT * (t & 1), vs = ks + KT;
+
+    // S = Q.K^T, dP = dO.V^T (64 x 64 per warpgroup)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss(s, desc_k<BQ>(qs, wg * 64, kk), desc_k<BK>(ks, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss(dp, desc_k<BQ>(dos, wg * 64, kk), desc_k<BK>(vs, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // p = exp(s * d^-1/2 - lse) (0 past Skv), ds = p * (dp - delta) * d^-1/2
+    // rounded to bf16 as the A fragments of dQ += dS.K
+    uint32_t a[4][4];
+    const int col0 = t * BK + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int hr = (i / 2) % 2;
+      const int col = col0 + 8 * (i / 4);
+      const float p0 = col < Skv ? exp2f(fmaf(s[i], scale2, -lse2[hr])) : 0.f;
+      const float p1 = col + 1 < Skv ? exp2f(fmaf(s[i + 1], scale2, -lse2[hr])) : 0.f;
+      a[i / 8][(i % 8) / 2] =
+          pack_bf16(p0 * (dp[i] - delta[hr]) * scale, p1 * (dp[i + 1] - delta[hr]) * scale);
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc[pn], a[kk], desc_mn<BK>(ks, pn, kk));
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) fence_acc(acc[pn]);
+    __syncthreads();  // every warpgroup is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wg * 64 + wrow + 8 * hr;
+    if (row >= Sq) continue;
+    bf16* out = dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + pn * 64 + 8 * j) =
+            pack_bf16(acc[pn][4 * j + 2 * hr], acc[pn][4 * j + 2 * hr + 1]);
+  }
+}
+
+// K2b: dk and dv for 128 kv rows of one (batch, head).
+template <int D>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ o, const float* __restrict__ lse, const bf16* __restrict__ dout,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv, Strides st,
+    float scale) {
+  constexpr int BKV = 128, BQ = 64, KS = D / 16, NP = D / 64;
+  constexpr uint32_t KT = BKV * D * 2, QT = BQ * D * 2;  // tile bytes
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u;
+  const uint32_t vs = ks + KT;
+  const uint32_t qds = vs + KT;  // stage s: q at qds + 3*QT*s, dO QT after, O 2*QT after
+  uint8_t* const gen = smem_raw + (ks - raw);  // generic pointer to ks
+  float* const lse_s = reinterpret_cast<float*>(gen + 2 * KT + 6 * QT);  // [2][BQ], log2 units
+  float* const delta_s = lse_s + 2 * BQ;                                   // [2][BQ]
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32, wrow = (tid % 128) / 32 * 16 + lane / 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int kv0 = blockIdx.x * BKV;
+  const bf16* qb = q + b * st.sb[Q] + h * st.sh[Q];
+  const bf16* kb = k + b * st.sb[K] + h * st.sh[K];
+  const bf16* vb = v + b * st.sb[V] + h * st.sh[V];
+  const bf16* ob = o + b * st.sb[O] + h * st.sh[O];
+  const bf16* db = dout + b * st.sb[DO] + h * st.sh[DO];
+  const float* lse_b = lse + (static_cast<int64_t>(b) * H + h) * Sq;
+
+  load_tile<BKV, D>(ks, kb, st.ss[K], kv0, Skv, tid);
+  load_tile<BKV, D>(vs, vb, st.ss[V], kv0, Skv, tid);
+  load_tile<BQ, D>(qds, qb, st.ss[Q], 0, Sq, tid);
+  load_tile<BQ, D>(qds + QT, db, st.ss[DO], 0, Sq, tid);
+  load_tile<BQ, D>(qds + 2 * QT, ob, st.ss[O], 0, Sq, tid);
+  cp_async_commit();
+
+  float dka[NP][32], dva[NP][32], s[32], dp[32];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[pn][i] = dva[pn][i] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const int nt = (Sq + BQ - 1) / BQ;
+
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) {  // the next q tile into the other stage
+      const uint32_t nxt = qds + 3 * QT * ((t + 1) & 1);
+      load_tile<BQ, D>(nxt, qb, st.ss[Q], (t + 1) * BQ, Sq, tid);
+      load_tile<BQ, D>(nxt + QT, db, st.ss[DO], (t + 1) * BQ, Sq, tid);
+      load_tile<BQ, D>(nxt + 2 * QT, ob, st.ss[O], (t + 1) * BQ, Sq, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (and k, v) have landed
+    fence_proxy_async();
+    __syncthreads();
+    const int stage = t & 1;
+    const uint32_t qt = qds + 3 * QT * stage, dot = qt + QT;
+    float* const lse_t = lse_s + BQ * stage;
+    float* const delta_t = delta_s + BQ * stage;
+
+    {  // delta = rowsum(dO * O) of the tile's q rows from shared memory, 4 lanes a row
+      const int r = tid / 4;
+      const uint8_t* dr = gen + (dot - ks);
+      const uint8_t* orow = dr + QT;
+      float part = 0.f;
+#pragma unroll
+      for (int c = tid % 4; c < D / 8; c += 4)
+        part += dot8(*reinterpret_cast<const uint4*>(dr + chunk_off<BQ>(r, c)),
+                     *reinterpret_cast<const uint4*>(orow + chunk_off<BQ>(r, c)));
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      if (tid % 4 == 0) {
+        const int row = t * BQ + r;
+        delta_t[r] = part;
+        lse_t[r] = row < Sq ? lse_b[row] * LOG2E : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // S^T = K.Q^T, dP^T = V.dO^T (64 kv rows x 64 q columns per warpgroup)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss(s, desc_k<BKV>(ks, wg * 64, kk), desc_k<BQ>(qt, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss(dp, desc_k<BKV>(vs, wg * 64, kk), desc_k<BQ>(dot, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // p^T (0 past Sq) and ds^T, rounded to bf16 as the A fragments of
+    // dV += P^T.dO and dK += dS^T.Q
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int c = 8 * (i / 4) + 2 * (lane % 4);
+      const int row = t * BQ + c;
+      const float p0 = row < Sq ? exp2f(fmaf(s[i], scale2, -lse_t[c])) : 0.f;
+      const float p1 = row + 1 < Sq ? exp2f(fmaf(s[i + 1], scale2, -lse_t[c + 1])) : 0.f;
+      pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+      da[i / 8][(i % 8) / 2] = pack_bf16(p0 * (dp[i] - delta_t[c]) * scale,
+                                         p1 * (dp[i + 1] - delta_t[c + 1]) * scale);
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dva[pn], pa[kk], desc_mn<BQ>(dot, pn, kk));
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dka[pn], da[kk], desc_mn<BQ>(qt, pn, kk));
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      fence_acc(dva[pn]);
+      fence_acc(dka[pn]);
+    }
+    __syncthreads();  // every warpgroup is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = kv0 + wg * 64 + wrow + 8 * hr;
+    if (row >= Skv) continue;
+    const int64_t off = ((static_cast<int64_t>(b) * Skv + row) * H + h) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = 4 * j + 2 * hr;
+        *reinterpret_cast<uint32_t*>(dk + off + pn * 64 + 8 * j) =
+            pack_bf16(dka[pn][e], dka[pn][e + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + pn * 64 + 8 * j) =
+            pack_bf16(dva[pn][e], dva[pn][e + 1]);
+      }
+  }
+}
+
+#undef TC_ACC32
+#undef TC_D32
+
+}  // namespace tc
+
 // The shared-memory limit past 48 KB is a per-device attribute of each
 // function: set it once per device and template instance, not per launch.
 template <typename Kernel>
@@ -378,6 +832,67 @@ cudaError_t dispatch(bool dkv, int D, const Args& a) {
   }
 }
 
+// The tensor-core kernels: 256 threads; 128 rows a block (query rows for dq,
+// kv rows for dk/dv); bf16 tiles with 1 KB of slack for the 1024-byte
+// alignment of the swizzle.
+template <int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  constexpr int smem = 1024 + (2 * 128 + 4 * 64) * D * 2;  // q, dO; 2 stages of k, v
+  auto kernel = tc::flash_bwd_dq_tc_kernel<D>;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + 127) / 128, a.B * a.H);
+  kernel<<<grid, tc::NT, smem, a.stream>>>(
+      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
+      static_cast<const tc::bf16*>(a.v), static_cast<const tc::bf16*>(a.o),
+      static_cast<const float*>(a.lse), static_cast<const tc::bf16*>(a.dout),
+      static_cast<tc::bf16*>(a.dq), a.H, a.Sq, a.Skv, a.st, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const Args& a) {
+  // k, v; 2 stages of q, dO, O; lse and delta of both stages
+  constexpr int smem = 1024 + (2 * 128 + 6 * 64) * D * 2 + 4 * 64 * 4;
+  auto kernel = tc::flash_bwd_dkv_tc_kernel<D>;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Skv + 127) / 128, a.B * a.H);
+  kernel<<<grid, tc::NT, smem, a.stream>>>(
+      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
+      static_cast<const tc::bf16*>(a.v), static_cast<const tc::bf16*>(a.o),
+      static_cast<const float*>(a.lse), static_cast<const tc::bf16*>(a.dout),
+      static_cast<tc::bf16*>(a.dk), static_cast<tc::bf16*>(a.dv), a.H, a.Sq, a.Skv, a.st,
+      a.scale);
+  return cudaGetLastError();
+}
+
+// cp.async moves 16 bytes: every row of q, k, v, o and dO must start on a
+// 16-byte boundary (pointers, and strides in whole 8-element chunks)
+bool rows_aligned(const Args& a) {
+  const void* ptrs[5] = {a.q, a.k, a.v, a.o, a.dout};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int t = 0; t < 5; ++t)
+    if (a.st.sb[t] % 8 != 0 || a.st.ss[t] % 8 != 0 || a.st.sh[t] % 8 != 0) return false;
+  return true;
+}
+
+int run_tc(bool dkv, int dtype, int D, const Args& a) {
+  if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Skv <= 0 || dtype != 1)
+    return cudaErrorInvalidValue;
+  if (!rows_aligned(a)) return cudaErrorMisalignedAddress;
+  cudaError_t err;
+  switch (D) {
+    case 64: err = dkv ? launch_dkv_tc<64>(a) : launch_dq_tc<64>(a); break;
+    case 128: err = dkv ? launch_dkv_tc<128>(a) : launch_dq_tc<128>(a); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
 int run(bool dkv, int dtype, int D, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Skv <= 0) return cudaErrorInvalidValue;
   cudaError_t err;
@@ -424,6 +939,27 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
   const Args a{q, k, v, o, lse, dout, nullptr, dk, dv, B, H, Sq, Skv,
                unpack(strides), scale, static_cast<cudaStream_t>(stream)};
   return run(true, dtype, D, a);
+}
+
+// The tensor-core entries: the same arguments; bf16 (dtype 1) at D = 64 or
+// 128 only, with every row of q, k, v, o and dout 16-byte aligned (else
+// cudaErrorInvalidValue, cudaErrorMisalignedAddress).
+int flash_attention_bwd_dq_tc(const void* q, const void* k, const void* v, const void* o,
+                              const void* lse, const void* dout, void* dq, int dtype, int B,
+                              int H, int Sq, int Skv, int D, const long long* strides,
+                              float scale, void* stream) {
+  const Args a{q, k, v, o, lse, dout, dq, nullptr, nullptr, B, H, Sq, Skv,
+               unpack(strides), scale, static_cast<cudaStream_t>(stream)};
+  return run_tc(false, dtype, D, a);
+}
+
+int flash_attention_bwd_dkv_tc(const void* q, const void* k, const void* v, const void* o,
+                               const void* lse, const void* dout, void* dk, void* dv,
+                               int dtype, int B, int H, int Sq, int Skv, int D,
+                               const long long* strides, float scale, void* stream) {
+  const Args a{q, k, v, o, lse, dout, nullptr, dk, dv, B, H, Sq, Skv,
+               unpack(strides), scale, static_cast<cudaStream_t>(stream)};
+  return run_tc(true, dtype, D, a);
 }
 
 const char* cuda_error_string(int code) {

@@ -25,8 +25,17 @@ such tensors). The kernels keep them on chip: the forward with an online
 softmax over kv tiles, the backward by recomputing p = exp(s - lse) per tile
 from the forward's saved fp32 logsumexp. They read q, k, v, o and dO through
 their strides, so the projections' views go in without fold/unfold copies.
-This first version runs every product as fp32 FMAs on the CUDA cores; moving
-them to tensor cores (wgmma) is later work.
+K1 and K3 run every product as fp32 FMAs on the CUDA cores. The backward does
+3 (K2a) and 4 (K2b) products of 2*Sq*Skv*d flops per head against a few MB of
+operands, so it is compute-bound: in bf16 at d = 64 and 128 (every backward
+of the training path) K2a and K2b are tensor-core kernels (wgmma, bf16 tiles
+loaded with cp.async in two stages, p and ds kept in registers as the next
+product's A operand; entries ``flash_attention_bwd_dq_tc`` / ``_dkv_tc``,
+counted on ``KERNEL_DQ_TC`` / ``KERNEL_DKV_TC``). fp32 at any d and bf16 at
+d = 256 and 512 go to the CUDA-core entries (``KERNEL_DQ`` / ``KERNEL_DKV``):
+the tensor cores have no fp32 mode that keeps fp32's limit, and no path runs
+a backward at d >= 256. ``bwd_entries`` states the rule; nothing falls back
+from one entry to the other.
 
 Layouts: q, o, dO [B,Sq,H,D]; k, v [B,Skv,H,D]; lse fp32 [B,H,Sq] (not the
 TPU's lane-replicated (BQ, 128) blocks).
@@ -73,6 +82,18 @@ KERNEL_DKV = CudaKernel(
     "flash_attention_bwd_dkv",
     [_ptr] * 8 + [_i32] * 6 + [_ptr, ctypes.c_float, _ptr],
 )
+KERNEL_DQ_TC = CudaKernel(
+    "flash_attention_bwd.cu",
+    "flash_attention_bwd_dq_tc",
+    [_ptr] * 7 + [_i32] * 6 + [_ptr, ctypes.c_float, _ptr],
+)
+KERNEL_DKV_TC = CudaKernel(
+    "flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv_tc",
+    [_ptr] * 8 + [_i32] * 6 + [_ptr, ctypes.c_float, _ptr],
+)
+# head dims of the tensor-core backward (bf16 only)
+TC_HEAD_DIMS = (64, 128)
 
 
 # --------------------------------------------------------------------------- #
@@ -228,10 +249,28 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
+def bwd_entries(q: torch.Tensor) -> Tuple[CudaKernel, CudaKernel]:
+    """The (K2a, K2b) entries for q's dtype and head dim: the tensor-core
+    entries for bf16 at d in ``TC_HEAD_DIMS``, the CUDA-core entries for fp32
+    at any d and for bf16 at d = 256 and 512."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS:
+        return KERNEL_DQ_TC, KERNEL_DKV_TC
+    return KERNEL_DQ, KERNEL_DKV
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every row of t starts on a 16-byte boundary (the tensor-core entries'
+    copies move 16 bytes; bf16 strides in whole 8-element chunks)."""
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0 for i in range(3))
+
+
 def _bwd_inputs(q, k, v, o, lse, g):
-    """Check the backward's inputs; returns (on the kernel device?, dO with a
-    unit-stride head dim: autograd may hand over any view, which is read
-    through its strides unless its head dim is strided, then copied)."""
+    """Check the backward's inputs; returns (on the kernel device?, q, k, v,
+    o, dO). Autograd may hand over any view as dO, which is read through its
+    strides unless its head dim is strided, then copied. For the tensor-core
+    entries an operand whose rows are not 16-byte aligned is copied too (no
+    path of the port makes one: projections' views of 64-wide heads are
+    aligned)."""
     _check(q, k, v)
     if o.shape != q.shape or g.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dO {tuple(g.shape)} must match q "
@@ -246,7 +285,9 @@ def _bwd_inputs(q, k, v, o, lse, g):
                       or not lse.is_contiguous()):
         raise ValueError(f"lse must be contiguous fp32 on {q.device}, got {lse.dtype} "
                          f"on {lse.device}")
-    return on_kernel, g
+    if on_kernel and bwd_entries(q)[0] is KERNEL_DQ_TC:
+        q, k, v, o, g = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v, o, g))
+    return on_kernel, (q, k, v, o, g)
 
 
 def _bwd_launch(kernel: CudaKernel, q, k, v, o, lse, g, *outs: torch.Tensor) -> None:
@@ -259,16 +300,20 @@ def _bwd_launch(kernel: CudaKernel, q, k, v, o, lse, g, *outs: torch.Tensor) -> 
                       torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _launch_dq(q, k, v, o, lse, g) -> torch.Tensor:
+def launch_dq(kernel: CudaKernel, q, k, v, o, lse, g) -> torch.Tensor:
+    """dq from one K2a entry (``KERNEL_DQ_TC`` or ``KERNEL_DQ``) on checked
+    CUDA inputs; ``flash_attention_bwd_dq`` picks the entry by
+    ``bwd_entries``."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch(KERNEL_DQ, q, k, v, o, lse, g, dq)
+    _bwd_launch(kernel, q, k, v, o, lse, g, dq)
     return dq
 
 
-def _launch_dkv(q, k, v, o, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch_dkv(kernel: CudaKernel, q, k, v, o, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) from one K2b entry, as ``launch_dq``."""
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    _bwd_launch(KERNEL_DKV, q, k, v, o, lse, g, dk, dv)
+    _bwd_launch(kernel, q, k, v, o, lse, g, dk, dv)
     return dk, dv
 
 
@@ -277,27 +322,30 @@ def flash_attention_bwd(q, k, v, o, lse, g):
     and the output gradient g (dO). dq [B,Sq,H,D] and dk, dv [B,Skv,H,D] are
     contiguous, in the input dtype; q, k, v, o and dO are read through their
     strides; lse is the forward's fp32 [B,H,Sq]. A CPU tensor goes to the
-    plain version; a CUDA tensor launches both kernels or raises."""
-    on_kernel, g = _bwd_inputs(q, k, v, o, lse, g)
+    plain version; a CUDA tensor launches both kernels (the entries of
+    ``bwd_entries``) or raises."""
+    on_kernel, (q, k, v, o, g) = _bwd_inputs(q, k, v, o, lse, g)
     if not on_kernel:
         return flash_attention_bwd_ref(q, k, v, o, lse, g)
-    return (_launch_dq(q, k, v, o, lse, g), *_launch_dkv(q, k, v, o, lse, g))
+    dq_kernel, dkv_kernel = bwd_entries(q)
+    return (launch_dq(dq_kernel, q, k, v, o, lse, g),
+            *launch_dkv(dkv_kernel, q, k, v, o, lse, g))
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, g) -> torch.Tensor:
     """K2a alone (dq), inputs as ``flash_attention_bwd``."""
-    on_kernel, g = _bwd_inputs(q, k, v, o, lse, g)
+    on_kernel, (q, k, v, o, g) = _bwd_inputs(q, k, v, o, lse, g)
     if not on_kernel:
         return flash_attention_bwd_dq_ref(q, k, v, o, lse, g)
-    return _launch_dq(q, k, v, o, lse, g)
+    return launch_dq(bwd_entries(q)[0], q, k, v, o, lse, g)
 
 
 def flash_attention_bwd_dkv(q, k, v, o, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2b alone (dk, dv), inputs as ``flash_attention_bwd``."""
-    on_kernel, g = _bwd_inputs(q, k, v, o, lse, g)
+    on_kernel, (q, k, v, o, g) = _bwd_inputs(q, k, v, o, lse, g)
     if not on_kernel:
         return flash_attention_bwd_dkv_ref(q, k, v, o, lse, g)
-    return _launch_dkv(q, k, v, o, lse, g)
+    return launch_dkv(bwd_entries(q)[1], q, k, v, o, lse, g)
 
 
 class FlashAttention(torch.autograd.Function):

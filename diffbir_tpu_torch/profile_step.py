@@ -54,9 +54,12 @@ TIMED_STEPS, TIMED_TRAIN_STEPS, PROFILED_STEPS = 10, 5, 3
 TRAIN_BATCH, TRAIN_LR, NOISE_AUG = 8, 1e-5, 200
 # the captioner's decode step: after a prompt of 35 + 576 + 13 rows
 CAPTION_ROWS, CAPTION_NEW = 624, 60
-# device kernel names of K1, K2a, K2b, K4 and K5
-KERNELS = {"K1": "flash_fwd_kernel", "K2a": "flash_bwd_dq_kernel",
-           "K2b": "flash_bwd_dkv_kernel", "K4": "quant_matmul_kernel", "K5": "int4_"}
+# device kernel names of K1, K2a and K2b (the tensor-core entries, and the
+# CUDA-core ones that fp32 and d >= 256 take), K4 and K5
+KERNELS = {"K1": "flash_fwd_kernel", "K2a": "flash_bwd_dq_tc_kernel",
+           "K2b": "flash_bwd_dkv_tc_kernel", "K2a (CUDA cores)": "flash_bwd_dq_kernel",
+           "K2b (CUDA cores)": "flash_bwd_dkv_kernel", "K4": "quant_matmul_kernel",
+           "K5": "int4_"}
 
 
 def build_step(seed: int, device: torch.device):

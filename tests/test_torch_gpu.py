@@ -69,22 +69,33 @@ def test_kernel_matches_plain_version(cuda, b, sq, skv, h, d, dtype, tol):
     assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, tol)
 
 
+def _bwd_launches():
+    """Launch counts of the four backward entries: tensor-core K2a, K2b, then
+    the CUDA-core K2a, K2b."""
+    return [e.launches for e in (fa.KERNEL_DQ_TC, fa.KERNEL_DKV_TC, fa.KERNEL_DQ, fa.KERNEL_DKV)]
+
+
 @pytest.mark.parametrize("b,sq,skv,h,d", [
     (2, 333, 333, 3, 64), (1, 130, 77, 2, 128), (1, 70, 200, 2, 256), (1, 257, 257, 1, 512),
+    (1, 40, 40, 2, 64), (1, 300, 45, 2, 64), (2, 200, 260, 2, 128),
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
 def test_lse_and_backward_kernels_match_plain_versions(cuda, b, sq, skv, h, d, dtype, tol):
     """K1's lse, K2a's dq and K2b's dk, dv within tol * max|ref| of their
-    plain versions (lse within FP32_TOL); one launch of each per call; a second backward is
-    bit-identical (no atomics)."""
+    plain versions (lse within FP32_TOL), ragged Sq and Skv, Sq != Skv, Sq or
+    Skv below one tile; one launch of each per call, on the tensor-core
+    entries for bf16 at d = 64/128 and on the CUDA-core entries otherwise; a
+    second backward is bit-identical (no atomics)."""
     q, k, v = _qkv(cuda, b, sq, skv, h, d, dtype)
     g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
                     device=cuda).to(dtype)
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-    before = (fa.KERNEL_DQ.launches, fa.KERNEL_DKV.launches)
+    before = _bwd_launches()
     grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
     torch.cuda.synchronize()
-    assert (fa.KERNEL_DQ.launches, fa.KERNEL_DKV.launches) == (before[0] + 1, before[1] + 1)
+    tensor_cores = dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS
+    moved = [a - c for a, c in zip(_bwd_launches(), before)]
+    assert moved == ([1, 1, 0, 0] if tensor_cores else [0, 0, 1, 1])
     assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
     o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v)
     refs = fa.flash_attention_bwd_ref(q, k, v, o, lse, g)
@@ -94,6 +105,43 @@ def test_lse_and_backward_kernels_match_plain_versions(cuda, b, sq, skv, h, d, d
         assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, t)
     again = fa.flash_attention_bwd(q, k, v, o, lse, g)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+def test_tensor_core_backward_reads_strided_views(cuda, offset):
+    """bf16 q, k, v as views of one projection output and dO as a strided
+    view, read in place (offset 0) or copied first because their rows are
+    not 16-byte aligned (offset 4 elements): the tensor-core entries give
+    the same bits as on contiguous copies, within the limit of the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(2, 300, 3 * 128 + 8, generator=gen, device=cuda).bfloat16()
+    q, k, v = (t.reshape(2, 300, 2, 64) for t in qkv[..., offset:offset + 384].chunk(3, dim=-1))
+    g = torch.randn(2, 300, 2, 128, generator=gen, device=cuda).bfloat16()[..., :64]
+    assert not (q.is_contiguous() or g.is_contiguous())
+    assert (q.data_ptr() % 16 == 0) == (offset == 0)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    before = _bwd_launches()
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
+    assert [a - c for a, c in zip(_bwd_launches(), before)] == [1, 1, 0, 0]
+    dense = fa.flash_attention_bwd(*(t.contiguous() for t in (q, k, v, o)), lse, g.contiguous())
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(grads, dense))
+    for out, ref in zip(grads, fa.flash_attention_bwd_ref(q, k, v, o, lse, g)):
+        assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, BF16_TOL)
+
+
+def test_tensor_core_entries_refuse_fp32(cuda):
+    """The tensor-core entries take bf16 only: launched on fp32 they raise,
+    and count nothing."""
+    q, k, v = _qkv(cuda, 1, 64, 64, 1, 64, torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    before = _bwd_launches()
+    with pytest.raises(RuntimeError):
+        fa.launch_dq(fa.KERNEL_DQ_TC, q, k, v, o, lse, q)
+    with pytest.raises(RuntimeError):
+        fa.launch_dkv(fa.KERNEL_DKV_TC, q, k, v, o, lse, q)
+    assert _bwd_launches() == before
 
 
 def test_gradients_flow_through_flash_attention_on_the_card(cuda):
