@@ -7,16 +7,22 @@ Phases (any failure exits non-zero before the last line is printed):
   0. device: the card's name and power limit; TF32 off for fp32 matmuls and
      convolutions, so fp32 comparisons are exact-math comparisons.
   1. build every kernel from diffbir_tpu_torch/csrc, one nvcc per source, all
-     started together: K1/K3 (flash forward, plain and prescaled-q entry),
-     K2a/K2b (flash backward: the tensor-core entries for bf16 at d = 64 and
-     128, the CUDA-core entries K2a_cc/K2b_cc for fp32 and d = 256/512), K4
-     (int8 matmul), K5 (packed-int4 matmul), K6 (fused ResBlock), K7 (fused
-     GEGLU FFN); the count of HGMMA/HMMA instructions in the tensor-core
-     entries (cuobjdump -sass, where the toolkit has it).
-  2. K1 against its plain PyTorch version at the serving shapes, at the
-     training path's frozen VAE encodes ([8,4096,1,512]) and at the
-     captioner's vision tower ([1,577,16,64]), with median times of both and
-     of the library call.
+     started together: K1/K3 (flash forward: the tensor-core entries for
+     bf16 at d = 64 and 128, the CUDA-core entries K1_cc/K3_cc for fp32 and
+     d = 256/512), K2a/K2b (flash backward: the tensor-core entries for bf16
+     at d = 64 and 128, the CUDA-core entries K2a_cc/K2b_cc for fp32 and d =
+     256/512), K4 (int8 matmul), K5 (packed-int4 matmul), K6 (fused
+     ResBlock), K7 (fused GEGLU FFN); the count of HGMMA/HMMA instructions in
+     the tensor-core kernels (cuobjdump -sass, where the toolkit has it).
+  2. K1 against its plain PyTorch version at the serving shapes, the
+     training shapes (with lse), the VAE's d = 512 shapes (at 8192 tokens,
+     where the dispatch sends them to flash, and below), the captioner's
+     vision tower ([1,577,16,64]), ragged, Sq != Skv, d = 128, fp32 and
+     strided cases, each saying by counter which entry ran (``fwd_entries``);
+     a tensor-core K1 that skips the last kv tile must fail the o and lse
+     limits; median times of the entry, the plain version and the library
+     call beside the bound; at [2,4096,5,64], [8,4096,5,64] with lse and
+     [1,577,16,64] the CUDA-core entry on the same inputs too, with TFLOP/s.
   3. K1 with its logsumexp, K2a (dq) and K2b (dk, dv) against their plain
      versions at the training shapes (batch 8), ragged cases (Sq and Skv
      multiples of neither tile, Sq != Skv, less than one tile), a strided
@@ -31,8 +37,9 @@ Phases (any failure exits non-zero before the last line is printed):
      each against its plain version, each with a planted fault that must
      fail the limits, and with median times of kernel, plain version and a
      library yardstick beside the bound: K3 at the 4 self-attention shapes
-     of the 512x512 path (batch 2; fault: q scaled twice), K4 at its 18
-     dense shapes and at the int8 captioner's 6 (fault: the last 16-deep K
+     of the 512x512 path (batch 2, on its tensor-core entry, with the
+     CUDA-core entry K3_cc on the same inputs; fault: q scaled twice), K4 at
+     its 18 dense shapes and at the int8 captioner's 6 (fault: the last 16-deep K
      slice dropped), K5 (packed-int4 matmul) at the LLaVA-1.5-7B prefill
      (M = 624) and decode (M = 1) shapes of the 7 big linears, a ragged and
      an fp32 case (fault: the two scale groups of every window swapped), K6
@@ -42,8 +49,10 @@ Phases (any failure exits non-zero before the last line is printed):
   5. model call: one full-width SD2.1 ControlLDM forward (random bf16 weights)
      at batch 2 on a 64x64 latent, through K1 and through plain attention.
   6. serving path: SwinIRPipeline.run on 512x512 uint8 LQs, 50 spaced steps,
-     CFG 4.0, the v2.1 schedule, distinct seeds, then one seed again; K1's
-     launch count per request, latency, stage split and peak memory.
+     CFG 4.0, the v2.1 schedule, the JAX CLI's default prompts through a
+     seeded stand-in tokenizer (cond and uncond on distinct ids), distinct
+     seeds, then one seed again; K1's launch count per request, latency,
+     stage split and peak memory.
   7. the serving modes: one full-width model call in the "fused" mode
      (fused ResBlock + fused FFN + packed flash: K6, K7, K3) against the
      unfused float path on the same weights, then SwinIRPipeline.run on 512x512
@@ -62,13 +71,14 @@ Phases (any failure exits non-zero before the last line is printed):
      int8, teacher forcing of the generated ids through the same model on
      the plain products (logits within a relative limit, ids equal to the
      plain argmax wherever its top-2 margin exceeds it). Then one captioned
-     request: the int4 caption of the LQ, then SwinIRPipeline.run on it.
+     request: the int4 caption of the LQ, then SwinIRPipeline.run on it,
+     the caption's ids as the positive prompt's text.
   9. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
      IRControlNet with gradient checkpointing, ControlNet initialised from the
      UNet, frozen realesrgan SwinIR cleaner, v2.1 schedule, noise aug at 200,
      lr 1e-5), batch 8 at 512x512 from seeded numpy, empty prompts: 2 warm-up
      and 5 timed steps; finite losses, only the ControlNet changes, K1/K2a/K2b
-     launches per step (K2 on the tensor-core entries, none on the CUDA-core
+     launches per step (all on the tensor-core entries, none on the CUDA-core
      ones); then at batch 2 one step's ControlNet gradient through
      K1+K2 against the same through plain attention, and the same with the
      attention sites' q/k/v gradients dropped must fail the limits.
@@ -78,6 +88,7 @@ The second-to-last line is a JSON list of the kernels; the last line is
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -94,17 +105,18 @@ SEEDS = (1, 2, 3)
 # sums in another order, ~1e-6 relative.
 BF16_TOL, FP32_TOL, MODEL_REL_TOL = 2.0 ** -6, 1e-4, 5e-2
 # self-attention sites per denoise step: UNet 6 in + 1 mid + 9 out,
-# ControlNet 6 in + 1 mid, each called once at batch 2 under folded CFG;
-# plus the VAE mid-block attention in the encode and in the decode
-K1_SITES_PER_STEP, K1_VAE_SITES = 23, 2
-K1_PER_REQUEST = K1_SITES_PER_STEP * STEPS + K1_VAE_SITES
+# ControlNet 6 in + 1 mid, each called once at batch 2 under folded CFG. The
+# VAE's d = 512 mid-block attention (encode and decode, 4096 tokens at
+# 512x512) takes plain math below FLASH_MIN_WIDE tokens, so no K1.
+K1_SITES_PER_STEP = 23
+K1_PER_REQUEST = K1_SITES_PER_STEP * STEPS
 # Training step: gradients reach the 7 ControlNet sites and the 9 UNet
 # output-block sites, not the UNet's 6 input and 1 middle sites (control is
-# added after the middle block). K1 runs at all 23 sites in the forward, at
-# the VAE's mid-block in the two frozen encodes (gt and the cleaned lq), and
-# again at the 16 sites with gradients when checkpointing recomputes them.
+# added after the middle block). K1 runs at all 23 sites in the forward, and
+# again at the 16 sites with gradients when checkpointing recomputes them;
+# the frozen VAE encodes take plain math.
 K2_SITES_PER_TRAIN_STEP = 7 + 9
-K1_PER_TRAIN_STEP = K1_SITES_PER_STEP + 2 + K2_SITES_PER_TRAIN_STEP
+K1_PER_TRAIN_STEP = K1_SITES_PER_STEP + K2_SITES_PER_TRAIN_STEP
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 8, 2, 5
 # kernel vs plain attention, one step's ControlNet gradient at batch 2 in
 # bf16: both paths round every activation and gradient to bf16 and differ
@@ -155,14 +167,14 @@ def k4_sites() -> dict:
 
 
 K4_SITES = k4_sites()
-# Per request (STEPS model calls, plus K1 at the VAE's two d=512 sites):
-# "fused" (fused ResBlock + fused FFN + packed flash) and "int8" (int8 dense
-# + fused ResBlock on int8 convs + packed flash).
+# Per request (STEPS model calls): "fused" (fused ResBlock + fused FFN +
+# packed flash) and "int8" (int8 dense + fused ResBlock on int8 convs +
+# packed flash).
 PER_REQUEST = {
     "serve": {"K1": K1_PER_REQUEST},
-    "serve_fused": {"K1": K1_VAE_SITES, "K3": K3_PER_CALL * STEPS, "K6": K6_PER_CALL * STEPS,
+    "serve_fused": {"K3": K3_PER_CALL * STEPS, "K6": K6_PER_CALL * STEPS,
                     "K7": K7_PER_CALL * STEPS},
-    "serve_int8": {"K1": K1_VAE_SITES, "K3": K3_PER_CALL * STEPS, "K4": K4_PER_CALL * STEPS,
+    "serve_int8": {"K3": K3_PER_CALL * STEPS, "K4": K4_PER_CALL * STEPS,
                    "K6": K6_PER_CALL * STEPS},
 }
 MODE_SEEDS = (1, 2)
@@ -278,7 +290,7 @@ KERNELS = {}
 def phase_build():
     """One nvcc per source, all started together, then every entry point
     loaded (K1/K3 and K2a/K2b and their CUDA-core entries share a library
-    each); the tensor-core instructions of the new K2a/K2b kernels."""
+    each); the tensor-core instructions of the flash kernels."""
     from diffbir_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -294,19 +306,20 @@ def phase_build():
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {kernel.source.name}:", line.strip())
-    tensor_core_sass(_cuda)
+    tensor_core_sass(_cuda, "K1", ("flash_fwd_tc_kernel",))
+    tensor_core_sass(_cuda, "K2a", ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"))
 
 
-def tensor_core_sass(_cuda) -> None:
+def tensor_core_sass(_cuda, key: str, names) -> None:
     """HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel function of
-    the backward's library, from cuobjdump -sass; the tensor-core K2a/K2b
-    kernels must have some."""
+    the library of KERNELS[key], from cuobjdump -sass; the tensor-core
+    kernels ``names`` must have some."""
     nvcc = _cuda.find_nvcc()
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
         print("[build] cuobjdump not in the toolkit: SASS not counted")
         return
-    lib = _cuda.build(KERNELS["K2a"].source)[0]
+    lib = _cuda.build(KERNELS[key].source)[0]
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120).stdout
     counts, fn = {}, None
@@ -317,15 +330,17 @@ def tensor_core_sass(_cuda) -> None:
         elif fn is not None:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "HMMA" in line
-    for name in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+    for name in names:
         found = {f: c for f, c in counts.items() if name in f}
         check(bool(found), f"no {name} in {lib.name}'s SASS")
-        for f, (hgmma, hmma) in found.items():
-            inst = f.split(name)[1][:6]  # ILi64 or ILi128: the head dim
-            print(f"[build] SASS {name}<{inst[3:].rstrip('E')}>: {hgmma} HGMMA, {hmma} HMMA")
+        for f, (hgmma, hmma) in sorted(found.items()):
+            # the template arguments, mangled as I Li64E Lb0E ... E
+            args = re.match(r"I((?:L[ib]\d+E)+)E", f.split(name)[1])
+            inst = ", ".join(re.findall(r"L[ib](\d+)E", args.group(1))) if args else "?"
+            print(f"[build] SASS {name}<{inst}>: {hgmma} HGMMA, {hmma} HMMA")
             check(hgmma > 0, f"{f} has no wgmma instruction")
     cores = [c for f, c in counts.items() if "_tc_" not in f]
-    print(f"[build] SASS of the {len(cores)} CUDA-core instances: "
+    print(f"[build] SASS of the {len(cores)} CUDA-core instances in {lib.name}: "
           f"{sum(c[0] for c in cores)} HGMMA, {sum(c[1] for c in cores)} HMMA")
 
 
@@ -341,55 +356,138 @@ def limit_of(ref, tol: float) -> float:
     return tol * ref.float().abs().max().item()
 
 
+def qkv_case(gen, shape, dtype):
+    """q, k, v of one attention case: (B, Sq, Skv, H, D), or "strided": views
+    of one [2, 4096, 3*320] projection, read in place."""
+    import torch
+
+    if shape == "strided":
+        qkv = torch.randn(2, 4096, 960, generator=gen, device="cuda").to(dtype)
+        return tuple(t.reshape(2, 4096, 5, 64) for t in qkv.chunk(3, dim=-1))
+    b, sq, skv, h, d = shape
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+    return (q, *(torch.randn(b, skv, h, d, generator=gen, device="cuda").to(dtype)
+                 for _ in range(2)))
+
+
+def fwd_errors(outs, refs, tol):
+    """{name: (max abs error, limit)} of o (tol x max|ref|) and of lse, when
+    there is one (FP32_TOL x max|ref|)."""
+    return {n: ((o.float() - r.float()).abs().max().item(),
+                limit_of(r, FP32_TOL if n == "lse" else tol))
+            for n, o, r in zip(("o", "lse"), outs, refs)}
+
+
 def phase_kernel(fa):
-    """K1 against its plain version at the serving shapes, at the frozen
-    VAE encodes' batch-8 shape of training and at the captioner's vision
-    tower ([1,577,16,64]); returns the kernel line's numbers at
+    """K1 against its plain version at the serving and training shapes (with
+    lse), the VAE's d = 512 shapes, the captioner's vision tower
+    ([1,577,16,64]), ragged, Sq != Skv, d = 128, fp32 and strided cases,
+    each on the entry that ``fwd_entries`` names (by counter); at the three
+    headline shapes the CUDA-core entry on the same inputs and the planted
+    fault too. Returns the kernel lines' numbers of K1 and K1_cc at
     [2,4096,5,64] bf16."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [((2, 4096, 5, 64), torch.bfloat16), ((2, 1024, 10, 64), torch.bfloat16),
-             ((2, 256, 20, 64), torch.bfloat16), ((2, 64, 20, 64), torch.bfloat16),
-             ((1, 4096, 1, 512), torch.bfloat16), ((8, 4096, 1, 512), torch.bfloat16),
-             ((2, 4000, 5, 64), torch.bfloat16), ((1, 577, 16, 64), torch.bfloat16),
-             ((1, 1000, 1, 512), torch.bfloat16), ((2, 1024, 10, 64), torch.float32),
-             ("strided", torch.bfloat16)]
-    max_err, headline = 0.0, None
-    for shape, dtype in cases:
-        if shape == "strided":  # q, k, v as views of one [2, 4096, 3*320] projection
-            qkv = torch.randn(2, 4096, 960, generator=gen, device="cuda").to(dtype)
-            q, k, v = (t.reshape(2, 4096, 5, 64) for t in qkv.chunk(3, dim=-1))
-        else:
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                       for _ in range(3))
-        out = fa.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_ref(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
-        limit = limit_of(ref, tol)
-        iters = 5 if q.shape[0] * q.shape[1] * q.shape[3] > 2**22 else 20
-        ms = median_ms(lambda: fa.flash_attention(q, k, v), iters)
-        plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v), iters)
-        label = "x".join(map(str, q.shape)) + (" strided" if shape == "strided" else "")
+    bf, f32 = torch.bfloat16, torch.float32
+    # (B, Sq, Skv, H, D) or "strided", dtype, with lse
+    cases = [((2, 4096, 4096, 5, 64), bf, False), ((8, 4096, 4096, 5, 64), bf, True),
+             ((2, 1024, 1024, 10, 64), bf, False), ((2, 256, 256, 20, 64), bf, False),
+             ((2, 64, 64, 20, 64), bf, False), ((2, 4000, 4000, 5, 64), bf, False),
+             ((2, 1000, 300, 5, 64), bf, True), ((2, 1024, 1024, 8, 128), bf, True),
+             ((1, 577, 577, 16, 64), bf, False), ((1, 4096, 4096, 1, 512), bf, False),
+             ((8, 4096, 4096, 1, 512), bf, False), ((1, 1000, 1000, 1, 512), bf, False),
+             ((1, 8192, 8192, 1, 512), bf, False), ((2, 1024, 1024, 10, 64), f32, False),
+             ("strided", bf, False)]
+    # the UNet's serving and training shapes and the vision tower's
+    headline_shapes = ((2, 4096, 4096, 5, 64), (8, 4096, 4096, 5, 64), (1, 577, 577, 16, 64))
+    entries = ("K1", "K1_cc")
+    max_err, numbers = {"K1": 0.0, "K1_cc": 0.0}, {}
+    for shape, dtype, with_lse in cases:
+        q, k, v = qkv_case(gen, shape, dtype)
         b, sq, h, d = q.shape
-        bms, by = bound_ms(2, b, h, sq, sq, d, dtype, nbytes(q, k, v, out))
-        lib = ""
-        if shape in ((2, 4096, 5, 64), (1, 577, 16, 64)):  # the UNet's, the vision tower's
-            lib_ms = median_ms(lambda: sdpa_fwd(q, k, v))
-            lib = f", library {lib_ms:.4f} ms"
-        if shape == (2, 4096, 5, 64):
-            headline = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
-        print(f"[kernel] K1 {label} {str(dtype)[6:]}: max_abs_err {err:.3e}, max|ref| "
-              f"{ref.float().abs().max().item():.3e}, limit {limit:.3e} ({tol:g} x max|ref|); "
-              f"K1 {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bms:.4f} ms ({by})")
-        check(err <= limit, f"K1 disagrees with its plain version at {label}: {err} > {limit}")
-        if dtype == torch.bfloat16:
-            max_err = max(max_err, err)
-    headline["max_abs_err"] = max_err
-    return headline
+        skv = k.shape[1]
+        label = "x".join(map(str, q.shape)) + (f" vs {skv} kv rows" if skv != sq else "")
+        label += (" strided" if shape == "strided" else "") + (" with lse" if with_lse else "")
+        tol = BF16_TOL if dtype == bf else FP32_TOL
+
+        def run(kernel=None):
+            if kernel is None:
+                return fa.flash_attention_fwd(q, k, v, with_lse=with_lse)
+            return fa.launch_fwd(kernel, q, k, v, with_lse)
+
+        def plain():
+            if with_lse:
+                return fa.flash_attention_lse_ref(q, k, v)
+            return fa.flash_attention_ref(q, k, v)
+
+        before = {n: KERNELS[n].launches for n in entries}
+        outs = run()
+        torch.cuda.synchronize()
+        moved = {n: KERNELS[n].launches - before[n] for n in entries}
+        key = "K1" if fa.fwd_entries(q) is fa.KERNEL_TC else "K1_cc"
+        check(moved == {n: int(n == key) for n in entries},
+              f"K1 at {label} launched {moved}, expected one launch of {key}")
+        outs = outs if with_lse else (outs,)
+        refs = plain() if with_lse else (plain(),)
+        errs = fwd_errors(outs, refs, tol)
+        for n, (err, limit) in errs.items():
+            check(err <= limit, f"{key} {n} disagrees with its plain version at {label}: "
+                  f"{err} > {limit}")
+        if dtype == bf:
+            max_err[key] = max(max_err[key], errs["o"][0])
+        iters = 5 if b * sq * h * d > 2 ** 22 else 20
+        ms = median_ms(run, iters)
+        plain_ms = median_ms(plain, iters)
+        bms, by = bound_ms(2, b, h, sq, skv, d, dtype, nbytes(q, k, v, *outs))
+        print(f"[kernel] K1 {label} {str(dtype)[6:]} (on {key}): " +
+              ", ".join(f"{n} max_abs_err {e:.3e}, limit {lim:.3e}" for n, (e, lim) in errs.items())
+              + f" ({tol:g} x max|ref|, lse {FP32_TOL:g}); {key} {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if shape in headline_shapes:
+            cc = run(fa.KERNEL)
+            cc_errs = fwd_errors(cc if with_lse else (cc,), refs, tol)
+            for n, (err, limit) in cc_errs.items():
+                check(err <= limit, f"K1_cc {n} disagrees with its plain version at {label}: "
+                      f"{err} > {limit}")
+            max_err["K1_cc"] = max(max_err["K1_cc"], cc_errs["o"][0])
+            cc_ms = median_ms(lambda: run(fa.KERNEL), iters)
+            lib_ms = median_ms(lambda: sdpa_fwd(q, k, v), iters)
+            tflops = 4.0 * b * h * sq * skv * d / 1e9
+            print(f"[kernel] headline {label} bf16: K1 tensor cores {ms:.4f} ms "
+                  f"({tflops / ms:.1f} TFLOP/s) vs CUDA cores (K1_cc on the same inputs, "
+                  f"o err {cc_errs['o'][0]:.3e}) {cc_ms:.4f} ms ({tflops / cc_ms:.1f} TFLOP/s); "
+                  f"library (SDPA) {lib_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bms:.4f} ms "
+                  f"({by})")
+            check(ms < cc_ms, f"the tensor-core K1 ({ms} ms) is not faster than the CUDA-core "
+                  f"entry ({cc_ms} ms) at {label}")
+            if sq == 4096:
+                check_power_fwd(fa, label, q, k, v, with_lse)
+            if shape == (2, 4096, 4096, 5, 64):
+                common = {"plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                          "library_ms": lib_ms}
+                numbers = {"K1": {"ms": ms, **common}, "K1_cc": {"ms": cc_ms, **common}}
+        del q, k, v, outs, refs
+        torch.cuda.empty_cache()
+    for key in entries:
+        numbers[key]["max_abs_err"] = max_err[key]
+    return numbers
+
+
+def check_power_fwd(fa, label, q, k, v, with_lse):
+    """The limits catch a tensor-core K1 that skips the last 64-row kv tile:
+    the entry run on k and v without it must fail the o (and lse) limit."""
+    import torch
+
+    outs = fa.launch_fwd(fa.KERNEL_TC, q, k[:, :-64], v[:, :-64], with_lse)
+    outs = outs if with_lse else (outs,)
+    refs = fa.flash_attention_lse_ref(q, k, v) if with_lse else (fa.flash_attention_ref(q, k, v),)
+    torch.cuda.synchronize()
+    ratios = {n: e / lim for n, (e, lim) in fwd_errors(outs, refs, BF16_TOL).items()}
+    print(f"[kernel] a tensor-core K1 that skips the last kv tile at {label}: max err / limit "
+          + ", ".join(f"{n} {r:.1f}" for n, r in ratios.items()))
+    check(all(r > 1.0 for r in ratios.values()),
+          f"the limits do not catch a skipped kv tile at {label}: {ratios}")
 
 
 NAMES = ("o", "lse", "dq", "dk", "dv")
@@ -571,7 +669,7 @@ def empty_tokens(bs: int):
     return tokens
 
 
-def phase_model_call(fa, cldm):
+def phase_model_call(cldm):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -583,10 +681,13 @@ def phase_model_call(fa, cldm):
         cond = {"c_txt": cldm.encode_text(empty_tokens(2)), "c_img": c_img}
         for impl in ("auto", "plain"):
             cldm.set_attention_impl(impl)
-            before = fa.KERNEL.launches
+            before = counts()
             outs[impl] = cldm(x, t, cond).float()
             torch.cuda.synchronize()
-            print(f"[model] attention {impl}: {fa.KERNEL.launches - before} K1 launches")
+            n = launched_since(before)
+            print(f"[model] attention {impl}: launches {n}")
+            check(n == ({"K1": K1_SITES_PER_STEP} if impl == "auto" else {}),
+                  f"model call with {impl} attention launched {n}")
     cldm.set_attention_impl("auto")
     a, p = outs["auto"], outs["plain"]
     check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all()),
@@ -621,9 +722,16 @@ def phase_slice(path: str, cldm, swinir, seeds, repeat: bool = True):
     import torch
 
     from diffbir_tpu_torch.pipeline import SwinIRPipeline
+    from diffbir_tpu_torch.profile_step import NEG_PROMPT, POS_PROMPT, stand_in_tokenizer
     from diffbir_tpu_torch.schedule import Schedule
 
-    pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), torch.device("cuda"))
+    pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), torch.device("cuda"),
+                          tokenizer=stand_in_tokenizer())
+    pos, neg = pipe.tokenize(POS_PROMPT, 1), pipe.tokenize(NEG_PROMPT, 1)
+    check(not torch.equal(pos, neg), "the stand-in ids of the two prompts are equal")
+    print(f"[{path}] prompts: the CLI's defaults, stand-in ids pos {pos[0, :6].tolist()}... "
+          f"({int((pos > 0).sum())} ids), neg {neg[0, :6].tolist()}... "
+          f"({int((neg > 0).sum())} ids)")
     lqs = {s: np.random.default_rng(100 + s).integers(0, 256, (1, SIZE, SIZE, 3), dtype=np.uint8)
            for s in seeds}
     expected = PER_REQUEST[path]
@@ -635,7 +743,8 @@ def phase_slice(path: str, cldm, swinir, seeds, repeat: bool = True):
         timings = {}
         before = counts()
         t0 = time.perf_counter()
-        out = pipe.run(lqs[seed], steps=STEPS, cfg_scale=CFG, seed=seed, timings=timings)
+        out = pipe.run(lqs[seed], steps=STEPS, cfg_scale=CFG, seed=seed, timings=timings,
+                       pos_prompt=POS_PROMPT, neg_prompt=NEG_PROMPT)
         dt = time.perf_counter() - t0
         n = launched_since(before)
         split = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
@@ -703,52 +812,65 @@ def randomize_(module, gen):
 
 
 def k3_scaled_twice(fa, q, k, v):
-    """K3 with its fault planted: q rounded as bf16(q * d^-1/2) and the
-    logits scaled by d^-1/2 again."""
+    """The tensor-core K3 with its fault planted: q rounded as bf16(q *
+    d^-1/2) and the logits scaled by d^-1/2 again."""
     import torch
 
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        fa.KERNEL_PRESCALED.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                   None, 1, b, h, sq, k.shape[1], d, *fa._strides(q, k, v),
-                                   d ** -0.5, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+        fa.KERNEL_PRESCALED_TC.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      None, 1, b, h, sq, k.shape[1], d, *fa._strides(q, k, v),
+                                      d ** -0.5, d ** -0.5,
+                                      torch.cuda.current_stream().cuda_stream)
     return out
 
 
 def phase_k3(fa):
     """K3 against its plain version at the four self-attention shapes of the
-    serving path (bf16); returns the kernel line's numbers at
-    [2,4096,5,64]."""
+    serving path (bf16), on its tensor-core entry (by counter), and the
+    CUDA-core entry K3_cc on the same inputs; returns the kernel lines'
+    numbers of K3 and K3_cc at [2,4096,5,64]."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    max_err, headline, per_call = 0.0, None, 0.0
+    max_err, numbers, per_call = {"K3": 0.0, "K3_cc": 0.0}, {}, {"K3": 0.0, "K3_cc": 0.0}
     for (tokens, heads), sites in K3_SITES.items():
         q, k, v = (torch.randn(2, tokens, heads, 64, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
+        before = (KERNELS["K3"].launches, KERNELS["K3_cc"].launches)
         out = fa.flash_attention_fwd(q, k, v, prescale_q=True)
+        moved = (KERNELS["K3"].launches - before[0], KERNELS["K3_cc"].launches - before[1])
+        cc = fa.launch_fwd(fa.KERNEL_PRESCALED, q, k, v)
         ref = fa.flash_attention_ref(q, k, v, prescale_q=True)
         label = f"2x{tokens}x{heads}x64"
-        max_err = max(max_err, hold(f"K3 at {label}", out, ref, BF16_TOL))
+        check(moved == (1, 0), f"K3 at {label} launched (K3, K3_cc) {moved}, expected (1, 0)")
+        max_err["K3"] = max(max_err["K3"], hold(f"K3 at {label}", out, ref, BF16_TOL))
+        max_err["K3_cc"] = max(max_err["K3_cc"], hold(f"K3_cc at {label}", cc, ref, BF16_TOL))
         iters = 5 if tokens >= 4096 else 20
         ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, prescale_q=True), iters)
+        cc_ms = median_ms(lambda: fa.launch_fwd(fa.KERNEL_PRESCALED, q, k, v), iters)
         plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v, prescale_q=True), iters)
         lib_ms = median_ms(lambda: sdpa_fwd(q, k, v, scale=64 ** -0.5), iters)
         bms, by = bound_ms(2, 2, heads, tokens, tokens, 64, torch.bfloat16, nbytes(q, k, v, out))
-        per_call += sites * ms
+        per_call["K3"] += sites * ms
+        per_call["K3_cc"] += sites * cc_ms
+        tflops = 4.0 * 2 * heads * tokens * tokens * 64 / 1e9
         print(f"[K3] {label} bf16 ({sites} sites per call): "
-              f"{show(out, ref)}; K3 "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA, same scale) "
-              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+              f"{show(out, ref)}; K3_cc {show(cc, ref)}; K3 tensor cores "
+              f"{ms:.4f} ms ({tflops / ms:.1f} TFLOP/s), K3_cc {cc_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (SDPA, same scale) {lib_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})")
         if tokens == 4096:
             planted("K3 scaling q twice", k3_scaled_twice(fa, q, k, v), ref, BF16_TOL)
-            headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": lib_ms}
-        del q, k, v, out, ref
-    print(f"[K3] per model call ({K3_PER_CALL} sites): {per_call:.3f} ms")
-    headline["max_abs_err"] = max_err
-    return headline
+            common = {"plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            numbers = {"K3": {"ms": ms, **common}, "K3_cc": {"ms": cc_ms, **common}}
+        del q, k, v, out, cc, ref
+    print(f"[K3] per model call ({K3_PER_CALL} sites): tensor cores {per_call['K3']:.3f} ms, "
+          f"CUDA cores {per_call['K3_cc']:.3f} ms")
+    for key in numbers:
+        numbers[key]["max_abs_err"] = max_err[key]
+    return numbers
 
 
 def phase_k4(qm):
@@ -1244,17 +1366,21 @@ def phase_caption(path, qm, model, lq, pre, post, float_lm):
 
 def phase_captioned_request(model, cldm, swinir, lq, pre, post):
     """The int4 caption of the LQ, then the default SwinIRPipeline.run on the
-    same LQ, both models resident. The SD prompt stays the empty-prompt ids
-    (the caption ids cannot be tokenised for CLIP without the vocabulary)."""
+    same LQ, both models resident. The caption's ids, written as text, are
+    the positive prompt (through the stand-in tokenizer: the caption cannot
+    be detokenised and tokenised for CLIP without the two vocabularies), the
+    CLI's default the negative one."""
     import numpy as np
     import torch
 
     from diffbir_tpu_torch.captioners.llava import LLaVACaptioner
     from diffbir_tpu_torch.pipeline import SwinIRPipeline
+    from diffbir_tpu_torch.profile_step import NEG_PROMPT, stand_in_tokenizer
     from diffbir_tpu_torch.schedule import Schedule
 
     cap = LLaVACaptioner(model, pre, post, max_new_tokens=CAPTION_NEW, eos_id=NEVER_EOS)
-    pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), torch.device("cuda"))
+    pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), torch.device("cuda"),
+                          tokenizer=stand_in_tokenizer())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # count only this request from here
@@ -1263,7 +1389,8 @@ def phase_captioned_request(model, cldm, swinir, lq, pre, post):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     timings = {}
-    out = pipe.run(lq, steps=STEPS, cfg_scale=CFG, seed=1, timings=timings)
+    out = pipe.run(lq, steps=STEPS, cfg_scale=CFG, seed=1, timings=timings,
+                   pos_prompt=" ".join(map(str, ids)), neg_prompt=NEG_PROMPT)
     t2 = time.perf_counter()
     launches = counts()
     ran = {k: v for k, v in launches.items() if v}
@@ -1363,17 +1490,18 @@ def phase_train(fa):
         print(f"[train] step {i} ({kind}): loss {loss:.5f}, grad norm {gnorm:.5f}, "
               f"{dt:.3f} s; launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
         check(np.isfinite(loss) and np.isfinite(gnorm), f"non-finite loss or grad norm at {i}")
-        # K2 on the tensor-core entries, none on the CUDA-core ones (K2a_cc,
-        # K2b_cc: left out of n when 0)
+        # K1 and K2 on the tensor-core entries, none on the CUDA-core ones
+        # (K1_cc, K2a_cc, K2b_cc: left out of n when 0)
         expected = {"K1": K1_PER_TRAIN_STEP, "K2a": K2_SITES_PER_TRAIN_STEP,
                     "K2b": K2_SITES_PER_TRAIN_STEP}
         check(n == expected, f"expected launches {expected} per step, got {n}")
         if i >= TRAIN_WARMUP:
             step_s.append(dt)
     launches = counts()
-    print(f"[train] {TRAIN_WARMUP + TRAIN_TIMED} steps: K2a {launches['K2a']} and K2b "
-          f"{launches['K2b']} launches on the tensor-core entries, {launches['K2a_cc']} and "
-          f"{launches['K2b_cc']} on the CUDA-core entries")
+    print(f"[train] {TRAIN_WARMUP + TRAIN_TIMED} steps: K1 {launches['K1']}, K2a "
+          f"{launches['K2a']} and K2b {launches['K2b']} launches on the tensor-core entries, "
+          f"{launches['K1_cc']}, {launches['K2a_cc']} and {launches['K2b_cc']} on the "
+          f"CUDA-core entries")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(step_s)
     print(f"[train] batch {TRAIN_BATCH} at {SIZE}x{SIZE}: timed steps "
@@ -1456,22 +1584,23 @@ def main() -> int:
         print(f"chip_smoke: FAIL: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
         return 1
-    KERNELS.update(K1=fa.KERNEL, K2a=fa.KERNEL_DQ_TC, K2b=fa.KERNEL_DKV_TC,
-                   K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV, K3=fa.KERNEL_PRESCALED,
-                   K4=qm.KERNEL, K5=qm.KERNEL_INT4, K6=fr.KERNEL, K7=ff.KERNEL)
+    KERNELS.update(K1=fa.KERNEL_TC, K1_cc=fa.KERNEL, K2a=fa.KERNEL_DQ_TC,
+                   K2b=fa.KERNEL_DKV_TC, K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV,
+                   K3=fa.KERNEL_PRESCALED_TC, K3_cc=fa.KERNEL_PRESCALED, K4=qm.KERNEL,
+                   K5=qm.KERNEL_INT4, K6=fr.KERNEL, K7=ff.KERNEL)
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() == 1,
               f"expected one visible card, got {torch.cuda.device_count()}")
         phase_device()
         phase_build()
-        numbers = {"K1": phase_kernel(fa)}
+        numbers = phase_kernel(fa)
         k2 = phase_backward_kernels(fa)
-        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], K3=phase_k3(fa), K4=phase_k4(qm),
+        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_k3(fa), K4=phase_k4(qm),
                        K5=phase_k5(qm), K6=phase_k6(fr), K7=phase_k7(ff))
         torch.cuda.empty_cache()
         cldm, swinir = build_models()
-        phase_model_call(fa, cldm)
+        phase_model_call(cldm)
         paths = {"serve": phase_slice("serve", cldm, swinir, SEEDS)}
         paths.update(phase_modes(cldm, swinir))
         paths.update(phase_llava(qm, cldm, swinir))
@@ -1487,11 +1616,14 @@ def main() -> int:
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     src, ref = "diffbir_tpu_torch/csrc/", "diffbir_tpu/ops/"
     entries = (
-        ("K1", "flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:81"),
+        ("K1", "flash_attention_fwd_tc", "flash_attention_fwd.cu", "flash_attention.py:81"),
+        ("K1_cc", "flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:81"),
         ("K2a", "flash_attention_bwd_dq_tc", "flash_attention_bwd.cu", "flash_attention.py:371"),
         ("K2b", "flash_attention_bwd_dkv_tc", "flash_attention_bwd.cu",
          "flash_attention.py:410"),
-        ("K3", "flash_attention_fwd_prescaled", "flash_attention_fwd.cu",
+        ("K3", "flash_attention_fwd_prescaled_tc", "flash_attention_fwd.cu",
+         "flash_attention.py:229"),
+        ("K3_cc", "flash_attention_fwd_prescaled", "flash_attention_fwd.cu",
          "flash_attention.py:229"),
         ("K4", "quant_matmul", "quant_matmul.cu", "quant_matmul.py:45"),
         ("K5", "quant_matmul_int4", "quant_matmul_int4.cu", "quant_matmul.py:232"),

@@ -53,8 +53,10 @@
 //   Sq contribute nothing (p = 0 in dk/dv, not stored in dq).
 // - At d = 128 the products over d (dQ, dK, dV) are issued per 64-column
 //   panel (n = 64), so one descriptor form serves both head dims.
+// - The tiles, copies, descriptors and wgmma wrappers are those of
+//   wgmma_tile.cuh, shared with the forward's tensor-core kernel.
 //
-// CUDA-core design (the layout of the forward kernel K1):
+// CUDA-core design (the layout of the forward's CUDA-core kernel):
 // - dq: a block owns ROWS query rows of one (batch, head) and loops over kv
 //   tiles staged in shared memory as fp32. Each query row belongs to
 //   G = D/32 consecutive lanes; a lane keeps 32 of the D dims of q, dO and the
@@ -71,6 +73,8 @@
 #include <stdint.h>
 
 #include <atomic>
+
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -343,127 +347,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 // ---------------------------------------------------------------------------
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
-constexpr int NT = 256;  // two warpgroups of 128 threads, 64 rows each
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of the 16-byte chunk c (columns 8c..8c+7) of row r in an
-// [R][D] bf16 tile: 64-column panels of R rows x 128 bytes, each chunk at
-// chunk (c % 8) ^ (r % 8) of its row. With the tile 1024-byte aligned this
-// is the layout of wgmma's 128-byte swizzle, read K-major (rows = M or N,
-// columns = K) or MN-major (rows = K, columns = N) alike.
-template <int R>
-__device__ __forceinline__ uint32_t chunk_off(int r, int c) {
-  return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
-  // src-size 0 writes 16 zero bytes: the ragged edge is zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// orders this thread's generic-proxy writes to shared memory (cp.async)
-// before the async proxy's reads (wgmma); a barrier follows
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + R) of a [rows][D] operand with row stride ss (elements)
-// into an [R][D] tile at shared address dst, asynchronously; rows at or past
-// nrows are zero-filled.
-template <int R, int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int64_t ss, int row0,
-                                          int nrows, int tid) {
-  constexpr int CH = D / 8;
-  static_assert((R * CH) % NT == 0, "bad tile");
-#pragma unroll
-  for (int n = 0; n < R * CH / NT; ++n) {
-    const int i = tid + n * NT;
-    const int r = i / CH, c = i % CH;
-    const bool full = row0 + r < nrows;
-    const bf16* g = full ? src + static_cast<int64_t>(row0 + r) * ss + c * 8 : src;
-    cp_async16(dst + chunk_off<R>(r, c), g, full);
-  }
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading offset 16 bytes (unused by these layouts), stride offset
-// 1024 bytes (from one group of 8 rows to the next), layout B128.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-// K-major operand: rows r0..r0+63 of an [R][D] tile, K columns 16kk..16kk+15
-template <int R>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
-  return desc(tile + (kk >> 2) * (R * 128) + r0 * 128 + (kk & 3) * 32);
-}
-// MN-major B: K rows 16kk..16kk+15 of an [R][D] tile, N columns of panel pn
-template <int R>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int pn, int kk) {
-  return desc(tile + pn * (R * 128) + kk * 16 * 128);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// ties the accumulators to the wait above, so that nothing reads them before
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define TC_ACC32(d)                                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
-#define TC_D32                                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64x64 fp32) = A.B (+ d if acc): A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : TC_ACC32(d)
-      : "l"(a), "l"(b), "r"(acc));
-}
-// d (64x64 fp32) += A.B: A (64x16 bf16) from registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : TC_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using namespace wgmma_tile;
 
 // sum of a*b over the 8 bf16 pairs of two 16-byte chunks
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
@@ -479,12 +363,8 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   return s;
 }
 
-// The accumulator of a 64x64 wgmma tile: thread (warp w of its warpgroup,
-// lane l) holds element i at row 16w + l/4 + 8*((i/2)%2), column
-// 8*(i/4) + 2*(l%4) + i%2. The A fragment of K columns 16kk..16kk+15 is
-// then the pairs (8kk, 8kk+1), (8kk+2, 8kk+3), (8kk+4, 8kk+5), (8kk+6, 8kk+7)
-// of such an accumulator rounded to bf16: p and ds feed the next product
-// from registers.
+// (wgmma_tile.cuh gives the accumulator's layout: p and ds feed the next
+// product from registers as its A fragments.)
 
 // K2a: dq for 128 query rows of one (batch, head). At d = 64 two blocks fit
 // an SM (<= 128 registers, 66 KB of shared memory each), so one block's
@@ -756,25 +636,9 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
   }
 }
 
-#undef TC_ACC32
-#undef TC_D32
-
 }  // namespace tc
 
-// The shared-memory limit past 48 KB is a per-device attribute of each
-// function: set it once per device and template instance, not per launch.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  done.fetch_or(bit, std::memory_order_release);
-  return cudaSuccess;
-}
+using wgmma_tile::allow_smem;
 
 struct Args {
   const void *q, *k, *v, *o, *lse, *dout;

@@ -9,34 +9,67 @@
 // as _kernel's with_lse store) for the backward kernels, fp32 [B, H, Sq]; a
 // null lse pointer skips the store and nothing else changes.
 //
-// The same kernel is K3, the forward of the packed layout
-// (_flash_attention_impl_packed -> _kernel_packed), through the entry
-// flash_attention_fwd_prescaled: q is loaded as q_scale * q rounded once to
-// the input dtype (bf16(q * d^-1/2)) and the logits are scaled by `scale`
-// (1 there). The plain entry passes q_scale = 1, which changes no value.
+// The same kernels are K3, the forward of the packed layout
+// (_flash_attention_impl_packed -> _kernel_packed), through the entries
+// flash_attention_fwd_prescaled(_tc): q is loaded as q_scale * q rounded once
+// to the input dtype (bf16(q * d^-1/2)) and the logits are scaled by `scale`
+// (1 there). The CUDA-core kernel's plain entry passes q_scale = 1, which
+// changes no value.
 //
-// Design (first, simple version). One block covers ROWS query rows of one
-// (batch, head). Each query row belongs to G = D/32 consecutive lanes; a lane
-// owns 32 of the D dims of q and of the accumulator in registers, as 8 float4
-// chunks interleaved across the G lanes (dims 4*(g + G*c) .. +3), so a warp's
-// float4 reads of one shared-memory row hit consecutive 16-byte words. A loop
-// over kv tiles stages BK rows of k and v into shared memory as fp32; the
-// whole block reads the same k/v row at the same time (broadcast). Both
-// products run on the CUDA cores in fp32 FMAs: a partial dot over the lane's
-// 32 dims plus a shuffle reduction over the G lanes gives one logit.
+// Two designs in one source, each with its own entry points:
+// - on the tensor cores (flash_fwd_tc_kernel; entries flash_attention_fwd_tc
+//   and flash_attention_fwd_prescaled_tc): bf16 at d = 64 and 128, which is
+//   every self-attention site of the port's UNet, ControlNet and vision tower;
+// - on the CUDA cores (flash_fwd_kernel; entries flash_attention_fwd and
+//   flash_attention_fwd_prescaled): fp32 at any d, bf16 at d = 256 and 512.
+//   The tensor cores have no fp32 mode that keeps fp32's limit (TF32
+//   rounds); the d = 512 VAE sites reach the kernel only at 8192 tokens and
+//   more (below that ops/attention.py sends them to plain math).
 //
 // What bounds it on an H100: at the main path's shapes (S = 4096, d = 64) the
-// kernel does 4*S^2*d flops per head and reads q, k and v once per block from
-// L2, so it is compute-bound; without tensor cores it runs at the CUDA-core
-// fp32 rate (67 TFLOP/s peak) rather than the bf16 tensor-core rate. The
-// S x S logits never reach device memory, which is what the plain version
-// pays for. Moving QK^T and PV onto wgmma is later work.
+// kernel does 4*S^2*d flops per head against q, k and v read once per block
+// from L2, so it is compute-bound, and only the tensor cores (989 TFLOP/s in
+// bf16, against 67 for fp32 FMAs on the CUDA cores) come near that bound.
+// The S x S logits never reach device memory, which is what the plain
+// version pays for.
+//
+// Tensor-core design (wgmma m64n64k16 bf16 with fp32 accumulators in
+// registers, the tiles of wgmma_tile.cuh, as the backward's K2a):
+// - A block owns 128 query rows of one (batch, head): two warpgroups of 64
+//   rows each. Q is staged once; the loop runs over 64-row kv tiles loaded
+//   with cp.async in two stages (the next tile in flight while the current
+//   one is multiplied; rows past Skv zero-filled by the copy).
+// - S = Q.K^T reads both operands from shared memory (K-major). The online
+//   softmax runs on the accumulator registers: a row of the 64x64 tile spans
+//   the 4 threads of a quad, so the row max takes two xor-shuffles; the
+//   logits are scaled into log2 units once (exp2 with log2(e) folded into
+//   d^-1/2) and kv columns past Skv are set to NEG_INF. Each thread sums its
+//   own columns of l and the quad's partial sums are added once at the end.
+// - p is rounded to bf16 straight from the accumulator into the A fragments
+//   of O += P.V, which reads V as an MN-major B (the descriptor's transpose
+//   bit); at d = 128 that product is issued per 64-column panel.
+// - K3 (PRESCALE): each thread rescales its own 16-byte chunks of Q in shared
+//   memory once they land, bf16(fp32(q) * q_scale), before the first wgmma.
+// - At d = 64 two blocks share an SM, so one block's softmax overlaps the
+//   other's products.
+//
+// CUDA-core design. One block covers ROWS query rows of one (batch, head).
+// Each query row belongs to G = D/32 consecutive lanes; a lane owns 32 of the
+// D dims of q and of the accumulator in registers, as 8 float4 chunks
+// interleaved across the G lanes (dims 4*(g + G*c) .. +3), so a warp's float4
+// reads of one shared-memory row hit consecutive 16-byte words. A loop over
+// kv tiles stages BK rows of k and v into shared memory as fp32; the whole
+// block reads the same k/v row at the same time (broadcast). Both products
+// run on the CUDA cores in fp32 FMAs: a partial dot over the lane's 32 dims
+// plus a shuffle reduction over the G lanes gives one logit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -171,6 +204,178 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m + logf(l == 0.f ? 1.f : l);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (bf16, d = 64 or 128): K1, and K3 with PRESCALE
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace wgmma_tile;
+
+constexpr float LN2 = 0.6931471805599453f;
+
+// (batch, seq, head) strides in elements of q, k and v, in that order.
+struct Strides {
+  int64_t sb[3], ss[3], sh[3];
+};
+
+// o (and lse) for 128 query rows of one (batch, head). At d = 64 two blocks
+// fit an SM (<= 128 registers, 49 KB of shared memory each).
+template <int D, bool PRESCALE>
+__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1) flash_fwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Skv, Strides st,
+    float q_scale, float scale) {
+  constexpr int BQ = 128, BK = 64, KS = D / 16, NP = D / 64;
+  constexpr uint32_t QT = BQ * D * 2, KT = BK * D * 2;  // tile bytes
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;
+  const uint32_t kvs = qs + QT;  // stage s: k at kvs + 2*KT*s, v KT after
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32, wrow = (tid % 128) / 32 * 16 + lane / 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const bf16* qb = q + b * st.sb[0] + h * st.sh[0];
+  const bf16* kb = k + b * st.sb[1] + h * st.sh[1];
+  const bf16* vb = v + b * st.sb[2] + h * st.sh[2];
+
+  load_tile<BQ, D>(qs, qb, st.ss[0], q0, Sq, tid);
+  cp_async_commit();
+  load_tile<BK, D>(kvs, kb, st.ss[1], 0, Skv, tid);
+  load_tile<BK, D>(kvs + KT, vb, st.ss[2], 0, Skv, tid);
+  cp_async_commit();
+  if (PRESCALE) {
+    // q = bf16(fp32(q) * q_scale), each thread on the chunks it copied (the
+    // chunks load_tile gave it), once they have landed; the loop's fence and
+    // barrier order these writes before the first wgmma
+    cp_async_wait<1>();
+    constexpr int CH = D / 8;
+    uint8_t* const qg = smem_raw + (qs - raw);
+#pragma unroll
+    for (int n = 0; n < BQ * CH / NT; ++n) {
+      const int i = tid + n * NT;
+      uint4* chunk = reinterpret_cast<uint4*>(qg + chunk_off<BQ>(i / CH, i % CH));
+      uint4 x = *chunk;
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(e[j]);
+        e[j] = __floats2bfloat162_rn(f.x * q_scale, f.y * q_scale);
+      }
+      *chunk = x;
+    }
+  }
+
+  // running max m2 (of the logits in log2 units) and this thread's share of
+  // the running sum l, for its two rows
+  float acc[NP][32], s[32];
+  float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const int nt = (Skv + BK - 1) / BK;
+
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) {  // the next kv tile into the other stage
+      const uint32_t nxt = kvs + 2 * KT * ((t + 1) & 1);
+      load_tile<BK, D>(nxt, kb, st.ss[1], (t + 1) * BK, Skv, tid);
+      load_tile<BK, D>(nxt + KT, vb, st.ss[2], (t + 1) * BK, Skv, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (and q) have landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t ks = kvs + 2 * KT * (t & 1), vs = ks + KT;
+
+    // S = Q.K^T (64 x 64 per warpgroup)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss(s, desc_k<BQ>(qs, wg * 64, kk), desc_k<BK>(ks, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+
+    // logits in log2 units, NEG_INF past Skv; the row max over the quad
+    float mt[2] = {kNegInf, kNegInf};
+    if ((t + 1) * BK > Skv) {
+      const int col0 = t * BK + 2 * (lane % 4);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = col0 + 8 * (i / 4) + (i % 2) < Skv ? s[i] * scale2 : kNegInf;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale2;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mt[(i / 2) % 2] = fmaxf(mt[(i / 2) % 2], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mt[hr] = fmaxf(mt[hr], __shfl_xor_sync(0xffffffffu, mt[hr], 1));
+      mt[hr] = fmaxf(mt[hr], __shfl_xor_sync(0xffffffffu, mt[hr], 2));
+      const float m_new = fmaxf(m2[hr], mt[hr]);
+      alpha[hr] = exp2f(m2[hr] - m_new);
+      m2[hr] = m_new;
+      l[hr] *= alpha[hr];
+    }
+
+    // p = exp(s - m) in fp32 into l, rounded to bf16 as the A fragments of
+    // O += P.V
+    uint32_t a[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int hr = (i / 2) % 2;
+      const float p0 = exp2f(s[i] - m2[hr]), p1 = exp2f(s[i + 1] - m2[hr]);
+      l[hr] += p0 + p1;
+      a[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[pn][i] *= alpha[(i / 2) % 2];
+
+    wgmma_fence();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc[pn], a[kk], desc_mn<BK>(vs, pn, kk));
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) fence_acc(acc[pn]);
+    __syncthreads();  // every warpgroup is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {  // the quad's shares of l
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wg * 64 + wrow + 8 * hr;
+    if (row >= Sq) continue;
+    const float l_inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
+    bf16* out = o + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + pn * 64 + 8 * j) =
+            pack_bf16(acc[pn][4 * j + 2 * hr] * l_inv, acc[pn][4 * j + 2 * hr + 1] * l_inv);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] =
+          m2[hr] * LN2 + logf(l[hr] == 0.f ? 1.f : l[hr]);
+  }
+}
+
+}  // namespace tc
+
 template <typename T, int D, int NT, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int H, int Sq, int Skv, const long long* st, float q_scale, float scale,
@@ -178,18 +383,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   constexpr int ROWS = NT / (D / 32);
   constexpr int smem = 2 * BK * D * static_cast<int>(sizeof(float));
   auto kernel = flash_fwd_kernel<T, D, NT, BK>;
-  // The shared-memory limit past 48 KB is a per-device attribute of the
-  // function: set it once per device, not on every launch.
   static std::atomic<uint64_t> smem_set{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = wgmma_tile::allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const uint64_t bit = 1ull << (dev & 63);
-  if (!(smem_set.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set.fetch_or(bit, std::memory_order_release);
-  }
   const dim3 grid((Sq + ROWS - 1) / ROWS, B * H);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -234,6 +430,59 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse, int dty
   return static_cast<int>(err);
 }
 
+// The tensor-core kernel: 256 threads, 128 query rows a block; q, 2 stages of
+// k and v as bf16 tiles, with 1 KB of slack for the 1024-byte alignment of
+// the swizzle.
+template <int D, bool PRESCALE>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int H, int Sq, int Skv, const tc::Strides& st, float q_scale,
+                      float scale, cudaStream_t stream) {
+  constexpr int smem = 1024 + (128 + 4 * 64) * D * 2;
+  auto kernel = tc::flash_fwd_tc_kernel<D, PRESCALE>;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = wgmma_tile::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + 127) / 128, B * H);
+  kernel<<<grid, tc::NT, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), lse, H, Sq, Skv, st, q_scale,
+      scale);
+  return cudaGetLastError();
+}
+
+// As run, on the tensor cores: bf16 (dtype 1) at D = 64 or 128, every row of
+// q, k and v 16-byte aligned (cp.async moves 16 bytes).
+int run_tc(bool prescale, const void* q, const void* k, const void* v, void* o, void* lse,
+           int dtype, int B, int H, int Sq, int Skv, int D, const long long* st,
+           float q_scale, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || dtype != 1) return cudaErrorInvalidValue;
+  const void* ptrs[3] = {q, k, v};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  for (int i = 0; i < 9; ++i)
+    if (st[i] % 8 != 0) return cudaErrorMisalignedAddress;
+  tc::Strides s;
+  for (int t = 0; t < 3; ++t) {
+    s.sb[t] = st[3 * t];
+    s.ss[t] = st[3 * t + 1];
+    s.sh[t] = st[3 * t + 2];
+  }
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
+  cudaError_t err;
+  if (D == 64)
+    err = prescale
+              ? launch_tc<64, true>(q, k, v, o, lse_f, B, H, Sq, Skv, s, q_scale, scale, cs)
+              : launch_tc<64, false>(q, k, v, o, lse_f, B, H, Sq, Skv, s, q_scale, scale, cs);
+  else if (D == 128)
+    err = prescale
+              ? launch_tc<128, true>(q, k, v, o, lse_f, B, H, Sq, Skv, s, q_scale, scale, cs)
+              : launch_tc<128, false>(q, k, v, o, lse_f, B, H, Sq, Skv, s, q_scale, scale, cs);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -264,6 +513,32 @@ int flash_attention_fwd_prescaled(const void* q, const void* k, const void* v, v
                                   float q_scale, float scale, void* stream) {
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   return run(q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, q_scale, scale, stream);
+}
+
+// The tensor-core entries: the same arguments as flash_attention_fwd and
+// flash_attention_fwd_prescaled; bf16 (dtype 1) at D = 64 or 128 only, with
+// every row of q, k and v 16-byte aligned (else cudaErrorInvalidValue,
+// cudaErrorMisalignedAddress).
+int flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int dtype,
+                           int B, int H, int Sq, int Skv, int D,
+                           long long q_sb, long long q_ss, long long q_sh,
+                           long long k_sb, long long k_ss, long long k_sh,
+                           long long v_sb, long long v_ss, long long v_sh,
+                           float scale, void* stream) {
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  return run_tc(false, q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, 1.f, scale, stream);
+}
+
+int flash_attention_fwd_prescaled_tc(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, int dtype,
+                                     int B, int H, int Sq, int Skv, int D,
+                                     long long q_sb, long long q_ss, long long q_sh,
+                                     long long k_sb, long long k_ss, long long k_sh,
+                                     long long v_sb, long long v_ss, long long v_sh,
+                                     float q_scale, float scale, void* stream) {
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  return run_tc(true, q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, q_scale, scale, stream);
 }
 
 const char* cuda_error_string(int code) {

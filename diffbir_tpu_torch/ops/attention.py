@@ -6,13 +6,21 @@ whatever the input dtype, and the probabilities are cast to the input dtype
 before the PV product.
 
 Dispatch: every self-attention call (Skv == Sq) without mask or bias and with
-d in {64, 128, 256, 512} goes to ``flash_attention`` (the CUDA kernel for a
-CUDA tensor, its plain version for a CPU tensor). ``layout="packed"`` (the
-JAX package's ``DIFFBIR_TPU_FLASH_LAYOUT=packed``) runs those calls through
-K3, K1 with q pre-scaled once in bf16, where the JAX packed kernel runs: a
-forward without gradient and Sq <= 1024 or Sq % 1024 == 0. Everything else is plain
-math: cross-attention to the 77 text tokens, SwinIR window attention (bias and
-shift mask) and CLIP causal attention. The TPU dispatch thresholds are not
+d in {64, 128, 256} goes to ``flash_attention`` (the CUDA kernels for a CUDA
+tensor, their plain version for a CPU tensor). The wide single-head sites
+(d > 256: the VAE's d = 512 mid-block attention) go to flash only from
+``FLASH_MIN_WIDE`` = 8192 tokens, and to plain math below it, as the
+reference dispatches them (``diffbir_tpu/ops/attention.py:86-96``,
+``DIFFBIR_TPU_FLASH_MIN_WIDE``): there the plain version's O(S^2) fp32 logits
+start to threaten device memory (256 MiB a head at 8192 tokens, 26.8 GB at
+81920); below it, on an H100, the plain version is the faster one
+(``chip_smoke.py`` times both at [8,4096,1,512]). ``layout="packed"`` (the
+JAX package's ``DIFFBIR_TPU_FLASH_LAYOUT=packed``) runs the flash calls
+through K3, K1 with q pre-scaled once in bf16, where the JAX packed kernel
+runs: a forward without gradient and Sq <= 1024 or Sq % 1024 == 0.
+Everything else is plain math: cross-attention to the 77 text tokens,
+SwinIR window attention (bias and shift mask) and CLIP causal attention.
+The TPU's other dispatch threshold (flash only from 2048 tokens) is not
 carried over; the port sets its own from H100 measurements.
 """
 
@@ -24,6 +32,8 @@ import torch
 
 FLASH_HEAD_DIMS = (64, 128, 256, 512)
 FLASH_LAYOUTS = ("folded", "packed")
+# tokens from which a d > 256 self-attention goes to flash (see above)
+FLASH_MIN_WIDE = 8192
 
 
 def packed_applies(sq: int) -> bool:
@@ -78,9 +88,10 @@ def attention(
         raise ValueError(f"unknown attention impl {impl!r}")
     if layout not in FLASH_LAYOUTS:
         raise ValueError(f"unknown flash layout {layout!r}")
+    d, sq = q.shape[-1], q.shape[1]
     flash = (
         impl == "auto" and mask is None and bias is None
-        and k.shape[1] == q.shape[1] and q.shape[-1] in FLASH_HEAD_DIMS
+        and k.shape[1] == sq and d in FLASH_HEAD_DIMS and (d <= 256 or sq >= FLASH_MIN_WIDE)
     )
     if not flash:
         return plain_attention(q, k, v, mask=mask, bias=bias)

@@ -1,4 +1,4 @@
-"""Flash attention: the forward (K1) and backward (K2a, K2b) CUDA kernels,
+"""Flash attention: the forward (K1, K3) and backward (K2a, K2b) CUDA kernels,
 their plain versions, and the autograd Function around them.
 
 Replaces the Pallas TPU kernels of ``diffbir_tpu/ops/flash_attention.py``:
@@ -10,32 +10,37 @@ logsumexp output) and ``_dq_kernel`` (K2a) + ``_dkv_kernel`` (K2b), launched by
 bf16, q is rounded once as bf16(q * d^-1/2) and the logits are not scaled
 again (``_kernel_packed`` l.243-250); in fp32 the option changes nothing, as
 there. The packed kernel's [B,S,H*D] tiles are what K1 already reads through
-strides, so K3 is a second entry point of ``csrc/flash_attention_fwd.cu``
-with its own launch count, not a second kernel. It is forward-only: the JAX
-custom-VJP forward always takes the folded kernel, and so does
-``FlashAttention``. The kernels are ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu``, built for ``sm_90a`` at first use.
+strides, so K3 is a second entry point of the same kernels with its own
+launch count, not a second kernel. It is forward-only: the JAX custom-VJP
+forward always takes the folded kernel, and so does ``FlashAttention``. The
+kernels are ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
+(with the tensor-core tiles of ``csrc/wgmma_tile.cuh``), built for ``sm_90a``
+at first use.
 
 What bounds them on an H100: at the main path's shapes ([2,4096,5,64] in the
-UNet at 512^2 when serving, [8,4096,5,64] when training, [1,4096,1,512] in
-the VAE) attention is compute-bound, and the plain version's cost is the fp32
-[B,H,Sq,Skv] logits and probabilities it writes to and reads back from device
-memory (671 MB each at [2,4096,5,64]; the backward's plain version holds four
-such tensors). The kernels keep them on chip: the forward with an online
-softmax over kv tiles, the backward by recomputing p = exp(s - lse) per tile
-from the forward's saved fp32 logsumexp. They read q, k, v, o and dO through
+UNet at 512^2 when serving, [8,4096,5,64] when training) attention is
+compute-bound, and the plain version's cost is the fp32 [B,H,Sq,Skv] logits
+and probabilities it writes to and reads back from device memory (671 MB
+each at [2,4096,5,64]; the backward's plain version holds four such
+tensors). The kernels keep them on chip: the forward with an online softmax
+over kv tiles, the backward by recomputing p = exp(s - lse) per tile from
+the forward's saved fp32 logsumexp. They read q, k, v, o and dO through
 their strides, so the projections' views go in without fold/unfold copies.
-K1 and K3 run every product as fp32 FMAs on the CUDA cores. The backward does
-3 (K2a) and 4 (K2b) products of 2*Sq*Skv*d flops per head against a few MB of
-operands, so it is compute-bound: in bf16 at d = 64 and 128 (every backward
-of the training path) K2a and K2b are tensor-core kernels (wgmma, bf16 tiles
-loaded with cp.async in two stages, p and ds kept in registers as the next
-product's A operand; entries ``flash_attention_bwd_dq_tc`` / ``_dkv_tc``,
-counted on ``KERNEL_DQ_TC`` / ``KERNEL_DKV_TC``). fp32 at any d and bf16 at
-d = 256 and 512 go to the CUDA-core entries (``KERNEL_DQ`` / ``KERNEL_DKV``):
-the tensor cores have no fp32 mode that keeps fp32's limit, and no path runs
-a backward at d >= 256. ``bwd_entries`` states the rule; nothing falls back
-from one entry to the other.
+The forward does 2 and the backward 3 (K2a) and 4 (K2b) products of
+2*Sq*Skv*d flops per head against a few MB of operands, so only the tensor
+cores come near the bound. In bf16 at d = 64 and 128 (every site of the
+UNet, the ControlNet and the vision tower, and every backward of the
+training path) all four run on them: wgmma, bf16 tiles loaded with cp.async
+in two stages, p and ds kept in registers as the next product's A operand
+(entries ``flash_attention_fwd_tc`` / ``_fwd_prescaled_tc`` /
+``_bwd_dq_tc`` / ``_bwd_dkv_tc``, counted on ``KERNEL_TC`` /
+``KERNEL_PRESCALED_TC`` / ``KERNEL_DQ_TC`` / ``KERNEL_DKV_TC``). fp32 at any
+d and bf16 at d = 256 and 512 go to the CUDA-core entries (``KERNEL``,
+``KERNEL_PRESCALED``, ``KERNEL_DQ``, ``KERNEL_DKV``): the tensor cores have
+no fp32 mode that keeps fp32's limit, and the port's d = 512 sites (the VAE)
+reach the forward only at 8192 tokens and more and never run a backward.
+``fwd_entries`` and ``bwd_entries`` state the rule; nothing falls back from
+one entry to another, and a tensor-core launch that fails raises.
 
 Layouts: q, o, dO [B,Sq,H,D]; k, v [B,Skv,H,D]; lse fp32 [B,H,Sq] (not the
 TPU's lane-replicated (BQ, 128) blocks).
@@ -56,22 +61,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ptr = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_longlong
-KERNEL = CudaKernel(
-    "flash_attention_fwd.cu",
-    "flash_attention_fwd",
-    [_ptr, _ptr, _ptr, _ptr, _ptr, _i32,
-     _i32, _i32, _i32, _i32, _i32,
-     _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64,
-     ctypes.c_float, _ptr],
-)
-KERNEL_PRESCALED = CudaKernel(
-    "flash_attention_fwd.cu",
-    "flash_attention_fwd_prescaled",
-    [_ptr, _ptr, _ptr, _ptr, _ptr, _i32,
-     _i32, _i32, _i32, _i32, _i32,
-     _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64,
-     ctypes.c_float, ctypes.c_float, _ptr],
-)
+_FWD_ARGS = [_ptr, _ptr, _ptr, _ptr, _ptr, _i32,
+             _i32, _i32, _i32, _i32, _i32,
+             _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64]
+# each forward entry: its args, then (q_scale for the prescaled ones) the
+# logits' scale and the stream
+KERNEL = CudaKernel("flash_attention_fwd.cu", "flash_attention_fwd",
+                    _FWD_ARGS + [ctypes.c_float, _ptr])
+KERNEL_PRESCALED = CudaKernel("flash_attention_fwd.cu", "flash_attention_fwd_prescaled",
+                              _FWD_ARGS + [ctypes.c_float, ctypes.c_float, _ptr])
+KERNEL_TC = CudaKernel("flash_attention_fwd.cu", "flash_attention_fwd_tc",
+                       _FWD_ARGS + [ctypes.c_float, _ptr])
+KERNEL_PRESCALED_TC = CudaKernel("flash_attention_fwd.cu", "flash_attention_fwd_prescaled_tc",
+                                 _FWD_ARGS + [ctypes.c_float, ctypes.c_float, _ptr])
 KERNEL_DQ = CudaKernel(
     "flash_attention_bwd.cu",
     "flash_attention_bwd_dq",
@@ -92,7 +94,7 @@ KERNEL_DKV_TC = CudaKernel(
     "flash_attention_bwd_dkv_tc",
     [_ptr] * 8 + [_i32] * 6 + [_ptr, ctypes.c_float, _ptr],
 )
-# head dims of the tensor-core backward (bf16 only)
+# head dims of the tensor-core entries (bf16 only)
 TC_HEAD_DIMS = (64, 128)
 
 
@@ -216,13 +218,49 @@ def _strides(*ts: torch.Tensor) -> list:
     return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
+def fwd_entries(q: torch.Tensor, prescale_q: bool = False) -> CudaKernel:
+    """The forward entry for q's dtype and head dim: the tensor-core K1
+    (``KERNEL_TC``; K3, ``KERNEL_PRESCALED_TC``, with ``prescale_q``) for
+    bf16 at d in ``TC_HEAD_DIMS``, the CUDA-core K1 (``KERNEL``; K3,
+    ``KERNEL_PRESCALED``) for fp32 at any d and for bf16 at d = 256 and
+    512."""
+    tensor_cores = q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+    if prescale_q:
+        return KERNEL_PRESCALED_TC if tensor_cores else KERNEL_PRESCALED
+    return KERNEL_TC if tensor_cores else KERNEL
+
+
+def launch_fwd(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               with_lse: bool = False):
+    """o (and with ``with_lse`` lse) from one forward entry on checked CUDA
+    inputs; ``flash_attention_fwd`` picks the entry by ``fwd_entries``. A
+    prescaled entry (K3) rounds a bf16 q once as bf16(q * d^-1/2) and leaves
+    the logits unscaled; on fp32 it scales the logits as K1 does."""
+    b, sq, h, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, *_strides(q, k, v))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        if kernel in (KERNEL_PRESCALED, KERNEL_PRESCALED_TC):
+            bf16 = q.dtype == torch.bfloat16
+            kernel.launch(*args, d ** -0.5 if bf16 else 1.0, 1.0 if bf16 else d ** -0.5, stream)
+        else:
+            kernel.launch(*args, d ** -0.5, stream)
+    return (out, lse) if with_lse else out
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         with_lse: bool = False, prescale_q: bool = False):
     """K1: o [B,Sq,H,D] (contiguous), and with ``with_lse`` also lse [B,H,Sq]
     fp32; with ``prescale_q`` K3 (q rounded once as bf16(q * d^-1/2), no
     lse). A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernel or raises (bf16 or fp32, one dtype and device for all three, unit
-    stride over D)."""
+    entry of ``fwd_entries`` or raises (bf16 or fp32, one dtype and device
+    for all three, unit stride over D). For the tensor-core entries an
+    operand whose rows are not 16-byte aligned is copied first (no path of
+    the port makes one)."""
     _check(q, k, v)
     if with_lse and prescale_q:
         raise ValueError("the prescaled-q forward (K3) has no lse output")
@@ -230,23 +268,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if with_lse:
             return flash_attention_lse_ref(q, k, v)
         return flash_attention_ref(q, k, v, prescale_q=prescale_q)
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None,
-            _DTYPE_CODES[q.dtype], b, h, sq, skv, d, *_strides(q, k, v))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        if prescale_q:
-            # fp32: the packed kernel's logits are scaled as K1's
-            bf16 = q.dtype == torch.bfloat16
-            KERNEL_PRESCALED.launch(*args, d ** -0.5 if bf16 else 1.0,
-                                    1.0 if bf16 else d ** -0.5, stream)
-        else:
-            KERNEL.launch(*args, d ** -0.5, stream)
-    return (out, lse) if with_lse else out
+    kernel = fwd_entries(q, prescale_q)
+    if kernel in (KERNEL_TC, KERNEL_PRESCALED_TC):
+        q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
+    return launch_fwd(kernel, q, k, v, with_lse)
 
 
 def bwd_entries(q: torch.Tensor) -> Tuple[CudaKernel, CudaKernel]:

@@ -6,9 +6,13 @@ with the spaced sampler. Public arrays are NHWC: uint8 LQ in, uint8 out, with
 ``torch.Generator`` on the device seeded per request (x_T, then the per-step
 noise); a caller may instead hand in x_T and the per-step noise table.
 
-Prompts: the CLIP tokenizer is not ported (its BPE vocabulary is not in the
-repository), so every prompt is encoded as the empty-prompt token ids, as the
-JAX pipeline does when it has no tokenizer.
+Prompts: a pipeline takes a ``tokenizer``, a callable from a list of strings
+to int token ids [n, 77], and encodes the prompt text with it, as the JAX
+pipeline does. The CLIP BPE tokenizer itself is not ported (its vocabulary is
+not in the repository). Without a tokenizer the empty prompt is the
+empty-prompt ids (SOT, EOT, zeros) and any other text raises ValueError; the
+JAX pipeline encodes every prompt as the empty prompt then, which drops the
+text silently.
 
 Not ported yet, and refused with NotImplementedError: samplers other than
 ``spaced``, tiling, turbo control caching, restoration guidance,
@@ -17,7 +21,7 @@ Not ported yet, and refused with NotImplementedError: samplers other than
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,11 +51,13 @@ class Pipeline:
     """Base pipeline; subclasses override ``apply_cleaner``."""
 
     def __init__(self, cldm: ControlLDM, schedule: Schedule, device: torch.device,
-                 min_cond_size: int = 512):
+                 min_cond_size: int = 512,
+                 tokenizer: Optional[Callable[[List[str]], np.ndarray]] = None):
         self.cldm = cldm
         self.schedule = schedule
         self.device = torch.device(device)
         self.min_cond_size = min_cond_size
+        self.tokenizer = tokenizer
         self.output_size: Tuple[int, int] = None
 
     def set_output_size(self, lq_hw: Tuple[int, int]) -> None:
@@ -61,7 +67,15 @@ class Pipeline:
         raise NotImplementedError
 
     def tokenize(self, prompt: str, bs: int) -> torch.Tensor:
-        """Empty-prompt ids (SOT, EOT, padding) for any prompt."""
+        """The tokenizer's ids of ``prompt`` repeated ``bs`` times; without a
+        tokenizer the empty-prompt ids (SOT, EOT, padding) for "", and
+        ValueError for any other text."""
+        if self.tokenizer is not None:
+            ids = torch.as_tensor(np.asarray(self.tokenizer([prompt])), dtype=torch.long)
+            return ids.repeat(bs, 1).to(self.device)
+        if prompt:
+            raise ValueError(f"prompt text {prompt!r} needs a tokenizer: pass tokenizer= to "
+                             "the pipeline, or empty prompts")
         t = torch.zeros((bs, self.cldm.clip.context_length), dtype=torch.long,
                         device=self.device)
         t[:, 0], t[:, 1] = SOT, EOT
@@ -186,8 +200,9 @@ class SwinIRPipeline(Pipeline):
     """x1 SwinIR cleaner on a pre-upscaled input, output clipped to [0, 1]."""
 
     def __init__(self, cleaner: SwinIR, cldm: ControlLDM, schedule: Schedule,
-                 device: torch.device, min_cond_size: int = 512):
-        super().__init__(cldm, schedule, device, min_cond_size)
+                 device: torch.device, min_cond_size: int = 512,
+                 tokenizer: Optional[Callable[[List[str]], np.ndarray]] = None):
+        super().__init__(cldm, schedule, device, min_cond_size, tokenizer)
         self.cleaner = cleaner
 
     def apply_cleaner(self, lq: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ of the LLaVA-1.5-7B captioner, of the port on a CUDA device.
 The denoise step is the model call a 512x512 request makes 50 times: a
 full-width SD2.1 ControlLDM (UNet + IRControlNet, random bf16 weights from
 seed 0) at batch 2 on a 64x64 latent, classifier-free guidance folded into
-the batch. With ``--train`` the step is instead one stage-2 training step of
+the batch, cond and uncond on the CLI's default prompts through a seeded
+stand-in tokenizer. With ``--train`` the step is instead one stage-2 training step of
 ``build_train_setup``, which ``chip_smoke.py`` drives too: gradient
 checkpointing, the ControlNet initialised from the UNet, a frozen realesrgan
 SwinIR cleaner, the v2.1 schedule with noise augmentation at 200, AdamW at
@@ -34,6 +35,7 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
+import zlib
 from dataclasses import dataclass
 from typing import Callable
 
@@ -56,24 +58,51 @@ TRAIN_BATCH, TRAIN_LR, NOISE_AUG = 8, 1e-5, 200
 CAPTION_ROWS, CAPTION_NEW = 624, 60
 # device kernel names of K1, K2a and K2b (the tensor-core entries, and the
 # CUDA-core ones that fp32 and d >= 256 take), K4 and K5
-KERNELS = {"K1": "flash_fwd_kernel", "K2a": "flash_bwd_dq_tc_kernel",
-           "K2b": "flash_bwd_dkv_tc_kernel", "K2a (CUDA cores)": "flash_bwd_dq_kernel",
-           "K2b (CUDA cores)": "flash_bwd_dkv_kernel", "K4": "quant_matmul_kernel",
-           "K5": "int4_"}
+KERNELS = {"K1": "flash_fwd_tc_kernel", "K1 (CUDA cores)": "flash_fwd_kernel",
+           "K2a": "flash_bwd_dq_tc_kernel", "K2b": "flash_bwd_dkv_tc_kernel",
+           "K2a (CUDA cores)": "flash_bwd_dq_kernel", "K2b (CUDA cores)": "flash_bwd_dkv_kernel",
+           "K4": "quant_matmul_kernel", "K5": "int4_"}
+# the JAX CLI's default prompts (inference.py)
+POS_PROMPT = ("Cinematic, High Contrast, highly detailed, taken using a Canon EOS R camera, "
+              "hyper detailed photo - realistic maximum detail, 32k, Color Grading, ultra HD, "
+              "extreme meticulous detailing, skin pore detailing, hyper sharpness, perfect "
+              "without deformations.")
+NEG_PROMPT = ("painting, oil painting, illustration, drawing, art, sketch, oil painting, "
+              "cartoon, CG Style, 3D render, unreal engine, blurring, dirty, messy, worst "
+              "quality, low quality, frames, watermark, signature, jpeg artifacts, deformed, "
+              "lowres, over-smooth.")
+
+
+def stand_in_tokenizer(seed: int = SEED, context_length: int = 77):
+    """A seeded stand-in for the CLIP tokenizer, whose vocabulary is not in
+    the repository: each word of a text becomes an id in [0, SOT) from a hash
+    of the seed and the word, between SOT and EOT, zero-padded to
+    ``context_length`` (``Pipeline``'s ``tokenizer``: list of texts -> int
+    ids [n, context_length]). The empty text gives the empty-prompt ids."""
+    def tokenize(texts):
+        out = np.zeros((len(texts), context_length), np.int64)
+        for row, text in zip(out, texts):
+            ids = [zlib.crc32(f"{seed}:{w}".encode()) % SOT
+                   for w in text.split()[:context_length - 2]]
+            row[:len(ids) + 2] = [SOT, *ids, EOT]
+        return out
+    return tokenize
 
 
 def build_step(seed: int, device: torch.device):
-    """A full-width bf16 ControlLDM and one sampler step's folded-CFG call."""
+    """A full-width bf16 ControlLDM and one sampler step's folded-CFG call,
+    cond and uncond on the default prompts' stand-in ids."""
     gen = torch.Generator(device=device).manual_seed(seed)
     cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device=device)
     random_init_(cldm, gen).eval()
-    tokens = torch.zeros(1, cldm.clip.context_length, dtype=torch.long, device=device)
-    tokens[:, 0], tokens[:, 1] = SOT, EOT
+    tokenizer = stand_in_tokenizer(seed)
+    pos, neg = (torch.as_tensor(tokenizer([text]), device=device)
+                for text in (POS_PROMPT, NEG_PROMPT))
     size = 8 * LATENT
     with torch.no_grad():
         img = torch.rand(1, size, size, 3, generator=gen, device=device)
-        cond = cldm.prepare_condition(img, tokens)
-        uncond = dict(c_txt=cldm.encode_text(tokens), c_img=cond["c_img"])
+        cond = cldm.prepare_condition(img, pos)
+        uncond = dict(c_txt=cldm.encode_text(neg), c_img=cond["c_img"])
     x = torch.randn(1, LATENT, LATENT, 4, generator=gen, device=device)
     t = torch.full((1,), 999.0, device=device)
 

@@ -52,21 +52,107 @@ def _qkv(cuda, b, sq, skv, h, d, dtype, seed=0):
     return q, k, v
 
 
+def _fwd_launches():
+    """Launch counts of the four forward entries: tensor-core K1, K3, then
+    the CUDA-core K1, K3."""
+    return [e.launches for e in (fa.KERNEL_TC, fa.KERNEL_PRESCALED_TC, fa.KERNEL,
+                                 fa.KERNEL_PRESCALED)]
+
+
+def _moved(before, after):
+    return [a - b for a, b in zip(after, before)]
+
+
 @pytest.mark.parametrize("b,sq,skv,h,d", [
     (2, 333, 333, 3, 64), (1, 130, 77, 2, 128), (1, 70, 200, 2, 256), (1, 257, 257, 1, 512),
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
 def test_kernel_matches_plain_version(cuda, b, sq, skv, h, d, dtype, tol):
     """Every head dim, ragged Sq and Skv (cross shapes too), both dtypes;
-    one launch counted per call."""
+    one launch counted per call, on the entry that ``fwd_entries`` names
+    (the tensor-core K1 for bf16 at d = 64/128)."""
     q, k, v = _qkv(cuda, b, sq, skv, h, d, dtype)
-    before = fa.KERNEL.launches
+    before = _fwd_launches()
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa.KERNEL.launches == before + 1
+    tensor_cores = dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS
+    assert fa.fwd_entries(q) is (fa.KERNEL_TC if tensor_cores else fa.KERNEL)
+    assert _moved(before, _fwd_launches()) == ([1, 0, 0, 0] if tensor_cores else [0, 0, 1, 0])
     assert out.dtype == dtype and out.shape == q.shape and out.is_contiguous()
     ref = fa.flash_attention_ref(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, tol)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (2, 4096, 4096, 2, 64), (2, 333, 333, 3, 64), (1, 130, 77, 2, 64), (1, 70, 200, 2, 64),
+    (1, 40, 40, 2, 64), (1, 300, 45, 2, 128), (2, 200, 260, 2, 128), (1, 577, 577, 4, 64),
+])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_tensor_core_forward_matches_plain_version(cuda, b, sq, skv, h, d, with_lse):
+    """The tensor-core K1 (bf16, d = 64/128) with and without lse: ragged Sq
+    and Skv (multiples of neither tile), Sq != Skv, less than one tile; one
+    launch on its own count; o within 2^-6 x max|ref|, lse within 1e-4."""
+    q, k, v = _qkv(cuda, b, sq, skv, h, d, torch.bfloat16)
+    before = _fwd_launches()
+    res = fa.flash_attention_fwd(q, k, v, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert _moved(before, _fwd_launches()) == [1, 0, 0, 0]
+    outs = res if with_lse else (res,)
+    refs = fa.flash_attention_lse_ref(q, k, v) if with_lse else (fa.flash_attention_ref(q, k, v),)
+    for out, ref, tol in zip(outs, refs, (BF16_TOL, FP32_TOL)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype and out.is_contiguous()
+        assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, tol)
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+def test_tensor_core_forward_reads_strided_views(cuda, offset):
+    """bf16 q, k, v as views of one projection output, read in place (offset
+    0) or copied first because their rows are not 16-byte aligned (offset 4
+    elements): the same bits as on contiguous copies."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(2, 300, 3 * 128 + 8, generator=gen, device=cuda).bfloat16()
+    q, k, v = (t.reshape(2, 300, 2, 64) for t in qkv[..., offset:offset + 384].chunk(3, dim=-1))
+    assert not q.is_contiguous() and (q.data_ptr() % 16 == 0) == (offset == 0)
+    before = _fwd_launches()
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    assert _moved(before, _fwd_launches()) == [1, 0, 0, 0]
+    o_d, lse_d = fa.flash_attention_fwd(*(t.contiguous() for t in (q, k, v)), with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_d) and torch.equal(lse, lse_d)
+    ref = fa.flash_attention_ref(q, k, v)
+    assert (o.float() - ref.float()).abs().max().item() <= _limit(ref, BF16_TOL)
+
+
+def test_tensor_core_forward_entries_refuse_what_they_do_not_take(cuda):
+    """The tensor-core K1 and K3 take bf16 at d = 64/128 only: launched on
+    fp32, or on bf16 at d = 256, they raise and count nothing."""
+    before = _fwd_launches()
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q, k, v = _qkv(cuda, 1, 64, 64, 1, d, dtype)
+        for entry in (fa.KERNEL_TC, fa.KERNEL_PRESCALED_TC):
+            with pytest.raises(RuntimeError):
+                fa.launch_fwd(entry, q, k, v)
+    assert _fwd_launches() == before
+
+
+def test_gradients_flow_through_tensor_core_flash_attention(cuda):
+    """bf16 at d = 64 under autograd: the tensor-core K1 with lse forward and
+    the tensor-core K2a/K2b backward, each once; q, k and v get gradients
+    within 2^-6 x max|ref| of the plain backward on the same o and lse."""
+    q, k, v = _qkv(cuda, 2, 300, 300, 2, 64, torch.bfloat16)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                    device=cuda).bfloat16()
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = _fwd_launches() + _bwd_launches()
+    out = fa.flash_attention(*leaves)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert _moved(before, _fwd_launches() + _bwd_launches()) == [1, 0, 0, 0, 1, 1, 0, 0]
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    assert torch.equal(out.detach(), o)
+    for leaf, ref in zip(leaves, fa.flash_attention_bwd_ref(q, k, v, o, lse, g)):
+        assert leaf.grad is not None
+        assert (leaf.grad.float() - ref.float()).abs().max().item() <= _limit(ref, BF16_TOL)
 
 
 def _bwd_launches():
@@ -186,7 +272,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
 def test_small_fp32_pipeline_matches_cpu(cuda):
     """A small fp32 model (head dim 64, so K1 runs at fp32) through the
-    pipeline on the card and on the CPU, same weights and noise."""
+    pipeline on the card and on the CPU, same weights, noise and stand-in
+    prompt ids (the default negative prompt)."""
     import numpy as np
 
     from diffbir_tpu_torch.models.cldm import ControlLDM
@@ -195,6 +282,7 @@ def test_small_fp32_pipeline_matches_cpu(cuda):
     from diffbir_tpu_torch.models.unet import ControlNet, UNetModel
     from diffbir_tpu_torch.models.vae import AutoencoderKL
     from diffbir_tpu_torch.pipeline import IdentityCleanerPipeline
+    from diffbir_tpu_torch.profile_step import stand_in_tokenizer
     from diffbir_tpu_torch.schedule import Schedule
 
     kw = dict(model_channels=64, num_head_channels=64, channel_mult=(1, 2),
@@ -216,7 +304,8 @@ def test_small_fp32_pipeline_matches_cpu(cuda):
     lq = np.random.default_rng(5).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
     res = {}
     for dev, model in ((torch.device("cpu"), cpu), (cuda, gpu)):
-        pipe = IdentityCleanerPipeline(model, Schedule.v21(), dev, min_cond_size=64)
+        pipe = IdentityCleanerPipeline(model, Schedule.v21(), dev, min_cond_size=64,
+                                       tokenizer=stand_in_tokenizer())
         cond_img = torch.as_tensor(lq, device=dev).float() / 255
         before = fa.KERNEL.launches
         with torch.no_grad():
@@ -294,13 +383,15 @@ def _close(out, ref, tol):
 @pytest.mark.parametrize("shape", [(2, 256, 3, 64), (1, 130, 2, 128), (2, 64, 20, 64)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
 def test_prescaled_flash_matches_plain_version(cuda, shape, dtype, tol):
-    """K3 (one launch on its own count, none on K1's) against the prescaled
-    plain version; in fp32 it is K1, bit for bit."""
+    """K3 (one launch on its own count: the tensor-core entry in bf16, the
+    CUDA-core one in fp32; none on K1's) against the prescaled plain
+    version; in fp32 it is K1, bit for bit."""
     q, k, v = _qkv(cuda, shape[0], shape[1], shape[1], shape[2], shape[3], dtype)
-    before = (fa.KERNEL.launches, fa.KERNEL_PRESCALED.launches)
+    before = _fwd_launches()
     out = fa.flash_attention(q, k, v, prescale_q=True)
     torch.cuda.synchronize()
-    assert (fa.KERNEL.launches, fa.KERNEL_PRESCALED.launches) == (before[0], before[1] + 1)
+    bf16 = dtype == torch.bfloat16
+    assert _moved(before, _fwd_launches()) == ([0, 1, 0, 0] if bf16 else [0, 0, 0, 1])
     _close(out, fa.flash_attention_ref(q, k, v, prescale_q=True), tol)
     if dtype == torch.float32:
         assert torch.equal(out, fa.flash_attention(q, k, v))

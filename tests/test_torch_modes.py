@@ -40,7 +40,7 @@ from diffbir_tpu_torch.pipeline import IdentityCleanerPipeline
 from diffbir_tpu_torch.schedule import Schedule
 from diffbir_tpu_torch.weights.convert import flax_to_state_dict
 from tests.test_torch_models import assert_close, fill_params
-from tests.test_torch_pipeline import CFG, STEPS, jax_noise
+from tests.test_torch_pipeline import CFG, STEPS, jax_noise, word_tokenizer
 
 MODES = {
     "fused": dict(fused_resblock=True),
@@ -101,18 +101,26 @@ def test_identity_pipeline_run_matches_jax_in_mode(mode, float_params, jax_env):
     jc, params, tc = _pair(mode, float_params)
     sched = JaxSchedule.create(timesteps=1000, beta_schedule="linear", linear_start=0.00085,
                                linear_end=0.0120, parameterization="v", zero_snr=True)
-    jp = JaxIdentityPipeline(None, jc, params, sched, tokenizer=None, min_cond_size=64)
-    tp = IdentityCleanerPipeline(tc, Schedule.v21(), torch.device("cpu"), min_cond_size=64)
+    jp = JaxIdentityPipeline(None, jc, params, sched, tokenizer=word_tokenizer,
+                             min_cond_size=64)
+    tp = IdentityCleanerPipeline(tc, Schedule.v21(), torch.device("cpu"), min_cond_size=64,
+                                 tokenizer=word_tokenizer)
     lq = np.random.default_rng(0).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
-    ref = jp.run(lq, steps=STEPS, cfg_scale=CFG, seed=5)
+    # "fused" runs the default negative prompt through the tokenizer, so cond
+    # and uncond differ; "int8" keeps both prompts empty, the inputs its 4-LSB
+    # limit was set on: with distinct texts CFG (4.0) multiplies the cond -
+    # uncond difference, and with it the bf16 rounding-order spread above
+    # (10 LSB on these inputs)
+    prompts = {} if mode == "fused" else {"neg_prompt": ""}
+    ref = jp.run(lq, steps=STEPS, cfg_scale=CFG, seed=5, **prompts)
     x_T, noise = jax_noise(5, (1, 8, 8, 4), STEPS)
-    out = tp.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise)
+    out = tp.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise, **prompts)
     assert out.shape == ref.shape == (1, 64, 64, 3) and out.dtype == np.uint8
     assert np.abs(out.astype(int) - ref.astype(int)).max() <= LSB_TOL[mode]
     assert ref.std() > 1.0
     if mode == "int8":  # the limit's power: the float model misses it
         _, _, float_model = _pair("fused", float_params)
         tp_f = IdentityCleanerPipeline(float_model, Schedule.v21(), torch.device("cpu"),
-                                       min_cond_size=64)
-        out_f = tp_f.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise)
+                                       min_cond_size=64, tokenizer=word_tokenizer)
+        out_f = tp_f.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise, **prompts)
         assert np.abs(out_f.astype(int) - ref.astype(int)).max() > LSB_TOL[mode]

@@ -134,6 +134,10 @@ def test_schedule_tables_match_jax():
 # --------------------------------------------------------------------------- #
 # attention: the flash kernel's plain version and the dispatch
 # --------------------------------------------------------------------------- #
+FWD_ENTRIES = (port_flash.KERNEL_TC, port_flash.KERNEL_PRESCALED_TC, port_flash.KERNEL,
+               port_flash.KERNEL_PRESCALED)
+
+
 @pytest.mark.parametrize("b,sq,skv,h,d", [
     (1, 256, 256, 2, 64),
     (2, 200, 200, 1, 64),   # ragged q and kv against the Pallas blocks
@@ -153,11 +157,11 @@ def test_flash_ref_matches_pallas_interpret_and_xla(b, sq, skv, h, d):
     np.testing.assert_allclose(out, pallas, atol=1e-5, rtol=0)
     np.testing.assert_allclose(out, xla, atol=1e-5, rtol=0)
     # the CPU wrapper is the plain version and launches nothing
-    before = port_flash.KERNEL.launches
+    before = [e.launches for e in FWD_ENTRIES]
     wrapped = port_flash.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                          torch.from_numpy(v)).numpy()
     np.testing.assert_array_equal(wrapped, out)
-    assert port_flash.KERNEL.launches == before
+    assert [e.launches for e in FWD_ENTRIES] == before
 
 
 def test_plain_attention_mask_and_bias_match_xla():
@@ -179,15 +183,53 @@ def test_attention_dispatch_sends_only_plain_self_attention_to_flash(monkeypatch
     x = torch.randn(1, 16, 2, 64)
     ctx = torch.randn(1, 77, 2, 64)
     attention(x, x, x)  # self, d=64: flash
-    attention(torch.randn(1, 4, 1, 512), torch.randn(1, 4, 1, 512), torch.randn(1, 4, 1, 512))
+    attention(torch.randn(1, 4, 1, 256), torch.randn(1, 4, 1, 256), torch.randn(1, 4, 1, 256))
+    attention(torch.randn(1, 4, 1, 512), torch.randn(1, 4, 1, 512),
+              torch.randn(1, 4, 1, 512))  # d=512 below 8192 tokens: plain
     attention(x, ctx, ctx)  # cross: plain
     attention(x, x, x, bias=torch.zeros(1, 2, 16, 16))  # bias: plain
     attention(x, x, x, mask=torch.ones(1, 1, 16, 16, dtype=torch.bool))  # mask: plain
     attention(torch.randn(1, 16, 4, 16), torch.randn(1, 16, 4, 16), torch.randn(1, 16, 4, 16))
     attention(x, x, x, impl="plain")
-    assert calls == [(1, 16, 2, 64), (1, 4, 1, 512)]
+    assert calls == [(1, 16, 2, 64), (1, 4, 1, 256)]
     with pytest.raises(ValueError):
         attention(x, x, x, impl="xla")
+
+
+@pytest.mark.parametrize("tokens,flash", [(16, False), (4096, False), (8191, False),
+                                          (8192, True), (8200, True)])
+def test_wide_self_attention_goes_to_flash_from_8192_tokens(monkeypatch, tokens, flash):
+    """d = 512 (the VAE's mid-block) takes the reference's dispatch: plain
+    math below 8192 tokens, flash from there; d = 64 takes flash at any
+    length. Both callees are counted, not run."""
+    from diffbir_tpu_torch.ops import attention as attention_mod
+
+    calls = []
+    monkeypatch.setattr(port_flash, "flash_attention",
+                        lambda q, k, v: calls.append("flash") or torch.empty_like(q))
+    monkeypatch.setattr(attention_mod, "plain_attention",
+                        lambda q, k, v, **kw: calls.append("plain") or torch.empty_like(q))
+    wide = torch.empty(1, tokens, 1, 512)
+    attention(wide, wide, wide)
+    narrow = torch.empty(1, tokens, 1, 64)
+    attention(narrow, narrow, narrow)
+    assert calls == ["flash" if flash else "plain", "flash"]
+
+
+@pytest.mark.parametrize("prescale_q", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+def test_fwd_entries_state_the_rule(d, dtype, prescale_q):
+    """bf16 at d = 64/128 takes the tensor-core K1 (K3 when prescaled); fp32
+    at any d and bf16 at d = 256/512 the CUDA-core entries."""
+    q = torch.empty(2, 8, 1, d, dtype=dtype, device="meta")
+    tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
+    expected = {(True, False): port_flash.KERNEL_TC,
+                (True, True): port_flash.KERNEL_PRESCALED_TC,
+                (False, False): port_flash.KERNEL,
+                (False, True): port_flash.KERNEL_PRESCALED}[(tensor_cores, prescale_q)]
+    assert port_flash.fwd_entries(q, prescale_q) is expected
+    assert port_flash.TC_HEAD_DIMS == (64, 128)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
