@@ -11,9 +11,11 @@ Phases (any failure exits non-zero before the last line is printed):
      bf16 at d = 64 and 128, the CUDA-core entries K1_cc/K3_cc for fp32 and
      d = 256/512), K2a/K2b (flash backward: the tensor-core entries for bf16
      at d = 64 and 128, the CUDA-core entries K2a_cc/K2b_cc for fp32 and d =
-     256/512), K4 (int8 matmul), K5 (packed-int4 matmul), K6 (fused
-     ResBlock), K7 (fused GEGLU FFN); the count of HGMMA/HMMA instructions in
-     the tensor-core kernels (cuobjdump -sass, where the toolkit has it).
+     256/512), K4 (int8 matmul: the tensor-core tile form, the GEMV form
+     K4_gemv, the CUDA-core entry K4_cc), K5 (packed-int4 matmul), K6 (fused
+     ResBlock), K7 (fused GEGLU FFN: the tensor-core entry, the CUDA-core
+     entry K7_cc for fp32); the count of HGMMA/HMMA instructions in the
+     tensor-core kernels (cuobjdump -sass, where the toolkit has it).
   2. K1 against its plain PyTorch version at the serving shapes, the
      training shapes (with lse), the VAE's d = 512 shapes (at 8192 tokens,
      where the dispatch sends them to flash, and below), the captioner's
@@ -39,13 +41,18 @@ Phases (any failure exits non-zero before the last line is printed):
      library yardstick beside the bound: K3 at the 4 self-attention shapes
      of the 512x512 path (batch 2, on its tensor-core entry, with the
      CUDA-core entry K3_cc on the same inputs; fault: q scaled twice), K4 at
-     its 18 dense shapes and at the int8 captioner's 6 (fault: the last 16-deep K
-     slice dropped), K5 (packed-int4 matmul) at the LLaVA-1.5-7B prefill
+     its 18 dense shapes and at the int8 captioner's 6, each on the entry
+     that quant_entries names (by counter), K4_cc on the same inputs, device
+     times (the GEMV form's over weights rotated past the L2 cache) beside
+     one host call (faults: the tile form's last 64-deep K stage dropped;
+     one K split of the GEMV form dropped; a GEMV rerun must be
+     bit-identical), K5 (packed-int4 matmul) at the LLaVA-1.5-7B prefill
      (M = 624) and decode (M = 1) shapes of the 7 big linears, a ragged and
      an fp32 case (fault: the two scale groups of every window swapped), K6
      float and int8 at the 14 ResBlock sites (fault: the last tap of conv2
-     skipped), K7 at the 4 FFN shapes (fault: the last K slice of its first
-     product dropped).
+     skipped), K7 at the 4 FFN shapes on its tensor-core entry (by counter),
+     K7_cc on the same inputs, device times beside one host call (fault:
+     the value and gate halves swapped).
   5. model call: one full-width SD2.1 ControlLDM forward (random bf16 weights)
      at batch 2 on a 64x64 latent, through K1 and through plain attention.
   6. serving path: SwinIRPipeline.run on 512x512 uint8 LQs, 50 spaced steps,
@@ -82,8 +89,10 @@ Phases (any failure exits non-zero before the last line is printed):
      ones); then at batch 2 one step's ControlNet gradient through
      K1+K2 against the same through plain attention, and the same with the
      attention sites' q/k/v gradients dropped must fail the limits.
-The second-to-last line is a JSON list of the kernels; the last line is
-{"ok": true, "device": {...}}.
+The second-to-last line is a JSON list of the kernels, every "ms" and
+"library_ms" the median of single host calls timed by CUDA events; K4 and
+K7 add "device_ms" and "library_device_ms", the device time per call of
+launches run back to back. The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -167,6 +176,11 @@ def k4_sites() -> dict:
 
 
 K4_SITES = k4_sites()
+# K4's entries (ops/quant_matmul.py::quant_entries): the GEMV form at M <= 8
+# (the 32 timestep-embedding sites), the tensor-core tile form elsewhere
+GEMV_MAX_ROWS = 8
+K4_GEMV_PER_CALL = sum(c for (m, _, _), c in K4_SITES.items() if m <= GEMV_MAX_ROWS)
+K4_TILE_PER_CALL = K4_PER_CALL - K4_GEMV_PER_CALL
 # Per request (STEPS model calls): "fused" (fused ResBlock + fused FFN +
 # packed flash) and "int8" (int8 dense + fused ResBlock on int8 convs +
 # packed flash).
@@ -174,8 +188,8 @@ PER_REQUEST = {
     "serve": {"K1": K1_PER_REQUEST},
     "serve_fused": {"K3": K3_PER_CALL * STEPS, "K6": K6_PER_CALL * STEPS,
                     "K7": K7_PER_CALL * STEPS},
-    "serve_int8": {"K3": K3_PER_CALL * STEPS, "K4": K4_PER_CALL * STEPS,
-                   "K6": K6_PER_CALL * STEPS},
+    "serve_int8": {"K3": K3_PER_CALL * STEPS, "K4": K4_TILE_PER_CALL * STEPS,
+                   "K4_gemv": K4_GEMV_PER_CALL * STEPS, "K6": K6_PER_CALL * STEPS},
 }
 MODE_SEEDS = (1, 2)
 # The LLaVA-1.5-7B captioner: 35 prompt ids before the image (BOS first), its
@@ -189,9 +203,11 @@ CAPTION_ROWS = CAPTION_PRE + 576 + CAPTION_POST
 LLAMA_LAYERS = 32
 QUANT_PER_CAPTION = 7 * LLAMA_LAYERS * CAPTION_NEW
 K1_PER_CAPTION = 23
+QUANT_PREFILL_PER_CAPTION = 7 * LLAMA_LAYERS  # the prefill's 624 rows: K4's tile form
 CAPTION_PATHS = {
     "caption_int4": {"K1": K1_PER_CAPTION, "K5": QUANT_PER_CAPTION},
-    "caption_int8": {"K1": K1_PER_CAPTION, "K4": QUANT_PER_CAPTION},
+    "caption_int8": {"K1": K1_PER_CAPTION, "K4": QUANT_PREFILL_PER_CAPTION,
+                     "K4_gemv": QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION},
     "caption_bf16": {"K1": K1_PER_CAPTION},
     "captioned_request": {"K1": K1_PER_CAPTION + K1_PER_REQUEST, "K5": QUANT_PER_CAPTION},
 }
@@ -210,6 +226,12 @@ CAPTION_REL_TOL = 3e-2
 # CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# device_ms's head start for the host: ~10 ms of the card's clock
+SLEEP_CYCLES = 20_000_000
+# the GEMV form's weights are cold in a decode step (7 GiB of int8 weights
+# pass per token): its timings rotate through copies of more than the 50 MB
+# L2 cache
+L2_BYTES = 50 * 2**20
 
 
 class SmokeFailure(Exception):
@@ -235,6 +257,26 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn(i)``, i = 0, 1, ..., run back to back:
+    the card sleeps while the host enqueues the calls, so the host's time
+    per call (the wrapper's Python) does not show, as it does in
+    ``median_ms`` for calls below ~0.1 ms."""
+    import torch
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    e0.record()
+    for i in range(iters):
+        fn(i)
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
 
 
 def bound_ms(products: int, b: int, h: int, sq: int, skv: int, d: int, dtype,
@@ -308,6 +350,8 @@ def phase_build():
                 print(f"[build] {kernel.source.name}:", line.strip())
     tensor_core_sass(_cuda, "K1", ("flash_fwd_tc_kernel",))
     tensor_core_sass(_cuda, "K2a", ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"))
+    tensor_core_sass(_cuda, "K4", ("quant_matmul_tc_kernel",))
+    tensor_core_sass(_cuda, "K7", ("geglu_tc_kernel", "down_tc_kernel"))
 
 
 def tensor_core_sass(_cuda, key: str, names) -> None:
@@ -334,9 +378,13 @@ def tensor_core_sass(_cuda, key: str, names) -> None:
         found = {f: c for f, c in counts.items() if name in f}
         check(bool(found), f"no {name} in {lib.name}'s SASS")
         for f, (hgmma, hmma) in sorted(found.items()):
-            # the template arguments, mangled as I Li64E Lb0E ... E
-            args = re.match(r"I((?:L[ib]\d+E)+)E", f.split(name)[1])
-            inst = ", ".join(re.findall(r"L[ib](\d+)E", args.group(1))) if args else "?"
+            # the template arguments, mangled as I Li64E Lb0E ... E, with the
+            # types 13__nv_bfloat16 and f among them
+            args = re.match(r"I((?:L[ib]\d+E|13__nv_bfloat16|f)+)E", f.split(name)[1])
+            inst = ", ".join(
+                {"13__nv_bfloat16": "bf16", "f": "fp32"}.get(a, a[2:-1])
+                for a in re.findall(r"L[ib]\d+E|13__nv_bfloat16|f", args.group(1))
+            ) if args else ""
             print(f"[build] SASS {name}<{inst}>: {hgmma} HGMMA, {hmma} HMMA")
             check(hgmma > 0, f"{f} has no wgmma instruction")
     cores = [c for f, c in counts.items() if "_tc_" not in f]
@@ -873,50 +921,110 @@ def phase_k3(fa):
     return numbers
 
 
+def k4_case(qm, gen, m, k, n, copies: int = 1):
+    """x [m, k] bf16 and ``copies`` int8 weights [k, n] with their scales
+    and dequantised bf16 twins (the library call's operand)."""
+    import torch
+
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    weights = []
+    for _ in range(copies):
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        w_q, scale = qm.quantize_weight(w.to(torch.bfloat16))
+        weights.append((w_q, scale, (w_q.float() * scale).to(torch.bfloat16)))
+    return x, weights
+
+
 def phase_k4(qm):
     """K4 against its plain version at the 18 dense shapes of the int8 path
-    and the 6 of the int8 captioner (bf16 activations); returns the kernel
-    line's numbers at the GEGLU projection of the 64^2 level,
-    (8192, 320, 2560)."""
+    and the 6 of the int8 captioner (bf16 activations), each on the entry
+    that ``quant_entries`` names (by counter: the tensor-core tile form
+    above 8 rows, the GEMV form at 1 and 2), the CUDA-core entry K4_cc on
+    the same inputs; device times of both beside the plain version, the
+    library call and the bound (the GEMV form's and its library call's over
+    weights rotated past the L2 cache, as a decode step finds them); a
+    planted fault per form. Returns the kernel lines' numbers of K4 and
+    K4_cc at the GEGLU projection of the 64^2 level, (8192, 320, 2560), and
+    of K4_gemv at the decode shape (1, 4096, 4096): ``ms`` and
+    ``library_ms`` one host call each, as for every kernel of the line,
+    ``device_ms`` and ``library_device_ms`` the device times."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    max_err, headline, per_call, caption = 0.0, None, 0.0, {}
+    max_err = dict.fromkeys(("K4", "K4_gemv", "K4_cc"), 0.0)
+    numbers, per_call, caption = {}, {"K4": 0.0, "K4_cc": 0.0}, {}
     cases = [(shape, f"{sites} per call") for shape, sites in K4_SITES.items()]
     cases += [((m, k, n), "captioner") for m in (CAPTION_ROWS, 1) for k, n in LLAVA_SITES]
     for (m, k, n), where in cases:
-        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
-        w_q, scale = qm.quantize_weight(w.to(torch.bfloat16))
-        w_deq = (w_q.float() * scale).to(torch.bfloat16)
+        gemv = m <= GEMV_MAX_ROWS
+        copies = -(-2 * L2_BYTES // (k * n)) if gemv else 1
+        x, weights = k4_case(qm, gen, m, k, n, copies)
+        w_q, scale, w_deq = weights[0]
+        key = "K4_gemv" if gemv else "K4"
+        check(KERNELS[key] is qm.quant_entries(x), f"quant_entries names another entry at {m} rows")
+        before = counts()
         out = qm.quant_matmul(x, w_q, scale)
-        ref = qm.quant_matmul_ref(x, w_q, scale)
+        moved = launched_since(before)
         label = f"({m}, {k}, {n})"
-        max_err = max(max_err, hold(f"K4 at {label}", out, ref, BF16_TOL))
-        iters = 10 if m * k * n > 2 ** 32 else 20
-        ms = median_ms(lambda: qm.quant_matmul(x, w_q, scale), iters)
-        plain_ms = median_ms(lambda: qm.quant_matmul_ref(x, w_q, scale), iters)
-        lib_ms = median_ms(lambda: x @ w_deq, iters)
+        check(moved == {key: 1}, f"K4 at {label} launched {moved}, expected {key} once")
+        cc = qm.launch_quant(qm.KERNEL, x, w_q, scale)
+        ref = qm.quant_matmul_ref(x, w_q, scale)
+        max_err[key] = max(max_err[key], hold(f"{key} at {label}", out, ref, BF16_TOL))
+        max_err["K4_cc"] = max(max_err["K4_cc"], hold(f"K4_cc at {label}", cc, ref, BF16_TOL))
+        if gemv:
+            check(torch.equal(out, qm.quant_matmul(x, w_q, scale)),
+                  f"K4_gemv at {label}: a rerun differs")
+
+        def entry(i):
+            return qm.quant_matmul(x, *weights[i % copies][:2])
+
+        ms = device_ms(entry)
+        host_ms = median_ms(lambda: entry(0))
+        cc_ms = device_ms(lambda i: qm.launch_quant(qm.KERNEL, x, *weights[i % copies][:2]),
+                          5 if m * k * n > 2 ** 32 else 20)
+        plain_ms = median_ms(lambda: qm.quant_matmul_ref(x, w_q, scale), 10)
+        lib_ms = device_ms(lambda i: x @ weights[i % copies][2])
         bms, by = gemm_bound(m, k, n, x, w_q, scale, out)
+        rate = (f"{nbytes(x, w_q, scale, out) / ms / 1e9:.3f} TB/s" if gemv
+                else f"{2e-9 * m * k * n / ms:.1f} TFLOP/s")
         if where == "captioner":
             caption[(m, k, n)] = ms
         else:
-            per_call += K4_SITES[(m, k, n)] * ms
-        print(f"[K4] (M, K, N) {label} ({where}): "
-              f"{show(out, ref)}; K4 "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (x @ dequantised bf16 W) "
-              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            per_call["K4"] += K4_SITES[(m, k, n)] * ms
+            per_call["K4_cc"] += K4_SITES[(m, k, n)] * cc_ms
+        print(f"[K4] (M, K, N) {label} ({where}, {key}): {show(out, ref)}; K4_cc "
+              f"{show(cc, ref)}; device ms: {key} {ms:.4f} ({rate}; one host call "
+              f"{host_ms:.4f}), K4_cc {cc_ms:.4f}, library (x @ dequantised bf16 W) "
+              f"{lib_ms:.4f}; plain {plain_ms:.4f} ms; bound {bms:.4f} ms ({by})")
+        if (m, k, n) in ((8192, 320, 2560), (1, 4096, 4096)):
+            common = {"plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": median_ms(lambda: x @ w_deq),
+                      "library_device_ms": lib_ms}
         if (m, k, n) == (8192, 320, 2560):
-            planted("K4 dropping the last K slice",
-                    qm.quant_matmul(x[:, :-16].contiguous(), w_q[:-16].contiguous(), scale),
+            planted("K4 dropping its last 64-deep K stage",
+                    qm.quant_matmul(x[:, :-64].contiguous(), w_q[:-64].contiguous(), scale),
                     ref, BF16_TOL)
-            headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": lib_ms}
-        del x, w, w_q, scale, w_deq, out, ref
-    print(f"[K4] per model call ({K4_PER_CALL} sites): {per_call:.3f} ms; per int8 caption "
-          f"({QUANT_PER_CAPTION} launches): {per_caption_ms(caption):.3f} ms")
-    headline["max_abs_err"] = max_err
-    return headline
+            numbers["K4"] = {"ms": host_ms, "device_ms": ms, **common}
+            numbers["K4_cc"] = {"ms": median_ms(lambda: qm.launch_quant(qm.KERNEL, x, w_q, scale)),
+                                "device_ms": cc_ms, **common}
+        if (m, k, n) == (1, 4096, 4096):
+            splits = qm.gemv_splits(m, n, k, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+            rows = (-(-k // splits) + 31) // 32 * 32  # a split's rows, as the kernel cuts them
+            dropped = w_q.clone()
+            dropped[:rows] = 0
+            planted(f"K4_gemv dropping one K split (rows 0-{rows - 1})",
+                    qm.quant_matmul(x, dropped, scale), ref, BF16_TOL)
+            numbers["K4_gemv"] = {"ms": host_ms, "device_ms": ms, **common}
+        del x, weights, w_q, scale, w_deq, out, cc, ref
+    print(f"[K4] per model call ({K4_TILE_PER_CALL} tile and {K4_GEMV_PER_CALL} GEMV "
+          f"launches), device time: {per_call['K4']:.3f} ms (K4_cc {per_call['K4_cc']:.3f} ms); "
+          f"per int8 caption ({QUANT_PREFILL_PER_CAPTION} tile, "
+          f"{QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION} GEMV launches): "
+          f"{per_caption_ms(caption):.3f} ms")
+    for key in numbers:
+        numbers[key]["max_abs_err"] = max_err[key]
+    return numbers
 
 
 def int8_params(fr, p: dict) -> dict:
@@ -991,49 +1099,79 @@ def phase_k6(fr):
     return headline
 
 
+def swapped_halves(w1, b1):
+    """W1 and b1 with the value (a) and gate (g) halves swapped: K7 run on
+    them computes g * gelu(a)."""
+    import torch
+
+    inner = w1.shape[0] // 2
+    return (torch.cat([w1[inner:], w1[:inner]]).contiguous(),
+            torch.cat([b1[inner:], b1[:inner]]).contiguous())
+
+
 def phase_k7(ff):
     """K7 against its plain version at the four FFN shapes of the serving
-    path (bf16, batch 2); the library yardstick is the unfused FeedForward
-    module. Returns the kernel line's numbers at (8192 rows, d = 320)."""
+    path (bf16, batch 2) on the entry that ``ffn_entries`` names (by
+    counter: the tensor-core one), and the CUDA-core entry K7_cc on the same
+    inputs; device times beside the plain version, the library yardstick
+    (the unfused FeedForward module) and the bound. Returns the kernel
+    lines' numbers of K7 and K7_cc at (8192 rows, d = 320), timed as
+    ``phase_k4``'s."""
     import torch
 
     from diffbir_tpu_torch.models.unet import FeedForward
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    max_err, headline, per_call = 0.0, None, 0.0
+    max_err, numbers = {"K7": 0.0, "K7_cc": 0.0}, {}
+    per_call = {"K7": 0.0, "K7_cc": 0.0}
     for (tokens, d), sites in K7_SITES.items():
         ffm = randomize_(FeedForward(d, torch.bfloat16, device="cuda"), gen)
         x = torch.randn(2 * tokens, d, generator=gen, device="cuda").to(torch.bfloat16)
         proj, down = ffm.net[0].proj, ffm.net[2]
         args = (x, proj.weight, proj.bias, down.weight, down.bias)
+        label = f"({2 * tokens}, {d})"
         with torch.no_grad():
+            check(ff.ffn_entries(x) is KERNELS["K7"], f"ffn_entries names another entry at {label}")
+            before = counts()
             out = ff.fused_ffn(*args)
+            moved = launched_since(before)
+            check(moved == {"K7": 1}, f"K7 at {label} launched {moved}, expected K7 once")
+            cc = ff.launch_ffn(ff.KERNEL, *args)
             ref = ff.fused_ffn_ref(*args)
-            label = f"({2 * tokens}, {d})"
-            max_err = max(max_err, hold(f"K7 at {label}", out, ref, BF16_TOL))
-            ms = median_ms(lambda: ff.fused_ffn(*args), 10)
+            max_err["K7"] = max(max_err["K7"], hold(f"K7 at {label}", out, ref, BF16_TOL))
+            max_err["K7_cc"] = max(max_err["K7_cc"], hold(f"K7_cc at {label}", cc, ref, BF16_TOL))
+            ms = device_ms(lambda i: ff.fused_ffn(*args))
+            host_ms = median_ms(lambda: ff.fused_ffn(*args))
+            cc_ms = device_ms(lambda i: ff.launch_ffn(ff.KERNEL, *args), 5)
             plain_ms = median_ms(lambda: ff.fused_ffn_ref(*args), 10)
-            lib_ms = median_ms(lambda: ffm(x), 10)
+            lib_ms = device_ms(lambda i: ffm(x))
         n, inner = 2 * tokens, 4 * d
         t_ops = 6.0 * n * d * inner / PEAK_FLOPS["bfloat16"]
         t_bytes = nbytes(out, *args) / PEAK_BYTES
         bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-        per_call += sites * ms
-        print(f"[K7] (rows, d) {label} ({sites} per call): "
-              f"{show(out, ref)}; K7 "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (unfused FeedForward module) "
-              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-        if d == 320:  # the last 16 columns of x and of W1 zero: that slice's products drop
-            x_f, w1_f = x.clone(), proj.weight.clone()
-            x_f[:, -16:], w1_f[:, -16:] = 0, 0
+        per_call["K7"] += sites * ms
+        per_call["K7_cc"] += sites * cc_ms
+        print(f"[K7] (rows, d) {label} ({sites} per call): {show(out, ref)}; K7_cc "
+              f"{show(cc, ref)}; device ms: K7 {ms:.4f} "
+              f"({6e-9 * n * d * inner / ms:.1f} TFLOP/s; one host call {host_ms:.4f}), "
+              f"K7_cc {cc_ms:.4f}, library (unfused FeedForward module) {lib_ms:.4f}; plain "
+              f"{plain_ms:.4f} ms; bound {bms:.4f} ms ({by})")
+        if d == 320:
             with torch.no_grad():
-                faulty = ff.fused_ffn(x_f, w1_f, proj.bias, down.weight, down.bias)
-            planted("K7 dropping the last K slice of its first product", faulty, ref, BF16_TOL)
-            headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": lib_ms}
-    print(f"[K7] per model call ({K7_PER_CALL} FFNs): {per_call:.3f} ms")
-    headline["max_abs_err"] = max_err
-    return headline
+                faulty = ff.fused_ffn(x, *swapped_halves(proj.weight, proj.bias), down.weight,
+                                      down.bias)
+                common = {"plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                          "library_ms": median_ms(lambda: ffm(x)), "library_device_ms": lib_ms}
+                numbers = {"K7": {"ms": host_ms, "device_ms": ms, **common},
+                           "K7_cc": {"ms": median_ms(lambda: ff.launch_ffn(ff.KERNEL, *args), 5),
+                                     "device_ms": cc_ms, **common}}
+            planted("K7 with the value and gate halves swapped", faulty, ref, BF16_TOL)
+        del ffm, x, args, out, cc, ref
+    print(f"[K7] per model call ({K7_PER_CALL} FFNs), device time: {per_call['K7']:.3f} ms "
+          f"(K7_cc {per_call['K7_cc']:.3f} ms)")
+    for key in numbers:
+        numbers[key]["max_abs_err"] = max_err[key]
+    return numbers
 
 
 # --------------------------------------------------------------------------- #
@@ -1104,8 +1242,7 @@ def mode_call(label: str, model, inputs, ref, expected: dict, tables: dict):
 def unfused_call(cldm, inputs):
     import torch
 
-    cldm.set_fused(resblock=False, ffn=False)
-    cldm.set_flash_layout("folded")
+    cldm.set_mode("default")
     with torch.no_grad():
         return cldm(*inputs).float()
 
@@ -1138,8 +1275,6 @@ def phase_modes(cldm, swinir):
 
     import torch
 
-    from diffbir_tpu_torch.models.cldm import quantize_conv_params, quantize_dense_params
-
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(2, 64, 64, 4, generator=gen, device="cuda")
     c_img = torch.randn(2, 64, 64, 4, generator=gen, device="cuda")
@@ -1150,27 +1285,23 @@ def phase_modes(cldm, swinir):
 
     # "fused": fused ResBlock + fused FFN + packed flash, on the float weights
     ref = unfused_call(cldm, inputs)
-    cldm.set_fused(resblock=True, ffn=True)
-    cldm.set_flash_layout("packed")
+    cldm.set_mode("fused")
     mode_call("serve_fused", cldm, inputs, ref,
               {"K3": K3_PER_CALL, "K6": K6_PER_CALL, "K7": K7_PER_CALL},
               {"K3": K3_SITES, "K6": K6_SITES, "K7": K7_SITES})
     launches["serve_fused"] = phase_slice("serve_fused", cldm, swinir, MODE_SEEDS, repeat=False)
 
     # "int8": the UNet and ControlNet quantised in place (dense, then convs)
-    cldm.set_fused(resblock=False, ffn=False)
-    cldm.set_flash_layout("folded")
+    cldm.set_mode("default")
     t0 = time.perf_counter()
-    int8 = quantize_dense_params(copy.deepcopy(cldm))
-    int8.set_fused(resblock=True, ffn=False)
-    quantize_conv_params(int8)
-    int8.set_flash_layout("packed")
+    int8 = copy.deepcopy(cldm).set_mode("int8")
     torch.cuda.synchronize()
     print(f"[serve_int8] copied and quantised in {time.perf_counter() - t0:.2f} s")
     dequantise_into(cldm, int8)
     ref = unfused_call(cldm, inputs)
     mode_call("serve_int8", int8, inputs, ref,
-              {"K3": K3_PER_CALL, "K4": K4_PER_CALL, "K6": K6_PER_CALL},
+              {"K3": K3_PER_CALL, "K4": K4_TILE_PER_CALL, "K4_gemv": K4_GEMV_PER_CALL,
+               "K6": K6_PER_CALL},
               {"K3": K3_SITES, "K4": K4_SITES, "K6": K6_SITES})
     launches["serve_int8"] = phase_slice("serve_int8", int8, swinir, MODE_SEEDS, repeat=False)
     del int8
@@ -1586,8 +1717,9 @@ def main() -> int:
         return 1
     KERNELS.update(K1=fa.KERNEL_TC, K1_cc=fa.KERNEL, K2a=fa.KERNEL_DQ_TC,
                    K2b=fa.KERNEL_DKV_TC, K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV,
-                   K3=fa.KERNEL_PRESCALED_TC, K3_cc=fa.KERNEL_PRESCALED, K4=qm.KERNEL,
-                   K5=qm.KERNEL_INT4, K6=fr.KERNEL, K7=ff.KERNEL)
+                   K3=fa.KERNEL_PRESCALED_TC, K3_cc=fa.KERNEL_PRESCALED, K4=qm.KERNEL_TC,
+                   K4_gemv=qm.KERNEL_GEMV, K4_cc=qm.KERNEL, K5=qm.KERNEL_INT4, K6=fr.KERNEL,
+                   K7=ff.KERNEL_TC, K7_cc=ff.KERNEL)
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() == 1,
@@ -1596,8 +1728,8 @@ def main() -> int:
         phase_build()
         numbers = phase_kernel(fa)
         k2 = phase_backward_kernels(fa)
-        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_k3(fa), K4=phase_k4(qm),
-                       K5=phase_k5(qm), K6=phase_k6(fr), K7=phase_k7(ff))
+        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_k3(fa), **phase_k4(qm),
+                       K5=phase_k5(qm), K6=phase_k6(fr), **phase_k7(ff))
         torch.cuda.empty_cache()
         cldm, swinir = build_models()
         phase_model_call(cldm)
@@ -1610,6 +1742,10 @@ def main() -> int:
         for path, expected in {**PER_REQUEST, **CAPTION_PATHS}.items():  # and no other kernel
             check(all(n == 0 for k, n in paths[path].items() if k not in expected),
                   f"{path} launched other kernels: {paths[path]}")
+        print("[done] launches of the CUDA-core entries per path: " + "; ".join(
+            f"{path} " + ", ".join(f"{k} {n[k]}" for k in ("K1_cc", "K2a_cc", "K2b_cc", "K3_cc",
+                                                           "K4_cc", "K7_cc"))
+            for path, n in paths.items()))
     except (SmokeFailure, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -1625,10 +1761,13 @@ def main() -> int:
          "flash_attention.py:229"),
         ("K3_cc", "flash_attention_fwd_prescaled", "flash_attention_fwd.cu",
          "flash_attention.py:229"),
-        ("K4", "quant_matmul", "quant_matmul.cu", "quant_matmul.py:45"),
+        ("K4", "quant_matmul_tc", "quant_matmul.cu", "quant_matmul.py:45"),
+        ("K4_gemv", "quant_matmul_gemv", "quant_matmul.cu", "quant_matmul.py:45"),
+        ("K4_cc", "quant_matmul", "quant_matmul.cu", "quant_matmul.py:45"),
         ("K5", "quant_matmul_int4", "quant_matmul_int4.cu", "quant_matmul.py:232"),
         ("K6", "fused_resblock", "fused_resblock.cu", "fused_resblock.py:141"),
-        ("K7", "fused_ffn", "fused_ffn.cu", "fused_ffn.py:91"),
+        ("K7", "fused_ffn_tc", "fused_ffn.cu", "fused_ffn.py:91"),
+        ("K7_cc", "fused_ffn", "fused_ffn.cu", "fused_ffn.py:91"),
     )
     kernels = []
     for key, name, source, replaces in entries:

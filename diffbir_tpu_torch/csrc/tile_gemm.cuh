@@ -1,5 +1,8 @@
-// The tiled matrix-product core shared by the int8 matmul (K4), the fused
-// GEGLU FFN (K7) and the fused ResBlock's implicit-GEMM convolutions (K6).
+// The tiled CUDA-core matrix-product core of the fused ResBlock's
+// implicit-GEMM convolutions (K6), the packed-int4 matmul's tile form (K5's
+// prefill), and the CUDA-core entries of the int8 matmul (K4: quant_matmul,
+// which no path launches) and the fused GEGLU FFN (K7: fused_ffn, for fp32).
+// The bf16 paths of K4 and K7 run on the tensor cores (wgmma_gemm.cuh).
 //
 // One block of NT = 256 threads computes a BM x BN = 64 x 64 tile of
 // C = A @ B with fp32 accumulators in registers, 4 x 4 per thread. The
@@ -7,8 +10,7 @@
 // shared memory as fp32, each with its own loads and conversions (a bf16 or
 // int8 operand is exact in fp32, so the products are the tensor cores'
 // bf16 x bf16 -> fp32 products), and call fma_tile() on them; every product
-// is an fp32 FMA on the CUDA cores. Moving it to wgmma with TMA-fed shared
-// memory rings is later work.
+// is an fp32 FMA on the CUDA cores.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -126,14 +126,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// d (64x64 fp32) = A.B (+ d if acc): A and B K-major in shared memory
+// d (64x64 fp32) = A.B (+ d if acc): A K-major and B K-major (or MN-major,
+// read through the transpose bit, if B_MN) in shared memory
+template <int B_MN = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_TILE_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
       : WGMMA_TILE_ACC32(d)
-      : "l"(a), "l"(b), "r"(acc));
+      : "l"(a), "l"(b), "r"(acc), "n"(B_MN));
 }
 // d (64x64 fp32) += A.B: A (64x16 bf16) from registers, B MN-major in shared memory
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {

@@ -126,6 +126,23 @@ class ControlLDM(nn.Module):
             elif isinstance(m, FeedForward):
                 m.fused = ffn and not isinstance(m.net[2], QuantLinear)
 
+    def set_mode(self, mode: str) -> "ControlLDM":
+        """The CLI's serving mode: "default" (unfused, folded flash layout),
+        "fused" (the fused ResBlock and FFN, packed flash layout) or "int8"
+        (the dense sites and the ResBlock convs quantised in place from the
+        current weights, which nothing undoes; the ResBlock fused, packed
+        flash layout)."""
+        if mode == "int8":
+            quantize_dense_params(self)
+            self.set_fused(resblock=True, ffn=False)
+            quantize_conv_params(self)
+        elif mode in ("default", "fused"):
+            self.set_fused(resblock=mode == "fused", ffn=mode == "fused")
+        else:
+            raise ValueError(f"unknown serving mode {mode!r}")
+        self.set_flash_layout("folded" if mode == "default" else "packed")
+        return self
+
     def set_attention_impl(self, impl: str) -> None:
         """"auto" (flash kernel where a call qualifies) or "plain" for every
         attention site of the model."""

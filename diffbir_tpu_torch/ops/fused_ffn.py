@@ -3,7 +3,10 @@ autograd Function around it.
 
 Counterpart of ``diffbir_tpu/ops/fused_ffn.py``: K7 replaces its Pallas TPU
 kernel ``_kernel`` (launched by ``_fused_ffn_impl``) and is
-``csrc/fused_ffn.cu``, built for ``sm_90a`` at first use.
+``csrc/fused_ffn.cu``, built for ``sm_90a`` at first use, with two entries
+(``ffn_entries`` states the rule): the tensor-core design (``KERNEL_TC``)
+for bf16, the CUDA-core one (``KERNEL``) for fp32, whose products the bf16
+tensor cores do not give.
 out = (a * gelu_erf(g)) @ W2^T + b2 with [a, g] = x @ W1^T + b1, in the
 kernel's rounding points: h in fp32, the exact-erf GELU in fp32, act rounded
 to x's dtype before the second product, fp32 accumulation and bias, one cast.
@@ -30,6 +33,7 @@ from ._cuda import CudaKernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("fused_ffn.cu", "fused_ffn", [_ptr] * 7 + [_i32] * 4 + [_ptr])
+KERNEL_TC = CudaKernel("fused_ffn.cu", "fused_ffn_tc", [_ptr] * 7 + [_i32] * 4 + [_ptr])
 
 
 def fused_ffn_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -44,7 +48,17 @@ def fused_ffn_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch
     return out.to(x.dtype)
 
 
-def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
+def ffn_entries(x: torch.Tensor) -> CudaKernel:
+    """The K7 entry for x [N, d]: the tensor-core design (``KERNEL_TC``) for
+    bf16 with d a multiple of 8, the CUDA-core one (``KERNEL``) for fp32 and
+    any other width."""
+    return KERNEL_TC if x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 else KERNEL
+
+
+def launch_ffn(kernel: CudaKernel, x, w1, b1, w2, b2) -> torch.Tensor:
+    """out [N, d] from one K7 entry (``fused_ffn`` picks it by
+    ``ffn_entries``). The tensor-core entry takes bf16 only; a tensor that
+    is not contiguous and 16-byte aligned is copied first."""
     n, d = x.shape
     inner = w2.shape[1]
     for t in (x, w1, w2):
@@ -52,14 +66,22 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
             raise TypeError("fused_ffn: x, w1 and w2 need one CUDA device and dtype")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_ffn takes bf16 or fp32, got {x.dtype}")
-    x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
-    b1, b2 = (b.to(x.device, x.dtype).contiguous() for b in (b1, b2))
+    if kernel is KERNEL_TC and x.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core K7 takes bf16, got {x.dtype}")
+    b1, b2 = (b.to(x.device, x.dtype) for b in (b1, b2))
+    args = [t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format) for t in (x, w1, b1, w2, b2)]
     act = torch.empty((n, inner), dtype=x.dtype, device=x.device)
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    ptrs = [t.data_ptr() for t in args] + [act.data_ptr(), out.data_ptr()]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        KERNEL.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                      act.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], n, d, inner,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+        if kernel is KERNEL_TC:
+            KERNEL_TC.launch(*ptrs, _DTYPE_CODES[x.dtype], n, d, inner, stream)
+        elif kernel is KERNEL:
+            KERNEL.launch(*ptrs, _DTYPE_CODES[x.dtype], n, d, inner, stream)
+        else:
+            raise ValueError(f"not a K7 entry: {kernel.symbol}")
     return out
 
 
@@ -70,7 +92,7 @@ class FusedFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        return _launch(x, w1, b1, w2, b2)
+        return launch_ffn(ffn_entries(x), x, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, g):
@@ -86,9 +108,10 @@ class FusedFFN(torch.autograd.Function):
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor) -> torch.Tensor:
     """x [N, d] -> [N, d], differentiable. A CPU tensor goes to the plain
-    version; a CUDA tensor launches K7 or raises (bf16 or fp32; the weights
-    in x's dtype). Weights and biases enter in x's dtype, as the JAX kernel
-    casts its weights (its serving biases are in that dtype too)."""
+    version; a CUDA tensor launches the K7 entry of ``ffn_entries`` or
+    raises (bf16 or fp32; the weights in x's dtype). Weights and biases
+    enter in x's dtype, as the JAX kernel casts its weights (its serving
+    biases are in that dtype too)."""
     if x.dim() != 2 or w1.shape != (2 * w2.shape[1], x.shape[1]) or w2.shape[0] != x.shape[1]:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)}")
@@ -98,4 +121,4 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
         raise RuntimeError(f"fused_ffn: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
         return FusedFFN.apply(x, w1, b1, w2, b2)
-    return _launch(x, w1, b1, w2, b2)
+    return launch_ffn(ffn_entries(x), x, w1, b1, w2, b2)

@@ -4,9 +4,13 @@ layers.
 
 Counterpart of ``diffbir_tpu/ops/quant_matmul.py``. K4 replaces its Pallas
 TPU kernel ``_kernel`` (launched by ``_pallas_quant_matmul``) and is
-``csrc/quant_matmul.cu``; K5 replaces ``_kernel_int4`` (launched by
-``_pallas_quant_matmul_int4``) and is ``csrc/quant_matmul_int4.cu``; both are
-built for ``sm_90a`` at first use.
+``csrc/quant_matmul.cu``, with three entries: the tensor-core tile form
+(``KERNEL_TC``) for M > 8 rows, the GEMV form (``KERNEL_GEMV``) for M <= 8,
+both for bf16 and fp32 x (``quant_entries`` states the rule), and the first
+CUDA-core version (``KERNEL``), which no path launches. K5 replaces
+``_kernel_int4`` (launched by ``_pallas_quant_matmul_int4``) and is
+``csrc/quant_matmul_int4.cu``; both sources are built for ``sm_90a`` at
+first use.
 
 int8: symmetric per output channel, w ~ w_q * scale[None, :]; the scale
 commutes with the K sum, so it multiplies the fp32 accumulator once after it
@@ -28,9 +32,11 @@ the math is the same.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ._cuda import CudaKernel
@@ -39,6 +45,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("quant_matmul.cu", "quant_matmul",
                     [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr])
+KERNEL_TC = CudaKernel("quant_matmul.cu", "quant_matmul_tc",
+                       [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr])
+KERNEL_GEMV = CudaKernel("quant_matmul.cu", "quant_matmul_gemv",
+                         [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr])
+GEMV_MAX_ROWS = 8  # the GEMV form's largest M
+GEMV_MAX_SPLIT_ROWS = 2048  # rows of K per GEMV block (x's rows in shared memory)
 KERNEL_INT4 = CudaKernel("quant_matmul_int4.cu", "quant_matmul_int4",
                          [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr])
 INT4_WINDOW = 256  # logical K rows per pack window
@@ -65,11 +77,89 @@ def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) ->
     return (acc * scale.float()).to(x.dtype)
 
 
+def quant_entries(x: torch.Tensor) -> CudaKernel:
+    """The K4 entry for x [.., K]: the GEMV form (``KERNEL_GEMV``) for at
+    most ``GEMV_MAX_ROWS`` rows, else the tensor-core tile form
+    (``KERNEL_TC``); both take bf16 and fp32 x."""
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    return KERNEL_GEMV if rows <= GEMV_MAX_ROWS else KERNEL_TC
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_splits(m: int, n: int, k: int, sms: int) -> int:
+    """Parts of K for the GEMV form: enough blocks (128 columns each) for ~4
+    per SM, at least 256 rows a part, at most GEMV_MAX_SPLIT_ROWS."""
+    col_blocks = -(-n // 128)
+    splits = max(1, min(-(-4 * sms // col_blocks), -(-k // 256)))
+    return max(splits, -(-k // GEMV_MAX_SPLIT_ROWS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _ready(t: torch.Tensor) -> bool:
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def _tc_operands(x2, w_q, scale):
+    """The operands as the tensor-core entries take them: K a multiple of 8
+    and N of 16 (else zero-padded: no path of the port needs it), every
+    tensor contiguous and 16-byte aligned (else copied). Every site of the
+    port's paths passes as it is."""
+    k, n = w_q.shape
+    if k % 8 == 0 and n % 16 == 0 and _ready(x2) and _ready(w_q) and _ready(scale):
+        return x2, w_q, scale
+    kp, np_ = -(-k // 8) * 8, -(-n // 16) * 16
+    if (kp, np_) != (k, n):
+        x2 = F.pad(x2, (0, kp - k))
+        w_q = F.pad(w_q, (0, np_ - n, 0, kp - k))
+        scale = F.pad(scale, (0, np_ - n), value=1.0)
+    return [t if _ready(t) else t.clone(memory_format=torch.contiguous_format)
+            for t in (x2, w_q, scale)]
+
+
+def launch_quant(kernel: CudaKernel, x2: torch.Tensor, w_q: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """out [M, N] = x2 [M, K] @ dequant(w_q, scale) from one K4 entry on
+    checked CUDA inputs (``quant_matmul`` picks the entry by
+    ``quant_entries``)."""
+    m, k = x2.shape
+    n = w_q.shape[1]
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    code = _DTYPE_CODES[x2.dtype]
+    if kernel is KERNEL:
+        out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        with torch.cuda.device(x2.device):
+            KERNEL.launch(x2.contiguous().data_ptr(), w_q.contiguous().data_ptr(),
+                          scale.contiguous().data_ptr(), out.data_ptr(), code, m, n, k, stream)
+        return out
+    x2, w_q, scale = _tc_operands(x2, w_q, scale)
+    kp, np_ = w_q.shape
+    out = torch.empty((m, np_), dtype=x2.dtype, device=x2.device)
+    with torch.cuda.device(x2.device):
+        if kernel is KERNEL_TC:
+            KERNEL_TC.launch(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                             code, m, np_, kp, stream)
+        elif kernel is KERNEL_GEMV:
+            splits = gemv_splits(m, np_, kp, _sm_count(x2.device.index))
+            part = (torch.empty(splits * m * np_, dtype=torch.float32, device=x2.device)
+                    if splits > 1 else None)
+            KERNEL_GEMV.launch(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                               None if part is None else part.data_ptr(), out.data_ptr(),
+                               code, m, np_, kp, splits, stream)
+        else:
+            raise ValueError(f"not a K4 entry: {kernel.symbol}")
+    return out if np_ == n else out[:, :n]
+
+
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [.., K] @ dequant(w_q [K, N], scale [N]) -> [.., N] in x's dtype.
 
-    A CPU tensor goes to the plain version; a CUDA tensor launches K4 or
-    raises (x bf16 or fp32, w_q int8, scale fp32, all on one device)."""
+    A CPU tensor goes to the plain version; a CUDA tensor launches the K4
+    entry of ``quant_entries`` or raises (x bf16 or fp32, w_q int8, scale
+    fp32, all on one device)."""
     k, n = w_q.shape
     if x.shape[-1] != k or scale.shape != (n,):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_q {tuple(w_q.shape)}, "
@@ -85,15 +175,10 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> tor
         raise TypeError(f"quant_matmul takes bf16/fp32 x, int8 w_q, fp32 scale; got "
                         f"{x.dtype}, {w_q.dtype}, {scale.dtype}")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).contiguous()
-    m = x2.shape[0]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m:
-        with torch.cuda.device(x.device):
-            KERNEL.launch(x2.data_ptr(), w_q.contiguous().data_ptr(),
-                          scale.contiguous().data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype],
-                          m, n, k, torch.cuda.current_stream(x.device).cuda_stream)
-    return out.reshape(*lead, n)
+    x2 = x.reshape(-1, k)
+    if x2.shape[0] == 0:
+        return torch.empty((*lead, n), dtype=x.dtype, device=x.device)
+    return launch_quant(quant_entries(x), x2, w_q, scale).reshape(*lead, n)
 
 
 class QuantLinear(nn.Module):

@@ -5,7 +5,11 @@ The denoise step is the model call a 512x512 request makes 50 times: a
 full-width SD2.1 ControlLDM (UNet + IRControlNet, random bf16 weights from
 seed 0) at batch 2 on a 64x64 latent, classifier-free guidance folded into
 the batch, cond and uncond on the CLI's default prompts through a seeded
-stand-in tokenizer. With ``--train`` the step is instead one stage-2 training step of
+stand-in tokenizer; with ``--mode fused`` or ``--mode int8`` the same step in
+the CLI's serving mode of that name ("fused": the fused ResBlock K6, the
+fused GEGLU FFN K7 and the packed flash layout K3; "int8": int8 dense
+weights on K4, the fused ResBlock on int8 convs, packed). With ``--train``
+the step is instead one stage-2 training step of
 ``build_train_setup``, which ``chip_smoke.py`` drives too: gradient
 checkpointing, the ControlNet initialised from the UNet, a frozen realesrgan
 SwinIR cleaner, the v2.1 schedule with noise augmentation at 200, AdamW at
@@ -19,7 +23,8 @@ linears on K5 at 4 bits, on K4 at 8) after a 624-row prefill, as
   plain: the medians over 10 calls (5 when training) of the host's enqueue
   time (call to return), of the wall time (call to device sync) and of the
   device span between two CUDA events;
-  (a decode step is timed through the kernels only);
+  (a decode step and a serving mode's step are timed through the kernels
+  only);
 - a ``torch.profiler`` view of 3 steps through the kernels: device time by
   kernel, device kernels and ``aten::copy_`` calls per step, the device time
   of each of the port's kernels that ran, and the device's busy share of the
@@ -27,7 +32,8 @@ linears on K5 at 4 bits, on K4 at 8) after a 624-row prefill, as
 
 Run from the repository root on a machine with a card:
 
-    python3 -m diffbir_tpu_torch.profile_step [--train | --caption 4] [--trace step_trace.json]
+    python3 -m diffbir_tpu_torch.profile_step [--train | --caption 4 | --mode int8]
+        [--trace step_trace.json]
 """
 
 from __future__ import annotations
@@ -56,12 +62,20 @@ TIMED_STEPS, TIMED_TRAIN_STEPS, PROFILED_STEPS = 10, 5, 3
 TRAIN_BATCH, TRAIN_LR, NOISE_AUG = 8, 1e-5, 200
 # the captioner's decode step: after a prompt of 35 + 576 + 13 rows
 CAPTION_ROWS, CAPTION_NEW = 624, 60
-# device kernel names of K1, K2a and K2b (the tensor-core entries, and the
-# CUDA-core ones that fp32 and d >= 256 take), K4 and K5
-KERNELS = {"K1": "flash_fwd_tc_kernel", "K1 (CUDA cores)": "flash_fwd_kernel",
+# substrings of the device kernel names of the port's kernels: K1 (K3 is its
+# PRESCALE instance), K2a and K2b (the tensor-core entries, and the CUDA-core
+# ones that fp32 and d >= 256 take), K4 (the tile form, the GEMV form with
+# its split reduction, the CUDA-core entry), K5, K6 (GroupNorm statistics and
+# the convolutions) and K7 (the tensor-core launches, the CUDA-core ones)
+KERNELS = {"K1/K3": "flash_fwd_tc_kernel", "K1/K3 (CUDA cores)": "flash_fwd_kernel",
            "K2a": "flash_bwd_dq_tc_kernel", "K2b": "flash_bwd_dkv_tc_kernel",
            "K2a (CUDA cores)": "flash_bwd_dq_kernel", "K2b (CUDA cores)": "flash_bwd_dkv_kernel",
-           "K4": "quant_matmul_kernel", "K5": "int4_"}
+           "K4": "quant_matmul_tc_kernel", "K4 GEMV": "gemv::",
+           "K4 (CUDA cores)": "quant_matmul_kernel", "K5": "int4_",
+           "K6 GroupNorm": "namespace)::gn_affine_kernel", "K6 conv": "namespace)::conv_kernel",
+           "K7 geglu": "geglu_tc_kernel", "K7 down": "down_tc_kernel",
+           "K7 (CUDA cores)": "namespace)::geglu_kernel",
+           "K7 down (CUDA cores)": "namespace)::down_kernel"}
 # the JAX CLI's default prompts (inference.py)
 POS_PROMPT = ("Cinematic, High Contrast, highly detailed, taken using a Canon EOS R camera, "
               "hyper detailed photo - realistic maximum detail, 32k, Color Grading, ultra HD, "
@@ -89,12 +103,13 @@ def stand_in_tokenizer(seed: int = SEED, context_length: int = 77):
     return tokenize
 
 
-def build_step(seed: int, device: torch.device):
-    """A full-width bf16 ControlLDM and one sampler step's folded-CFG call,
-    cond and uncond on the default prompts' stand-in ids."""
+def build_step(seed: int, device: torch.device, mode: str = "default"):
+    """A full-width bf16 ControlLDM in a serving mode
+    (``ControlLDM.set_mode``) and one sampler step's folded-CFG call, cond
+    and uncond on the default prompts' stand-in ids."""
     gen = torch.Generator(device=device).manual_seed(seed)
     cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device=device)
-    random_init_(cldm, gen).eval()
+    random_init_(cldm, gen).eval().set_mode(mode)
     tokenizer = stand_in_tokenizer(seed)
     pos, neg = (torch.as_tensor(tokenizer([text]), device=device)
                 for text in (POS_PROMPT, NEG_PROMPT))
@@ -259,6 +274,8 @@ def main(argv=None) -> int:
                     help="profile a stage-2 training step instead of a denoise step")
     ap.add_argument("--caption", type=int, choices=(4, 8, 16), default=None,
                     help="profile a decode step of the LLaVA-1.5-7B captioner at these bits")
+    ap.add_argument("--mode", choices=("default", "fused", "int8"), default="default",
+                    help="the serving mode of the denoise step")
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the profiled steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -270,11 +287,12 @@ def main(argv=None) -> int:
         step = build_decode_step(SEED, device, args.caption)
         print(f"[profile] {torch.cuda.get_device_name(0)}; LLaVA-1.5-7B decode step at "
               f"{args.caption} bits after a {CAPTION_ROWS}-row prefill")
-        r = time_steps(step, TIMED_STEPS)
-        print(f"[step] median of {TIMED_STEPS} decode steps: enqueue {r['enqueue_ms']:.2f} ms, "
-              f"wall {r['wall_ms']:.2f} ms, device span {r['device_ms']:.2f} ms")
-        report(profile_steps(step, PROFILED_STEPS, args.trace))
-        return 0
+        return through_the_kernels(step, "decode steps", args.trace)
+    if args.mode != "default":
+        _, step = build_step(SEED, device, args.mode)
+        print(f"[profile] {torch.cuda.get_device_name(0)}; ControlLDM sd21 bf16 in the "
+              f"\"{args.mode}\" mode, batch 2 (CFG {CFG} folded), {LATENT}x{LATENT} latent")
+        return through_the_kernels(step, "steps", args.trace)
     if args.train:
         cldm, step = build_train_step(SEED, device)
         timed = TIMED_TRAIN_STEPS
@@ -294,6 +312,15 @@ def main(argv=None) -> int:
               f"device span {r['device_ms']:.2f} ms")
     cldm.set_attention_impl("auto")
     report(profile_steps(step, PROFILED_STEPS, args.trace))
+    return 0
+
+
+def through_the_kernels(step, what: str, trace: str | None) -> int:
+    """Time and profile a step that has no plain-attention twin."""
+    r = time_steps(step, TIMED_STEPS)
+    print(f"[step] median of {TIMED_STEPS} {what}: enqueue {r['enqueue_ms']:.2f} ms, "
+          f"wall {r['wall_ms']:.2f} ms, device span {r['device_ms']:.2f} ms")
+    report(profile_steps(step, PROFILED_STEPS, trace))
     return 0
 
 

@@ -171,6 +171,25 @@ def test_fused_ffn_ref_matches_pallas_interpret(n, d, dtype):
            FP32_TOL if dtype == "float32" else BF16_TOL)
 
 
+@pytest.mark.parametrize("d", [320, 640, 1280])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_entries_take_the_tensor_cores_for_bf16(d, dtype):
+    """ffn_entries names the tensor-core K7 for bf16 at every serving width
+    (d = 320 too) and the CUDA-core one for fp32, whose products the bf16
+    tensor cores do not give; on the CPU fused_ffn runs the plain version
+    and launches neither."""
+    want = port_ffn.KERNEL_TC if dtype == torch.bfloat16 else port_ffn.KERNEL
+    x = torch.zeros(4, d, dtype=dtype)
+    assert port_ffn.ffn_entries(x) is want
+    rng = np.random.default_rng(6)
+    x, w1, b1, w2, b2 = (_t(a, dtype) for a in _ffn_inputs(rng, 4, d))
+    counts = [port_ffn.KERNEL.launches, port_ffn.KERNEL_TC.launches]
+    out = port_ffn.fused_ffn(x, w1.T, b1, w2.T, b2)
+    assert counts == [port_ffn.KERNEL.launches, port_ffn.KERNEL_TC.launches]
+    np.testing.assert_array_equal(out.float().numpy(), port_ffn.fused_ffn_ref(
+        x, w1.T, b1, w2.T, b2).float().numpy())
+
+
 def test_fused_ffn_gradients_match_jax_grad():
     rng = np.random.default_rng(3)
     x, w1, b1, w2, b2 = _ffn_inputs(rng, 24, 64)

@@ -397,19 +397,80 @@ def test_prescaled_flash_matches_plain_version(cuda, shape, dtype, tol):
         assert torch.equal(out, fa.flash_attention(q, k, v))
 
 
+def _k4_launches():
+    """Launch counts of K4's entries: the tile form, the GEMV form, the
+    CUDA-core one."""
+    return [e.launches for e in (qm.KERNEL_TC, qm.KERNEL_GEMV, qm.KERNEL)]
+
+
+def _k4_case(cuda, m, k, n, dtype, seed=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w_q, scale = qm.quantize_weight(torch.randn(k, n, generator=g, device=cuda))
+    return x, w_q, scale
+
+
 @pytest.mark.parametrize("m,k,n", [(154, 320, 640), (2, 1280, 320), (130, 100, 70)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
 def test_quant_matmul_matches_plain_version(cuda, m, k, n, dtype, tol):
-    """K4 at ragged and 320-wide shapes; x rounded to bf16 on both sides, so
-    fp32 agrees to the sum order."""
-    g = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
-    w_q, scale = qm.quantize_weight(torch.randn(k, n, generator=g, device=cuda))
-    before = qm.KERNEL.launches
+    """K4 at ragged and 320-wide shapes, one launch of the entry that
+    quant_entries names; x rounded to bf16 on both sides, so fp32 agrees to
+    the sum order."""
+    x, w_q, scale = _k4_case(cuda, m, k, n, dtype)
+    entry = qm.quant_entries(x)
+    before = _k4_launches()
     out = qm.quant_matmul(x, w_q, scale)
     torch.cuda.synchronize()
-    assert qm.KERNEL.launches == before + 1
+    assert _moved(before, _k4_launches()) == [entry is qm.KERNEL_TC, entry is qm.KERNEL_GEMV, 0]
     _close(out, qm.quant_matmul_ref(x, w_q, scale), tol)
+
+
+@pytest.mark.parametrize("entry,m,k,n", [
+    ("TC", 300, 320, 320), ("TC", 154, 1024, 320), ("TC", 130, 200, 336),
+    ("TC", 129, 1000, 640), ("TC", 9, 4096, 256), ("TC", 257, 100, 70),
+    ("GEMV", 1, 4096, 1024), ("GEMV", 2, 1280, 320), ("GEMV", 3, 200, 336),
+    ("GEMV", 8, 1000, 320), ("GEMV", 5, 100, 70)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
+def test_quant_matmul_entries_match_plain_version(cuda, entry, m, k, n, dtype, tol):
+    """Each new K4 entry on its own count: ragged M, N and K (K no multiple
+    of the 64-deep stage, N = 320 on a masked 128-wide tile, K and N padded
+    to whole 16-byte chunks where they are not), fp32 x on the tensor
+    cores."""
+    x, w_q, scale = _k4_case(cuda, m, k, n, dtype)
+    kernel = getattr(qm, f"KERNEL_{entry}")
+    before = _k4_launches()
+    out = qm.launch_quant(kernel, x, w_q, scale)
+    torch.cuda.synchronize()
+    assert _moved(before, _k4_launches()) == [entry == "TC", entry == "GEMV", 0]
+    assert out.shape == (m, n) and out.dtype == dtype
+    _close(out, qm.quant_matmul_ref(x, w_q, scale), tol)
+
+
+@pytest.mark.parametrize("m", [1, 200])
+def test_quant_matmul_reads_strided_and_misaligned_views(cuda, m):
+    """A strided x (every other column of a wider tensor), an x that starts
+    2 bytes past a 16-byte boundary, and a misaligned int8 weight: each is
+    copied for the tensor-core entries and gives the plain version's result."""
+    k, n = 320, 640
+    g = torch.Generator(device=cuda).manual_seed(8)
+    wide = torch.randn(m, 2 * k, generator=g, device=cuda).to(torch.bfloat16)
+    flat = torch.randn(m * k + 1, generator=g, device=cuda).to(torch.bfloat16)
+    w_flat = torch.randint(-127, 128, (k * n + 3,), generator=g, device=cuda,
+                           dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device=cuda) * 0.01
+    w_q = w_flat[3:].view(k, n)
+    assert w_q.data_ptr() % 16 and flat[1:].data_ptr() % 16
+    for x in (wide[:, ::2], flat[1:].view(m, k)):
+        _close(qm.quant_matmul(x, w_q, scale), qm.quant_matmul_ref(x, w_q, scale), BF16_TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (2, 11008, 640)])
+def test_gemv_reruns_are_bit_identical(cuda, m, k, n):
+    """The GEMV form sums its K splits in a fixed order, with no atomics."""
+    x, w_q, scale = _k4_case(cuda, m, k, n, torch.bfloat16)
+    first = qm.quant_matmul(x, w_q, scale)
+    for _ in range(3):
+        assert torch.equal(qm.quant_matmul(x, w_q, scale), first)
 
 
 def _resblock_case(cuda, cin, cout, h, w, dtype, quant, seed=4):
@@ -447,21 +508,78 @@ def test_fused_resblock_matches_plain_version(cuda, cin, cout, h, w, quant, dtyp
     _close(out, fr.fused_resblock_ref(x, e, p), tol)
 
 
-@pytest.mark.parametrize("n,d", [(70, 64), (24, 320)])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
-def test_fused_ffn_matches_plain_version(cuda, n, d, dtype, tol):
-    g = torch.Generator(device=cuda).manual_seed(5)
+def _ffn_case(cuda, n, d, dtype, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     inner = 4 * d
     x = torch.randn(n, d, generator=g, device=cuda).to(dtype)
     w1 = (torch.randn(2 * inner, d, generator=g, device=cuda) * d ** -0.5).to(dtype)
     b1 = (torch.randn(2 * inner, generator=g, device=cuda) * 0.1).to(dtype)
     w2 = (torch.randn(d, inner, generator=g, device=cuda) * inner ** -0.5).to(dtype)
     b2 = (torch.randn(d, generator=g, device=cuda) * 0.1).to(dtype)
-    before = ffn.KERNEL.launches
-    out = ffn.fused_ffn(x, w1, b1, w2, b2)
+    return x, w1, b1, w2, b2
+
+
+def _k7_launches():
+    return [ffn.KERNEL_TC.launches, ffn.KERNEL.launches]
+
+
+@pytest.mark.parametrize("n,d", [(70, 64), (24, 320)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
+def test_fused_ffn_matches_plain_version(cuda, n, d, dtype, tol):
+    """One launch of the entry that ffn_entries names: the tensor-core one
+    for bf16, the CUDA-core one for fp32."""
+    args = _ffn_case(cuda, n, d, dtype)
+    before = _k7_launches()
+    out = ffn.fused_ffn(*args)
     torch.cuda.synchronize()
-    assert ffn.KERNEL.launches == before + 1
-    _close(out, ffn.fused_ffn_ref(x, w1, b1, w2, b2), tol)
+    assert _moved(before, _k7_launches()) == ([1, 0] if dtype == torch.bfloat16 else [0, 1])
+    _close(out, ffn.fused_ffn_ref(*args), tol)
+
+
+@pytest.mark.parametrize("n,d", [(130, 64), (300, 320), (129, 640), (8, 1280), (1000, 320),
+                                 (40, 96)])
+def test_tensor_core_fused_ffn_matches_plain_version(cuda, n, d):
+    """The tensor-core K7 on ragged rows, d = 320 on a masked 128-wide down
+    tile, d = 96 (one 128-wide tile, most of it masked), and a strided x
+    (every other column of a wider tensor, copied first)."""
+    args = _ffn_case(cuda, n, d, torch.bfloat16)
+    ref = ffn.fused_ffn_ref(*args)
+    out = ffn.launch_ffn(ffn.KERNEL_TC, *args)
+    _close(out, ref, BF16_TOL)
+    wide = torch.zeros(n, 2 * d, dtype=torch.bfloat16, device=cuda)
+    wide[:, ::2] = args[0]
+    _close(ffn.fused_ffn(wide[:, ::2], *args[1:]), ref, BF16_TOL)
+
+
+def test_tensor_core_fused_ffn_refuses_fp32(cuda):
+    """fp32 keeps the CUDA-core entry: the tensor-core one raises on it, in
+    the wrapper and in the C entry."""
+    args = _ffn_case(cuda, 24, 64, torch.float32)
+    with pytest.raises(TypeError):
+        ffn.launch_ffn(ffn.KERNEL_TC, *args)
+    x = args[0]
+    act = torch.empty(24, 256, device=cuda)
+    with pytest.raises(RuntimeError):
+        ffn.KERNEL_TC.launch(*(t.data_ptr() for t in (*args, act, torch.empty_like(x))),
+                             0, 24, 64, 256, torch.cuda.current_stream().cuda_stream)
+
+
+def test_fused_ffn_gradients_through_the_tensor_cores(cuda):
+    """bf16 under autograd on the card: the forward on the tensor-core K7
+    (one launch), the backward the recomputed plain version, so the
+    gradients equal those of the plain version on the same device."""
+    args = _ffn_case(cuda, 40, 64, torch.bfloat16)
+    g = torch.randn(40, 64, device=cuda).to(torch.bfloat16)
+    grads = {}
+    for name, fn in (("kernel", ffn.fused_ffn), ("plain", ffn.fused_ffn_ref)):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        before = _k7_launches()
+        out = fn(*leaves)
+        assert _moved(before, _k7_launches()) == ([1, 0] if name == "kernel" else [0, 0])
+        (out.float() * g.float()).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    for a, p in zip(grads["kernel"], grads["plain"]):
+        _close(a, p, 1e-6)
 
 
 def test_touching_a_header_rebuilds(cuda, tmp_path, monkeypatch):
@@ -532,10 +650,14 @@ def test_small_fp32_model_in_the_serving_modes_matches_cpu(cuda):
     x, c_img = torch.randn(2, 16, 16, 4, generator=gen), torch.randn(2, 16, 16, 4, generator=gen)
     cond = {"c_txt": torch.randn(2, 77, 64, generator=gen), "c_img": c_img}
     t = torch.tensor([999.0, 21.0])
-    kernels = (fa.KERNEL_PRESCALED, qm.KERNEL, fr.KERNEL, ffn.KERNEL)
+    kernels = (fa.KERNEL_PRESCALED, qm.KERNEL_TC, qm.KERNEL_GEMV, qm.KERNEL, fr.KERNEL,
+               ffn.KERNEL)
     # 12 ResBlocks and 10 transformers (UNet 8 + 7, ControlNet 4 + 3); 12
-    # K4 sites per transformer and one per ResBlock
-    for model, tol, launched in ((cpu, 1e-3, (10, 0, 12, 10)), (int8, 1e-2, (10, 132, 12, 0))):
+    # K4 sites per transformer (the tile form) and one per ResBlock (the
+    # GEMV form on the 2 timestep rows); fp32 keeps K3 and K7 on their
+    # CUDA-core entries, K4 on the tensor cores
+    for model, tol, launched in ((cpu, 1e-3, (10, 0, 0, 0, 12, 10)),
+                                 (int8, 1e-2, (10, 120, 12, 0, 12, 0))):
         with torch.no_grad():
             ref = model(x, t, cond)
             gpu = copy.deepcopy(model).to(cuda)

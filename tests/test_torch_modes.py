@@ -9,20 +9,36 @@ Two configurations, as the JAX CLI runs them:
   JAX ``quantize_dense_params`` + ``quantize_conv_params`` tree, converted.
 
 The tiny ControlLDM forward, then ``IdentityCleanerPipeline.run`` (3 spaced
-steps, CFG 4.0, the v2.1 schedule, the JAX pipeline's x_T and noise). On the
-CPU the JAX model runs the fused modes' XLA fallbacks (the same math at fp32,
-up to the int8 conv weights dequantised before the conv, ~1e-7) and the port
-the kernels' plain versions. Tolerances: "fused" as the slice test's, the
-forward 1e-4 x max(1, max|ref|) and the uint8 output 1 LSB. "int8": the
-forward 1e-2 x max(1, max|ref|) and 4 LSB, because K4 rounds every
+steps, CFG 4.0, the v2.1 schedule, the JAX pipeline's x_T and noise, the
+default negative prompt through a stand-in tokenizer, so cond and uncond
+differ). On the CPU the JAX model runs the fused modes' XLA fallbacks (the
+same math at fp32, up to the int8 conv weights dequantised before the conv,
+~1e-7) and the port the kernels' plain versions. Tolerances: "fused" as the
+slice test's, the forward 1e-4 x max(1, max|ref|) and the uint8 output 1
+LSB. "int8": the forward 1e-2 x max(1, max|ref|), because K4 rounds every
 activation to bf16 before its product: fp32 sums taken in another order put
 some elements on the other side of a bf16 rounding step, and the network
 carries those steps on (a 1e-6 relative change of the input moves this
-model's int8 output by 1.1e-2, against 9.4e-3 between port and JAX). The
-same comparison with the port's float model in place of its int8 one must
-fail these limits (the quantisation error is 5.4e-2), which shows they still
-hold the int8 path.
+model's int8 output by 1.1e-2, against 9.4e-3 between port and JAX).
+
+Through the pipeline CFG 4.0 multiplies the cond - uncond difference, and
+with it that spread. With empty prompts (cond = uncond) the int8 output
+stays within 4 LSB of JAX's ("int8_empty_prompts"). On the default negative
+prompt ("int8") it is held within the port's own spread: the same run with
+x_T moved by 1e-6 relative, over four seeded perturbations
+(``python -m tests.test_torch_modes`` measures it). Measured on these
+inputs (fp32, CPU): the port's perturbed runs differ from its unperturbed
+one by 8-13 LSB at most, with 2.3-4.9 % of the values more than 4 LSB off;
+JAX's own, the same way, by 7-14 LSB and 0.9-5.1 %; port and JAX by 10 LSB
+and 2.3 %. So the difference is the rounding-order spread, not a fault of
+the port. The limits are 1.5x the largest of the port's readings:
+``INT8_MAX_LSB`` (19) and ``INT8_SHARE`` (7.4 %). The same comparison with
+the port's float model in place of its int8 one must fail them (13 LSB,
+10.9 % more than 4 LSB off: the quantisation error), which shows they
+still hold the int8 path.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -35,7 +51,8 @@ from diffbir_tpu.models import cldm as jax_cldm
 from diffbir_tpu.pipeline import IdentityCleanerPipeline as JaxIdentityPipeline
 from diffbir_tpu.schedule import Schedule as JaxSchedule
 from diffbir_tpu_torch.models import cldm as port_cldm
-from diffbir_tpu_torch.models.unet import FeedForward, ResBlock
+from diffbir_tpu_torch.models.unet import CrossAttention, FeedForward, ResBlock
+from diffbir_tpu_torch.ops.quant_matmul import QuantLinear
 from diffbir_tpu_torch.pipeline import IdentityCleanerPipeline
 from diffbir_tpu_torch.schedule import Schedule
 from diffbir_tpu_torch.weights.convert import flax_to_state_dict
@@ -49,6 +66,28 @@ MODES = {
 PORT_EXTRA = {"fused": dict(fused_ffn=True), "int8": {}}
 FORWARD_TOL = {"fused": 1e-4, "int8": 1e-2}
 LSB_TOL = {"fused": 1, "int8": 4}
+# the int8 pipeline on distinct prompts: 1.5x the largest of the port's own
+# spread readings (13 LSB, 4.9 % of the values more than 4 LSB off)
+INT8_MAX_LSB = 19
+INT8_SHARE = 0.074
+# pipeline cases: (mode, prompts); "int8_empty_prompts" keeps cond = uncond
+PIPELINE_CASES = {"fused": ("fused", {}), "int8": ("int8", {}),
+                  "int8_empty_prompts": ("int8", {"neg_prompt": ""})}
+
+
+def _lsb_stats(out, ref):
+    """(largest uint8 difference, share of values more than LSB_TOL["int8"]
+    apart)."""
+    err = np.abs(out.astype(int) - ref.astype(int))
+    return int(err.max()), float(np.mean(err > LSB_TOL["int8"]))
+
+
+def _within(case, out, ref):
+    """Whether a pipeline output meets its case's limits."""
+    if case == "int8":
+        err_max, err_share = _lsb_stats(out, ref)
+        return err_max <= INT8_MAX_LSB and err_share <= INT8_SHARE
+    return np.abs(out.astype(int) - ref.astype(int)).max() <= LSB_TOL[PIPELINE_CASES[case][0]]
 
 
 @pytest.fixture(scope="module")
@@ -96,31 +135,107 @@ def test_controlldm_forward_matches_jax_in_mode(mode, float_params, jax_env):
             assert_close(ref, out_f.numpy(), tol=FORWARD_TOL[mode])
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_identity_pipeline_run_matches_jax_in_mode(mode, float_params, jax_env):
+def _pipelines(mode, float_params):
+    """(JAX pipeline, the port's pipeline, the port's float-model pipeline)
+    on the tiny ControlLDM in ``mode``."""
     jc, params, tc = _pair(mode, float_params)
     sched = JaxSchedule.create(timesteps=1000, beta_schedule="linear", linear_start=0.00085,
                                linear_end=0.0120, parameterization="v", zero_snr=True)
     jp = JaxIdentityPipeline(None, jc, params, sched, tokenizer=word_tokenizer,
                              min_cond_size=64)
-    tp = IdentityCleanerPipeline(tc, Schedule.v21(), torch.device("cpu"), min_cond_size=64,
-                                 tokenizer=word_tokenizer)
-    lq = np.random.default_rng(0).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
-    # "fused" runs the default negative prompt through the tokenizer, so cond
-    # and uncond differ; "int8" keeps both prompts empty, the inputs its 4-LSB
-    # limit was set on: with distinct texts CFG (4.0) multiplies the cond -
-    # uncond difference, and with it the bf16 rounding-order spread above
-    # (10 LSB on these inputs)
-    prompts = {} if mode == "fused" else {"neg_prompt": ""}
+    tp, tp_f = (IdentityCleanerPipeline(m, Schedule.v21(), torch.device("cpu"),
+                                        min_cond_size=64, tokenizer=word_tokenizer)
+                for m in (tc, _pair("fused", float_params)[2]))
+    return jp, tp, tp_f
+
+
+def _lq():
+    return np.random.default_rng(0).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("mode", list(PIPELINE_CASES))
+def test_identity_pipeline_run_matches_jax_in_mode(mode, float_params, jax_env):
+    base, prompts = PIPELINE_CASES[mode]
+    jp, tp, tp_f = _pipelines(base, float_params)
+    lq = _lq()
     ref = jp.run(lq, steps=STEPS, cfg_scale=CFG, seed=5, **prompts)
     x_T, noise = jax_noise(5, (1, 8, 8, 4), STEPS)
     out = tp.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise, **prompts)
     assert out.shape == ref.shape == (1, 64, 64, 3) and out.dtype == np.uint8
-    assert np.abs(out.astype(int) - ref.astype(int)).max() <= LSB_TOL[mode]
     assert ref.std() > 1.0
-    if mode == "int8":  # the limit's power: the float model misses it
-        _, _, float_model = _pair("fused", float_params)
-        tp_f = IdentityCleanerPipeline(float_model, Schedule.v21(), torch.device("cpu"),
-                                       min_cond_size=64, tokenizer=word_tokenizer)
+    assert _within(mode, out, ref), _lsb_stats(out, ref)
+    if base == "int8":  # the limits' power: the float model misses them
         out_f = tp_f.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise, **prompts)
-        assert np.abs(out_f.astype(int) - ref.astype(int)).max() > LSB_TOL[mode]
+        assert not _within(mode, out_f, ref), _lsb_stats(out_f, ref)
+
+
+def test_set_mode_composes_the_serving_modes(float_params):
+    """``ControlLDM.set_mode`` on a float model: "fused" and "default" switch
+    the fused paths and the flash layout both ways; "int8" quantises the
+    model into the layout of one built in the mode (its state dict loads
+    there, strictly)."""
+    model = port_cldm.ControlLDM.tiny()
+    model.load_state_dict(flax_to_state_dict(float_params), strict=True)
+
+    def state():
+        mods = list(model._denoisers())
+        return ({m.fused for m in mods if isinstance(m, (ResBlock, FeedForward))},
+                {m.flash_layout for m in mods if isinstance(m, CrossAttention)})
+
+    assert model.set_mode("fused") is model and state() == ({True}, {"packed"})
+    assert model.set_mode("default") is model and state() == ({False}, {"folded"})
+    model.set_mode("int8")
+    assert any(isinstance(m, QuantLinear) for m in model.modules())
+    assert all(m.quant_conv and m.fused for m in model.modules() if isinstance(m, ResBlock))
+    assert {m.fused for m in model.modules() if isinstance(m, FeedForward)} == {False}
+    port_cldm.ControlLDM.tiny(**MODES["int8"]).load_state_dict(model.state_dict(), strict=True)
+    with pytest.raises(ValueError):
+        model.set_mode("int4")
+
+
+def _jax_run_with_x_T_moved(float_params, lq, r):
+    """The JAX int8 pipeline's output with its x_T (the first normal draw of
+    a fresh trace) moved by 1e-6 x r relative."""
+    jp = _pipelines("int8", float_params)[0]
+    normal, draws = jax.random.normal, []
+
+    def moved(key, shape=(), dtype=jnp.float32):
+        z = normal(key, shape, dtype)
+        draws.append(tuple(shape))
+        return z * (1 + 1e-6 * jnp.asarray(r)) if len(draws) == 1 else z
+
+    with mock.patch.object(jax.random, "normal", moved):
+        out = jp.run(lq, steps=STEPS, cfg_scale=CFG, seed=5)
+    assert draws and draws[0] == r.shape, draws
+    return out
+
+
+def measure_int8_spread(n: int = 4) -> None:
+    """Print the readings the int8 limits come from: the port's int8 output
+    on the default negative prompt against itself with x_T moved by 1e-6
+    relative (n seeded perturbations), JAX's the same way, port against JAX,
+    and the float model against JAX (largest uint8 difference, share of
+    values more than 4 LSB off)."""
+    float_params = fill_params(jax_cldm.ControlLDM.tiny().eval_shapes((8, 8)), seed=0)
+    jp, tp, tp_f = _pipelines("int8", float_params)
+    lq = _lq()
+    ref = jp.run(lq, steps=STEPS, cfg_scale=CFG, seed=5)
+    x_T, noise = jax_noise(5, (1, 8, 8, 4), STEPS)
+    out = tp.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise)
+    for s in range(n):
+        r = np.random.default_rng(100 + s).standard_normal(x_T.shape).astype(np.float32)
+        moved = tp.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T * (1 + 1e-6 * torch.from_numpy(r)),
+                       noise_table=noise)
+        print(f"port vs port with x_T perturbed (seed {100 + s}): {_lsb_stats(moved, out)}")
+        print(f"JAX vs JAX with x_T perturbed (seed {100 + s}): "
+              f"{_lsb_stats(_jax_run_with_x_T_moved(float_params, lq, r), ref)}")
+    print(f"port vs JAX: {_lsb_stats(out, ref)}")
+    out_f = tp_f.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise)
+    print(f"float model vs JAX: {_lsb_stats(out_f, ref)}")
+
+
+if __name__ == "__main__":
+    import os
+
+    os.environ.update(DIFFBIR_TPU_FUSED_FFN="1", DIFFBIR_TPU_FLASH_LAYOUT="packed")
+    measure_int8_spread()

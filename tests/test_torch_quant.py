@@ -72,11 +72,13 @@ def test_quantize_conv_weight_is_bit_equal_to_jax(shape):
     assert s[0].item() == np.float32(np.float32(1e-12) / np.float32(127.0))
 
 
-@pytest.mark.parametrize("m,k,n", [(154, 256, 384), (128, 320, 320), (2, 1280, 320)])
+@pytest.mark.parametrize("m,k,n", [(154, 256, 384), (128, 320, 320), (2, 1280, 320),
+                                   (1, 512, 256), (9, 320, 640)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quant_matmul_ref_matches_pallas_and_xla(m, k, n, dtype):
     """The 320-wide case, which the JAX dispatch sends to XLA, goes through
-    the Pallas kernel here too (interpret mode takes any block)."""
+    the Pallas kernel here too (interpret mode takes any block); M = 1 and 9
+    stand on either side of the GEMV form's limit."""
     rng = np.random.default_rng(2)
     x = rng.standard_normal((m, k)).astype(np.float32)
     w_q, scale = jax_qm.quantize_weight(jnp.asarray(_weights((k, n), 3)))
@@ -92,6 +94,56 @@ def test_quant_matmul_ref_matches_pallas_and_xla(m, k, n, dtype):
     for ref in (pallas, xla):
         err, limit = _err_limit(np.asarray(ref.astype(jnp.float32)), out.float().numpy(), tol)
         assert err <= limit, (err, limit)
+
+
+@pytest.mark.parametrize("shape,entry", [((1, 320), "GEMV"), ((2, 1280), "GEMV"),
+                                         ((8, 4096), "GEMV"), ((2, 4, 64), "GEMV"),
+                                         ((9, 320), "TC"), ((154, 1024), "TC"),
+                                         ((2, 4096, 320), "TC"), ((624, 4096), "TC")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_entries_take_the_gemv_form_up_to_8_rows(shape, entry, dtype):
+    """quant_entries names the GEMV form for M <= 8 rows of x (leading dims
+    flattened) and the tensor-core tile form above, for either dtype; on the
+    CPU quant_matmul runs the plain version and launches nothing."""
+    x = torch.zeros(shape, dtype=dtype)
+    assert port_qm.quant_entries(x) is getattr(port_qm, f"KERNEL_{entry}")
+    k = shape[-1]
+    w_q, scale = port_qm.quantize_weight(torch.randn(k, 48, generator=torch.Generator()
+                                                     .manual_seed(0)))
+    counts = [e.launches for e in (port_qm.KERNEL, port_qm.KERNEL_TC, port_qm.KERNEL_GEMV)]
+    out = port_qm.quant_matmul(x, w_q, scale)
+    assert out.shape == (*shape[:-1], 48) and out.dtype == dtype
+    assert counts == [e.launches for e in (port_qm.KERNEL, port_qm.KERNEL_TC,
+                                           port_qm.KERNEL_GEMV)]
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096),
+                                   (2, 1280, 320), (8, 200, 40)])
+def test_gemv_splits_fill_the_card_within_the_split_limit(m, k, n):
+    """The GEMV form's split of K: ~4 blocks of 128 columns per SM (132 on
+    an H100) where K allows 256 rows a part, and at most 2048 rows a part."""
+    splits = port_qm.gemv_splits(m, n, k, 132)
+    assert splits >= 1 and -(-k // splits) <= port_qm.GEMV_MAX_SPLIT_ROWS
+    assert -(-n // 128) * splits >= 4 * 132 or splits == -(-k // 256)
+
+
+def test_tensor_core_operands_pad_to_whole_chunks():
+    """Where K is no multiple of 8 or N of 16 the tensor-core entries get x,
+    w_q and scale zero-padded (scale with ones) to whole 16-byte chunks: the
+    plain version on the padded operands, cut back to N columns, equals the
+    plain version on the originals."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(5, 100, generator=gen)
+    w_q, scale = port_qm.quantize_weight(torch.randn(100, 70, generator=gen))
+    xp, wp, sp = port_qm._tc_operands(x, w_q, scale)
+    assert xp.shape == (5, 104) and wp.shape == (104, 80) and sp.shape == (80,)
+    assert all(t.is_contiguous() for t in (xp, wp, sp))
+    np.testing.assert_array_equal(port_qm.quant_matmul_ref(xp, wp, sp)[:, :70].numpy(),
+                                  port_qm.quant_matmul_ref(x, w_q, scale).numpy())
+    w_aligned = w_q[:96, :64].contiguous()
+    kept = port_qm._tc_operands(x[:, :96].contiguous(), w_aligned, scale[:64].contiguous())
+    assert [t.shape for t in kept] == [(5, 96), (96, 64), (64,)]
+    assert kept[1] is w_aligned  # aligned and contiguous: not copied
 
 
 def test_quant_linear_matches_quant_dense():
