@@ -12,10 +12,12 @@ Phases (any failure exits non-zero before the last line is printed):
      d = 256/512), K2a/K2b (flash backward: the tensor-core entries for bf16
      at d = 64 and 128, the CUDA-core entries K2a_cc/K2b_cc for fp32 and d =
      256/512), K4 (int8 matmul: the tensor-core tile form, the GEMV form
-     K4_gemv, the CUDA-core entry K4_cc), K5 (packed-int4 matmul), K6 (fused
-     ResBlock), K7 (fused GEGLU FFN: the tensor-core entry, the CUDA-core
-     entry K7_cc for fp32); the count of HGMMA/HMMA instructions in the
-     tensor-core kernels (cuobjdump -sass, where the toolkit has it).
+     K4_gemv, the CUDA-core entry K4_cc), K5 (packed-int4 matmul: the same
+     three, K5, K5_gemv, K5_cc), K6 (fused ResBlock: the tensor-core entry
+     for bf16, the CUDA-core entry K6_cc for fp32), K7 (fused GEGLU FFN: the
+     tensor-core entry, the CUDA-core entry K7_cc for fp32); the count of
+     HGMMA/HMMA instructions in the tensor-core kernels (cuobjdump -sass,
+     where the toolkit has it).
   2. K1 against its plain PyTorch version at the serving shapes, the
      training shapes (with lse), the VAE's d = 512 shapes (at 8192 tokens,
      where the dispatch sends them to flash, and below), the captioner's
@@ -46,11 +48,19 @@ Phases (any failure exits non-zero before the last line is printed):
      times (the GEMV form's over weights rotated past the L2 cache) beside
      one host call (faults: the tile form's last 64-deep K stage dropped;
      one K split of the GEMV form dropped; a GEMV rerun must be
-     bit-identical), K5 (packed-int4 matmul) at the LLaVA-1.5-7B prefill
-     (M = 624) and decode (M = 1) shapes of the 7 big linears, a ragged and
-     an fp32 case (fault: the two scale groups of every window swapped), K6
-     float and int8 at the 14 ResBlock sites (fault: the last tap of conv2
-     skipped), K7 at the 4 FFN shapes on its tensor-core entry (by counter),
+     bit-identical), K5 at the LLaVA-1.5-7B prefill (M = 624: the tile form)
+     and decode (M = 1: the GEMV form) shapes of the 7 big linears, ragged
+     and fp32 cases, each on the entry that int4_entries names (by counter),
+     K5_cc on the same inputs, device times (the GEMV's weights rotated past
+     L2) beside one host call (fault: the two scale groups of every window
+     swapped, in both forms; a GEMV rerun must be bit-identical), K6 float
+     and int8 at the 14 ResBlock sites on its tensor-core entry (by
+     counter), K6_cc on the same inputs, device times beside one host call,
+     the launches of one call apart (profiler), the unfused module and the
+     site's two bf16 cuDNN convolutions as yardsticks, the K split against
+     none at three sites (faults: the last tap of conv2 skipped; conv2's
+     first K split dropped; reruns bit-identical), K7 at the 4 FFN shapes on
+     its tensor-core entry (by counter),
      K7_cc on the same inputs, device times beside one host call (fault:
      the value and gate halves swapped).
   5. model call: one full-width SD2.1 ControlLDM forward (random bf16 weights)
@@ -73,8 +83,9 @@ Phases (any failure exits non-zero before the last line is printed):
      projector + Llama-7B, random bf16 weights from seed 0 generated on the
      card), a seeded 512x512
      LQ, a 624-row prompt of stand-in ids, 60 greedy tokens with an EOS that
-     never matches, in the modes int4 (K5), int8 (K4) and bf16: exact launch
-     counts, stage times, tokens/s and peak memory per mode; for int4 and
+     never matches, in the modes int4 (K5: 224 tile and 13216 GEMV
+     launches), int8 (K4) and bf16: exact launch counts, stage times,
+     tokens/s and peak memory per mode; for int4 and
      int8, teacher forcing of the generated ids through the same model on
      the plain products (logits within a relative limit, ids equal to the
      plain argmax wherever its top-2 margin exceeds it). Then one captioned
@@ -90,9 +101,11 @@ Phases (any failure exits non-zero before the last line is printed):
      K1+K2 against the same through plain attention, and the same with the
      attention sites' q/k/v gradients dropped must fail the limits.
 The second-to-last line is a JSON list of the kernels, every "ms" and
-"library_ms" the median of single host calls timed by CUDA events; K4 and
-K7 add "device_ms" and "library_device_ms", the device time per call of
-launches run back to back. The last line is {"ok": true, "device": {...}}.
+"library_ms" the median of single host calls timed by CUDA events; K4-K7
+add "device_ms" and "library_device_ms", the device time per call of
+launches run back to back (K6 also "conv_library_device_ms", the site's two
+bf16 cuDNN convolutions alone). The last line is {"ok": true, "device":
+{...}}.
 """
 
 import json
@@ -203,13 +216,16 @@ CAPTION_ROWS = CAPTION_PRE + 576 + CAPTION_POST
 LLAMA_LAYERS = 32
 QUANT_PER_CAPTION = 7 * LLAMA_LAYERS * CAPTION_NEW
 K1_PER_CAPTION = 23
-QUANT_PREFILL_PER_CAPTION = 7 * LLAMA_LAYERS  # the prefill's 624 rows: K4's tile form
+QUANT_PREFILL_PER_CAPTION = 7 * LLAMA_LAYERS  # the prefill's 624 rows: the tile forms
 CAPTION_PATHS = {
-    "caption_int4": {"K1": K1_PER_CAPTION, "K5": QUANT_PER_CAPTION},
+    "caption_int4": {"K1": K1_PER_CAPTION, "K5": QUANT_PREFILL_PER_CAPTION,
+                     "K5_gemv": QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION},
     "caption_int8": {"K1": K1_PER_CAPTION, "K4": QUANT_PREFILL_PER_CAPTION,
                      "K4_gemv": QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION},
     "caption_bf16": {"K1": K1_PER_CAPTION},
-    "captioned_request": {"K1": K1_PER_CAPTION + K1_PER_REQUEST, "K5": QUANT_PER_CAPTION},
+    "captioned_request": {"K1": K1_PER_CAPTION + K1_PER_REQUEST,
+                          "K5": QUANT_PREFILL_PER_CAPTION,
+                          "K5_gemv": QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION},
 }
 # (M, K, N) of the 7 linears per layer and pass: q/k/v/o, gate/up, down;
 # M = 624 in the prefill, 1 in each of the 59 decode steps
@@ -351,6 +367,8 @@ def phase_build():
     tensor_core_sass(_cuda, "K1", ("flash_fwd_tc_kernel",))
     tensor_core_sass(_cuda, "K2a", ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"))
     tensor_core_sass(_cuda, "K4", ("quant_matmul_tc_kernel",))
+    tensor_core_sass(_cuda, "K5", ("int4_tc_kernel",))
+    tensor_core_sass(_cuda, "K6", ("conv_tc_kernel",))
     tensor_core_sass(_cuda, "K7", ("geglu_tc_kernel", "down_tc_kernel"))
 
 
@@ -1037,7 +1055,8 @@ def int8_params(fr, p: dict) -> dict:
 
 
 def without_last_tap(p: dict) -> dict:
-    """conv2 without its last tap (ky = kx = 2), in either weight mode."""
+    """conv2 without its last tap (ky = kx = 2), in either weight mode (the
+    float weight's HWIO copy dropped, so the kernel reads the edited w2)."""
     p = dict(p)
     if "w2_q" in p:
         p["w2_q"] = p["w2_q"].clone()
@@ -1045,58 +1064,161 @@ def without_last_tap(p: dict) -> dict:
     else:
         p["w2"] = p["w2"].clone()
         p["w2"][:, :, 2, 2] = 0
+        p.pop("w2_t", None)
     return p
+
+
+def without_split(p: dict, stages: int) -> dict:
+    """conv2 without the products of its first ``stages`` 64-deep K stages
+    (the first K split of the tensor-core entry: stage g is the 64-channel
+    slice g // 9 at tap g % 9), in either weight mode."""
+    p = dict(p)
+    key = "w2_q" if "w2_q" in p else "w2"
+    w = p[key].clone()
+    for g in range(stages):
+        tap, c0 = g % 9, 64 * (g // 9)
+        if key == "w2_q":  # HWIO
+            w[tap // 3, tap % 3, c0:c0 + 64] = 0
+        else:  # OIHW
+            w[:, c0:c0 + 64, tap // 3, tap % 3] = 0
+    p[key] = w
+    p.pop("w2_t", None)  # the HWIO copy of the float weight: made from w2 again
+    return p
+
+
+def k6_launches_apart(fr, x, e, pm, calls: int = 5) -> dict:
+    """Device ms per call of each kind of launch of one tensor-core K6 call
+    (torch.profiler): the GroupNorm statistics and apply launches, the
+    convs, their reduces."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fr.fused_resblock(x, e, pm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fr.fused_resblock(x, e, pm)
+        torch.cuda.synchronize()
+    names = {"GN stats": "gn_stats_kernel", "GN apply": "gn_apply_kernel",
+             "conv": "conv_tc_kernel", "reduce": "conv_reduce_kernel"}
+    out = dict.fromkeys(names, 0.0)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for key, sym in names.items():
+                if sym in ev.name:
+                    out[key] += ev.time_range.elapsed_us() / 1e3 / calls
+    return out
 
 
 def phase_k6(fr):
     """K6, float and int8 weights, against its plain version at the 14
-    ResBlock sites of the serving path (bf16, batch 2); the library
-    yardstick is the unfused ResBlock module (GroupNorm, SiLU and cuDNN
-    convolutions: several library calls). Returns the kernel line's numbers
-    at (320, 320, 64^2) in float mode."""
+    ResBlock sites of the serving path (bf16, batch 2), on the tensor-core
+    entry that ``resblock_entries`` names (by counter), and the CUDA-core
+    entry K6_cc on the same inputs; device times of both (and of the
+    tensor-core call's launches apart, by the profiler) beside one host
+    call, the plain version, the library yardsticks (the unfused ResBlock
+    module: several calls; the two bf16 cuDNN 3x3 convolutions of the site
+    alone) and the bound; at three sites the K split of ``resblock_splits``
+    against none. Faults: the last tap of conv2 dropped; conv2's first K
+    split dropped. Returns the kernel lines' numbers of K6 and K6_cc at
+    (320, 320, 64^2) in float mode."""
     import torch
+    import torch.nn.functional as F
 
     from diffbir_tpu_torch.models.unet import ResBlock
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    max_err, headline = 0.0, None
-    per_call = {"float": 0.0, "int8": 0.0}
+    max_err, numbers = {"K6": 0.0, "K6_cc": 0.0}, {}
+    per_call = {(k, mode): 0.0 for k in ("K6", "K6_cc", "conv") for mode in ("float", "int8")}
+    apart = {"GN stats": 0.0, "GN apply": 0.0, "conv": 0.0, "reduce": 0.0}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (cin, cout, hw), sites in K6_SITES.items():
         block = randomize_(ResBlock(cin, cout, 1280, torch.bfloat16, device="cuda"), gen)
+        block.fused = True
         x = torch.randn(2, cin, hw, hw, generator=gen, device="cuda").to(torch.bfloat16)
         emb = torch.randn(2, 1280, generator=gen, device="cuda").to(torch.bfloat16)
         with torch.no_grad():
             e = block.emb_layers(emb)
             p = block.fused_params()
+            block.fused = False
             lib_ms = median_ms(lambda: block(x, emb), 10)
+            lib_dev = device_ms(lambda i: block(x, emb), 10)
+            # the site's two 3x3 convolutions alone, bf16 cuDNN, on SiLU(GN(.))-sized operands
+            y1 = torch.randn(2, cin, hw, hw, generator=gen, device="cuda").to(torch.bfloat16)
+            y2 = torch.randn(2, cout, hw, hw, generator=gen, device="cuda").to(torch.bfloat16)
+            conv_ms = device_ms(lambda i: (F.conv2d(y1, p["w1"], padding=1),
+                                           F.conv2d(y2, p["w2"], padding=1)), 10)
         params = {"float": p, "int8": int8_params(fr, p)}
         label = f"({cin}, {cout}, {hw}^2)"
-        flops = 2.0 * 2 * hw * hw * cout * (9 * cin + 9 * cout + (cin if cin != cout else 0))
-        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        m = 2 * hw * hw
+        gflop = 2.0 * m * cout * (9 * cin + 9 * cout + (cin if cin != cout else 0)) / 1e9
+        t_ops = 1e9 * gflop / PEAK_FLOPS["bfloat16"]
+        splits = (fr.resblock_splits(m, cout, cin, sms), fr.resblock_splits(m, cout, cout, sms))
         for mode, pm in params.items():
+            check(fr.resblock_entries(x) is KERNELS["K6"], "resblock_entries names another entry")
+            before = counts()
             out = fr.fused_resblock(x, e, pm)
+            moved = launched_since(before)
+            check(moved == {"K6": 1}, f"K6 at {label} launched {moved}, expected K6 once")
+            cc = fr.launch_resblock(fr.KERNEL, x, e, pm)
             ref = fr.fused_resblock_ref(x, e, pm)
-            max_err = max(max_err, hold(f"K6 {mode} at {label}", out, ref, BF16_TOL))
-            ms = median_ms(lambda: fr.fused_resblock(x, e, pm), 10)
-            plain_ms = median_ms(lambda: fr.fused_resblock_ref(x, e, pm), 10)
-            t_bytes = nbytes(x, e, out, *pm.values()) / PEAK_BYTES
+            max_err["K6"] = max(max_err["K6"], hold(f"K6 {mode} at {label}", out, ref, BF16_TOL))
+            max_err["K6_cc"] = max(max_err["K6_cc"], hold(f"K6_cc {mode} at {label}", cc, ref,
+                                                          BF16_TOL))
+            check(torch.equal(out, fr.fused_resblock(x, e, pm)), f"K6 at {label}: a rerun differs")
+            ms = device_ms(lambda i: fr.fused_resblock(x, e, pm), 10)
+            host_ms = median_ms(lambda: fr.fused_resblock(x, e, pm), 10)
+            cc_ms = device_ms(lambda i: fr.launch_resblock(fr.KERNEL, x, e, pm), 3)
+            plain_ms = median_ms(lambda: fr.fused_resblock_ref(x, e, pm), 5)
+            moved_bytes = nbytes(x, e, out, *[v for k, v in pm.items() if not k.endswith("_t")])
+            t_bytes = moved_bytes / PEAK_BYTES
             bms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-            per_call[mode] += sites * ms
-            print(f"[K6] {mode} {label} ({sites} per call): "
-                  f"{show(out, ref)}; "
-                  f"K6 {ms:.4f} ms, plain {plain_ms:.4f} ms, library (unfused ResBlock module, "
-                  f"several calls) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            per_call[("K6", mode)] += sites * ms
+            per_call[("K6_cc", mode)] += sites * cc_ms
+            per_call[("conv", mode)] += sites * conv_ms
+            parts = ""
+            if mode == "float":
+                launches = k6_launches_apart(fr, x, e, pm)
+                for k, v in launches.items():
+                    apart[k] += sites * v
+                parts = "; launches apart (device ms per call): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in launches.items())
+            print(f"[K6] {mode} {label} ({sites} per call; K splits {splits}): "
+                  f"{show(out, ref)}; K6_cc {show(cc, ref)}; device ms: K6 {ms:.4f} "
+                  f"({gflop / ms:.1f} TFLOP/s; one host call {host_ms:.4f}), K6_cc {cc_ms:.4f}, "
+                  f"library (unfused ResBlock module, several calls) {lib_dev:.4f} (one host "
+                  f"call {lib_ms:.4f}), the two bf16 cuDNN 3x3 convs alone {conv_ms:.4f}; plain "
+                  f"{plain_ms:.4f} ms; bound {bms:.4f} ms ({by}){parts}")
+            if (cin, cout, hw) in ((320, 320, 64), (1280, 1280, 16), (2560, 1280, 8)):
+                unsplit = device_ms(lambda i: fr.launch_resblock(fr.KERNEL_TC, x, e, pm,
+                                                                 splits=(1, 1)), 10)
+                print(f"[K6] {mode} {label}: K splits {splits} {ms:.4f} ms, none {unsplit:.4f} ms")
             if (cin, cout, hw) == (320, 320, 64):
                 planted(f"K6 {mode} skipping the last tap of conv2",
                         fr.fused_resblock(x, e, without_last_tap(pm)), ref, BF16_TOL)
                 if mode == "float":
-                    headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                                "bound_by": by, "library_ms": lib_ms}
-        del block, x, params, p
-    print(f"[K6] per model call ({K6_PER_CALL} ResBlocks): float {per_call['float']:.3f} ms, "
-          f"int8 {per_call['int8']:.3f} ms")
-    headline["max_abs_err"] = max_err
-    return headline
+                    common = {"plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                              "library_ms": lib_ms, "library_device_ms": lib_dev,
+                              "conv_library_device_ms": conv_ms}
+                    numbers["K6"] = {"ms": host_ms, "device_ms": ms, **common}
+                    numbers["K6_cc"] = {"ms": median_ms(lambda: fr.launch_resblock(
+                        fr.KERNEL, x, e, pm), 5), "device_ms": cc_ms, **common}
+            if (cin, cout, hw) == (2560, 1280, 8):
+                total = 9 * -(-cout // 64)
+                per = -(-total // splits[1])
+                check(splits[1] > 1, f"K6 at {label}: conv 2 is not split")
+                planted(f"K6 {mode} dropping conv 2's first K split ({per} stages)",
+                        fr.fused_resblock(x, e, without_split(pm, per)), ref, BF16_TOL)
+            del out, cc, ref
+        del block, x, params, p, y1, y2
+    print(f"[K6] per model call ({K6_PER_CALL} ResBlocks), device time: float K6 "
+          f"{per_call[('K6', 'float')]:.3f} ms (K6_cc {per_call[('K6_cc', 'float')]:.3f}), int8 "
+          f"K6 {per_call[('K6', 'int8')]:.3f} ms (K6_cc {per_call[('K6_cc', 'int8')]:.3f}); the "
+          f"sites' bf16 cuDNN 3x3 convs alone {per_call[('conv', 'float')]:.3f} ms; float K6's "
+          f"launches apart: " + ", ".join(f"{k} {v:.3f} ms" for k, v in apart.items()))
+    for key in numbers:
+        numbers[key]["max_abs_err"] = max_err[key]
+    return numbers
 
 
 def swapped_halves(w1, b1):
@@ -1319,11 +1441,41 @@ def swapped_groups(scale):
     return scale.reshape(k2 // 2, 2, n).flip(1).reshape(k2, n).contiguous()
 
 
+def k5_case(qm, gen, m, k, n, dtype, copies: int = 1):
+    """x [m, k] and ``copies`` packed int4 weights [k, n] with their scales."""
+    import torch
+
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    weights = []
+    for _ in range(copies):
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        weights.append(qm.quantize_weight_int4(w))
+        del w
+    return x, weights
+
+
+def dequantised(qm, packed, scale):
+    """The bf16 weight K5 multiplies by (the library call's operand)."""
+    import torch
+
+    k, n = 2 * packed.shape[0], packed.shape[1]
+    return qm.unpack_int4(packed).reshape(k // 128, 128, n).float().mul_(
+        scale[:, None]).reshape(k, n).to(torch.bfloat16)
+
+
 def phase_k5(qm):
-    """K5 against its plain version at the captioner's shapes (bf16 x), a
-    ragged case in each form and fp32 x; the planted fault at the prefill
-    and the decode shape. Returns the kernel line's numbers at the decode
-    shape (1, 4096, 4096)."""
+    """K5 against its plain version at the captioner's six shapes (bf16 x),
+    ragged cases in each form and fp32 x, each on the entry that
+    ``int4_entries`` names (by counter: the tensor-core tile form above 8
+    rows, the GEMV form at 1 and 3), the CUDA-core entry K5_cc on the same
+    inputs; device times of both (the GEMV form's over weights rotated past
+    the L2 cache, as a decode step finds them) beside one host call, the
+    plain version, the library call (x @ the dequantised bf16 weight) and the
+    bound; a GEMV rerun must be bit-identical; the planted fault (the two
+    scale groups of every window swapped) on both forms. Returns the kernel
+    lines' numbers of K5 and K5_cc at the prefill shape (624, 4096, 4096)
+    and of K5_gemv at the decode shape (1, 4096, 4096), timed as
+    ``phase_k4``'s."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1331,40 +1483,70 @@ def phase_k5(qm):
     cases = ([(s, torch.bfloat16) for s in shapes] + [((77, 4096, 4001), torch.bfloat16),
              ((3, 4096, 4001), torch.bfloat16), ((CAPTION_ROWS, 4096, 4096), torch.float32),
              ((1, 4096, 4096), torch.float32)])
-    max_err, headline, times = 0.0, None, {}
+    max_err = dict.fromkeys(("K5", "K5_gemv", "K5_cc"), 0.0)
+    numbers, times = {}, {"K5": {}, "K5_cc": {}}
     for (m, k, n), dtype in cases:
-        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
-        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
-        packed, scale = qm.quantize_weight_int4(w)
-        del w
-        w_deq = qm.unpack_int4(packed).reshape(k // 128, 128, n).float().mul_(
-            scale[:, None]).reshape(k, n).to(torch.bfloat16)
-        out = qm.quant_matmul_int4(x, packed, scale)
-        ref = qm.quant_matmul_int4_ref(x, packed, scale)
+        gemv = m <= GEMV_MAX_ROWS
+        copies = -(-2 * L2_BYTES // (k * n // 2)) if gemv else 1
+        x, weights = k5_case(qm, gen, m, k, n, dtype, copies)
+        packed, scale = weights[0]
+        key = "K5_gemv" if gemv else "K5"
         label = f"({m}, {k}, {n}) {str(dtype)[6:]}"
         tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
-        err = hold(f"K5 at {label}", out, ref, tol)
-        iters = 10 if m > 8 else 50
-        ms = median_ms(lambda: qm.quant_matmul_int4(x, packed, scale), iters)
-        plain_ms = median_ms(lambda: qm.quant_matmul_int4_ref(x, packed, scale), iters)
-        lib_ms = median_ms(lambda: x.to(torch.bfloat16) @ w_deq, iters)
+        check(KERNELS[key] is qm.int4_entries(x), f"int4_entries names another entry at {m} rows")
+        before = counts()
+        out = qm.quant_matmul_int4(x, packed, scale)
+        moved = launched_since(before)
+        check(moved == {key: 1}, f"K5 at {label} launched {moved}, expected {key} once")
+        cc = qm.launch_int4(qm.KERNEL_INT4, x, packed, scale)
+        ref = qm.quant_matmul_int4_ref(x, packed, scale)
+        err = hold(f"{key} at {label}", out, ref, tol)
+        err_cc = hold(f"K5_cc at {label}", cc, ref, tol)
+        if gemv:
+            check(torch.equal(out, qm.quant_matmul_int4(x, packed, scale)),
+                  f"K5_gemv at {label}: a rerun differs")
+
+        def entry(i):
+            return qm.quant_matmul_int4(x, *weights[i % copies])
+
+        ms = device_ms(entry)
+        host_ms = median_ms(lambda: entry(0))
+        cc_ms = device_ms(lambda i: qm.launch_int4(qm.KERNEL_INT4, x, *weights[i % copies]),
+                          5 if m > GEMV_MAX_ROWS else 20)
+        plain_ms = median_ms(lambda: qm.quant_matmul_int4_ref(x, packed, scale), 10)
+        lib_copies = -(-2 * L2_BYTES // (2 * k * n)) if gemv else 1
+        w_deq = [dequantised(qm, *weights[i]) for i in range(lib_copies)]
+        xb = x.to(torch.bfloat16)
+        lib_ms = device_ms(lambda i: xb @ w_deq[i % lib_copies])
         bms, by = gemm_bound(m, k, n, x, packed, scale, out)
-        print(f"[K5] (M, K, N) {label}: {show(out, ref, tol)}; K5 {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library (x @ dequantised bf16 W) {lib_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+        rate = (f"{nbytes(x, packed, scale, out) / ms / 1e9:.3f} TB/s" if gemv
+                else f"{2e-9 * m * k * n / ms:.1f} TFLOP/s")
+        print(f"[K5] (M, K, N) {label} ({key}): {show(out, ref, tol)}; K5_cc "
+              f"{show(cc, ref, tol)}; device ms: {key} {ms:.4f} ({rate}; one host call "
+              f"{host_ms:.4f}), K5_cc {cc_ms:.4f}, library (x @ dequantised bf16 W) "
+              f"{lib_ms:.4f}; plain {plain_ms:.4f} ms; bound {bms:.4f} ms ({by})")
         if dtype == torch.bfloat16:
-            max_err = max(max_err, err)
-            times[(m, k, n)] = ms
+            max_err[key] = max(max_err[key], err)
+            max_err["K5_cc"] = max(max_err["K5_cc"], err_cc)
+            if (m, k, n) in shapes:
+                times["K5"][(m, k, n)] = ms
+                times["K5_cc"][(m, k, n)] = cc_ms
         if (m, k, n) in ((CAPTION_ROWS, 4096, 4096), (1, 4096, 4096)) and dtype == torch.bfloat16:
-            planted(f"K5 at M = {m} with the scale groups of each window swapped",
+            planted(f"{key} at M = {m} with the scale groups of each window swapped",
                     qm.quant_matmul_int4(x, packed, swapped_groups(scale)), ref, tol)
-            if m == 1:
-                headline = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                            "library_ms": lib_ms}
-        del x, packed, scale, w_deq, out, ref
-    print(f"[K5] per caption ({QUANT_PER_CAPTION} launches): {per_caption_ms(times):.3f} ms")
-    headline["max_abs_err"] = max_err
-    return headline
+            common = {"plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": median_ms(lambda: xb @ w_deq[0]), "library_device_ms": lib_ms}
+            numbers[key] = {"ms": host_ms, "device_ms": ms, **common}
+            if not gemv:
+                numbers["K5_cc"] = {"ms": median_ms(lambda: qm.launch_int4(
+                    qm.KERNEL_INT4, x, packed, scale), 5), "device_ms": cc_ms, **common}
+        del x, weights, packed, scale, w_deq, xb, out, cc, ref
+    print(f"[K5] per int4 caption ({QUANT_PREFILL_PER_CAPTION} tile and "
+          f"{QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION} GEMV launches), device time: "
+          f"{per_caption_ms(times['K5']):.3f} ms (K5_cc {per_caption_ms(times['K5_cc']):.3f} ms)")
+    for key in numbers:
+        numbers[key]["max_abs_err"] = max_err[key]
+    return numbers
 
 
 def build_llava():
@@ -1718,8 +1900,9 @@ def main() -> int:
     KERNELS.update(K1=fa.KERNEL_TC, K1_cc=fa.KERNEL, K2a=fa.KERNEL_DQ_TC,
                    K2b=fa.KERNEL_DKV_TC, K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV,
                    K3=fa.KERNEL_PRESCALED_TC, K3_cc=fa.KERNEL_PRESCALED, K4=qm.KERNEL_TC,
-                   K4_gemv=qm.KERNEL_GEMV, K4_cc=qm.KERNEL, K5=qm.KERNEL_INT4, K6=fr.KERNEL,
-                   K7=ff.KERNEL_TC, K7_cc=ff.KERNEL)
+                   K4_gemv=qm.KERNEL_GEMV, K4_cc=qm.KERNEL, K5=qm.KERNEL_INT4_TC,
+                   K5_gemv=qm.KERNEL_INT4_GEMV, K5_cc=qm.KERNEL_INT4, K6=fr.KERNEL_TC,
+                   K6_cc=fr.KERNEL, K7=ff.KERNEL_TC, K7_cc=ff.KERNEL)
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() == 1,
@@ -1729,7 +1912,7 @@ def main() -> int:
         numbers = phase_kernel(fa)
         k2 = phase_backward_kernels(fa)
         numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_k3(fa), **phase_k4(qm),
-                       K5=phase_k5(qm), K6=phase_k6(fr), **phase_k7(ff))
+                       **phase_k5(qm), **phase_k6(fr), **phase_k7(ff))
         torch.cuda.empty_cache()
         cldm, swinir = build_models()
         phase_model_call(cldm)
@@ -1744,7 +1927,7 @@ def main() -> int:
                   f"{path} launched other kernels: {paths[path]}")
         print("[done] launches of the CUDA-core entries per path: " + "; ".join(
             f"{path} " + ", ".join(f"{k} {n[k]}" for k in ("K1_cc", "K2a_cc", "K2b_cc", "K3_cc",
-                                                           "K4_cc", "K7_cc"))
+                                                           "K4_cc", "K5_cc", "K6_cc", "K7_cc"))
             for path, n in paths.items()))
     except (SmokeFailure, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1764,8 +1947,11 @@ def main() -> int:
         ("K4", "quant_matmul_tc", "quant_matmul.cu", "quant_matmul.py:45"),
         ("K4_gemv", "quant_matmul_gemv", "quant_matmul.cu", "quant_matmul.py:45"),
         ("K4_cc", "quant_matmul", "quant_matmul.cu", "quant_matmul.py:45"),
-        ("K5", "quant_matmul_int4", "quant_matmul_int4.cu", "quant_matmul.py:232"),
-        ("K6", "fused_resblock", "fused_resblock.cu", "fused_resblock.py:141"),
+        ("K5", "quant_matmul_int4_tc", "quant_matmul_int4.cu", "quant_matmul.py:232"),
+        ("K5_gemv", "quant_matmul_int4_gemv", "quant_matmul_int4.cu", "quant_matmul.py:232"),
+        ("K5_cc", "quant_matmul_int4", "quant_matmul_int4.cu", "quant_matmul.py:232"),
+        ("K6", "fused_resblock_tc", "fused_resblock.cu", "fused_resblock.py:141"),
+        ("K6_cc", "fused_resblock", "fused_resblock.cu", "fused_resblock.py:141"),
         ("K7", "fused_ffn_tc", "fused_ffn.cu", "fused_ffn.py:91"),
         ("K7_cc", "fused_ffn", "fused_ffn.cu", "fused_ffn.py:91"),
     )

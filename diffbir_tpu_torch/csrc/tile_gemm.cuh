@@ -1,8 +1,10 @@
-// The tiled CUDA-core matrix-product core of the fused ResBlock's
-// implicit-GEMM convolutions (K6), the packed-int4 matmul's tile form (K5's
-// prefill), and the CUDA-core entries of the int8 matmul (K4: quant_matmul,
-// which no path launches) and the fused GEGLU FFN (K7: fused_ffn, for fp32).
-// The bf16 paths of K4 and K7 run on the tensor cores (wgmma_gemm.cuh).
+// The tiled CUDA-core matrix-product core of the first (CUDA-core) versions
+// of the kernels, kept as the yardsticks the tensor-core entries are timed
+// beside and for the fp32 entries: the fused ResBlock's fused_resblock (K6:
+// fp32, and K6_cc for bf16), the packed-int4 matmul's quant_matmul_int4
+// (K5_cc), the int8 matmul's quant_matmul (K4_cc) and the fused GEGLU FFN's
+// fused_ffn (K7: fp32, and K7_cc). No serving path runs it: every bf16 path
+// of K4-K7 runs on the tensor cores (wgmma_gemm.cuh).
 //
 // One block of NT = 256 threads computes a BM x BN = 64 x 64 tile of
 // C = A @ B with fp32 accumulators in registers, 4 x 4 per thread. The

@@ -1,6 +1,8 @@
 // The tensor-core GEMM main loop shared by the int8 matmul's tile form (K4,
-// csrc/quant_matmul.cu) and the fused GEGLU FFN (K7, csrc/fused_ffn.cu), on
-// the building blocks of wgmma_tile.cuh.
+// csrc/quant_matmul.cu), the fused GEGLU FFN (K7, csrc/fused_ffn.cu), the
+// packed-int4 matmul's tile form (K5, csrc/quant_matmul_int4.cu) and the
+// fused ResBlock's convolutions (K6, csrc/fused_resblock.cu), on the
+// building blocks of wgmma_tile.cuh.
 //
 // One block of NT = 256 threads (two warpgroups of 64 rows) computes a
 // BM x (NP * 64) tile of C = A . B with fp32 accumulators in registers
@@ -22,8 +24,10 @@
 //   proxy fence and barrier that order its (and the copies') shared-memory
 //   writes before the wgmma reads. B is K-major ([NP*64 rows = N][BK], a
 //   Linear weight, staged as it is: K7) or MN-major ([BK rows = K][NP*64],
-//   read through the descriptor's transpose bit: K4's int8 [K, N] weight,
-//   dequantised by the warps from its staged bytes).
+//   read through the descriptor's transpose bit: K4's int8 [K, N] weight
+//   and K6's int8 conv weight per tap, dequantised by the warps from their
+//   staged bytes; K5's packed int4 weight, unpacked and scaled the same way;
+//   K6's float conv weight per tap, staged as it is).
 // The epilogue is the kernel's: stage_pair and store_tile stage the output
 // tile in shared memory (the ring, once the loop is done) and write it with
 // 16-byte coalesced stores.

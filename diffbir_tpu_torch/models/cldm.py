@@ -123,6 +123,8 @@ class ControlLDM(nn.Module):
                 if m.quant_conv and not resblock:
                     raise ValueError("quant_conv requires the fused ResBlock path")
                 m.fused = resblock
+                if not resblock:
+                    m._tap_major.clear()
             elif isinstance(m, FeedForward):
                 m.fused = ffn and not isinstance(m.net[2], QuantLinear)
 
@@ -269,4 +271,5 @@ def quantize_conv_params(cldm: ControlLDM) -> ControlLDM:
                 holder.bias.copy_(c.bias)
                 _replace(block, attr, holder)
             block.quant_conv = True
+            block._tap_major.clear()  # the float weights' copies: gone with them
     return cldm

@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.fused_ffn import fused_ffn
-from ..ops.fused_resblock import fused_resblock
+from ..ops.fused_resblock import fused_resblock, tap_major
 from .layers import (
     GroupNorm32,
     LayerNormFp32,
@@ -76,10 +76,23 @@ class ResBlock(nn.Module):
         self.out_layers = nn.Sequential(
             GroupNorm32(out_ch, device=device), nn.SiLU(), nn.Identity(), cv(out_ch, out_ch, 3))
         self.skip_connection = cv(in_ch, out_ch, 1) if in_ch != out_ch else nn.Identity()
+        # the float weights' HWIO copies for K6's tensor-core entry, by conv:
+        # (the weight's version, device and address; the copy)
+        self._tap_major = {}
+
+    def _tap_major_of(self, suffix: str, w: torch.Tensor) -> torch.Tensor:
+        key = (w._version, w.device, w.data_ptr())
+        hit = self._tap_major.get(suffix)
+        if hit is None or hit[0] != key:
+            hit = self._tap_major[suffix] = (key, tap_major(w))
+        return hit[1]
 
     def fused_params(self) -> dict:
         """K6's parameter dict (``ops.fused_resblock``): the module's own
-        tensors, by reference."""
+        tensors, by reference; for bf16 float weights on a card also their
+        HWIO copies (w1_t, ...), made once per weight version and kept (the
+        tensor-core entry's B layout: as much memory again as the convs'
+        weights)."""
         gn1, gn2 = self.in_layers[0], self.out_layers[0]
         p = dict(gn1_scale=gn1.weight, gn1_bias=gn1.bias, gn2_scale=gn2.weight,
                  gn2_bias=gn2.bias)
@@ -91,6 +104,8 @@ class ResBlock(nn.Module):
                 p[f"w{suffix}_q"], p[f"s{suffix}"] = c.weight_q, c.weight_scale
             else:
                 p[f"w{suffix}"] = c.weight
+                if c.weight.is_cuda and c.weight.dtype == torch.bfloat16:
+                    p[f"w{suffix}_t"] = self._tap_major_of(suffix, c.weight)
             p[f"b{suffix}"] = c.bias
         return p
 

@@ -9,8 +9,11 @@ TPU kernel ``_kernel`` (launched by ``_pallas_quant_matmul``) and is
 both for bf16 and fp32 x (``quant_entries`` states the rule), and the first
 CUDA-core version (``KERNEL``), which no path launches. K5 replaces
 ``_kernel_int4`` (launched by ``_pallas_quant_matmul_int4``) and is
-``csrc/quant_matmul_int4.cu``; both sources are built for ``sm_90a`` at
-first use.
+``csrc/quant_matmul_int4.cu``, with the same three forms: the tensor-core
+tile form (``KERNEL_INT4_TC``), the GEMV form (``KERNEL_INT4_GEMV``), both
+for bf16 and fp32 x (``int4_entries`` states the rule), and the CUDA-core
+version (``KERNEL_INT4``), which no path launches. Both sources are built
+for ``sm_90a`` at first use.
 
 int8: symmetric per output channel, w ~ w_q * scale[None, :]; the scale
 commutes with the K sum, so it multiplies the fp32 accumulator once after it
@@ -53,6 +56,12 @@ GEMV_MAX_ROWS = 8  # the GEMV form's largest M
 GEMV_MAX_SPLIT_ROWS = 2048  # rows of K per GEMV block (x's rows in shared memory)
 KERNEL_INT4 = CudaKernel("quant_matmul_int4.cu", "quant_matmul_int4",
                          [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr])
+KERNEL_INT4_TC = CudaKernel("quant_matmul_int4.cu", "quant_matmul_int4_tc",
+                            [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr])
+KERNEL_INT4_GEMV = CudaKernel("quant_matmul_int4.cu", "quant_matmul_int4_gemv",
+                              [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _ptr])
+INT4_GEMV_MAX_WINDOWS = 16  # windows of K per GEMV block (x's rows in shared memory)
+INT4_GEMV_MAX_SPLITS = 8  # GEMV blocks per cluster (their sums are added in the cluster)
 INT4_WINDOW = 256  # logical K rows per pack window
 INT4_GROUP = 128  # K rows per scale group (the only group size K5 takes)
 
@@ -263,13 +272,77 @@ def quant_matmul_int4_ref(x: torch.Tensor, packed: torch.Tensor,
     return acc.to(x.dtype)
 
 
+def int4_entries(x: torch.Tensor) -> CudaKernel:
+    """The K5 entry for x [.., K]: the GEMV form (``KERNEL_INT4_GEMV``) for
+    at most ``GEMV_MAX_ROWS`` rows, else the tensor-core tile form
+    (``KERNEL_INT4_TC``); both take bf16 and fp32 x."""
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    return KERNEL_INT4_GEMV if rows <= GEMV_MAX_ROWS else KERNEL_INT4_TC
+
+
+@functools.lru_cache(maxsize=None)
+def int4_gemv_splits(n: int, k: int, sms: int) -> int:
+    """Parts of K (whole 256-row windows) for the int4 GEMV form: enough
+    blocks (128 columns each) for ~2 per SM (on an H100 8 parts of 2
+    windows ran faster at (1, 4096, 4096) than 4 or 16), at most
+    INT4_GEMV_MAX_SPLITS parts of at most INT4_GEMV_MAX_WINDOWS windows;
+    every part holds windows."""
+    windows = k // INT4_WINDOW
+    if windows > INT4_GEMV_MAX_SPLITS * INT4_GEMV_MAX_WINDOWS:
+        raise ValueError(f"the int4 GEMV form takes K <= "
+                         f"{INT4_GEMV_MAX_SPLITS * INT4_GEMV_MAX_WINDOWS * INT4_WINDOW}, got {k}")
+    col_blocks = -(-n // 128)
+    splits = min(max(1, -(-2 * sms // col_blocks)), windows, INT4_GEMV_MAX_SPLITS)
+    splits = max(splits, -(-windows // INT4_GEMV_MAX_WINDOWS))
+    return -(-windows // -(-windows // splits))
+
+
+def launch_int4(kernel: CudaKernel, x2: torch.Tensor, packed: torch.Tensor,
+                scale_g: torch.Tensor) -> torch.Tensor:
+    """out [M, N] = x2 [M, K] @ dequant_int4(packed, scale_g) from one K5
+    entry on checked CUDA inputs (``quant_matmul_int4`` picks the entry by
+    ``int4_entries``). The new entries take N in whole 16-byte chunks (else
+    packed and scale_g are zero- and one-padded: no path of the port needs
+    it) and contiguous 16-byte aligned tensors (else copied)."""
+    m, k = x2.shape
+    n = packed.shape[1]
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    code = _DTYPE_CODES[x2.dtype]
+    if kernel is KERNEL_INT4:
+        out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        with torch.cuda.device(x2.device):
+            KERNEL_INT4.launch(x2.contiguous().data_ptr(), packed.contiguous().data_ptr(),
+                               scale_g.contiguous().data_ptr(), out.data_ptr(), code, m, n, k,
+                               stream)
+        return out
+    np_ = -(-n // 16) * 16
+    if np_ != n:
+        packed = F.pad(packed, (0, np_ - n))
+        scale_g = F.pad(scale_g, (0, np_ - n), value=1.0)
+    x2, packed, scale_g = [t if _ready(t) else t.clone(memory_format=torch.contiguous_format)
+                           for t in (x2, packed, scale_g)]
+    out = torch.empty((m, np_), dtype=x2.dtype, device=x2.device)
+    with torch.cuda.device(x2.device):
+        if kernel is KERNEL_INT4_TC:
+            KERNEL_INT4_TC.launch(x2.data_ptr(), packed.data_ptr(), scale_g.data_ptr(),
+                                  out.data_ptr(), code, m, np_, k, stream)
+        elif kernel is KERNEL_INT4_GEMV:
+            splits = int4_gemv_splits(np_, k, _sm_count(x2.device.index))
+            KERNEL_INT4_GEMV.launch(x2.data_ptr(), packed.data_ptr(), scale_g.data_ptr(),
+                                    out.data_ptr(), code, m, np_, k, splits, stream)
+        else:
+            raise ValueError(f"not a K5 entry: {kernel.symbol}")
+    return out if np_ == n else out[:, :n]
+
+
 def quant_matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale_g: torch.Tensor) -> torch.Tensor:
     """x [.., K] @ dequant_int4(packed [K/2, N], scale_g [K/128, N]) -> [.., N]
     in x's dtype.
 
-    A CPU tensor goes to the plain version; a CUDA tensor launches K5 or
-    raises (x bf16 or fp32, packed int8, scale_g fp32 with one scale per 128
-    rows, K a whole number of 256-row windows, all on one device)."""
+    A CPU tensor goes to the plain version; a CUDA tensor launches the K5
+    entry of ``int4_entries`` or raises (x bf16 or fp32, packed int8,
+    scale_g fp32 with one scale per 128 rows, K a whole number of 256-row
+    windows, all on one device)."""
     kp, n = packed.shape
     k = 2 * kp
     if x.shape[-1] != k or scale_g.dim() != 2 or scale_g.shape[1] != n or k % INT4_WINDOW:
@@ -289,16 +362,10 @@ def quant_matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale_g: torch.Tens
         raise TypeError(f"quant_matmul_int4 takes bf16/fp32 x, int8 packed, fp32 scale_g; got "
                         f"{x.dtype}, {packed.dtype}, {scale_g.dtype}")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).contiguous()
-    m = x2.shape[0]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m:
-        with torch.cuda.device(x.device):
-            KERNEL_INT4.launch(x2.data_ptr(), packed.contiguous().data_ptr(),
-                               scale_g.contiguous().data_ptr(), out.data_ptr(),
-                               _DTYPE_CODES[x.dtype], m, n, k,
-                               torch.cuda.current_stream(x.device).cuda_stream)
-    return out.reshape(*lead, n)
+    x2 = x.reshape(-1, k)
+    if x2.shape[0] == 0:
+        return torch.empty((*lead, n), dtype=x.dtype, device=x.device)
+    return launch_int4(int4_entries(x), x2, packed, scale_g).reshape(*lead, n)
 
 
 class Int4Linear(nn.Module):

@@ -65,14 +65,20 @@ CAPTION_ROWS, CAPTION_NEW = 624, 60
 # substrings of the device kernel names of the port's kernels: K1 (K3 is its
 # PRESCALE instance), K2a and K2b (the tensor-core entries, and the CUDA-core
 # ones that fp32 and d >= 256 take), K4 (the tile form, the GEMV form with
-# its split reduction, the CUDA-core entry), K5, K6 (GroupNorm statistics and
-# the convolutions) and K7 (the tensor-core launches, the CUDA-core ones)
+# its split reduction, the CUDA-core entry), K5 (the same three), K6 (the
+# tensor-core entry's GroupNorm statistics and apply launches, convolutions
+# and split reductions; the CUDA-core entry's launches) and K7 (the
+# tensor-core launches, the CUDA-core ones)
 KERNELS = {"K1/K3": "flash_fwd_tc_kernel", "K1/K3 (CUDA cores)": "flash_fwd_kernel",
            "K2a": "flash_bwd_dq_tc_kernel", "K2b": "flash_bwd_dkv_tc_kernel",
            "K2a (CUDA cores)": "flash_bwd_dq_kernel", "K2b (CUDA cores)": "flash_bwd_dkv_kernel",
            "K4": "quant_matmul_tc_kernel", "K4 GEMV": "gemv::",
-           "K4 (CUDA cores)": "quant_matmul_kernel", "K5": "int4_",
-           "K6 GroupNorm": "namespace)::gn_affine_kernel", "K6 conv": "namespace)::conv_kernel",
+           "K4 (CUDA cores)": "quant_matmul_kernel", "K5": "int4_tc_kernel",
+           "K5 GEMV": "decode::", "K5 (CUDA cores)": "namespace)::int4_",
+           "K6 GroupNorm": "tc::gn_", "K6 conv": "conv_tc_kernel",
+           "K6 reduce": "conv_reduce_kernel",
+           "K6 GroupNorm (CUDA cores)": "namespace)::gn_affine_kernel",
+           "K6 conv (CUDA cores)": "namespace)::conv_kernel",
            "K7 geglu": "geglu_tc_kernel", "K7 down": "down_tc_kernel",
            "K7 (CUDA cores)": "namespace)::geglu_kernel",
            "K7 down (CUDA cores)": "namespace)::down_kernel"}

@@ -145,6 +145,91 @@ def test_fused_resblock_gradients_match_jax_grad():
         _check(v, pt[k].grad.numpy(), GRAD_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_resblock_entries_take_the_tensor_cores_for_bf16(dtype, quant):
+    """resblock_entries names the tensor-core K6 for bf16 (float and int8
+    weights) and the CUDA-core one for fp32, whose products the bf16 tensor
+    cores do not give; on the CPU fused_resblock runs the plain version and
+    launches neither."""
+    rng = np.random.default_rng(3)
+    p = _resblock_params(rng, 32, 64, skip=True)
+    if quant:
+        p = _quantised(p)
+    x = _nchw(rng.standard_normal((2, 4, 6, 32)).astype(np.float32), dtype)
+    e = _t(rng.standard_normal((2, 64)), dtype)
+    want = port_fr.KERNEL_TC if dtype == torch.bfloat16 else port_fr.KERNEL
+    assert port_fr.resblock_entries(x) is want
+    counts = [port_fr.KERNEL.launches, port_fr.KERNEL_TC.launches]
+    pt = _port_params(p, dtype)
+    out = port_fr.fused_resblock(x, e, pt)
+    assert counts == [port_fr.KERNEL.launches, port_fr.KERNEL_TC.launches]
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  port_fr.fused_resblock_ref(x, e, pt).float().numpy())
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 64)])
+def test_tap_major_repack_is_the_jax_layout(cin, cout):
+    """The float weights' one-time repack for the tensor-core K6 (OIHW ->
+    HWIO) is the JAX package's own layout bit for bit, and the plain
+    version on the weights it holds (read back as OIHW) is the plain
+    version on the OIHW weights, bit for bit."""
+    rng = np.random.default_rng(4)
+    p = _resblock_params(rng, cin, cout, skip=cin != cout)
+    pt = _port_params(p, torch.bfloat16)
+    back = dict(pt)
+    for name in ("w1", "w2", "w_skip"):
+        if name in pt:
+            hwio = port_fr.tap_major(pt[name])
+            assert hwio.is_contiguous() and hwio.shape == p[name].shape
+            np.testing.assert_array_equal(hwio.float().numpy(), p[name])
+            back[name] = hwio.permute(3, 2, 0, 1)
+    x = _nchw(rng.standard_normal((2, 5, 3, cin)).astype(np.float32) + 0.5, torch.bfloat16)
+    e = _t(rng.standard_normal((2, cout)), torch.bfloat16)
+    np.testing.assert_array_equal(port_fr.fused_resblock_ref(x, e, back).float().numpy(),
+                                  port_fr.fused_resblock_ref(x, e, pt).float().numpy())
+
+
+def test_resblock_keeps_its_tap_major_copies_per_weight_version():
+    """ResBlock makes a conv's HWIO copy once and keeps it; an in-place
+    update of the weight (a new version) makes a new one; turning the fused
+    path off drops them."""
+    from diffbir_tpu_torch.models.unet import ResBlock
+
+    block = ResBlock(32, 64, 16, torch.bfloat16)
+    torch.nn.init.normal_(block.in_layers[2].weight)
+    w = block.in_layers[2].weight
+    first = block._tap_major_of("1", w)
+    assert block._tap_major_of("1", w) is first
+    torch.testing.assert_close(first, port_fr.tap_major(w), rtol=0, atol=0)
+    with torch.no_grad():
+        w.mul_(2.0)
+    second = block._tap_major_of("1", w)
+    assert second is not first
+    torch.testing.assert_close(second, port_fr.tap_major(w), rtol=0, atol=0)
+    assert "w1_t" not in block.fused_params()  # a CPU block: no tensor-core entry
+
+
+@pytest.mark.parametrize("m,cout,cs", [(8192, 320, 320), (8192, 320, 960), (2048, 640, 1920),
+                                       (512, 1280, 2560), (128, 1280, 2560), (128, 1280, 1280),
+                                       (240, 160, 96)])
+def test_resblock_splits_fill_the_card_with_whole_parts(m, cout, cs):
+    """The tensor-core convs' K split: about one block per SM (132 on an
+    H100), no part shorter than TC_MIN_STAGES 64-deep stages (one part if
+    K has fewer), every part non-empty; the 64^2 sites (192 tiles) run
+    unsplit."""
+    splits = port_fr.resblock_splits(m, cout, cs, 132)
+    total = 9 * -(-cs // 64)
+    per = -(-total // splits)
+    tiles = -(-m // 128) * -(-cout // 128)
+    assert splits >= 1 and -(-total // per) == splits
+    assert per >= min(total, port_fr.TC_MIN_STAGES)
+    if m == 8192:
+        assert splits == 1
+    elif total >= 2 * port_fr.TC_MIN_STAGES:
+        assert tiles * splits >= min(132, tiles * (total // port_fr.TC_MIN_STAGES)) // 2
+
+
 # --------------------------------------------------------------------------- #
 # K7: fused GEGLU FFN
 # --------------------------------------------------------------------------- #

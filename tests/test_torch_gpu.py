@@ -1,7 +1,8 @@
 """The kernels on a CUDA device, against their plain versions and against
 the CPU: flash attention (K1 forward, K2a/K2b backward, K3 the prescaled-q
-forward), the int8 matmul (K4), the packed-int4 matmul (K5), the fused
-ResBlock (K6) and the fused GEGLU FFN (K7); the build key; the serving modes'
+forward), the int8 matmul (K4), the packed-int4 matmul (K5: its tile and
+GEMV forms), the fused ResBlock (K6: the tensor-core entry for bf16, the
+CUDA-core one for fp32) and the fused GEGLU FFN (K7); the build key; the serving modes'
 autograd and a small model; a small LLaVA captioner.
 
 These tests need a card: they skip without one. The GPU machine has no JAX,
@@ -473,7 +474,7 @@ def test_gemv_reruns_are_bit_identical(cuda, m, k, n):
         assert torch.equal(qm.quant_matmul(x, w_q, scale), first)
 
 
-def _resblock_case(cuda, cin, cout, h, w, dtype, quant, seed=4):
+def _resblock_case(cuda, cin, cout, h, w, dtype, quant, seed=4, batch=2):
     g = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape, s=1.0):
@@ -490,8 +491,8 @@ def _resblock_case(cuda, cin, cout, h, w, dtype, quant, seed=4):
             if name in p:
                 p[name + "_q"], p[scale] = fr.quantize_conv_weight(
                     p.pop(name).float().permute(2, 3, 1, 0))
-    x = (rnd(2, cin, h, w) + 0.5).to(dtype)
-    e = rnd(2, cout).to(dtype)
+    x = (rnd(batch, cin, h, w) + 0.5).to(dtype)
+    e = rnd(batch, cout).to(dtype)
     return x, e, p
 
 
@@ -499,13 +500,88 @@ def _resblock_case(cuda, cin, cout, h, w, dtype, quant, seed=4):
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
 def test_fused_resblock_matches_plain_version(cuda, cin, cout, h, w, quant, dtype, tol):
-    """K6, float and int8 weights, identity and 1x1 skip, ragged images."""
+    """K6, float and int8 weights, identity and 1x1 skip, ragged images; one
+    launch of the entry that resblock_entries names (the tensor-core one
+    for bf16, the CUDA-core one for fp32)."""
     x, e, p = _resblock_case(cuda, cin, cout, h, w, dtype, quant)
-    before = fr.KERNEL.launches
+    entry = fr.resblock_entries(x)
+    assert entry is (fr.KERNEL_TC if dtype == torch.bfloat16 else fr.KERNEL)
+    before = (fr.KERNEL_TC.launches, fr.KERNEL.launches)
     out = fr.fused_resblock(x, e, p)
     torch.cuda.synchronize()
-    assert fr.KERNEL.launches == before + 1
+    assert (fr.KERNEL_TC.launches - before[0], fr.KERNEL.launches - before[1]) == (
+        (1, 0) if entry is fr.KERNEL_TC else (0, 1))
     _close(out, fr.fused_resblock_ref(x, e, p), tol)
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,groups", [
+    (1, 64, 64, 12, 20, 32), (2, 96, 160, 12, 20, 32), (2, 40, 48, 7, 9, 8),
+    (1, 320, 640, 8, 8, 32), (2, 128, 128, 3, 33, 32)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("splits", [None, (3, 2)])
+def test_tensor_core_fused_resblock_matches_plain_version(cuda, b, cin, cout, h, w, groups,
+                                                          quant, splits):
+    """The tensor-core K6 on ragged shapes: H x W no multiple of the 128-row
+    tile, Cin no multiple of the 64-deep stage, batch 1 and 2, identity and
+    1x1 skip, float and int8 weights, its own split of K and a forced one
+    (a partial-sum reduce launch per conv); reruns are bit-identical."""
+    x, e, p = _resblock_case(cuda, cin, cout, h, w, torch.bfloat16, quant, batch=b)
+    if splits is not None:
+        total = [9 * -(-c // fr.TC_STAGE) for c in (cin, cout)]
+        splits = tuple(-(-t // -(-t // min(s, t))) for s, t in zip(splits, total))
+    before = (fr.KERNEL_TC.launches, fr.KERNEL.launches)
+    out = fr.launch_resblock(fr.KERNEL_TC, x, e, p, groups, splits=splits)
+    torch.cuda.synchronize()
+    assert (fr.KERNEL_TC.launches - before[0], fr.KERNEL.launches - before[1]) == (1, 0)
+    _close(out, fr.fused_resblock_ref(x, e, p, groups), BF16_TOL)
+    for _ in range(2):
+        assert torch.equal(fr.launch_resblock(fr.KERNEL_TC, x, e, p, groups, splits=splits), out)
+
+
+def test_tensor_core_fused_resblock_refuses_fp32_and_odd_widths(cuda):
+    """The tensor-core K6 takes bf16 only (fp32 products are the CUDA-core
+    entry's), and Cin % 8 == 0, Cout % 16 == 0."""
+    x, e, p = _resblock_case(cuda, 32, 64, 6, 7, torch.float32, quant=False)
+    with pytest.raises(TypeError, match="bf16"):
+        fr.launch_resblock(fr.KERNEL_TC, x, e, p)
+    x, e, p = _resblock_case(cuda, 40, 40, 6, 7, torch.bfloat16, quant=False)
+    with pytest.raises(ValueError, match="Cout % 16"):
+        fr.launch_resblock(fr.KERNEL_TC, x, e, p, 8)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_tensor_core_fused_resblock_reads_strided_and_misaligned_views(cuda, quant):
+    """x as every other channel of a wider tensor, and x 2 bytes past a
+    16-byte boundary (copied for the tensor-core entry), give the plain
+    version's result."""
+    x, e, p = _resblock_case(cuda, 64, 32, 9, 13, torch.bfloat16, quant)
+    wide = torch.repeat_interleave(x, 2, dim=1)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    flat[1:].copy_(x.reshape(-1))
+    skewed = flat[1:].view(x.shape)
+    assert skewed.data_ptr() % 16
+    ref = fr.fused_resblock_ref(x, e, p)
+    for view in (wide[:, ::2], skewed):
+        _close(fr.fused_resblock(view, e, p), ref, BF16_TOL)
+
+
+def test_resblock_module_feeds_its_tap_major_copies(cuda):
+    """A bf16 ResBlock on the card hands K6 its float weights' HWIO copies,
+    made once and kept until the weights change."""
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.unet import ResBlock
+
+    block = random_init_(ResBlock(64, 128, 32, torch.bfloat16, device=cuda, fused=True),
+                         torch.Generator(device=cuda).manual_seed(2))
+    p = block.fused_params()
+    assert all(p[n + "_t"].shape == p[n].permute(2, 3, 1, 0).shape for n in ("w1", "w2", "w_skip"))
+    assert block.fused_params()["w1_t"] is p["w1_t"]
+    x = torch.randn(2, 64, 8, 8, device=cuda).to(torch.bfloat16)
+    emb = torch.randn(2, 32, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        out = block(x, emb)
+        ref = fr.fused_resblock_ref(x, block.emb_layers(emb), p)
+    _close(out, ref, BF16_TOL)
 
 
 def _ffn_case(cuda, n, d, dtype, seed=5):
@@ -672,24 +748,85 @@ def test_small_fp32_model_in_the_serving_modes_matches_cpu(cuda):
 # --------------------------------------------------------------------------- #
 # the captioner: K5 and a small LLaVA
 # --------------------------------------------------------------------------- #
+def _k5_launches():
+    """Launch counts of K5's entries: the tile form, the GEMV form, the
+    CUDA-core one."""
+    return [e.launches for e in (qm.KERNEL_INT4_TC, qm.KERNEL_INT4_GEMV, qm.KERNEL_INT4)]
+
+
+def _k5_case(cuda, m, k, n, dtype, seed=7):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    packed, scale = qm.quantize_weight_int4(torch.randn(k, n, generator=g, device=cuda))
+    return x, packed, scale
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 512, 512), (1, 768, 70), (3, 256, 130), (9, 512, 64),
                                    (37, 768, 130)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
 def test_quant_matmul_int4_matches_plain_version(cuda, m, k, n, dtype, tol):
-    """K5 in its GEMV form (M <= 8; N % 4 == 0 and ragged N) and its tile
-    form (ragged M and N); x and the dequantised weight rounded to bf16 on
-    both sides, so fp32 agrees to the sum order."""
-    g = torch.Generator(device=cuda).manual_seed(7)
-    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
-    packed, scale = qm.quantize_weight_int4(torch.randn(k, n, generator=g, device=cuda))
-    before = qm.KERNEL_INT4.launches
+    """K5 in its GEMV form (M <= 8; N % 16 == 0 and ragged N) and its tile
+    form (ragged M and N), one launch of the entry that int4_entries names;
+    x and the dequantised weight rounded to bf16 on both sides, so fp32
+    agrees to the sum order."""
+    x, packed, scale = _k5_case(cuda, m, k, n, dtype)
+    entry = qm.int4_entries(x)
+    before = _k5_launches()
     out = qm.quant_matmul_int4(x, packed, scale)
     torch.cuda.synchronize()
-    assert qm.KERNEL_INT4.launches == before + 1
+    assert _moved(before, _k5_launches()) == [entry is qm.KERNEL_INT4_TC,
+                                              entry is qm.KERNEL_INT4_GEMV, 0]
     _close(out, qm.quant_matmul_int4_ref(x, packed, scale), tol)
     assert torch.equal(out, qm.quant_matmul_int4(x, packed, scale))  # no atomics
     with pytest.raises(ValueError, match="K %"):
         qm.quant_matmul_int4(x[:, :128], packed[:64], scale[:1])
+
+
+@pytest.mark.parametrize("entry,m,k,n", [
+    ("TC", 9, 4096, 4001), ("TC", 77, 4096, 4001), ("TC", 624, 512, 384), ("TC", 130, 4352, 64),
+    ("GEMV", 1, 4096, 4001), ("GEMV", 2, 4096, 4001), ("GEMV", 8, 4352, 1024),
+    ("GEMV", 1, 11008, 256), ("GEMV", 5, 256, 70)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
+def test_quant_matmul_int4_entries_match_plain_version(cuda, entry, m, k, n, dtype, tol):
+    """Each new K5 entry on its own count: N = 4001 (padded to whole 16-byte
+    chunks), M = 1, 2, 8, 9 and 77, K of 17 and 43 windows (ragged splits),
+    fp32 x on the tensor cores and in the GEMV form."""
+    x, packed, scale = _k5_case(cuda, m, k, n, dtype)
+    kernel = getattr(qm, f"KERNEL_INT4_{entry}")
+    before = _k5_launches()
+    out = qm.launch_int4(kernel, x, packed, scale)
+    torch.cuda.synchronize()
+    assert _moved(before, _k5_launches()) == [entry == "TC", entry == "GEMV", 0]
+    assert out.shape == (m, n) and out.dtype == dtype
+    _close(out, qm.quant_matmul_int4_ref(x, packed, scale), tol)
+
+
+@pytest.mark.parametrize("m", [1, 200])
+def test_quant_matmul_int4_reads_strided_and_misaligned_views(cuda, m):
+    """A strided x, an x 2 bytes past a 16-byte boundary and a misaligned
+    packed weight are copied for K5's entries and give the plain version's
+    result."""
+    k, n = 512, 256
+    g = torch.Generator(device=cuda).manual_seed(8)
+    wide = torch.randn(m, 2 * k, generator=g, device=cuda).to(torch.bfloat16)
+    flat = torch.randn(m * k + 1, generator=g, device=cuda).to(torch.bfloat16)
+    packed, scale = qm.quantize_weight_int4(torch.randn(k, n, generator=g, device=cuda))
+    p_flat = torch.empty(packed.numel() + 3, dtype=torch.int8, device=cuda)
+    p_flat[3:].copy_(packed.reshape(-1))
+    skewed = p_flat[3:].view(packed.shape)
+    assert skewed.data_ptr() % 16 and flat[1:].data_ptr() % 16
+    for x in (wide[:, ::2], flat[1:].view(m, k)):
+        _close(qm.quant_matmul_int4(x, skewed, scale), qm.quant_matmul_int4_ref(x, packed, scale),
+               BF16_TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (2, 11008, 4096), (1, 4096, 11008)])
+def test_int4_gemv_reruns_are_bit_identical(cuda, m, k, n):
+    """K5's GEMV form sums its K splits in a fixed order, with no atomics."""
+    x, packed, scale = _k5_case(cuda, m, k, n, torch.bfloat16)
+    first = qm.quant_matmul_int4(x, packed, scale)
+    for _ in range(3):
+        assert torch.equal(qm.quant_matmul_int4(x, packed, scale), first)
 
 
 def test_int4_linear_on_the_card_matches_cpu(cuda):
@@ -729,11 +866,13 @@ def test_small_llava_captioner_matches_cpu(cuda):
         model = float_model if bits == 16 else quantize_llama_(copy.deepcopy(float_model), 4)
         caps = {dev: LLaVACaptioner(copy.deepcopy(model), [1, 7, 8], [9, 10], max_new_tokens=5,
                                     eos_id=-1, device=dev) for dev in ("cpu", "cuda")}
-        before = (fa.KERNEL.launches, qm.KERNEL_INT4.launches)
+        before = (fa.KERNEL.launches, *_k5_launches())
         tokens = caps["cuda"].generate(image)
         torch.cuda.synchronize()
-        launched = (fa.KERNEL.launches - before[0], qm.KERNEL_INT4.launches - before[1])
-        assert launched == (2, 14 * 5 if bits == 4 else 0)
+        launched = _moved(before, (fa.KERNEL.launches, *_k5_launches()))
+        # int4: the prefill's 14 linears on the tile form, 4 decode steps' on
+        # the GEMV form, none on the CUDA-core entry
+        assert launched == ([2, 14, 14 * 4, 0] if bits == 4 else [2, 0, 0, 0])
         ref_tokens = caps["cpu"].generate(image)
         logits = {}
         for dev, cap in caps.items():

@@ -117,6 +117,47 @@ def test_quant_entries_take_the_gemv_form_up_to_8_rows(shape, entry, dtype):
                                            port_qm.KERNEL_GEMV)]
 
 
+@pytest.mark.parametrize("m,entry", [(1, "GEMV"), (2, "GEMV"), (8, "GEMV"), (9, "TC"),
+                                     (624, "TC")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_entries_take_the_gemv_form_up_to_8_rows(m, entry, dtype):
+    """int4_entries names K5's GEMV form for M <= 8 rows of x and its
+    tensor-core tile form above, for either dtype; on the CPU
+    quant_matmul_int4 runs the plain version and launches none of K5's
+    entries."""
+    x = torch.randn(m, 256, generator=torch.Generator().manual_seed(1)).to(dtype)
+    assert port_qm.int4_entries(x) is getattr(port_qm, f"KERNEL_INT4_{entry}")
+    assert port_qm.int4_entries(x.reshape(1, m, 256)) is port_qm.int4_entries(x)
+    packed, scale = port_qm.quantize_weight_int4(
+        torch.randn(256, 48, generator=torch.Generator().manual_seed(0)))
+    entries = (port_qm.KERNEL_INT4, port_qm.KERNEL_INT4_TC, port_qm.KERNEL_INT4_GEMV)
+    counts = [e.launches for e in entries]
+    out = port_qm.quant_matmul_int4(x, packed, scale)
+    assert out.shape == (m, 48) and out.dtype == dtype
+    assert counts == [e.launches for e in entries]
+    np.testing.assert_array_equal(out.float().numpy(), port_qm.quant_matmul_int4_ref(
+        x, packed, scale).float().numpy())
+
+
+@pytest.mark.parametrize("n,k", [(4096, 4096), (11008, 4096), (4096, 11008), (4016, 4096),
+                                 (320, 256), (64, 4352)])
+def test_int4_gemv_splits_fill_the_card_with_whole_windows(n, k):
+    """The int4 GEMV form's split of K into whole 256-row windows: ~2
+    blocks of 128 columns per SM (132 on an H100) where K has the windows,
+    at most INT4_GEMV_MAX_SPLITS parts (a cluster) of at most
+    INT4_GEMV_MAX_WINDOWS windows, every part non-empty; a K beyond that
+    is refused."""
+    splits = port_qm.int4_gemv_splits(n, k, 132)
+    windows = k // port_qm.INT4_WINDOW
+    per = -(-windows // splits)
+    assert 1 <= splits <= min(windows, port_qm.INT4_GEMV_MAX_SPLITS)
+    assert -(-windows // per) == splits and per <= port_qm.INT4_GEMV_MAX_WINDOWS
+    blocks = -(-n // 128) * splits
+    assert blocks >= min(2 * 132, -(-n // 128) * windows, 8 * -(-n // 128)) // 2
+    with pytest.raises(ValueError, match="K <="):
+        port_qm.int4_gemv_splits(n, 33 * 1024 * 4, 132)
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096),
                                    (2, 1280, 320), (8, 200, 40)])
 def test_gemv_splits_fill_the_card_within_the_split_limit(m, k, n):
