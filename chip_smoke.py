@@ -64,21 +64,32 @@ Phases (any failure exits non-zero before the last line is printed):
      K7_cc on the same inputs, device times beside one host call (fault:
      the value and gate halves swapped).
   5. model call: one full-width SD2.1 ControlLDM forward (random bf16 weights)
-     at batch 2 on a 64x64 latent, through K1 and through plain attention.
+     at batch 2 on a 64x64 latent, through K1 and through plain attention;
+     then [hoist]: the same model's call at t = 999 through the hoisted
+     tables of the CLI's EDM grid (the cross-attention k/v of the default
+     prompts, every ResBlock's timestep rows) against its in-loop call
+     (limit BF16_TOL x max|ref|), the launches of the tables and of the
+     call, and a planted fault (the next grid timestep's rows) that must
+     fail the limit.
   6. serving path: SwinIRPipeline.run on 512x512 uint8 LQs, 50 spaced steps,
-     CFG 4.0, the v2.1 schedule, the JAX CLI's default prompts through a
-     seeded stand-in tokenizer (cond and uncond on distinct ids), distinct
-     seeds, then one seed again; K1's launch count per request, latency,
-     stage split and peak memory.
+     CFG 4.0, the v2.1 schedule, hoisting on (the pipeline's default), the
+     JAX CLI's default prompts through a seeded stand-in tokenizer (cond and
+     uncond on distinct ids), distinct seeds, then one seed again; K1's
+     launch count per request, latency, stage split and peak memory.
   7. the serving modes: one full-width model call in the "fused" mode
      (fused ResBlock + fused FFN + packed flash: K6, K7, K3) against the
-     unfused float path on the same weights, then SwinIRPipeline.run on 512x512
-     LQs in that mode; then a copy of the model with its UNet and ControlNet
-     quantised ("int8": int8 dense + fused ResBlock on int8 convs + packed:
-     K4, K6, K3), one model call against the unfused path on the dequantised
-     weights, and requests in that mode. Each model call records every
-     kernel call's shape and checks it against the site tables below; each
-     request checks its launch counts, latency, stage split and peak memory.
+     unfused float path on the same weights, its [hoist] check, then
+     SwinIRPipeline.run on 512x512 LQs in that mode; then a copy of the
+     model with its UNet and ControlNet quantised ("int8": int8 dense +
+     fused ResBlock on int8 convs + packed: K4, K6, K3), one model call
+     against the unfused path on the dequantised weights, its [hoist] check
+     (the tables: 55 K4 launches; a hoisted step: 230), and requests in
+     that mode (50 x 230 + 55 K4 tile launches each, no GEMV). Each model
+     call records every kernel call's shape and checks it against the site
+     tables below; each request checks its launch counts, latency, stage
+     split and peak memory. Then [samplers]: every other sampler of the CLI
+     on a 256x256 condition (stage 2, SAMPLER_STEPS steps, CFG 4.0, eta 1),
+     twice from one seed: finite, bit-identical, K1 only.
   8. the LLaVA-1.5-7B captioner at full width (CLIP ViT-L/14-336 +
      projector + Llama-7B, random bf16 weights from seed 0 generated on the
      card), a seeded 512x512
@@ -91,7 +102,15 @@ Phases (any failure exits non-zero before the last line is printed):
      plain argmax wherever its top-2 margin exceeds it). Then one captioned
      request: the int4 caption of the LQ, then SwinIRPipeline.run on it,
      the caption's ids as the positive prompt's text.
-  9. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
+  9. [cli_request]: ``python -m diffbir_tpu_torch.inference --task sr
+     --upscale 4`` run in this process on a seeded 128x128 PNG with the
+     CLI's defaults (v2.1, 10 steps of edm_dpm++_3m_sde at CFG 6.0, the
+     default prompts through a stand-in merges file the smoke writes under
+     build/), random full-width weights; seconds per stage, exact launches
+     (K1 230; with --quant_dense --fused_resblock --quant_conv, K3 230, K6
+     320 and K4 2355 tile launches), the PNG equal to a direct
+     ``pipeline.run`` of the request, a rerun bit-identical.
+ 10. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
      IRControlNet with gradient checkpointing, ControlNet initialised from the
      UNet, frozen realesrgan SwinIR cleaner, v2.1 schedule, noise aug at 200,
      lr 1e-5), batch 8 at 512x512 from seeded numpy, empty prompts: 2 warm-up
@@ -162,48 +181,85 @@ K6_SITES = {(320, 320, 64): 4, (960, 320, 64): 1, (640, 320, 64): 2, (320, 640, 
 K7_SITES = {(4096, 320): 7, (1024, 640): 7, (256, 1280): 7, (64, 1280): 2}
 K3_SITES = {(4096, 5): 7, (1024, 10): 7, (256, 20): 7, (64, 20): 2}
 K6_PER_CALL, K7_PER_CALL, K3_PER_CALL = 32, 23, 23
-# K4 (int8 dense), keyed (M rows, K, N): per transformer 8 width-square
-# products on the 2*tokens rows (proj_in, self q/k/v/out, cross q/out,
-# proj_out), the cross k/v on the 2 x 77 text rows, GEGLU proj (N = 8 C) and
-# net.2 (K = 4 C); per ResBlock emb_layers.1 on the 2 timestep rows (Cout 320
-# at 7 blocks, 640 at 7, 1280 at 18): 23 x 12 + 32 = 308 per call.
-K4_PER_CALL = 308
+# K4 (int8 dense), keyed (M rows, K, N). A model call on its own (no
+# hoisting): per transformer 8 width-square products on the 2*tokens rows
+# (proj_in, self q/k/v/out, cross q/out, proj_out), the cross k/v as one
+# product over cat(to_k, to_v) on the 2 x 77 text rows (N = 2 C), GEGLU proj
+# (N = 8 C) and net.2 (K = 4 C); per ResBlock emb_layers.1 on the 2 timestep
+# rows (Cout 320 at 7 blocks, 640 at 7, 1280 at 18): 23 x 11 + 32 = 285.
+# A hoisted denoise step drops the k/v and emb_layers.1 products (23 x 10 =
+# 230 a step); a request makes them once instead: the 23 k/v products and
+# the 32 timestep tables on the T model timesteps of the sampler's grid.
+LEVELS = ((4096, 320, 7), (1024, 640, 7), (256, 1280, 7), (64, 1280, 2))
+EMB_SITES = ((320, 7), (640, 7), (1280, 18))
+K4_PER_CALL, K4_PER_STEP, KV_SITES = 285, 230, 23
 
 
-def k4_sites() -> dict:
+def _add(sites: dict, key, n: int) -> None:
+    sites[key] = sites.get(key, 0) + n
+
+
+def hoist_sites(rows: int) -> dict:
+    """The K4 products that hoisting takes out of the step: each
+    transformer's cross k/v on the 2 x 77 text rows, each ResBlock's
+    emb_layers.1 on ``rows`` timestep rows (2 in a model call, the grid's T
+    in a request's tables)."""
     sites = {}
-
-    def add(key, n):
-        sites[key] = sites.get(key, 0) + n
-
-    for tokens, c, n in ((4096, 320, 7), (1024, 640, 7), (256, 1280, 7), (64, 1280, 2)):
-        m = 2 * tokens
-        add((m, c, c), 8 * n)
-        add((154, 1024, c), 2 * n)
-        add((m, c, 8 * c), n)
-        add((m, 4 * c, c), n)
-    for c, n in ((320, 7), (640, 7), (1280, 18)):
-        add((2, 1280, c), n)
-    assert sum(sites.values()) == K4_PER_CALL
+    for _, c, n in LEVELS:
+        _add(sites, (154, 1024, 2 * c), n)
+    for c, n in EMB_SITES:
+        _add(sites, (rows, 1280, c), n)
     return sites
 
 
-K4_SITES = k4_sites()
+def step_sites() -> dict:
+    """The K4 products of a hoisted denoise step."""
+    sites = {}
+    for tokens, c, n in LEVELS:
+        m = 2 * tokens
+        _add(sites, (m, c, c), 8 * n)
+        _add(sites, (m, c, 8 * c), n)
+        _add(sites, (m, 4 * c, c), n)
+    return sites
+
+
+K4_STEP_SITES = step_sites()
+K4_SITES = dict(K4_STEP_SITES)
+for _key, _n in hoist_sites(2).items():
+    _add(K4_SITES, _key, _n)
+assert sum(K4_SITES.values()) == K4_PER_CALL and sum(K4_STEP_SITES.values()) == K4_PER_STEP
 # K4's entries (ops/quant_matmul.py::quant_entries): the GEMV form at M <= 8
-# (the 32 timestep-embedding sites), the tensor-core tile form elsewhere
+# (the 32 timestep-embedding sites of an in-loop call), the tensor-core tile
+# form elsewhere (the timestep tables too: 11 or 50 rows)
 GEMV_MAX_ROWS = 8
 K4_GEMV_PER_CALL = sum(c for (m, _, _), c in K4_SITES.items() if m <= GEMV_MAX_ROWS)
 K4_TILE_PER_CALL = K4_PER_CALL - K4_GEMV_PER_CALL
-# Per request (STEPS model calls): "fused" (fused ResBlock + fused FFN +
-# packed flash) and "int8" (int8 dense + fused ResBlock on int8 convs +
+# a request's hoisting: the k/v products and one table per ResBlock
+K4_PER_HOIST = KV_SITES + sum(n for _, n in EMB_SITES)
+# Per request (STEPS hoisted model calls): "fused" (fused ResBlock + fused
+# FFN + packed flash) and "int8" (int8 dense + fused ResBlock on int8 convs +
 # packed flash).
 PER_REQUEST = {
     "serve": {"K1": K1_PER_REQUEST},
     "serve_fused": {"K3": K3_PER_CALL * STEPS, "K6": K6_PER_CALL * STEPS,
                     "K7": K7_PER_CALL * STEPS},
-    "serve_int8": {"K3": K3_PER_CALL * STEPS, "K4": K4_TILE_PER_CALL * STEPS,
-                   "K4_gemv": K4_GEMV_PER_CALL * STEPS, "K6": K6_PER_CALL * STEPS},
+    "serve_int8": {"K3": K3_PER_CALL * STEPS, "K4": K4_PER_STEP * STEPS + K4_PER_HOIST,
+                   "K6": K6_PER_CALL * STEPS},
 }
+# The CLI's default request (python -m diffbir_tpu_torch.inference --task sr
+# --upscale 4 on a 128x128 PNG: 10 steps of edm_dpm++_3m_sde at CFG 6.0, a
+# 512x512 condition, v2.1, random weights), and the same with the int8 flags
+# (--quant_dense --fused_resblock --quant_conv): its timestep tables hold the
+# 11 timesteps of the EDM grid.
+CLI_STEPS, CLI_LQ, CLI_UPSCALE = 10, 128, 4
+CLI_PATHS = {
+    "cli_request": ({"K1": K1_SITES_PER_STEP * CLI_STEPS}, []),
+    "cli_request_int8": ({"K3": K3_PER_CALL * CLI_STEPS, "K6": K6_PER_CALL * CLI_STEPS,
+                          "K4": K4_PER_STEP * CLI_STEPS + K4_PER_HOIST},
+                         ["--quant_dense", "--fused_resblock", "--quant_conv"]),
+}
+# the other samplers of the CLI, one 256x256 request each, twice
+SAMPLER_SIZE, SAMPLER_STEPS = 256, 4
 MODE_SEEDS = (1, 2)
 # The LLaVA-1.5-7B captioner: 35 prompt ids before the image (BOS first), its
 # 576 patch embeddings, 13 ids after (the 624 prefill rows of
@@ -954,8 +1010,10 @@ def k4_case(qm, gen, m, k, n, copies: int = 1):
 
 
 def phase_k4(qm):
-    """K4 against its plain version at the 18 dense shapes of the int8 path
-    and the 6 of the int8 captioner (bf16 activations), each on the entry
+    """K4 against its plain version at the dense shapes of the int8 path
+    (an in-loop model call's, and a request's hoisting: the k/v products
+    and the timestep tables on the 11 and 50 rows of the EDM and spaced
+    grids) and the 6 of the int8 captioner (bf16 activations), each on the entry
     that ``quant_entries`` names (by counter: the tensor-core tile form
     above 8 rows, the GEMV form at 1 and 2), the CUDA-core entry K4_cc on
     the same inputs; device times of both beside the plain version, the
@@ -971,7 +1029,11 @@ def phase_k4(qm):
     gen = torch.Generator(device="cuda").manual_seed(3)
     max_err = dict.fromkeys(("K4", "K4_gemv", "K4_cc"), 0.0)
     numbers, per_call, caption = {}, {"K4": 0.0, "K4_cc": 0.0}, {}
+    hoist = {**hoist_sites(CLI_STEPS + 1), **hoist_sites(STEPS)}
+    per_hoist = {CLI_STEPS + 1: 0.0, STEPS: 0.0}
     cases = [(shape, f"{sites} per call") for shape, sites in K4_SITES.items()]
+    cases += [(shape, f"{sites} per request's hoisting") for shape, sites in hoist.items()
+              if shape not in K4_SITES]
     cases += [((m, k, n), "captioner") for m in (CAPTION_ROWS, 1) for k, n in LLAVA_SITES]
     for (m, k, n), where in cases:
         gemv = m <= GEMV_MAX_ROWS
@@ -1007,9 +1069,10 @@ def phase_k4(qm):
                 else f"{2e-9 * m * k * n / ms:.1f} TFLOP/s")
         if where == "captioner":
             caption[(m, k, n)] = ms
-        else:
-            per_call["K4"] += K4_SITES[(m, k, n)] * ms
-            per_call["K4_cc"] += K4_SITES[(m, k, n)] * cc_ms
+        for grid in per_hoist:
+            per_hoist[grid] += hoist_sites(grid).get((m, k, n), 0) * ms
+        per_call["K4"] += K4_STEP_SITES.get((m, k, n), 0) * ms
+        per_call["K4_cc"] += K4_STEP_SITES.get((m, k, n), 0) * cc_ms
         print(f"[K4] (M, K, N) {label} ({where}, {key}): {show(out, ref)}; K4_cc "
               f"{show(cc, ref)}; device ms: {key} {ms:.4f} ({rate}; one host call "
               f"{host_ms:.4f}), K4_cc {cc_ms:.4f}, library (x @ dequantised bf16 W) "
@@ -1035,8 +1098,11 @@ def phase_k4(qm):
                     qm.quant_matmul(x, dropped, scale), ref, BF16_TOL)
             numbers["K4_gemv"] = {"ms": host_ms, "device_ms": ms, **common}
         del x, weights, w_q, scale, w_deq, out, cc, ref
-    print(f"[K4] per model call ({K4_TILE_PER_CALL} tile and {K4_GEMV_PER_CALL} GEMV "
-          f"launches), device time: {per_call['K4']:.3f} ms (K4_cc {per_call['K4_cc']:.3f} ms); "
+    print(f"[K4] per hoisted denoise step ({K4_PER_STEP} tile launches), device time: "
+          f"{per_call['K4']:.3f} ms (K4_cc {per_call['K4_cc']:.3f} ms); per request's "
+          f"hoisting ({K4_PER_HOIST} tile launches): {per_hoist[CLI_STEPS + 1]:.3f} ms on the "
+          f"{CLI_STEPS + 1}-row EDM grid, {per_hoist[STEPS]:.3f} ms on the {STEPS}-row "
+          f"spaced grid; "
           f"per int8 caption ({QUANT_PREFILL_PER_CAPTION} tile, "
           f"{QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION} GEMV launches): "
           f"{per_caption_ms(caption):.3f} ms")
@@ -1301,8 +1367,9 @@ def phase_k7(ff):
 # --------------------------------------------------------------------------- #
 def record_sites(cldm):
     """Forward hooks on the UNet and ControlNet that record the shape of each
-    K3, K4, K6 and K7 call of a model call, keyed as the site tables; returns
-    (records, the hooks' handles)."""
+    K3, K4, K6 and K7 call of a model call, keyed as the site tables (a
+    cross-attention's k/v product of its own context as K4 (rows, K, 2
+    inner)); returns (records, the hooks' handles)."""
     from collections import Counter
 
     from diffbir_tpu_torch.models.layers import QuantLinear
@@ -1313,6 +1380,15 @@ def record_sites(cldm):
     def hook(name, key):
         return lambda mod, inp, out: rec[name].update([key(mod, inp, out)])
 
+    def attention(m, i, o):
+        if len(i) == 1:  # self-attention
+            if m.flash_layout == "packed":
+                rec["K3"].update([(i[0].shape[1], m.heads)])
+        elif i[2] is None and isinstance(m.to_k, QuantLinear):  # k/v of the context
+            ctx = i[1]
+            rec["K4"].update([(ctx.numel() // ctx.shape[-1], ctx.shape[-1],
+                               2 * m.to_k.weight_q.shape[1])])
+
     handles = []
     for root in (cldm.unet, cldm.controlnet):
         for m in root.modules():
@@ -1322,9 +1398,8 @@ def record_sites(cldm):
             elif isinstance(m, FeedForward) and m.fused:
                 handles.append(m.register_forward_hook(hook(
                     "K7", lambda m, i, o: tuple(i[0].shape[1:]))))
-            elif isinstance(m, CrossAttention) and m.flash_layout == "packed":
-                handles.append(m.register_forward_hook(hook(  # self-attention: no context
-                    "K3", lambda m, i, o: (i[0].shape[1], m.heads) if len(i) == 1 else None)))
+            elif isinstance(m, CrossAttention):
+                handles.append(m.register_forward_hook(attention))
             elif isinstance(m, QuantLinear):
                 handles.append(m.register_forward_hook(hook(
                     "K4", lambda m, i, o: (i[0].numel() // i[0].shape[-1], *m.weight_q.shape))))
@@ -1411,6 +1486,7 @@ def phase_modes(cldm, swinir):
     mode_call("serve_fused", cldm, inputs, ref,
               {"K3": K3_PER_CALL, "K6": K6_PER_CALL, "K7": K7_PER_CALL},
               {"K3": K3_SITES, "K6": K6_SITES, "K7": K7_SITES})
+    phase_hoist("fused", cldm, {"K3": K3_PER_CALL, "K6": K6_PER_CALL, "K7": K7_PER_CALL}, {})
     launches["serve_fused"] = phase_slice("serve_fused", cldm, swinir, MODE_SEEDS, repeat=False)
 
     # "int8": the UNet and ControlNet quantised in place (dense, then convs)
@@ -1425,10 +1501,186 @@ def phase_modes(cldm, swinir):
               {"K3": K3_PER_CALL, "K4": K4_TILE_PER_CALL, "K4_gemv": K4_GEMV_PER_CALL,
                "K6": K6_PER_CALL},
               {"K3": K3_SITES, "K4": K4_SITES, "K6": K6_SITES})
+    phase_hoist("int8", int8, {"K3": K3_PER_CALL, "K4": K4_PER_STEP, "K6": K6_PER_CALL},
+                {"K4": K4_PER_HOIST})
     launches["serve_int8"] = phase_slice("serve_int8", int8, swinir, MODE_SEEDS, repeat=False)
     del int8
     return launches
 
+
+# --------------------------------------------------------------------------- #
+# hoisting, the CLI's entry point, the other samplers
+# --------------------------------------------------------------------------- #
+def default_prompt_context(cldm):
+    """[2, 77, 1024]: the CLI's default prompts (cond, then uncond) through
+    the stand-in tokenizer and CLIP."""
+    import torch
+
+    from diffbir_tpu_torch.profile_step import NEG_PROMPT, POS_PROMPT, stand_in_tokenizer
+
+    ids = torch.as_tensor(stand_in_tokenizer()([POS_PROMPT, NEG_PROMPT]), device="cuda")
+    with torch.no_grad():
+        return cldm.encode_text(ids)
+
+
+def phase_hoist(mode: str, model, step_launches: dict, hoist_launches: dict) -> None:
+    """[hoist]: one full-width model call in ``mode`` at batch 2 (folded CFG
+    on the default prompts) at t = 999, through the hoisted tables of the
+    CLI's EDM grid against the model's own in-loop call, within BF16_TOL x
+    max|ref|; the launches of the tables and of the hoisted call; a planted
+    fault (the rows of the grid's next timestep, 899) must fail the limit."""
+    import torch
+
+    from diffbir_tpu_torch.pipeline import build_sampler
+    from diffbir_tpu_torch.schedule import Schedule
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, 64, 64, 4, generator=gen, device="cuda")
+    cond = {"c_txt": default_prompt_context(model),
+            "c_img": torch.randn(2, 64, 64, 4, generator=gen, device="cuda")}
+    grid = build_sampler("edm_dpm++_3m_sde", Schedule.v21(), False).model_ts(CLI_STEPS)
+    t = float(grid.max())
+    tv = torch.full((2,), t, device="cuda")
+    with torch.no_grad():
+        before = counts()
+        tables = model.make_hoist_tables(cond["c_txt"], grid)
+        torch.cuda.synchronize()
+        made = launched_since(before)
+        ref = model(x, tv, cond).float()
+        before = counts()
+        out = model(x, tv, cond, hoisted=tables.lookup(t)).float()
+        torch.cuda.synchronize()
+        n = launched_since(before)
+        faulty = model(x, tv, cond, hoisted=tables.lookup(float(grid[1]))).float()
+    print(f"[hoist] {mode}: the tables of the {len(tables.ts)}-timestep grid launched {made}; "
+          f"the hoisted call {n}; against the in-loop call {show(out, ref)}")
+    check(made == hoist_launches, f"[hoist] {mode}: the tables launched {made}, "
+          f"expected {hoist_launches}")
+    check(n == step_launches, f"[hoist] {mode}: the hoisted call launched {n}, "
+          f"expected {step_launches}")
+    check(bool(torch.isfinite(out).all()), f"[hoist] {mode}: non-finite output")
+    hold(f"the hoisted {mode} call", out, ref, BF16_TOL)
+    planted(f"hoist {mode}: a step handed the next grid timestep's rows", faulty, ref, BF16_TOL)
+
+
+def phase_cli_request(path: str):
+    """[cli_request]: ``python -m diffbir_tpu_torch.inference`` run in this
+    process (``main``) on a seeded 128x128 PNG with --upscale 4 and the
+    CLI's defaults (v2.1, 10 steps of edm_dpm++_3m_sde at CFG 6.0, the
+    default prompts through a stand-in merges file written here), random
+    full-width weights (DIFFBIR_TPU_RANDOM_INIT), plus the path's flags:
+    exact launches, seconds per stage, the PNG equal to a direct
+    ``pipeline.run`` of the request, and a rerun bit-identical. Returns the
+    launch counts of the entry point's run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.inference.__main__ import DEFAULT_NEG_PROMPT, DEFAULT_POS_PROMPT, main
+    from diffbir_tpu_torch.models import tokenizer
+    from diffbir_tpu_torch.utils.image_io import read_png, read_rgb, write_png
+
+    expected, flags = CLI_PATHS[path]
+    root = os.path.join("build", "cli_request", path)
+    shutil.rmtree(root, ignore_errors=True)
+    in_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
+    os.makedirs(in_dir)
+    write_png(os.path.join(in_dir, "lq.png"), np.random.default_rng(7).integers(
+        0, 256, (CLI_LQ, CLI_LQ, 3), dtype=np.uint8))
+    bpe = os.path.join(root, tokenizer.BPE_NAME)
+    tokenizer.write_stand_in_merges(bpe, [DEFAULT_POS_PROMPT, DEFAULT_NEG_PROMPT])
+    saved = {k: os.environ.get(k) for k in ("DIFFBIR_TPU_BPE_PATH", "DIFFBIR_TPU_RANDOM_INIT")}
+    os.environ.update(DIFFBIR_TPU_BPE_PATH=bpe, DIFFBIR_TPU_RANDOM_INIT="1")
+    tokenizer.get_tokenizer.cache_clear()
+    argv = ["--task", "sr", "--input", in_dir, "--output", out_dir,
+            "--upscale", str(CLI_UPSCALE), *flags]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # count only this path from here
+        t0 = time.perf_counter()
+        loop = main(argv)
+        dt = time.perf_counter() - t0
+        launches = counts()
+        n = {k: v for k, v in launches.items() if v}
+        first = dict(loop.timings)
+        out = read_png(os.path.join(out_dir, "lq.png"))
+        size = CLI_LQ * CLI_UPSCALE
+        check(out.shape == (size, size, 3) and float(out.std()) > 1.0,
+              f"{path}: bad output {out.shape}, std {out.std()}")
+        check(n == expected, f"{path}: expected launches {expected}, got {n}")
+        lq = loop.after_load_lq(read_rgb(os.path.join(in_dir, "lq.png")))
+        a = loop.args
+        direct = loop.pipeline.run(
+            lq[None], steps=a.steps, pos_prompt=a.pos_prompt, neg_prompt=a.neg_prompt,
+            cfg_scale=a.cfg_scale, sampler_type=a.sampler, seed=a.seed, eta=a.eta,
+            s_tmax=a.s_tmax, order=a.order)
+        check(np.array_equal(direct[0], out), f"{path}: the PNG differs from pipeline.run")
+        loop.timings = {}
+        before = counts()
+        t1 = time.perf_counter()
+        loop.run()
+        dt2 = time.perf_counter() - t1
+        check(launched_since(before) == expected, f"{path}: the rerun launched another count")
+        check(np.array_equal(read_png(os.path.join(out_dir, "lq.png")), out),
+              f"{path}: the rerun differs")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tokenizer.get_tokenizer.cache_clear()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def stages(t):
+        return ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+
+    print(f"[{path}] python -m diffbir_tpu_torch.inference {' '.join(argv)}: {dt:.3f} s "
+          f"({stages(first)} s); launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
+    print(f"[{path}] the PNG ({size}x{size}) read back equal to pipeline.run's output; a rerun "
+          f"of the loop: {dt2:.3f} s ({stages(loop.timings)} s), bit-identical; peak device "
+          f"memory {peak:.2f} GiB")
+    del loop
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_samplers(cldm):
+    """Every other sampler of the CLI: one 256x256 request's stage 2
+    (``apply_cldm``, SAMPLER_STEPS steps, CFG 4.0, eta 1, the default
+    prompts), twice from one seed: finite and bit-identical."""
+    import torch
+
+    from diffbir_tpu_torch.pipeline import SAMPLER_CHOICES, Pipeline
+    from diffbir_tpu_torch.profile_step import NEG_PROMPT, POS_PROMPT, stand_in_tokenizer
+    from diffbir_tpu_torch.schedule import Schedule
+
+    pipe = Pipeline(cldm, Schedule.v21(), torch.device("cuda"), tokenizer=stand_in_tokenizer())
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cond_img = torch.rand(1, SAMPLER_SIZE, SAMPLER_SIZE, 3, generator=gen, device="cuda")
+    for sampler in SAMPLER_CHOICES:
+        if sampler == "edm_dpm++_3m_sde":
+            continue  # the CLI requests run it
+        outs = []
+        for _ in range(2):
+            before = counts()
+            t0 = time.perf_counter()
+            outs.append(pipe.apply_cldm(
+                cond_img, SAMPLER_STEPS, 1.0, POS_PROMPT, NEG_PROMPT, CFG,
+                sampler_type=sampler, eta=1.0, order=4,
+                generator=torch.Generator(device="cuda").manual_seed(3)))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = launched_since(before)
+        check(set(n) == {"K1"} and n["K1"] % K1_SITES_PER_STEP == 0,
+              f"[samplers] {sampler} launched {n}")
+        check(bool(torch.isfinite(outs[0]).all()), f"[samplers] {sampler}: non-finite output")
+        check(torch.equal(outs[0], outs[1]), f"[samplers] {sampler}: a rerun differs")
+        print(f"[samplers] {sampler}: {SAMPLER_STEPS} steps at {SAMPLER_SIZE}x{SAMPLER_SIZE}, "
+              f"{n['K1'] // K1_SITES_PER_STEP} model calls, {dt:.3f} s; finite, bit-identical "
+              f"on a rerun")
 
 
 # --------------------------------------------------------------------------- #
@@ -1916,13 +2168,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         cldm, swinir = build_models()
         phase_model_call(cldm)
+        phase_hoist("default", cldm, {"K1": K1_SITES_PER_STEP}, {})
         paths = {"serve": phase_slice("serve", cldm, swinir, SEEDS)}
         paths.update(phase_modes(cldm, swinir))
+        cldm.set_mode("default")
+        phase_samplers(cldm)
         paths.update(phase_llava(qm, cldm, swinir))
         del cldm, swinir
         torch.cuda.empty_cache()
+        for path in CLI_PATHS:
+            paths[path] = phase_cli_request(path)
         paths["train"] = phase_train(fa)
-        for path, expected in {**PER_REQUEST, **CAPTION_PATHS}.items():  # and no other kernel
+        cli = {path: expected for path, (expected, _) in CLI_PATHS.items()}
+        for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli}.items():  # no other kernel
             check(all(n == 0 for k, n in paths[path].items() if k not in expected),
                   f"{path} launched other kernels: {paths[path]}")
         print("[done] launches of the CUDA-core entries per path: " + "; ".join(

@@ -14,68 +14,22 @@ through PIL (bicubic resize of the short edge, centre crop, /255, CLIP mean
 and std), in torch and without PIL: the resize reproduces Pillow's
 fixed-point resampler (a = -0.5 bicubic widened by the downscale factor,
 coefficients in 22-bit fixed point, a horizontal pass then a vertical one,
-each rounded and clipped to uint8), so the uint8 crop is PIL's, bit for bit.
+each rounded and clipped to uint8; ``utils.common.pil_resample``), so the
+uint8 crop is PIL's, bit for bit.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.llava import Llava
-from ..utils.common import StageClock
+from ..utils.common import StageClock, pil_bicubic_coeffs, pil_resample
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
-_PRECISION_BITS = 22  # Pillow's 8-bit resampler: 32 - 8 - 2
-
-
-def _pil_bicubic(x: float) -> float:
-    x = abs(x)
-    if x < 1.0:
-        return (1.5 * x - 2.5) * x * x + 1.0
-    if x < 2.0:
-        return (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5
-    return 0.0
-
-
-@functools.lru_cache(maxsize=16)
-def pil_bicubic_coeffs(in_size: int, out_size: int) -> np.ndarray:
-    """[out_size, in_size] int64 fixed-point weights of Pillow's bicubic
-    resampler along one axis (``precompute_coeffs`` and
-    ``normalize_coeffs_8bpc`` of Pillow's Resample.c)."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
-    ss = 1.0 / filterscale
-    coeffs = np.zeros((out_size, in_size), np.int64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size)
-        w = [_pil_bicubic((x - center + 0.5) * ss) for x in range(xmin, xmax)]
-        total = sum(w)
-        for i, wi in enumerate(w):
-            k = wi / total if total != 0.0 else wi
-            k *= 1 << _PRECISION_BITS
-            coeffs[xx, xmin + i] = int(k - 0.5) if k < 0 else int(k + 0.5)
-    return coeffs
-
-
-def _resample(img: torch.Tensor, coeffs: np.ndarray, axis: int) -> torch.Tensor:
-    """One Pillow pass over ``axis`` of an [H, W, C] uint8-valued tensor:
-    integer sums (exact in float64) plus half, shifted down 22 bits, clipped
-    to [0, 255]."""
-    k = torch.as_tensor(coeffs, dtype=torch.float64, device=img.device)
-    x = img.double()
-    s = torch.einsum("oh,hwc->owc", k, x) if axis == 0 else torch.einsum("ow,hwc->hoc", k, x)
-    s = torch.floor((s + (1 << (_PRECISION_BITS - 1))) / (1 << _PRECISION_BITS))
-    return s.clamp(0, 255)
-
-
 def clip_preprocess(image, size: int, device=None) -> torch.Tensor:
     """HWC uint8 image (numpy array or tensor) -> [size, size, 3] fp32,
     CLIP-normalised: the short edge resized to ``size`` (bicubic, as PIL),
@@ -88,9 +42,9 @@ def clip_preprocess(image, size: int, device=None) -> torch.Tensor:
     scale = size / min(w, h)
     out_w, out_h = max(size, round(w * scale)), max(size, round(h * scale))
     if out_w != w:
-        img = _resample(img, pil_bicubic_coeffs(w, out_w), axis=1)
+        img = pil_resample(img, pil_bicubic_coeffs(w, out_w), axis=1)
     if out_h != h:
-        img = _resample(img, pil_bicubic_coeffs(h, out_h), axis=0)
+        img = pil_resample(img, pil_bicubic_coeffs(h, out_h), axis=0)
     left, top = (out_w - size) // 2, (out_h - size) // 2
     x = img[top:top + size, left:left + size].float() / 255.0
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)

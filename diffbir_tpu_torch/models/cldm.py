@@ -13,15 +13,23 @@ The opt-in serving modes of the JAX CLI (``--fused_resblock``,
 ``tiny()``; ``quantize_dense_params`` and ``quantize_conv_params`` turn a
 float model's UNet and ControlNet into the int8 layout in place, after the
 cast to the compute dtype, in the order of the JAX loop
-(``inference/loop.py``). Not ported yet: the denoise-loop hoisting of the
-cross-attention k/v and timestep tables (exact-math speed work), tiled VAE
-and the turbo control cache.
+(``inference/loop.py``); ``set_serving`` composes the CLI's four flags,
+``set_mode`` its two named modes.
+
+Denoise-loop hoisting (``make_hoist_tables``, the JAX ``hoist_context_kv``,
+``hoist_emb_tables`` and ``make_hoist_lookup``): every cross-attention
+site's k/v of the prompt context once per request, and every ResBlock's
+timestep projection once per model timestep of the sampler's grid, by the
+same module math as the loop; ``HoistTables.lookup(t)`` hands a step its
+rows by the host value of its model timestep. Not ported yet: tiled VAE and
+the turbo control cache.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -29,12 +37,25 @@ from ..ops.fused_resblock import quantize_conv_weight
 from ..ops.quant_matmul import QuantLinear
 from .clip import CLIPTextEncoder
 from .layers import Linear, QuantConv
-from .unet import ControlNet, CrossAttention, FeedForward, ResBlock, UNetModel
+from .unet import (
+    BasicTransformerBlock,
+    ControlNet,
+    CrossAttention,
+    FeedForward,
+    ResBlock,
+    UNetModel,
+)
 from .vae import AutoencoderKL
 
 # the JAX _QUANT_DENSE_TAILS: the dense sites of the int8 serving mode
 QUANT_DENSE_TAILS = ("to_q", "to_k", "to_v", "to_out.0", "proj", "net.2", "proj_in",
                      "proj_out", "emb_layers.1")
+# the named serving modes as the CLI's flags
+SERVING_MODES = {
+    "default": {},
+    "fused": dict(fused_resblock=True, fused_ffn=True),
+    "int8": dict(quant_dense=True, fused_resblock=True, quant_conv=True),
+}
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -128,22 +149,30 @@ class ControlLDM(nn.Module):
             elif isinstance(m, FeedForward):
                 m.fused = ffn and not isinstance(m.net[2], QuantLinear)
 
+    def set_serving(self, quant_dense: bool = False, fused_resblock: bool = False,
+                    quant_conv: bool = False, fused_ffn: bool = False) -> "ControlLDM":
+        """The CLI's serving flags on a float model: ``quant_dense`` and
+        ``quant_conv`` quantise in place from the current weights (nothing
+        undoes them); the packed flash layout under any flag, else folded."""
+        if quant_conv and not fused_resblock:
+            raise ValueError("quant_conv requires the fused ResBlock path (--fused_resblock)")
+        if quant_dense:
+            quantize_dense_params(self)
+        self.set_fused(resblock=fused_resblock, ffn=fused_ffn)
+        if quant_conv:
+            quantize_conv_params(self)
+        self.set_flash_layout(
+            "packed" if quant_dense or fused_resblock or fused_ffn else "folded")
+        return self
+
     def set_mode(self, mode: str) -> "ControlLDM":
         """The CLI's serving mode: "default" (unfused, folded flash layout),
         "fused" (the fused ResBlock and FFN, packed flash layout) or "int8"
-        (the dense sites and the ResBlock convs quantised in place from the
-        current weights, which nothing undoes; the ResBlock fused, packed
-        flash layout)."""
-        if mode == "int8":
-            quantize_dense_params(self)
-            self.set_fused(resblock=True, ffn=False)
-            quantize_conv_params(self)
-        elif mode in ("default", "fused"):
-            self.set_fused(resblock=mode == "fused", ffn=mode == "fused")
-        else:
+        (the dense sites and the ResBlock convs quantised in place, the
+        ResBlock fused, packed flash layout): ``set_serving`` of its flags."""
+        if mode not in SERVING_MODES:
             raise ValueError(f"unknown serving mode {mode!r}")
-        self.set_flash_layout("folded" if mode == "default" else "packed")
-        return self
+        return self.set_serving(**SERVING_MODES[mode])
 
     def set_attention_impl(self, impl: str) -> None:
         """"auto" (flash kernel where a call qualifies) or "plain" for every
@@ -161,16 +190,63 @@ class ControlLDM(nn.Module):
         t: torch.Tensor,
         cond: Mapping[str, torch.Tensor],
         control_scales: Union[float, Sequence[float]] = 1.0,
+        hoisted: Optional[Mapping[nn.Module, torch.Tensor]] = None,
     ) -> torch.Tensor:
         """ControlNet -> scaled residuals -> controlled UNet. x_noisy and
         cond["c_img"] NHWC latents, cond["c_txt"] [B, 77, width]; returns the
-        fp32 NHWC model output."""
+        fp32 NHWC model output. ``hoisted``: a step's rows of
+        ``HoistTables.lookup`` (exact math, less work per step)."""
         x = _nchw(x_noisy)
-        control = self.controlnet(x, _nchw(cond["c_img"]), t, cond["c_txt"])
+        control = self.controlnet(x, _nchw(cond["c_img"]), t, cond["c_txt"], hoisted)
         if isinstance(control_scales, (int, float)):
             control_scales = (float(control_scales),) * len(control)
         control = tuple(c * s for c, s in zip(control, control_scales))
-        return _nhwc(self.unet(x, t, cond["c_txt"], control=control))
+        return _nhwc(self.unet(x, t, cond["c_txt"], control=control, hoisted=hoisted))
+
+    # ------------------------------------------------------------------ #
+    # denoise-loop hoisting (exact math: the loop's own module calls)
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def hoist_context_kv(self, ctx_full: torch.Tensor) -> Dict[nn.Module, torch.Tensor]:
+        """Every cross-attention site's k/v of ``ctx_full``, which must be the
+        context the model sees each step (cond then uncond under batched
+        CFG): {attn2 module: [B, 77, 2 inner]}."""
+        out = {}
+        for root in (self.unet, self.controlnet):
+            ctx = ctx_full.to(root.dtype)  # as the UNet and ControlNet cast it
+            for m in root.modules():
+                if isinstance(m, BasicTransformerBlock):
+                    out[m.attn2] = m.attn2.context_kv(ctx)
+        return out
+
+    @torch.no_grad()
+    def hoist_emb_tables(self, ts_asc: Sequence[float], batch: int
+                         ) -> Dict[nn.Module, torch.Tensor]:
+        """Every ResBlock's ``emb_layers(embed(t))`` for all the model
+        timesteps ``ts_asc`` at once: {ResBlock: [T, batch, Cout]}, each row
+        repeated over the call batch once here, so that no step copies a
+        broadcast row (K6 reads ``e`` as [B, Cout])."""
+        out = {}
+        for root in (self.unet, self.controlnet):
+            device = root.time_embed[0].weight.device
+            emb = root.embed(torch.as_tensor(np.asarray(ts_asc, np.float32), device=device))
+            for m in root.modules():
+                if isinstance(m, ResBlock):
+                    e = m.emb_layers(emb)
+                    out[m] = e[:, None, :].expand(-1, batch, -1).contiguous()
+        return out
+
+    def make_hoist_tables(self, ctx_full: torch.Tensor,
+                          model_ts: Optional[Sequence[float]] = None) -> "HoistTables":
+        """The denoise loop's invariants: the context k/v always, the
+        timestep tables when the sampler publishes its grid (``model_ts``,
+        any order, duplicates allowed)."""
+        kv = self.hoist_context_kv(ctx_full)
+        if model_ts is None:
+            return HoistTables(kv, None, ())
+        ts_asc = np.unique(np.asarray(model_ts, np.float32))
+        return HoistTables(kv, self.hoist_emb_tables(ts_asc, ctx_full.shape[0]),
+                           tuple(float(t) for t in ts_asc))
 
     def vae_encode(self, image: torch.Tensor, sample: bool = True,
                    generator: Optional[torch.Generator] = None,
@@ -218,6 +294,29 @@ class ControlLDM(nn.Module):
             else:  # input conv, OIHW: pad the input-channel axis with zeros
                 p.zero_()
                 p[:, :src.shape[1]].copy_(src)
+
+
+class HoistTables:
+    """A request's hoisted invariants (``ControlLDM.make_hoist_tables``):
+    ``kv`` {attn2: [B, 77, 2 inner]}, ``emb`` {ResBlock: [T, B, Cout]} or
+    None, ``ts`` the T model timesteps in ascending order. ``lookup(t)``
+    gives a step's ``hoisted`` mapping by the host value of its model
+    timestep (no search on the device, nothing read back)."""
+
+    def __init__(self, kv, emb, ts):
+        self.kv, self.emb, self.ts = kv, emb, ts
+        self.row_of = {t: i for i, t in enumerate(ts)}
+        # one mapping per row, built once: a step only picks its dict
+        self._rows = [] if emb is None else [
+            {**kv, **{m: tab[i] for m, tab in emb.items()}} for i in range(len(ts))]
+
+    def lookup(self, t: float) -> Mapping[nn.Module, torch.Tensor]:
+        if self.emb is None:
+            return self.kv
+        key = float(np.float32(t))
+        if key not in self.row_of:
+            raise KeyError(f"model timestep {t} is not on the hoisted grid {self.ts}")
+        return self._rows[self.row_of[key]]
 
 
 def _replace(root: nn.Module, name: str, new: nn.Module) -> None:

@@ -25,11 +25,18 @@ every mode (so one state dict loads into the unfused and the fused model):
   float mode only, as in JAX;
 - ``CrossAttention.flash_layout``: "folded" (K1) or "packed" (K3), set per
   module as ``attn_impl`` is.
+
+Hoisted inputs (the JAX "hoisted" collection): ``hoisted`` maps a module to
+a value computed once before the denoise loop (``cldm.HoistTables``): a
+cross-attention module to its context's k/v ([B, 77, 2 inner], one product
+over ``cat(to_k, to_v)``), a ResBlock to its timestep projection for the
+step ([1, Cout] or [B, Cout], broadcast over the batch). With rows for every
+ResBlock the time embedding is not computed at all.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention
 from ..ops.fused_ffn import fused_ffn
 from ..ops.fused_resblock import fused_resblock, tap_major
+from ..ops.quant_matmul import quant_matmul
 from .layers import (
     GroupNorm32,
     LayerNormFp32,
@@ -109,8 +117,11 @@ class ResBlock(nn.Module):
             p[f"b{suffix}"] = c.bias
         return p
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        e = self.emb_layers(emb)
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor],
+                emb_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``emb_out``: the hoisted ``emb_layers(emb)`` of this step, [1, Cout]
+        or [B, Cout] (then ``emb`` is not read)."""
+        e = self.emb_layers(emb) if emb_out is None else emb_out.expand(x.shape[0], -1)
         if self.fused:
             return fused_resblock(x.to(self.dtype), e, self.fused_params())
         h = self.in_layers(x)
@@ -134,13 +145,34 @@ class CrossAttention(nn.Module):
         self.attn_impl = "auto"
         self.flash_layout = "folded"
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = x if context is None else context
+    def context_kv(self, context: torch.Tensor) -> torch.Tensor:
+        """k and v of a context, [B, S, 2 inner]: one product over
+        ``cat(to_k, to_v)`` (int8: the concatenated ``weight_q`` and scales,
+        through K4), as the JAX ``_fused_proj`` computes them in the loop and
+        ``hoist_context_kv`` before it."""
+        if isinstance(self.to_k, QuantLinear):
+            w = torch.cat([self.to_k.weight_q, self.to_v.weight_q], dim=1)
+            s = torch.cat([self.to_k.weight_scale, self.to_v.weight_scale])
+            return quant_matmul(context.to(self.to_k.dtype), w, s)
+        w = torch.cat([self.to_k.weight, self.to_v.weight])
+        return F.linear(context.to(w.dtype), w)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Self-attention when ``context`` and ``kv`` are None; else attention
+        to the context, whose k/v (``context_kv``) may come hoisted as
+        ``kv``."""
         b, sq, _ = x.shape
-        skv = ctx.shape[1]
-        q = self.to_q(x).reshape(b, sq, self.heads, self.dim_head)
-        k = self.to_k(ctx).reshape(b, skv, self.heads, self.dim_head)
-        v = self.to_v(ctx).reshape(b, skv, self.heads, self.dim_head)
+        q = self.to_q(x)
+        if context is None and kv is None:
+            k, v = self.to_k(x), self.to_v(x)
+        else:
+            kv = self.context_kv(context) if kv is None else kv
+            k, v = kv.chunk(2, dim=-1)
+        skv = k.shape[1]
+        q = q.reshape(b, sq, self.heads, self.dim_head)
+        k = k.reshape(b, skv, self.heads, self.dim_head)
+        v = v.reshape(b, skv, self.heads, self.dim_head)
         out = attention(q, k, v, impl=self.attn_impl, layout=self.flash_layout)
         return self.to_out(out.reshape(b, sq, -1))
 
@@ -188,9 +220,10 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNormFp32(dim, device=device)
         self.norm3 = LayerNormFp32(dim, device=device)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, kv)
         return x + self.ff(self.norm3(x))
 
 
@@ -210,12 +243,13 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = _dense(inner, channels, quant, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                hoisted: Optional[Mapping[nn.Module, torch.Tensor]] = None) -> torch.Tensor:
         b, c, h, w = x.shape
         seq = self.norm(x).flatten(2).transpose(1, 2)  # [B, HW, C]
         seq = self.proj_in(seq)
         for block in self.transformer_blocks:
-            seq = block(seq, context)
+            seq = block(seq, context, None if hoisted is None else hoisted.get(block.attn2))
         seq = self.proj_out(seq)
         return seq.transpose(1, 2).reshape(b, c, h, w) + x
 
@@ -252,12 +286,13 @@ class EmbedSequential(nn.ModuleList):
             return checkpoint(layer, *args, use_reentrant=False)
         return layer(*args)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor], context: torch.Tensor,
+                hoisted: Optional[Mapping[nn.Module, torch.Tensor]] = None) -> torch.Tensor:
         for layer in self:
             if isinstance(layer, ResBlock):
-                x = self._run(layer, x, emb)
+                x = self._run(layer, x, emb, None if hoisted is None else hoisted.get(layer))
             elif isinstance(layer, SpatialTransformer):
-                x = self._run(layer, x, context)
+                x = self._run(layer, x, context, hoisted)
             else:
                 x = layer(x)
         return x
@@ -316,6 +351,15 @@ class _Encoder(nn.Module):
     def embed(self, timesteps: torch.Tensor) -> torch.Tensor:
         return self.time_embed(timestep_embedding(timesteps, self.model_channels)).to(self.dtype)
 
+    def _embed_unless_hoisted(self, timesteps: torch.Tensor,
+                              hoisted: Optional[Mapping[nn.Module, torch.Tensor]]):
+        """The time embedding, or None where ``hoisted`` holds the rows of
+        every ResBlock (the tables hold all or none; the middle block's first
+        ResBlock stands for them)."""
+        if hoisted is not None and self.middle_block[0] in hoisted:
+            return None
+        return self.embed(timesteps)
+
 
 class UNetModel(_Encoder):
     """SD2.1 UNet with optional ControlNet residual injection: ``control`` is
@@ -350,22 +394,23 @@ class UNetModel(_Encoder):
             conv(ch, out_channels, 3, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
-                control: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
-        emb = self.embed(timesteps)
+                control: Optional[Tuple[torch.Tensor, ...]] = None,
+                hoisted: Optional[Mapping[nn.Module, torch.Tensor]] = None) -> torch.Tensor:
+        emb = self._embed_unless_hoisted(timesteps, hoisted)
         context = context.to(self.dtype)
         h = x.to(self.dtype)
         hs = []
         for block in self.input_blocks:
-            h = block(h, emb, context)
+            h = block(h, emb, context, hoisted)
             hs.append(h)
-        h = self.middle_block(h, emb, context)
+        h = self.middle_block(h, emb, context, hoisted)
         if control is not None:
             h = h + control[-1].to(h.dtype)
         for block in self.output_blocks:
             skip = hs.pop()
             if control is not None:
                 skip = skip + control[len(hs)].to(skip.dtype)
-            h = block(torch.cat([h, skip], dim=1), emb, context)
+            h = block(torch.cat([h, skip], dim=1), emb, context, hoisted)
         return self.out(h)  # out.2 is an fp32 conv
 
 
@@ -390,14 +435,16 @@ class ControlNet(_Encoder):
         self.middle_block_out = nn.Sequential(conv(ch, ch, 1, padding=0, **kw))
 
     def forward(self, x: torch.Tensor, hint: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        emb = self.embed(timesteps)
+                context: torch.Tensor,
+                hoisted: Optional[Mapping[nn.Module, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        emb = self._embed_unless_hoisted(timesteps, hoisted)
         context = context.to(self.dtype)
         h = torch.cat([x, hint], dim=1).to(self.dtype)
         outs = []
         for block, zero_conv in zip(self.input_blocks, self.zero_convs):
-            h = block(h, emb, context)
+            h = block(h, emb, context, hoisted)
             outs.append(zero_conv(h))
-        h = self.middle_block(h, emb, context)
+        h = self.middle_block(h, emb, context, hoisted)
         outs.append(self.middle_block_out(h))
         return tuple(outs)

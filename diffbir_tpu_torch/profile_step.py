@@ -1,11 +1,15 @@
 """Profile one denoise step, one stage-2 training step, or one decode step
 of the LLaVA-1.5-7B captioner, of the port on a CUDA device.
 
-The denoise step is the model call a 512x512 request makes 50 times: a
+The denoise step is the model call a 512x512 request makes at each step: a
 full-width SD2.1 ControlLDM (UNet + IRControlNet, random bf16 weights from
 seed 0) at batch 2 on a 64x64 latent, classifier-free guidance folded into
 the batch, cond and uncond on the CLI's default prompts through a seeded
-stand-in tokenizer; with ``--mode fused`` or ``--mode int8`` the same step in
+stand-in tokenizer, through the model function the pipeline hands the
+sampler (``pipeline.model_function``: the hoisted context k/v and timestep
+tables of ``--sampler``'s grid for ``--steps`` steps, default 50 spaced;
+``--no-hoist`` the loop's own), at the grid's first timestep; with
+``--mode fused`` or ``--mode int8`` the same step in
 the CLI's serving mode of that name ("fused": the fused ResBlock K6, the
 fused GEGLU FFN K7 and the packed flash layout K3; "int8": int8 dense
 weights on K4, the fused ResBlock on int8 convs, packed). With ``--train``
@@ -32,7 +36,8 @@ linears on K5 at 4 bits, on K4 at 8) after a 624-row prefill, as
 
 Run from the repository root on a machine with a card:
 
-    python3 -m diffbir_tpu_torch.profile_step [--train | --caption 4 | --mode int8]
+    python3 -m diffbir_tpu_torch.profile_step [--train | --caption 4 | --mode int8 |
+        --request] [--sampler edm_dpm++_3m_sde --steps 10] [--no-hoist]
         [--trace step_trace.json]
 """
 
@@ -52,8 +57,9 @@ from torch.autograd import DeviceType
 from .models.cldm import ControlLDM
 from .models.layers import random_init_
 from .models.swinir import SwinIR
-from .pipeline import EOT, SOT
-from .sampler.base import cfg_model_call
+from .inference.__main__ import DEFAULT_NEG_PROMPT as NEG_PROMPT
+from .inference.__main__ import DEFAULT_POS_PROMPT as POS_PROMPT
+from .pipeline import EOT, SOT, SwinIRPipeline
 from .schedule import Schedule
 from .train import stage2
 
@@ -82,15 +88,6 @@ KERNELS = {"K1/K3": "flash_fwd_tc_kernel", "K1/K3 (CUDA cores)": "flash_fwd_kern
            "K7 geglu": "geglu_tc_kernel", "K7 down": "down_tc_kernel",
            "K7 (CUDA cores)": "namespace)::geglu_kernel",
            "K7 down (CUDA cores)": "namespace)::down_kernel"}
-# the JAX CLI's default prompts (inference.py)
-POS_PROMPT = ("Cinematic, High Contrast, highly detailed, taken using a Canon EOS R camera, "
-              "hyper detailed photo - realistic maximum detail, 32k, Color Grading, ultra HD, "
-              "extreme meticulous detailing, skin pore detailing, hyper sharpness, perfect "
-              "without deformations.")
-NEG_PROMPT = ("painting, oil painting, illustration, drawing, art, sketch, oil painting, "
-              "cartoon, CG Style, 3D render, unreal engine, blurring, dirty, messy, worst "
-              "quality, low quality, frames, watermark, signature, jpeg artifacts, deformed, "
-              "lowres, over-smooth.")
 
 
 def stand_in_tokenizer(seed: int = SEED, context_length: int = 77):
@@ -109,10 +106,16 @@ def stand_in_tokenizer(seed: int = SEED, context_length: int = 77):
     return tokenize
 
 
-def build_step(seed: int, device: torch.device, mode: str = "default"):
+def build_step(seed: int, device: torch.device, mode: str = "default",
+               sampler: str = "spaced", steps: int = 50, hoist: bool = True):
     """A full-width bf16 ControlLDM in a serving mode
     (``ControlLDM.set_mode``) and one sampler step's folded-CFG call, cond
-    and uncond on the default prompts' stand-in ids."""
+    and uncond on the default prompts' stand-in ids, through the pipeline's
+    model function at the first timestep of the sampler's grid (the
+    hoisted tables of that grid unless ``hoist`` is False)."""
+    from .pipeline import build_sampler, model_function
+    from .sampler.base import GuidedModel
+
     gen = torch.Generator(device=device).manual_seed(seed)
     cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device=device)
     random_init_(cldm, gen).eval().set_mode(mode)
@@ -125,13 +128,46 @@ def build_step(seed: int, device: torch.device, mode: str = "default"):
         cond = cldm.prepare_condition(img, pos)
         uncond = dict(c_txt=cldm.encode_text(neg), c_img=cond["c_img"])
     x = torch.randn(1, LATENT, LATENT, 4, generator=gen, device=device)
-    t = torch.full((1,), 999.0, device=device)
+    grid = build_sampler(sampler, Schedule.v21(), False).model_ts(steps)
+    tables = None
+    if hoist:
+        with torch.no_grad():
+            tables = cldm.make_hoist_tables(torch.cat([cond["c_txt"], uncond["c_txt"]]), grid)
+    model = GuidedModel(model_function(cldm, 1.0, tables), cond, uncond)
+    t = float(np.max(grid))
 
     @torch.no_grad()
     def step():
-        return cfg_model_call(lambda xx, tt, cc: cldm(xx, tt, cc), x, t, cond, uncond, CFG)
+        return model(x, t, CFG)
 
     return cldm, step
+
+
+def time_requests(seed: int, device: torch.device, sampler: str, steps: int,
+                  seeds=(1, 2, 3)) -> None:
+    """Whole 512x512 requests (``SwinIRPipeline.run``) after one warm-up:
+    seconds per request and per stage."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device=device)
+    random_init_(cldm, gen).eval()
+    swinir = SwinIR(dtype=torch.bfloat16, device="meta").to_empty(device=device)
+    random_init_(swinir, gen).eval()
+    pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), device,
+                          tokenizer=stand_in_tokenizer(seed))
+    kw = dict(steps=steps, cfg_scale=CFG, pos_prompt=POS_PROMPT, neg_prompt=NEG_PROMPT)
+    if sampler != "spaced":
+        kw.update(sampler_type=sampler, eta=1.0)
+    lq = np.random.default_rng(seed).integers(0, 256, (1, 8 * LATENT, 8 * LATENT, 3),
+                                              dtype=np.uint8)
+    pipe.run(lq, seed=0, **kw)
+    for s in seeds:
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run(lq, seed=s, timings=timings, **kw)
+        dt = time.perf_counter() - t0
+        split = ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
+        print(f"[request] {sampler} x {steps} steps, seed {s}: {dt:.4f} s ({split} s)")
 
 
 @dataclass
@@ -282,6 +318,13 @@ def main(argv=None) -> int:
                     help="profile a decode step of the LLaVA-1.5-7B captioner at these bits")
     ap.add_argument("--mode", choices=("default", "fused", "int8"), default="default",
                     help="the serving mode of the denoise step")
+    ap.add_argument("--request", action="store_true",
+                    help="time whole 512x512 requests instead of a step")
+    ap.add_argument("--sampler", default="spaced",
+                    help="the sampler whose grid the step's hoisted tables hold")
+    ap.add_argument("--steps", type=int, default=50, help="the sampler's step count")
+    ap.add_argument("--no-hoist", dest="hoist", action="store_false",
+                    help="the denoise step without the hoisted tables")
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the profiled steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -289,15 +332,23 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    if args.request:
+        print(f"[profile] {torch.cuda.get_device_name(0)}; SwinIR + ControlLDM sd21 bf16 "
+              f"requests at {8 * LATENT}x{8 * LATENT}")
+        time_requests(SEED, device, args.sampler, args.steps)
+        return 0
+    step_kw = dict(sampler=args.sampler, steps=args.steps, hoist=args.hoist)
+    grid = f"{args.sampler} x {args.steps} grid, {'hoisted' if args.hoist else 'not hoisted'}"
     if args.caption is not None:
         step = build_decode_step(SEED, device, args.caption)
         print(f"[profile] {torch.cuda.get_device_name(0)}; LLaVA-1.5-7B decode step at "
               f"{args.caption} bits after a {CAPTION_ROWS}-row prefill")
         return through_the_kernels(step, "decode steps", args.trace)
     if args.mode != "default":
-        _, step = build_step(SEED, device, args.mode)
+        _, step = build_step(SEED, device, args.mode, **step_kw)
         print(f"[profile] {torch.cuda.get_device_name(0)}; ControlLDM sd21 bf16 in the "
-              f"\"{args.mode}\" mode, batch 2 (CFG {CFG} folded), {LATENT}x{LATENT} latent")
+              f"\"{args.mode}\" mode, batch 2 (CFG {CFG} folded), {LATENT}x{LATENT} latent, "
+              f"{grid}")
         return through_the_kernels(step, "steps", args.trace)
     if args.train:
         cldm, step = build_train_step(SEED, device)
@@ -305,9 +356,9 @@ def main(argv=None) -> int:
         what = (f"stage-2 train step, batch {TRAIN_BATCH} at {8 * LATENT}x{8 * LATENT}, "
                 "checkpointing")
     else:
-        cldm, step = build_step(SEED, device)
+        cldm, step = build_step(SEED, device, **step_kw)
         timed = TIMED_STEPS
-        what = f"batch 2 (CFG {CFG} folded), {LATENT}x{LATENT} latent"
+        what = f"batch 2 (CFG {CFG} folded), {LATENT}x{LATENT} latent, {grid}"
     print(f"[profile] {torch.cuda.get_device_name(0)}; ControlLDM sd21 bf16, {what}")
     for impl in ("plain", "auto", "auto", "plain"):
         cldm.set_attention_impl(impl)

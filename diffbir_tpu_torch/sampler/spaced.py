@@ -15,10 +15,13 @@ import numpy as np
 import torch
 
 from ..schedule import make_spaced_coeffs
-from .base import ModelFn, Sampler, cfg_model_call
+from .base import GuidedModel, ModelFn, NoiseSource, Sampler
 
 
 class SpacedSampler(Sampler):
+    def model_ts(self, steps: int) -> np.ndarray:
+        return make_spaced_coeffs(self.training_betas, steps).timesteps.astype(np.float32)
+
     def make_tables(self, steps: int, cfg_scale: float) -> dict:
         """Per-step fp32 coefficient rows, high noise -> low noise."""
         c = make_spaced_coeffs(self.training_betas, steps)
@@ -51,27 +54,20 @@ class SpacedSampler(Sampler):
     ) -> torch.Tensor:
         """Denoise ``x_T`` (fp32 NHWC). Exactly one of ``generator`` and
         ``noise_table`` ([steps, *x_T.shape]) supplies the per-step noise."""
-        if (generator is None) == (noise_table is None):
-            raise ValueError("pass exactly one of generator and noise_table")
+        noise = NoiseSource(x_T.shape, x_T.device, generator, noise_table)
         if noise_table is not None and tuple(noise_table.shape) != (steps, *x_T.shape):
             raise ValueError(f"noise_table shape {tuple(noise_table.shape)} != "
                              f"{(steps, *x_T.shape)}")
         tables = self.make_tables(steps, cfg_scale)
+        model = GuidedModel(model_fn, cond, uncond)
         x = x_T.float()
-        bs = x.shape[0]
         for i in range(steps):
             row = {k: float(v[i]) for k, v in tables.items()}
-            t = torch.full((bs,), row["model_t"], dtype=torch.float32, device=x.device)
-            out = cfg_model_call(model_fn, x, t, cond, uncond, row["cfg"]).float()
+            out = model(x, row["model_t"], row["cfg"]).float()
             if self.parameterization == "eps":
                 x0 = row["sqrt_recip"] * x - row["sqrt_recipm1"] * out
             else:
                 x0 = row["sqrt_ac"] * x - row["sqrt_omac"] * out
             mean = row["coef1"] * x0 + row["coef2"] * x
-            if noise_table is not None:
-                noise = noise_table[i].to(device=x.device, dtype=torch.float32)
-            else:
-                noise = torch.randn(x.shape, generator=generator, dtype=torch.float32,
-                                    device=x.device)
-            x = mean + row["nonzero"] * row["sqrt_var"] * noise
+            x = mean + row["nonzero"] * row["sqrt_var"] * noise.draw(i)
         return x

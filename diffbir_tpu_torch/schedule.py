@@ -1,9 +1,9 @@
 """Diffusion noise-schedule math: host-side numpy tables in float64, and the
 training-time forward process on tensors.
 
-The numpy parts of ``diffbir_tpu/schedule.py`` that the spaced sampler and
-the stage-2 trainer use (linear betas, zero-terminal-SNR rescale,
-guided-diffusion respacing, spaced-sampler tables, CFG schedule), copied
+The numpy parts of ``diffbir_tpu/schedule.py`` that the samplers and the
+stage-2 trainer use (linear betas, zero-terminal-SNR rescale,
+guided-diffusion respacing, spaced-sampler and DDIM tables, CFG schedule), copied
 because this package does not import the JAX one; plus the ``Schedule``
 methods the trainer calls (``q_sample``, ``get_v``, ``target``, ``loss``),
 which gather fp32 tables by timestep as the JAX ones do.
@@ -159,6 +159,35 @@ def make_spaced_coeffs(training_betas: np.ndarray, num_steps: int) -> SpacedCoef
         posterior_mean_coef1=betas * np.sqrt(ac_prev) / (1.0 - ac),
         posterior_mean_coef2=(1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac),
     )
+
+
+def make_ddim_timesteps(num_ddim_steps: int, num_ddpm_steps: int,
+                        method: str = "uniform") -> np.ndarray:
+    """DDIM timestep selection with the +1 shift."""
+    if method == "uniform":
+        c = num_ddpm_steps // num_ddim_steps
+        steps = np.asarray(list(range(0, num_ddpm_steps, c)))
+        if steps[-1] + 1 >= num_ddpm_steps:
+            raise ValueError(
+                f"ddim uniform steps={num_ddim_steps} over T={num_ddpm_steps} produces "
+                f"timestep {steps[-1] + 1} >= T; pick a step count n with (T // n) not "
+                f"dividing T - 1 (e.g. 10, 20, 50)")
+    elif method == "quad":
+        steps = (np.linspace(0, np.sqrt(num_ddpm_steps * 0.8), num_ddim_steps) ** 2).astype(int)
+    else:
+        raise NotImplementedError(method)
+    return steps + 1
+
+
+def make_ddim_params(training_betas: np.ndarray, num_steps: int, eta: float,
+                     method: str = "uniform"):
+    """(timesteps, alphas, alphas_prev, sigmas) per DDIM step, float64."""
+    alphacums = np.cumprod(1.0 - training_betas, axis=0)
+    ts = make_ddim_timesteps(num_steps, len(training_betas), method)
+    alphas = alphacums[ts]
+    alphas_prev = np.asarray([alphacums[0]] + alphacums[ts[:-1]].tolist())
+    sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
+    return ts, alphas, alphas_prev, sigmas
 
 
 def cfg_scale_schedule(default_cfg_scale: float, model_t: np.ndarray,

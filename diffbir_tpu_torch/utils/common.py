@@ -6,7 +6,9 @@ half-pixel centres, the kernel widened by the scale when downsampling
 (antialiasing), weights renormalised to sum 1 at the border. Its separable
 weight matrices are built on the host and applied as two products. (This is
 not ``F.interpolate(mode="bicubic")``, which uses a = -0.75 and no
-antialiasing.)
+antialiasing.) ``pil_bicubic_resize`` is Pillow's bicubic resize of a uint8
+image, bit for bit (the blind-SR loop's pre-upscale, the captioner's
+preprocessing).
 """
 
 from __future__ import annotations
@@ -103,6 +105,65 @@ def pad_to_multiples_of(x: torch.Tensor, multiple: int) -> torch.Tensor:
     if ph == 0 and pw == 0:
         return x
     return F.pad(x, (0, 0, 0, pw, 0, ph))
+
+
+_PRECISION_BITS = 22  # Pillow's 8-bit resampler: 32 - 8 - 2
+
+
+def _pil_bicubic(x: float) -> float:
+    x = abs(x)
+    if x < 1.0:
+        return (1.5 * x - 2.5) * x * x + 1.0
+    if x < 2.0:
+        return (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5
+    return 0.0
+
+
+@functools.lru_cache(maxsize=16)
+def pil_bicubic_coeffs(in_size: int, out_size: int) -> np.ndarray:
+    """[out_size, in_size] int64 fixed-point weights of Pillow's bicubic
+    resampler along one axis (``precompute_coeffs`` and
+    ``normalize_coeffs_8bpc`` of Pillow's Resample.c)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ss = 1.0 / filterscale
+    coeffs = np.zeros((out_size, in_size), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        w = [_pil_bicubic((x - center + 0.5) * ss) for x in range(xmin, xmax)]
+        total = sum(w)
+        for i, wi in enumerate(w):
+            k = wi / total if total != 0.0 else wi
+            k *= 1 << _PRECISION_BITS
+            coeffs[xx, xmin + i] = int(k - 0.5) if k < 0 else int(k + 0.5)
+    return coeffs
+
+
+def pil_resample(img: torch.Tensor, coeffs: np.ndarray, axis: int) -> torch.Tensor:
+    """One Pillow pass over ``axis`` of an [H, W, C] uint8-valued tensor:
+    integer sums (exact in float64) plus half, shifted down 22 bits, clipped
+    to [0, 255]."""
+    k = torch.as_tensor(coeffs, dtype=torch.float64, device=img.device)
+    x = img.double()
+    s = torch.einsum("oh,hwc->owc", k, x) if axis == 0 else torch.einsum("ow,hwc->hoc", k, x)
+    s = torch.floor((s + (1 << (_PRECISION_BITS - 1))) / (1 << _PRECISION_BITS))
+    return s.clamp(0, 255)
+
+
+def pil_bicubic_resize(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Pillow's ``Image.resize(..., BICUBIC)`` of an [H, W, C] uint8-valued
+    tensor, bit for bit: the horizontal pass, then the vertical one; a
+    uint8 tensor."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    if ow != w:
+        img = pil_resample(img, pil_bicubic_coeffs(w, ow), axis=1)
+    if oh != h:
+        img = pil_resample(img, pil_bicubic_coeffs(h, oh), axis=0)
+    return img.to(torch.uint8)
 
 
 class StageClock:

@@ -157,3 +157,51 @@ def llava_to_state_dict(llama: Mapping[str, Any], vision: Mapping[str, Any],
             key = ".".join([base, *mods, name])
             out[key] = torch.from_numpy(np.ascontiguousarray(v))
     return out
+
+
+# --------------------------------------------------------------------------- #
+# DiffBIR torch checkpoints (.pth / .ckpt / .pt): the keys already match
+# --------------------------------------------------------------------------- #
+# where each part of ControlLDM sits in a full Stable Diffusion checkpoint
+SD_MODULE_MAP = {
+    "unet": "model.diffusion_model.",
+    "vae": "first_stage_model.",
+    # FrozenOpenCLIPEmbedder wraps open_clip.CLIP as ``self.model``
+    "clip": "cond_stage_model.model.",
+}
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth/.ckpt/.pt`` checkpoint's tensors on the CPU, ``state_dict``
+    nesting unwrapped and ``module.`` prefixes stripped (the JAX
+    ``load_torch_state_dict``)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+@torch.no_grad()
+def load_into(module: torch.nn.Module, sd: Mapping[str, torch.Tensor], prefix: str = "",
+              path: str = "the checkpoint") -> torch.nn.Module:
+    """Copy ``sd[prefix + key]`` into every entry of the module's state dict,
+    cast to its dtype: strict in the JAX ``fill_flax_params`` sense (a key
+    of the module missing from the file, or a shape that differs, raises,
+    naming the file); keys of the file outside the module are not read."""
+    for key, dst in module.state_dict().items():
+        src = sd.get(prefix + key)
+        if src is None:
+            raise KeyError(f"{path}: no tensor {prefix + key!r}")
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{path}: {prefix + key} has shape {tuple(src.shape)}, "
+                             f"the model {tuple(dst.shape)}")
+        dst.copy_(src)
+    return module
+
+
+def load_stable_diffusion(cldm: torch.nn.Module, sd: Mapping[str, torch.Tensor],
+                          path: str = "the checkpoint") -> None:
+    """The UNet, VAE and CLIP of ``cldm`` from a full SD2.1 checkpoint."""
+    for name, prefix in SD_MODULE_MAP.items():
+        load_into(getattr(cldm, name), sd, prefix, path)

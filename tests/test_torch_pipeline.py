@@ -43,15 +43,21 @@ def word_tokenizer(texts):
     return out
 
 
-def jax_noise(seed, shape, steps):
-    """x_T and the per-step noise table of the JAX pipeline + spaced scan."""
-    _, k_start, _, k_sample = jax.random.split(jax.random.PRNGKey(seed), 4)
+def jax_noise(seed, shape, steps, aug: bool = False):
+    """x_T and the per-step noise table of the JAX pipeline (split(key, 4)
+    -> k_start, k_aug, k_sample) and its scan (the spaced and the EDM row
+    samplers: rng, sub = split(rng) each step); with ``aug`` also the
+    noise_aug draw."""
+    _, k_start, k_aug, k_sample = jax.random.split(jax.random.PRNGKey(seed), 4)
     x_T = np.asarray(jax.random.normal(k_start, shape, jnp.float32))
     noise, r = [], k_sample
     for _ in range(steps):
         r, sub = jax.random.split(r)
         noise.append(np.asarray(jax.random.normal(sub, shape, jnp.float32)))
-    return torch.from_numpy(x_T.copy()), torch.from_numpy(np.stack(noise))
+    out = (torch.from_numpy(x_T.copy()), torch.from_numpy(np.stack(noise)))
+    if aug:
+        out += (torch.from_numpy(np.asarray(jax.random.normal(k_aug, shape, jnp.float32))),)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -168,11 +174,77 @@ def test_prompt_text_without_a_tokenizer_raises(cldm_pair, lq):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(sampler_type="edm_dpm++_3m_sde"), dict(size_bucket=64), dict(cleaner_tiled=True),
-    dict(noise_aug=10), dict(start_point_type="cond"), dict(vae_decoder_tiled=True),
-    dict(control_interval=2),
+    dict(cleaner_tiled=True), dict(vae_decoder_tiled=True), dict(control_interval=2),
 ])
 def test_unported_options_raise(identity_pair, lq, kwargs):
     _, tp = identity_pair
     with pytest.raises(NotImplementedError):
         tp.run(lq, steps=2, **kwargs)
+
+
+# --------------------------------------------------------------------------- #
+# the CLI's sampler and the rest of Pipeline.run
+# --------------------------------------------------------------------------- #
+def _eps_pair(cldm_pair):
+    """Identity pipelines on the v1 (eps, nonzero terminal alpha) schedule,
+    where the "cond" start keeps part of the condition."""
+    jc, params, tc = cldm_pair
+    kw = dict(linear_start=0.00085, linear_end=0.0120, parameterization="eps", zero_snr=False)
+    jp = JaxIdentityPipeline(None, jc, params,
+                             JaxSchedule.create(timesteps=1000, beta_schedule="linear", **kw),
+                             tokenizer=word_tokenizer, min_cond_size=64)
+    tp = IdentityCleanerPipeline(tc, Schedule.create(1000, **kw), torch.device("cpu"),
+                                 min_cond_size=64, tokenizer=word_tokenizer)
+    return jp, tp
+
+
+@pytest.mark.parametrize("case", ["cond_start", "noise_aug"])
+def test_run_options_match_jax(identity_pair, cldm_pair, lq, case):
+    """The CLI's default sampler (edm_dpm++_3m_sde at eta 1, noise on every
+    step) with the "cond" start point (v1 schedule) and with noise
+    augmentation (v2.1), each against the JAX pipeline on its draws."""
+    jp, tp = _eps_pair(cldm_pair) if case == "cond_start" else identity_pair
+    kw = dict(steps=STEPS, cfg_scale=CFG, pos_prompt="a red fox", eta=1.0,
+              sampler_type="edm_dpm++_3m_sde")
+    kw.update({"cond_start": dict(start_point_type="cond"),
+               "noise_aug": dict(noise_aug=200)}[case])
+    ref = jp.run(lq, seed=SEED, **kw)
+    x_T, noise, aug = jax_noise(SEED, (1, 8, 8, 4), STEPS, aug=True)
+    out = tp.run(lq, x_T=x_T, noise_table=noise, aug_noise=aug, **kw)
+    assert out.shape == ref.shape == (1, 64, 64, 3) and ref.std() > 1.0
+    assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+    plain = tp.run(lq, x_T=x_T, noise_table=noise, aug_noise=aug,
+                   **{**kw, "sampler_type": "spaced", "start_point_type": "noise",
+                      "noise_aug": 0})
+    assert np.any(out != plain)  # the option changed the request
+
+
+def test_size_bucket_matches_jax(identity_pair):
+    """A 72x60 LQ: reflect-padded to 128x64, the condition reflect-padded
+    to multiples of 96 (192x96, a 24x16 latent after the x64 pad), the
+    output cropped back to 72x60; the CLI's sampler."""
+    jp, tp = identity_pair
+    lq = np.random.default_rng(3).integers(0, 256, (1, 72, 60, 3), dtype=np.uint8)
+    kw = dict(steps=2, cfg_scale=CFG, size_bucket=96, sampler_type="edm_dpm++_3m_sde",
+              eta=1.0)
+    ref = jp.run(lq, seed=SEED, **kw)
+    x_T, noise = jax_noise(SEED, (1, 24, 16, 4), 2)
+    out = tp.run(lq, x_T=x_T, noise_table=noise, **kw)
+    assert out.shape == ref.shape == (1, 72, 60, 3)
+    assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_hoisting_off_matches_on(identity_pair, lq):
+    """The pipeline's ``hoist`` switch: the same request with the loop's own
+    k/v and timestep embedding, within the uint8 rounding."""
+    _, tp = identity_pair
+    x_T, noise = jax_noise(SEED, (1, 8, 8, 4), STEPS)
+    kw = dict(steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise,
+              sampler_type="edm_dpm++_3m_sde", eta=1.0)
+    on = tp.run(lq, **kw)
+    tp.hoist = False
+    try:
+        off = tp.run(lq, **kw)
+    finally:
+        tp.hoist = True
+    assert np.abs(on.astype(int) - off.astype(int)).max() <= 1

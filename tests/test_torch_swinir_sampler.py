@@ -12,6 +12,7 @@ from diffbir_tpu.models.swinir import SwinIR as JaxSwinIR
 from diffbir_tpu.sampler.spaced import SpacedSampler as JaxSpacedSampler
 from diffbir_tpu.schedule import Schedule as JaxSchedule
 from diffbir_tpu_torch.models.swinir import SwinIR
+from diffbir_tpu_torch.sampler.base import timestep_vector
 from diffbir_tpu_torch.sampler.spaced import SpacedSampler
 from diffbir_tpu_torch.schedule import Schedule
 from tests.test_torch_models import assert_close, converted_shapes, fill_params, load_port
@@ -52,6 +53,7 @@ def _model_jax(x, t, c):
 
 
 def _model_torch(x, t, c):
+    t = timestep_vector(t, x)  # the port's samplers hand the model a host value
     return torch.tanh(x) * (t[:, None, None, None] / 1000.0) + 0.3 * c["c_img"] \
         + c["c_txt"].mean(dim=(1, 2))[:, None, None, None]
 
