@@ -26,7 +26,10 @@ Phases (any failure exits non-zero before the last line is printed):
      a tensor-core K1 that skips the last kv tile must fail the o and lse
      limits; median times of the entry, the plain version and the library
      call beside the bound; at [2,4096,5,64], [8,4096,5,64] with lse and
-     [1,577,16,64] the CUDA-core entry on the same inputs too, with TFLOP/s.
+     [1,577,16,64] the CUDA-core entry on the same inputs too, with TFLOP/s;
+     then K1's CUDA-core entry where a path launches it (the untiled VAE's
+     d = 512 mid-block at 1024x1024, [1,16384,1,512] bf16): against its
+     plain version, beside SDPA (the backend it took named) and the bound.
   3. K1 with its logsumexp, K2a (dq) and K2b (dk, dv) against their plain
      versions at the training shapes (batch 8), ragged cases (Sq and Skv
      multiples of neither tile, Sq != Skv, less than one tile), a strided
@@ -110,6 +113,21 @@ Phases (any failure exits non-zero before the last line is printed):
      (K1 230; with --quant_dense --fused_resblock --quant_conv, K3 230, K6
      320 and K4 2355 tile launches), the PNG equal to a direct
      ``pipeline.run`` of the request, a rerun bit-identical.
+     [tiled_request]: first at full width on the model of phase 5, one
+     denoise step's tiled model call (9 latent tiles of 64x64 over 128x128,
+     3 a call, three seeds) against a per-tile loop written here (limit
+     TILED_CALL_TOL x max|ref|; planted fault: every tile handed tile 0's
+     hint), the streamed sync_gn decode of a 128x128 latent against
+     Decoder(gn_cross=True) on the stacked tiles (limit BF16_TOL x
+     max|ref|; planted fault: per-tile GroupNorm statistics), and the
+     sync_gn VAE's peak memory streamed against the gn_cross modules on the
+     stacked tiles at 1024^2 and 2048^2 (streamed below stacked); then the CLI
+     on a seeded 256x256 PNG at --upscale 4 (a 1024x1024 condition) in six
+     variants (TILED_VARIANTS: every tiling, once more bit-identical; 3
+     tiles a call; the sync_gn VAE; the diffusion alone tiled; untiled;
+     the int8 flags): exact launches (K1_cc 2 where the VAE is untiled),
+     seconds per stage, peak device memory (the tiled one below the
+     untiled), the PNG's size.
  10. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
      IRControlNet with gradient checkpointing, ControlNet initialised from the
      UNet, frozen realesrgan SwinIR cleaner, v2.1 schedule, noise aug at 200,
@@ -120,13 +138,15 @@ Phases (any failure exits non-zero before the last line is printed):
      K1+K2 against the same through plain attention, and the same with the
      attention sites' q/k/v gradients dropped must fail the limits.
 The second-to-last line is a JSON list of the kernels, every "ms" and
-"library_ms" the median of single host calls timed by CUDA events; K4-K7
+"library_ms" the median of single host calls timed by CUDA events (K1_cc's
+at [1,16384,1,512], the shape its path gives it); K4-K7
 add "device_ms" and "library_device_ms", the device time per call of
 launches run back to back (K6 also "conv_library_device_ms", the site's two
 bf16 cuDNN convolutions alone). The last line is {"ok": true, "device":
 {...}}.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -258,6 +278,43 @@ CLI_PATHS = {
                           "K4": K4_PER_STEP * CLI_STEPS + K4_PER_HOIST},
                          ["--quant_dense", "--fused_resblock", "--quant_conv"]),
 }
+# [tiled_request]: the CLI on a seeded 256x256 PNG at --upscale 4, a 1024x1024
+# condition (the JAX package's scripts/bench_highres.py workload), the CLI's
+# tile sizes (cleaner 512/256, VAE 256, diffusion 512/256): 9 cleaner tiles,
+# 49 + 49 blend VAE tiles (sync_gn: 16 + 16), 9 latent tiles of 64x64 per
+# step, each group of tiles one model call at batch 2 x tiles_per_batch (not
+# hoisted: 23 K1 a call). An untiled VAE runs its d = 512 mid-block on the
+# 128x128 latent's 16384 tokens: flash, on K1's CUDA-core entry (K1_cc),
+# once in the encoder and once in the decoder. Variant f: b with the int8
+# flags, 285 K4 a call (in-loop: the 32 timestep rows of batch 6 on the
+# GEMV form, the rest on the tile form), 32 K6 and 23 K3.
+TILED_LQ = 256
+TILED_SIZE = TILED_LQ * CLI_UPSCALE
+TILED_ALL = ["--cleaner_tiled", "--vae_encoder_tiled", "--vae_decoder_tiled", "--cldm_tiled"]
+CLDM_TILES = 9
+# the tiled model call's check, one step at each seed; at three tiles a
+# call (batch 6) against one tile a call (batch 2) it read 0.78-0.89 of
+# BF16_TOL x max|ref| on the H100 over these seeds, its planted fault 41x
+TILED_CALL_SEEDS = (13, 14, 15)
+TILED_CALL_TOL = 4 * BF16_TOL
+# outputs at which the sync_gn VAE's memory is read, streamed and stacked
+SYNC_GN_SIZES = (1024, 2048)
+TILED_CALLS = CLDM_TILES * CLI_STEPS
+INT8_FLAGS = ["--quant_dense", "--fused_resblock", "--quant_conv"]
+TILED_VARIANTS = {
+    "a": (TILED_ALL, {"K1": TILED_CALLS * K1_SITES_PER_STEP}),
+    "b": (TILED_ALL + ["--cldm_tiles_per_batch", "3"],
+          {"K1": TILED_CALLS // 3 * K1_SITES_PER_STEP}),
+    "c": (TILED_ALL + ["--vae_tile_mode", "sync_gn"], {"K1": TILED_CALLS * K1_SITES_PER_STEP}),
+    "d": (["--cldm_tiled"], {"K1": TILED_CALLS * K1_SITES_PER_STEP, "K1_cc": 2}),
+    "e": ([], {"K1": CLI_STEPS * K1_SITES_PER_STEP, "K1_cc": 2}),
+    "f": (TILED_ALL + ["--cldm_tiles_per_batch", "3"] + INT8_FLAGS,
+          {"K3": TILED_CALLS // 3 * K3_PER_CALL, "K6": TILED_CALLS // 3 * K6_PER_CALL,
+           "K4": TILED_CALLS // 3 * K4_TILE_PER_CALL,
+           "K4_gemv": TILED_CALLS // 3 * K4_GEMV_PER_CALL}),
+}
+# the VAE's mid-block attention of an untiled 1024x1024 request
+K1_WIDE = (1, TILED_SIZE ** 2 // 64, 1, 512)
 # the other samplers of the CLI, one 256x256 request each, twice
 SAMPLER_SIZE, SAMPLER_STEPS = 256, 4
 MODE_SEEDS = (1, 2)
@@ -594,6 +651,68 @@ def phase_kernel(fa):
     for key in entries:
         numbers[key]["max_abs_err"] = max_err[key]
     return numbers
+
+
+def sdpa_backends(q, k, v, out) -> list:
+    """The names of the SDPA backends that give ``out``, the default call's
+    output, bit for bit when run alone: the backend the default call took."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                alone = sdpa_fwd(q, k, v)
+        except RuntimeError:
+            continue
+        if torch.equal(alone, out):
+            names.append(backend.name)
+        del alone
+    return names
+
+
+def phase_k1_wide(fa):
+    """K1's CUDA-core entry (K1_cc) where a path launches it: the VAE's
+    d = 512 mid-block attention on the 16384 tokens of an untiled 1024x1024
+    request, [1,16384,1,512] bf16, by counter on that entry, against its
+    plain version (its fp32 logits take 1 GiB), with the library call
+    (SDPA; the backend it took named) and the bound beside. Returns K1_cc's
+    kernel-line numbers."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, s, h, d = K1_WIDE
+    q, k, v = qkv_case(gen, (b, s, s, h, d), torch.bfloat16)
+    label = "x".join(map(str, q.shape))
+    check(fa.fwd_entries(q) is fa.KERNEL, f"K1 at {label} is not on its CUDA-core entry")
+    before = counts()
+    out = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    moved = launched_since(before)
+    check(moved == {"K1_cc": 1}, f"K1 at {label} launched {moved}, expected one K1_cc")
+    ref = fa.flash_attention_ref(q, k, v)
+    err = hold(f"K1_cc at {label}", out, ref, BF16_TOL)
+    print(f"[kernel] K1_cc {label} bf16: {show(out, ref)}")
+    del ref
+    torch.cuda.empty_cache()
+    ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v), 5, 1)
+    plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v), 3, 1)
+    lib = sdpa_fwd(q, k, v)
+    backends = sdpa_backends(q, k, v, lib)
+    lib_ms = median_ms(lambda: sdpa_fwd(q, k, v), 5, 1)
+    bms, by = bound_ms(2, b, h, s, s, d, torch.bfloat16, nbytes(q, k, v, out))
+    tflops = 4.0 * b * h * s * s * d / 1e9
+    print(f"[kernel] K1_cc {label} bf16 (the untiled VAE mid-block at {TILED_SIZE}^2): "
+          f"{ms:.4f} ms ({tflops / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+          f"(SDPA, backend {'/'.join(backends) or 'not identified'}) {lib_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}; {bms / ms:.1%} of it)")
+    del q, k, v, out, lib
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": err, "shape": label,
+            "library": "SDPA " + ("/".join(backends) or "backend not identified")}
 
 
 def check_power_fwd(fa, label, q, k, v, with_lse):
@@ -1563,6 +1682,35 @@ def phase_hoist(mode: str, model, step_launches: dict, hoist_launches: dict) -> 
     planted(f"hoist {mode}: a step handed the next grid timestep's rows", faulty, ref, BF16_TOL)
 
 
+@contextlib.contextmanager
+def cli_environment(root: str):
+    """The CLI's environment for an in-process run: random full-width
+    weights (DIFFBIR_TPU_RANDOM_INIT) and a stand-in merges file of the
+    default prompts written under ``root`` (DIFFBIR_TPU_BPE_PATH), restored
+    afterwards."""
+    from diffbir_tpu_torch.inference.__main__ import DEFAULT_NEG_PROMPT, DEFAULT_POS_PROMPT
+    from diffbir_tpu_torch.models import tokenizer
+
+    bpe = os.path.join(root, tokenizer.BPE_NAME)
+    tokenizer.write_stand_in_merges(bpe, [DEFAULT_POS_PROMPT, DEFAULT_NEG_PROMPT])
+    saved = {k: os.environ.get(k) for k in ("DIFFBIR_TPU_BPE_PATH", "DIFFBIR_TPU_RANDOM_INIT")}
+    os.environ.update(DIFFBIR_TPU_BPE_PATH=bpe, DIFFBIR_TPU_RANDOM_INIT="1")
+    tokenizer.get_tokenizer.cache_clear()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tokenizer.get_tokenizer.cache_clear()
+
+
+def stages(t: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+
+
 def phase_cli_request(path: str):
     """[cli_request]: ``python -m diffbir_tpu_torch.inference`` run in this
     process (``main``) on a seeded 128x128 PNG with --upscale 4 and the
@@ -1577,8 +1725,7 @@ def phase_cli_request(path: str):
     import numpy as np
     import torch
 
-    from diffbir_tpu_torch.inference.__main__ import DEFAULT_NEG_PROMPT, DEFAULT_POS_PROMPT, main
-    from diffbir_tpu_torch.models import tokenizer
+    from diffbir_tpu_torch.inference.__main__ import main
     from diffbir_tpu_torch.utils.image_io import read_png, read_rgb, write_png
 
     expected, flags = CLI_PATHS[path]
@@ -1588,14 +1735,9 @@ def phase_cli_request(path: str):
     os.makedirs(in_dir)
     write_png(os.path.join(in_dir, "lq.png"), np.random.default_rng(7).integers(
         0, 256, (CLI_LQ, CLI_LQ, 3), dtype=np.uint8))
-    bpe = os.path.join(root, tokenizer.BPE_NAME)
-    tokenizer.write_stand_in_merges(bpe, [DEFAULT_POS_PROMPT, DEFAULT_NEG_PROMPT])
-    saved = {k: os.environ.get(k) for k in ("DIFFBIR_TPU_BPE_PATH", "DIFFBIR_TPU_RANDOM_INIT")}
-    os.environ.update(DIFFBIR_TPU_BPE_PATH=bpe, DIFFBIR_TPU_RANDOM_INIT="1")
-    tokenizer.get_tokenizer.cache_clear()
     argv = ["--task", "sr", "--input", in_dir, "--output", out_dir,
             "--upscale", str(CLI_UPSCALE), *flags]
-    try:
+    with cli_environment(root):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()  # count only this path from here
@@ -1625,18 +1767,7 @@ def phase_cli_request(path: str):
         check(launched_since(before) == expected, f"{path}: the rerun launched another count")
         check(np.array_equal(read_png(os.path.join(out_dir, "lq.png")), out),
               f"{path}: the rerun differs")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        tokenizer.get_tokenizer.cache_clear()
     peak = torch.cuda.max_memory_allocated() / 2**30
-
-    def stages(t):
-        return ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-
     print(f"[{path}] python -m diffbir_tpu_torch.inference {' '.join(argv)}: {dt:.3f} s "
           f"({stages(first)} s); launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
     print(f"[{path}] the PNG ({size}x{size}) read back equal to pipeline.run's output; a rerun "
@@ -1645,6 +1776,302 @@ def phase_cli_request(path: str):
     del loop
     torch.cuda.empty_cache()
     return launches
+
+
+def blend_weights(n: int):
+    """The reference's Gaussian tile weights [n, n] (variance 0.01 of the
+    tile; columns centred at (n - 1) / 2, rows at n / 2), written out here
+    apart from the port's ``tiling.gaussian_weights``."""
+    import math
+
+    import torch
+
+    i = torch.arange(n, dtype=torch.float64)
+
+    def bump(mid):
+        return torch.exp(-((i - mid) ** 2) / (n * n) / 0.02) / math.sqrt(2 * math.pi * 0.01)
+
+    return torch.outer(bump(n / 2), bump((n - 1) / 2)).float()
+
+
+def per_tile_loop(cldm, x, t, cond, tile, starts):
+    """The tiled diffusion's model call written out: one model call per
+    ``tile`` latent tile at ``starts`` x ``starts``, its hint sliced by
+    hand, and a Gaussian accumulation of its own."""
+    import torch
+
+    w = blend_weights(tile).to(x.device)[None, :, :, None]
+    acc = torch.zeros(x.shape, device=x.device)
+    wsum = torch.zeros(1, x.shape[1], x.shape[2], 1, device=x.device)
+    tv = torch.full((x.shape[0],), t, device=x.device)
+    for hi in starts:
+        for wi in starts:
+            hint = cond["c_img"][:, hi: hi + tile, wi: wi + tile].contiguous()
+            o = cldm(x[:, hi: hi + tile, wi: wi + tile].contiguous(), tv,
+                     {"c_txt": cond["c_txt"], "c_img": hint}).float()
+            acc[:, hi: hi + tile, wi: wi + tile] += o * w
+            wsum[:, hi: hi + tile, wi: wi + tile] += w
+    return acc / wsum
+
+
+def phase_tiled_model_call(cldm):
+    """[tiled_request] the tiled diffusion's model call at full width: one
+    denoise step on a 128x128 latent (batch 2, folded CFG on the default
+    prompts, t = 999) at each seed of TILED_CALL_SEEDS, through the
+    pipeline's ``tiled_model_function`` against ``per_tile_loop`` (one call
+    per 64x64 tile at stride 32): at tiles_per_batch 3 (three calls at
+    batch 6, which the libraries round another way than calls at batch 2)
+    within TILED_CALL_TOL x max|ref|; at tiles_per_batch 1 (the loop's own
+    calls; only the blend's fp32 sums differ) within FP32_TOL x max|ref|.
+    A planted fault (every tile handed tile 0's hint) must fail the
+    limit."""
+    import torch
+
+    from diffbir_tpu_torch.pipeline import tile_model_function, tiled_model_function
+    from diffbir_tpu_torch.tiling import make_tiled_fn
+
+    lat, tile, stride, per = TILED_SIZE // 8, 64, 32, 3
+    t = 999.0
+    starts = range(0, lat - tile + 1, stride)
+    check((lat - tile) % stride == 0 and len(starts) ** 2 == CLDM_TILES, "tile geometry")
+    for seed in TILED_CALL_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(2, lat, lat, 4, generator=gen, device="cuda")
+        cond = {"c_txt": default_prompt_context(cldm),
+                "c_img": torch.randn(2, lat, lat, 4, generator=gen, device="cuda")}
+        with torch.no_grad():
+            before = counts()
+            out = tiled_model_function(cldm, 1.0, 8 * tile, 8 * stride, tiles_per_batch=per)(
+                x, t, cond)
+            torch.cuda.synchronize()
+            n = launched_since(before)
+            out1 = tiled_model_function(cldm, 1.0, 8 * tile, 8 * stride)(x, t, cond)
+            ref = per_tile_loop(cldm, x, t, cond, tile, starts)
+        print(f"[tiled_request] model call over {CLDM_TILES} latent tiles, seed {seed}: at "
+              f"tiles_per_batch {per} launches {n}, against the per-tile loop "
+              f"{show(out, ref, TILED_CALL_TOL)}; at tiles_per_batch 1 "
+              f"{show(out1, ref, FP32_TOL)}")
+        check(n == {"K1": per * K1_SITES_PER_STEP}, f"the tiled model call launched {n}")
+        check(bool(torch.isfinite(out).all()), "the tiled model call: non-finite output")
+        hold("the tiled model call", out, ref, TILED_CALL_TOL)
+        hold("the tiled model call at tiles_per_batch 1", out1, ref, FP32_TOL)
+    model_tile = tile_model_function(cldm, 1.0, tile)
+
+    def tile_zero_hint(x_tiles, t, c, tile_coords=()):
+        return model_tile(x_tiles, t, c, tile_coords=((0, 0),) * len(tile_coords))
+
+    with torch.no_grad():
+        faulty = make_tiled_fn(tile_zero_hint, tile, stride, channel=4, tiles_per_batch=per)(
+            x, t, cond)
+    planted("tiled_request model call, every tile handed tile 0's hint", faulty, ref,
+            TILED_CALL_TOL)
+
+
+def phase_sync_gn_decode(cldm):
+    """[tiled_request] the seam-free tiled decode at full width:
+    ``cldm._vae_decode_sync`` on a 128x128 latent (tile 32, halo 11: 16
+    tiles of 54x54), streamed 2 tiles at a time, against the full-width
+    ``Decoder(gn_cross=True)`` on the 16 tiles stacked at once (tiles cut
+    and stitched here), within BF16_TOL x max|ref|; the latent carries
+    ramps, so its tiles differ in their statistics. A planted fault (the
+    same tiles through the Decoder with per-tile GroupNorm statistics) must
+    fail the limit."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffbir_tpu_torch.models.vae import Decoder
+
+    lat, ts, halo = TILED_SIZE // 8, 32, 11
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    ramp = torch.linspace(-1.0, 1.0, lat, device="cuda")
+    z = (0.5 * torch.randn(1, lat, lat, 4, generator=gen, device="cuda")
+         + ramp[None, :, None, None] + torch.stack([ramp, -ramp, ramp, -ramp], -1)[None, None])
+    cross = Decoder(dtype=torch.bfloat16, device="meta", gn_cross=True).to_empty(device="cuda")
+    cross.load_state_dict(cldm.vae.decoder.state_dict())
+    span = ts + 2 * halo
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cldm._vae_decode_sync(z, ts, chunk=2)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        zp = F.pad(z.permute(0, 3, 1, 2) / cldm.scale_factor, (halo,) * 4, mode="replicate")
+        corners = [(i, j) for i in range(0, lat, ts) for j in range(0, lat, ts)]
+        tiles = cldm.vae.post_quant_conv(
+            torch.cat([zp[:, :, i: i + span, j: j + span] for i, j in corners]))
+
+        def stitched(decoder):
+            dec = decoder(tiles)
+            img = torch.empty(1, 3, 8 * lat, 8 * lat, device="cuda")
+            for n_tile, (i, j) in enumerate(corners):
+                img[:, :, 8 * i: 8 * (i + ts), 8 * j: 8 * (j + ts)] = \
+                    dec[n_tile, :, 8 * halo: 8 * (halo + ts), 8 * halo: 8 * (halo + ts)]
+            return img.permute(0, 2, 3, 1)
+
+        ref = stitched(cross)
+        faulty = stitched(cldm.vae.decoder)
+    del cross
+    torch.cuda.empty_cache()
+    print(f"[tiled_request] sync_gn decode of a {lat}x{lat} latent ({len(corners)} tiles of "
+          f"{span}x{span}, 2 at a time): {dt:.3f} s; against Decoder(gn_cross=True) on the "
+          f"stacked tiles {show(out, ref)}")
+    check(out.shape == (1, 8 * lat, 8 * lat, 3) and bool(torch.isfinite(out).all()),
+          f"sync_gn decode: bad output {tuple(out.shape)}")
+    hold("the streamed sync_gn decode", out, ref, BF16_TOL)
+    planted("tiled_request decode, per-tile GroupNorm statistics", faulty, ref, BF16_TOL)
+
+
+def peak_above_resident(fn):
+    """(fn's result, GiB of device memory its run peaked at above what was
+    allocated before it), or (None, None) when the card's memory ran out."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None, None
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_sync_gn_memory(cldm):
+    """[tiled_request] what streaming saves the sync_gn VAE: the peak device
+    memory above the resident of ``cldm._vae_decode_sync`` and
+    ``_vae_encode_sync`` (streamed, their default chunk of 8 tiles; the
+    pipeline's tiles: 32 latent pixels + an 11-pixel halo, 256 image pixels
+    + a 32-pixel halo) against ``Decoder`` / ``Encoder(gn_cross=True)`` on
+    all the same halo tiles at once, at each output size of SYNC_GN_SIZES.
+    The streamed peak must lie below the stacked one (a stacked run that
+    exhausts the card counts as above); the stacked outputs are held to
+    the streamed ones within BF16_TOL x max|ref|."""
+    import torch
+
+    from diffbir_tpu_torch.models.cldm import _halo_tiles
+    from diffbir_tpu_torch.models.vae import Decoder, Encoder
+
+    dec = Decoder(dtype=torch.bfloat16, device="meta", gn_cross=True).to_empty(device="cuda")
+    dec.load_state_dict(cldm.vae.decoder.state_dict())
+    enc = Encoder(dtype=torch.bfloat16, device="meta", gn_cross=True).to_empty(device="cuda")
+    enc.load_state_dict(cldm.vae.encoder.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def stacked_moments(h):
+        mean, logvar = cldm.vae.quant_conv(h).chunk(2, dim=1)
+        return torch.cat([mean, logvar.clamp(-30.0, 20.0)], dim=1)
+
+    for size in SYNC_GN_SIZES:
+        lat = size // 8
+        z = torch.randn(1, lat, lat, 4, generator=gen, device="cuda")
+        img = torch.rand(1, size, size, 3, generator=gen, device="cuda") * 2 - 1
+        z_tiles = _halo_tiles(z, 32, 11)[0].permute(0, 3, 1, 2) / cldm.scale_factor
+        img_tiles = _halo_tiles(img, 256, 32)[0].permute(0, 3, 1, 2)
+        n_dec, n_enc = z_tiles.shape[0], img_tiles.shape[0]
+        line = []
+        for what, streamed, stacked in (
+                (f"decode ({n_dec} tiles of 54^2 latents)",
+                 lambda: cldm._vae_decode_sync(z, 32),
+                 lambda: dec(cldm.vae.post_quant_conv(z_tiles))[:, :, 88: 344, 88: 344]),
+                (f"encode ({n_enc} tiles of 320^2 pixels)",
+                 lambda: torch.cat(cldm._vae_encode_sync(img, 256), dim=-1),
+                 lambda: stacked_moments(enc(img_tiles))[:, :, 4: 36, 4: 36])):
+            out, gib = peak_above_resident(streamed)
+            check(gib is not None, f"sync_gn {what} at {size}^2 streamed: out of memory")
+            ref, gib_stacked = peak_above_resident(stacked)
+            line.append(f"{what}: streamed {gib:.3f} GiB, stacked " + (
+                "out of memory" if gib_stacked is None else f"{gib_stacked:.3f} GiB"))
+            check(gib_stacked is None or gib < gib_stacked,
+                  f"sync_gn {what} at {size}^2: streamed {gib} GiB, not below stacked "
+                  f"{gib_stacked} GiB")
+            if ref is not None:
+                # the tiles' centres, tile-major, against the stitched stream
+                tiles = out.reshape(1, size // 256, ref.shape[2], -1, ref.shape[3], ref.shape[1])
+                tiles = tiles.permute(0, 1, 3, 5, 2, 4).reshape(ref.shape)
+                hold(f"sync_gn {what} at {size}^2, streamed against stacked", tiles, ref,
+                     BF16_TOL)
+            del out, ref
+        print(f"[tiled_request] sync_gn VAE at {size}x{size}, peak memory above the "
+              f"resident: " + "; ".join(line))
+    del dec, enc
+    torch.cuda.empty_cache()
+
+
+def phase_tiled_request():
+    """[tiled_request]: the CLI in process on a seeded 256x256 PNG at
+    --upscale 4 (a 1024x1024 condition), random full-width weights, the
+    CLI's defaults, in the variants of TILED_VARIANTS: (a) every tiling
+    (run twice: the rerun must be bit-identical), (b) a with 3 latent tiles
+    a model call, (c) a with the sync_gn VAE, (d) the diffusion tiled alone,
+    (e) untiled, (f) b with the int8 flags. Per variant: exact launches,
+    seconds per stage, peak device memory (a below e) and the PNG's size.
+    Returns the launch counts of each variant's run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.inference.__main__ import main
+    from diffbir_tpu_torch.utils.image_io import read_png, write_png
+
+    root = os.path.join("build", "tiled_request")
+    shutil.rmtree(root, ignore_errors=True)
+    in_dir = os.path.join(root, "in")
+    os.makedirs(in_dir)
+    write_png(os.path.join(in_dir, "lq.png"), np.random.default_rng(17).integers(
+        0, 256, (TILED_LQ, TILED_LQ, 3), dtype=np.uint8))
+    paths, peaks, outs = {}, {}, {}
+    with cli_environment(root):
+        for name, (flags, expected) in TILED_VARIANTS.items():
+            path = f"tiled_{name}"
+            out_dir = os.path.join(root, f"out_{name}")
+            argv = ["--task", "sr", "--input", in_dir, "--output", out_dir,
+                    "--upscale", str(CLI_UPSCALE), *flags]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()  # count only this path from here
+            t0 = time.perf_counter()
+            loop = main(argv)
+            dt = time.perf_counter() - t0
+            paths[path] = counts()
+            n = {k: v for k, v in paths[path].items() if v}
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+            out = outs[name] = read_png(os.path.join(out_dir, "lq.png"))
+            print(f"[tiled_request] {name}: {' '.join(flags) or '(untiled)'}: {dt:.3f} s "
+                  f"({stages(loop.timings)} s); launches "
+                  + ", ".join(f"{k} {v}" for k, v in n.items())
+                  + f"; peak device memory {peaks[name]:.3f} GiB; PNG "
+                  f"{out.shape[1]}x{out.shape[0]}")
+            check(out.shape == (TILED_SIZE, TILED_SIZE, 3) and float(out.std()) > 1.0,
+                  f"{path}: bad output {out.shape}, std {out.std()}")
+            check(n == expected, f"{path}: expected launches {expected}, got {n}")
+            check(peaks[name] > 0.0, f"{path}: no peak memory reading")
+            if name == "a":
+                loop.timings = {}
+                before = counts()
+                t1 = time.perf_counter()
+                loop.run()
+                dt2 = time.perf_counter() - t1
+                check(launched_since(before) == expected, f"{path}: the rerun launched another "
+                      "count")
+                check(np.array_equal(read_png(os.path.join(out_dir, "lq.png")), out),
+                      f"{path}: the rerun differs")
+                print(f"[tiled_request] a again (the loop rerun): {dt2:.3f} s "
+                      f"({stages(loop.timings)} s), bit-identical")
+            del loop
+    torch.cuda.empty_cache()
+    check(peaks["a"] < peaks["e"], f"the tiled request's peak memory {peaks['a']:.3f} GiB is "
+          f"not below the untiled one's {peaks['e']:.3f} GiB")
+    diff = np.abs(outs["a"].astype(int) - outs["b"].astype(int))
+    print(f"[tiled_request] b against a (3 latent tiles a call against 1; not gated): max "
+          f"{diff.max()} uint8 levels, {float((diff > 4).mean()):.4%} of values more than 4 "
+          f"apart")
+    return paths
 
 
 def phase_samplers(cldm):
@@ -2162,6 +2589,9 @@ def main() -> int:
         phase_device()
         phase_build()
         numbers = phase_kernel(fa)
+        wide = phase_k1_wide(fa)
+        numbers["K1_cc"] = {**wide, "max_abs_err": max(wide["max_abs_err"],
+                                                       numbers["K1_cc"]["max_abs_err"])}
         k2 = phase_backward_kernels(fa)
         numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_k3(fa), **phase_k4(qm),
                        **phase_k5(qm), **phase_k6(fr), **phase_k7(ff))
@@ -2173,14 +2603,20 @@ def main() -> int:
         paths.update(phase_modes(cldm, swinir))
         cldm.set_mode("default")
         phase_samplers(cldm)
+        phase_tiled_model_call(cldm)
+        phase_sync_gn_decode(cldm)
+        phase_sync_gn_memory(cldm)
         paths.update(phase_llava(qm, cldm, swinir))
         del cldm, swinir
         torch.cuda.empty_cache()
         for path in CLI_PATHS:
             paths[path] = phase_cli_request(path)
+        paths.update(phase_tiled_request())
         paths["train"] = phase_train(fa)
         cli = {path: expected for path, (expected, _) in CLI_PATHS.items()}
-        for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli}.items():  # no other kernel
+        tiled = {f"tiled_{name}": expected for name, (_, expected) in TILED_VARIANTS.items()}
+        for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled}.items():
+            # no other kernel
             check(all(n == 0 for k, n in paths[path].items() if k not in expected),
                   f"{path} launched other kernels: {paths[path]}")
         print("[done] launches of the CUDA-core entries per path: " + "; ".join(

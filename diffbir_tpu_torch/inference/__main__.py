@@ -7,8 +7,10 @@ defaults (10 steps of ``edm_dpm++_3m_sde`` at CFG 6.0, the long default
 prompts, ``--captioner none``), except ``--device``: "cuda" (the default)
 or "cpu", never chosen for the caller. The serving flags
 (``--quant_dense --fused_resblock --quant_conv --fused_ffn``) compose on the
-loaded model (``ControlLDM.set_serving``). A flag of a path that is not
-ported (tiling, turbo, guidance, tasks other than sr, versions v2 and
+loaded model (``ControlLDM.set_serving``); the tiling flags (cleaner, VAE
+encoder and decoder, diffusion, ``--vae_tile_mode``,
+``--cldm_tiles_per_batch``) reach ``Pipeline.run``. A flag of a path that
+is not ported (turbo, guidance, tasks other than sr, versions v2 and
 custom, ``--fast_gelu``) raises NotImplementedError naming the flag.
 """
 
@@ -37,11 +39,7 @@ DEFAULT_NEG_PROMPT = (
 
 # flag -> its default: any other value asks for a path that is not ported
 UNPORTED = {
-    "cleaner_tiled": False, "cleaner_tile_size": 512, "cleaner_tile_stride": 256,
-    "vae_encoder_tiled": False, "vae_encoder_tile_size": 256,
-    "vae_decoder_tiled": False, "vae_decoder_tile_size": 256, "vae_tile_mode": "blend",
-    "cldm_tiled": False, "cldm_tile_size": 512, "cldm_tile_stride": 256,
-    "cldm_tiles_per_batch": 1, "control_interval": 1, "turbo_encoder": False,
+    "control_interval": 1, "turbo_encoder": False,
     "guidance": False, "g_loss": "w_mse", "g_scale": 0.0, "g_start": 1001, "g_stop": -1,
     "g_space": "latent", "g_repeat": 1, "fast_gelu": False, "train_cfg": "", "ckpt": "",
 }
@@ -125,7 +123,7 @@ def check_ported(args: Namespace) -> None:
     """NotImplementedError naming the first flag of a path not ported."""
     for name, default in UNPORTED.items():
         if getattr(args, name) != default:
-            raise NotImplementedError(f"--{name}: not ported yet (tiling, turbo, guidance, "
+            raise NotImplementedError(f"--{name}: not ported yet (turbo, guidance, "
                                       f"--fast_gelu and custom models wait)")
     if args.task != "sr":
         raise NotImplementedError(f"--task {args.task}: not ported yet (only sr)")

@@ -4,7 +4,8 @@ Counterpart of ``diffbir_tpu/inference/loop.py``: the load order (cleaner,
 ControlLDM, pipeline, captioner), the schedule per version, the input scan
 (one file, or a folder's images in name order), the caption + user prompt
 join, ``n_samples`` in chunks of ``batch_size`` with the seed advanced per
-chunk (``seed + offset``), the output names, and ``prompt.csv``.
+chunk (``seed + offset``), the tiling flags passed to ``pipeline.run``, the
+output names, and ``prompt.csv``.
 
 - Weights: the DiffBIR checkpoints by name (``pretrained_models``), loaded
   into the float model, then the CLI's serving flags applied
@@ -193,6 +194,13 @@ class InferenceLoop:
             neg_prompt=a.neg_prompt, cfg_scale=a.cfg_scale,
             start_point_type=a.start_point_type, sampler_type=a.sampler,
             noise_aug=a.noise_aug, rescale_cfg=a.rescale_cfg,
+            cleaner_tiled=a.cleaner_tiled, cleaner_tile_size=a.cleaner_tile_size,
+            cleaner_tile_stride=a.cleaner_tile_stride, vae_encoder_tiled=a.vae_encoder_tiled,
+            vae_encoder_tile_size=a.vae_encoder_tile_size,
+            vae_decoder_tiled=a.vae_decoder_tiled,
+            vae_decoder_tile_size=a.vae_decoder_tile_size, vae_tile_mode=a.vae_tile_mode,
+            cldm_tiled=a.cldm_tiled, cldm_tile_size=a.cldm_tile_size,
+            cldm_tile_stride=a.cldm_tile_stride, cldm_tiles_per_batch=a.cldm_tiles_per_batch,
             size_bucket=getattr(a, "size_bucket", 0),
             # distinct chunks of n_samples get distinct seeds
             seed=a.seed + seed_offset,

@@ -21,8 +21,16 @@ Denoise-loop hoisting (``make_hoist_tables``, the JAX ``hoist_context_kv``,
 site's k/v of the prompt context once per request, and every ResBlock's
 timestep projection once per model timestep of the sampler's grid, by the
 same module math as the loop; ``HoistTables.lookup(t)`` hands a step its
-rows by the host value of its model timestep. Not ported yet: tiled VAE and
-the turbo control cache.
+rows by the host value of its model timestep.
+
+The tiled VAE (``vae_encode``/``vae_decode`` with ``tiled``, as the JAX
+methods): "blend" runs the encoder or decoder on overlapping tiles at stride
+tile/2 and blends them (``tiling.make_tiled_fn``; the encoder blends the
+concatenated posterior mean and logvar); "sync_gn" cuts non-overlapping
+tiles with an edge-replicated halo (32 image pixels for the encoder, 11
+latent pixels for the decoder), streams them through ``vae_stream`` with
+every GroupNorm over all tiles, and keeps each tile's centre (batch 1 only).
+Not ported yet: the turbo control cache.
 """
 
 from __future__ import annotations
@@ -31,10 +39,12 @@ from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_resblock import quantize_conv_weight
 from ..ops.quant_matmul import QuantLinear
+from ..tiling import make_tiled_fn
 from .clip import CLIPTextEncoder
 from .layers import Linear, QuantConv
 from .unet import (
@@ -46,6 +56,7 @@ from .unet import (
     UNetModel,
 )
 from .vae import AutoencoderKL
+from .vae_stream import decode_sync, encode_sync_moments
 
 # the JAX _QUANT_DENSE_TAILS: the dense sites of the int8 serving mode
 QUANT_DENSE_TAILS = ("to_q", "to_k", "to_v", "to_out.0", "proj", "net.2", "proj_in",
@@ -250,13 +261,27 @@ class ControlLDM(nn.Module):
 
     def vae_encode(self, image: torch.Tensor, sample: bool = True,
                    generator: Optional[torch.Generator] = None,
-                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   eps: Optional[torch.Tensor] = None, tiled: bool = False,
+                   tile_size: int = 256, tile_mode: str = "blend") -> torch.Tensor:
         """image in [-1, 1] NHWC -> scaled latent NHWC. With ``sample`` a
         posterior sample z = mean + exp(logvar / 2) * eps, eps standard normal
         NHWC, passed in or drawn from ``generator`` in fp32, and cast to the
-        mean's dtype as the JAX package draws it; else the posterior mean."""
-        mean, logvar = self.vae.encode_moments(_nchw(image))
-        mean, logvar = _nhwc(mean), _nhwc(logvar)
+        mean's dtype as the JAX package draws it; else the posterior mean.
+        ``tiled``: ``tile_size`` image pixels, "blend" or "sync_gn" (see the
+        module's notes)."""
+        if tiled and tile_mode == "sync_gn":
+            mean, logvar = self._vae_encode_sync(image, tile_size)
+        elif tiled:
+            def enc_moments(x):
+                m, lv = self.vae.encode_moments(_nchw(x))
+                return _nhwc(torch.cat([m, lv], dim=1))
+
+            moments = make_tiled_fn(enc_moments, tile_size, tile_size // 2, scale_type="down",
+                                    scale=8, channel=self.vae.quant_conv.out_channels)(image)
+            mean, logvar = moments.chunk(2, dim=-1)
+        else:
+            mean, logvar = self.vae.encode_moments(_nchw(image))
+            mean, logvar = _nhwc(mean), _nhwc(logvar)
         if sample:
             if eps is None:
                 if generator is None:
@@ -267,17 +292,61 @@ class ControlLDM(nn.Module):
             mean = mean + torch.exp(0.5 * logvar) * eps.to(mean.device, mean.dtype)
         return mean * self.scale_factor
 
-    def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Scaled latent NHWC -> image in [-1, 1] NHWC (fp32)."""
+    @torch.no_grad()
+    def _vae_encode_sync(self, image: torch.Tensor, tile_size: int, halo: int = 32,
+                         chunk: int = 8):
+        """Cross-tile-GroupNorm tiled encode of a batch-1 image: posterior
+        (mean, logvar) NHWC. ``tile_size`` and ``halo`` in image pixels,
+        multiples of 8."""
+        if image.shape[0] != 1:
+            raise ValueError("sync_gn tiling supports batch 1")
+        if tile_size % 8 or halo % 8:
+            raise ValueError("sync_gn tile size and halo must be multiples of 8")
+        tiles, coords, (h, w) = _halo_tiles(image, tile_size, halo)
+        mean_t, logvar_t = encode_sync_moments(self.vae, tiles, chunk=chunk)
+        mom = _stitch(torch.cat([mean_t, logvar_t], dim=-1),
+                      [(i // 8, j // 8) for i, j in coords], tile_size // 8, halo // 8)
+        return mom[:, : h // 8, : w // 8].chunk(2, dim=-1)
+
+    def vae_decode(self, z: torch.Tensor, tiled: bool = False, tile_size: int = 256,
+                   tile_mode: str = "blend") -> torch.Tensor:
+        """Scaled latent NHWC -> image in [-1, 1] NHWC (fp32). ``tiled``:
+        ``tile_size`` latent pixels, "blend" or "sync_gn" (see the module's
+        notes)."""
+        if tiled and tile_mode == "sync_gn":
+            return self._vae_decode_sync(z, tile_size)
+        if tiled:
+            def dec(zt):
+                return _nhwc(self.vae.decode(_nchw(zt) / self.scale_factor))
+
+            return make_tiled_fn(dec, tile_size, tile_size // 2, scale_type="up", scale=8,
+                                 channel=3)(z)
         return _nhwc(self.vae.decode(_nchw(z) / self.scale_factor))
+
+    @torch.no_grad()
+    def _vae_decode_sync(self, z: torch.Tensor, tile_size: int, halo: int = 11,
+                         chunk: int = 8) -> torch.Tensor:
+        """Cross-tile-GroupNorm tiled decode of a batch-1 latent
+        (``tile_size`` and ``halo`` in latent pixels), streamed ``chunk``
+        tiles at a time."""
+        if z.shape[0] != 1:
+            raise ValueError("sync_gn tiling supports batch 1")
+        tiles, coords, (h, w) = _halo_tiles(z, tile_size, halo)
+        out_t = decode_sync(self.vae, tiles / self.scale_factor, chunk=chunk)
+        return _stitch(out_t, [(i * 8, j * 8) for i, j in coords], tile_size * 8,
+                       halo * 8)[:, : h * 8, : w * 8]
 
     def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.clip(tokens)
 
-    def prepare_condition(self, cond_img: torch.Tensor, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """cond_img in [0, 1] NHWC; tokens [B, 77] int."""
+    def prepare_condition(self, cond_img: torch.Tensor, tokens: torch.Tensor,
+                          tiled: bool = False, tile_size: int = 256,
+                          tile_mode: str = "blend") -> Dict[str, torch.Tensor]:
+        """cond_img in [0, 1] NHWC; tokens [B, 77] int; the VAE encode tiled
+        as ``vae_encode`` tiles it."""
         return dict(c_txt=self.encode_text(tokens),
-                    c_img=self.vae_encode(cond_img * 2 - 1, sample=False))
+                    c_img=self.vae_encode(cond_img * 2 - 1, sample=False, tiled=tiled,
+                                          tile_size=tile_size, tile_mode=tile_mode))
 
     @torch.no_grad()
     def load_controlnet_from_unet(self) -> None:
@@ -294,6 +363,30 @@ class ControlLDM(nn.Module):
             else:  # input conv, OIHW: pad the input-channel axis with zeros
                 p.zero_()
                 p[:, :src.shape[1]].copy_(src)
+
+
+def _halo_tiles(x: torch.Tensor, ts: int, halo: int):
+    """Non-overlapping ``ts`` tiles of a batch-1 NHWC ``x`` (padded at the
+    bottom and right to whole tiles), each with a ``halo`` of neighbours,
+    edge-replicated beyond the border: ([T, ts + 2 halo, ts + 2 halo, C],
+    the tiles' corners in the padded frame, the original (h, w))."""
+    _, h, w, _ = x.shape
+    ph, pw = (ts - h % ts) % ts, (ts - w % ts) % ts
+    xp = _nhwc(F.pad(_nchw(x), (halo, halo + pw, halo, halo + ph), mode="replicate"))
+    coords = [(i, j) for i in range(0, h + ph, ts) for j in range(0, w + pw, ts)]
+    span = ts + 2 * halo
+    return torch.cat([xp[:, i: i + span, j: j + span] for i, j in coords], dim=0), coords, (h, w)
+
+
+def _stitch(tiles: torch.Tensor, corners, ts: int, halo: int) -> torch.Tensor:
+    """The centres (``ts`` pixels past ``halo``) of [T, ., ., C] tiles,
+    placed at ``corners`` into one [1, H, W, C] canvas."""
+    h = max(i for i, _ in corners) + ts
+    w = max(j for _, j in corners) + ts
+    out = tiles.new_empty((1, h, w, tiles.shape[-1]))
+    for t, (i, j) in enumerate(corners):
+        out[:, i: i + ts, j: j + ts] = tiles[t: t + 1, halo: halo + ts, halo: halo + ts]
+    return out
 
 
 class HoistTables:

@@ -56,28 +56,31 @@ def gn_fold_moments(
 class GroupNorm32(nn.Module):
     """GroupNorm over NC... with fp32 two-pass statistics; the affine is
     applied in the input dtype. eps 1e-5 in the UNet, 1e-6 in the VAE and
-    SpatialTransformer."""
+    SpatialTransformer. ``cross_batch``: the statistics run over the batch
+    axis too, as when the tiles of one image ride the batch axis (the
+    seam-free tiled VAE); a switch, not a parameter."""
 
     num_groups = 32
 
-    def __init__(self, channels: int, eps: float = 1e-5, device=None):
+    def __init__(self, channels: int, eps: float = 1e-5, device=None,
+                 cross_batch: bool = False):
         super().__init__()
         if channels % self.num_groups:
             raise ValueError(f"channels {channels} not divisible by {self.num_groups} groups")
         self.eps = eps
+        self.cross_batch = cross_batch
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        axes = tuple(range(2, x.dim()))
-        s1 = xf.mean(dim=axes)  # [B, C]
-        bshape = s1.shape + (1,) * len(axes)
-        d = xf - s1.reshape(bshape)
-        v_c = (d * d).mean(dim=axes)
-        a, b = gn_fold_moments(s1, v_c, self.weight.float(), self.bias.float(),
-                               self.num_groups, self.eps)
-        return x * a.reshape(bshape).to(x.dtype) + b.reshape(bshape).to(x.dtype)
+        axes = ((0,) if self.cross_batch else ()) + tuple(range(2, x.dim()))
+        s1 = xf.mean(dim=axes, keepdim=True)  # [B or 1, C, 1, ...]
+        d = xf - s1
+        v_c = (d * d).mean(dim=axes, keepdim=True)
+        a, b = gn_fold_moments(s1.flatten(1), v_c.flatten(1), self.weight.float(),
+                               self.bias.float(), self.num_groups, self.eps)
+        return x * a.reshape(s1.shape).to(x.dtype) + b.reshape(s1.shape).to(x.dtype)
 
 
 class LayerNormFp32(nn.LayerNorm):

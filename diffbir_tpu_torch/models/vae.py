@@ -1,9 +1,12 @@
-"""AutoencoderKL (SD f8 KL-VAE), NCHW torch modules, untiled.
+"""AutoencoderKL (SD f8 KL-VAE), NCHW torch modules.
 
 Counterpart of ``diffbir_tpu/models/vae.py``: GN(32, eps 1e-6) ResnetBlocks,
 the single-head mid attention (the d=512 site of the flash kernel), the
 asymmetric-pad downsample and double_z moments. The encoder's and decoder's
-``conv_out`` and the (post_)quant convs run in fp32.
+``conv_out`` and the (post_)quant convs run in fp32. ``gn_cross`` makes every
+GroupNorm of an Encoder or Decoder reduce over the batch axis too (the tiles
+of one image on the batch axis: the seam-free tiled VAE, which
+``models/vae_stream.py`` streams); it changes no state-dict key.
 """
 
 from __future__ import annotations
@@ -18,17 +21,17 @@ from ..ops.attention import attention
 from .layers import GroupNorm32, conv, nearest_upsample_2x
 
 
-def Norm(ch: int, device=None) -> GroupNorm32:
-    return GroupNorm32(ch, eps=1e-6, device=device)
+def Norm(ch: int, device=None, gn_cross: bool = False) -> GroupNorm32:
+    return GroupNorm32(ch, eps=1e-6, device=device, cross_batch=gn_cross)
 
 
 class ResnetBlock(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, dtype, device=None):
+    def __init__(self, in_ch: int, out_ch: int, dtype, device=None, gn_cross: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.norm1 = Norm(in_ch, device)
+        self.norm1 = Norm(in_ch, device, gn_cross)
         self.conv1 = conv(in_ch, out_ch, 3, **kw)
-        self.norm2 = Norm(out_ch, device)
+        self.norm2 = Norm(out_ch, device, gn_cross)
         self.conv2 = conv(out_ch, out_ch, 3, **kw)
         if in_ch != out_ch:
             self.nin_shortcut = conv(in_ch, out_ch, 1, padding=0, **kw)
@@ -45,10 +48,10 @@ class AttnBlock(nn.Module):
     """Single-head self-attention over the H*W tokens, 1x1-conv projections
     (applied as linears on the token layout, the same math)."""
 
-    def __init__(self, ch: int, dtype, device=None):
+    def __init__(self, ch: int, dtype, device=None, gn_cross: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.norm = Norm(ch, device)
+        self.norm = Norm(ch, device, gn_cross)
         self.q = conv(ch, ch, 1, padding=0, **kw)
         self.k = conv(ch, ch, 1, padding=0, **kw)
         self.v = conv(ch, ch, 1, padding=0, **kw)
@@ -94,10 +97,11 @@ class _Level(nn.Module):
     """One resolution level: ``block.{j}`` ResnetBlocks, then an optional
     ``downsample`` / ``upsample``."""
 
-    def __init__(self, in_ch: int, out_ch: int, n_blocks: int, resample, dtype, device=None):
+    def __init__(self, in_ch: int, out_ch: int, n_blocks: int, resample, dtype, device=None,
+                 gn_cross: bool = False):
         super().__init__()
         self.block = nn.ModuleList(
-            ResnetBlock(in_ch if j == 0 else out_ch, out_ch, dtype, device)
+            ResnetBlock(in_ch if j == 0 else out_ch, out_ch, dtype, device, gn_cross)
             for j in range(n_blocks))
         self.resample_name = None
         if resample is not None:
@@ -113,11 +117,11 @@ class _Level(nn.Module):
 
 
 class _Mid(nn.Module):
-    def __init__(self, ch: int, dtype, device=None):
+    def __init__(self, ch: int, dtype, device=None, gn_cross: bool = False):
         super().__init__()
-        self.block_1 = ResnetBlock(ch, ch, dtype, device)
-        self.attn_1 = AttnBlock(ch, dtype, device)
-        self.block_2 = ResnetBlock(ch, ch, dtype, device)
+        self.block_1 = ResnetBlock(ch, ch, dtype, device, gn_cross)
+        self.attn_1 = AttnBlock(ch, dtype, device, gn_cross)
+        self.block_2 = ResnetBlock(ch, ch, dtype, device, gn_cross)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block_2(self.attn_1(self.block_1(x)))
@@ -126,18 +130,18 @@ class _Mid(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, z_channels: int = 4, in_ch: int = 3,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, gn_cross: bool = False):
         super().__init__()
         n = len(ch_mult)
         self.conv_in = conv(in_ch, ch, 3, dtype=dtype, device=device)
         chans = [ch] + [ch * m for m in ch_mult]
         self.down = nn.ModuleList(
             _Level(chans[i], chans[i + 1], num_res_blocks,
-                   Downsample if i != n - 1 else None, dtype, device)
+                   Downsample if i != n - 1 else None, dtype, device, gn_cross)
             for i in range(n))
         c = chans[-1]
-        self.mid = _Mid(c, dtype, device)
-        self.norm_out = Norm(c, device)
+        self.mid = _Mid(c, dtype, device, gn_cross)
+        self.norm_out = Norm(c, device, gn_cross)
         self.conv_out = conv(c, 2 * z_channels, 3, dtype=torch.float32, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -151,20 +155,20 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, ch: int = 128, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, z_channels: int = 4, dtype=torch.float32,
-                 device=None):
+                 device=None, gn_cross: bool = False):
         super().__init__()
         n = len(ch_mult)
         c = ch * ch_mult[-1]
         self.conv_in = conv(z_channels, c, 3, dtype=dtype, device=device)
-        self.mid = _Mid(c, dtype, device)
+        self.mid = _Mid(c, dtype, device, gn_cross)
         # built in execution order (top level first), stored by level index
         levels = {}
         for i in reversed(range(n)):
             levels[i] = _Level(c, ch * ch_mult[i], num_res_blocks + 1,
-                               Upsample if i != 0 else None, dtype, device)
+                               Upsample if i != 0 else None, dtype, device, gn_cross)
             c = ch * ch_mult[i]
         self.up = nn.ModuleList(levels[i] for i in range(n))
-        self.norm_out = Norm(c, device)
+        self.norm_out = Norm(c, device, gn_cross)
         self.conv_out = conv(c, out_ch, 3, dtype=torch.float32, device=device)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:

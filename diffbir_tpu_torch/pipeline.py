@@ -1,6 +1,6 @@
 """Two-stage restoration pipeline: cleaner -> ControlLDM -> colour fix.
 
-Counterpart of ``diffbir_tpu/pipeline.py`` on its untiled, unchunked branch.
+Counterpart of ``diffbir_tpu/pipeline.py`` without its chunked dispatch.
 Public arrays are NHWC: uint8 LQ in, uint8 out, with [0, 1] images and
 [-1, 1] VAE images in between.
 
@@ -27,9 +27,21 @@ ids (SOT, EOT, zeros) and any other text raises ValueError; the JAX pipeline
 encodes every prompt as the empty prompt then, which drops the text
 silently.
 
+Tiling (the JAX size and tile policy): the condition pads to x64 untiled,
+to x8 when the VAE encoder or the diffusion is tiled; each tiling is
+switched off for an input smaller than its tile (decided on the padded
+size); the VAE encoder's tile must be a multiple of 8 and the diffusion's
+and the cleaner's of 64 (ValueError). The VAE tiles in "blend" or "sync_gn"
+mode (``cldm.vae_encode``/``vae_decode``); sync_gn falls back to blend at
+batch > 1. The tiled diffusion (``tiled_model_function``) runs each step's
+model call over latent tiles in groups of ``cldm_tiles_per_batch``,
+slicing the condition latent at each tile and repeating the text context
+per tile; hoisting is off there, as in JAX (the call batch changes per
+group). ``SwinIRPipeline`` tiles its cleaner with ``make_tiled_fn``.
+
 Not ported yet, and refused with NotImplementedError naming the option:
-tiling (cleaner, VAE, diffusion), turbo control caching and restoration
-guidance.
+turbo control caching (``control_interval``, ``turbo_encoder``) and
+restoration guidance.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from .sampler.dpms import DPMSolverSampler
 from .sampler.edm import EDMSampler
 from .sampler.spaced import SpacedSampler
 from .schedule import Schedule
+from .tiling import make_tiled_fn
 from .utils.common import (
     StageClock,
     bicubic_resize,
@@ -98,6 +111,32 @@ def model_function(cldm: ControlLDM, strength: float = 1.0,
     return model_fn
 
 
+def tile_model_function(cldm: ControlLDM, strength: float, lat_tile: int):
+    """The model function of one group of latent tiles: ``x_tiles`` [k B,
+    lat_tile, lat_tile, 4] (tile-major) at the latent corners
+    ``tile_coords``; each tile's condition latent sliced there, the text
+    context and the timestep repeated k times."""
+    def model_tile(x_tiles, t, c, tile_coords=()):
+        k = len(tile_coords)
+        c_img = torch.cat([c["c_img"][:, hi: hi + lat_tile, wi: wi + lat_tile]
+                           for hi, wi in tile_coords], dim=0)
+        c_txt = c["c_txt"].repeat(k, 1, 1)
+        return cldm(x_tiles, timestep_vector(t, x_tiles), {"c_txt": c_txt, "c_img": c_img},
+                    control_scales=strength)
+
+    return model_tile
+
+
+def tiled_model_function(cldm: ControlLDM, strength: float, tile_size: int, tile_stride: int,
+                         tiles_per_batch: int = 1) -> ModelFn:
+    """The tiled diffusion's ``model_fn``: each step's call over latent
+    tiles of ``tile_size`` / 8 at ``tile_stride`` / 8, ``tiles_per_batch``
+    tiles per model call, Gaussian-blended (``tiling.make_tiled_fn``)."""
+    lat_tile = tile_size // 8
+    return make_tiled_fn(tile_model_function(cldm, strength, lat_tile), lat_tile,
+                         tile_stride // 8, channel=4, tiles_per_batch=tiles_per_batch)
+
+
 def _pad_nhwc(x: torch.Tensor, ph: int, pw: int, mode: str) -> torch.Tensor:
     """Pad an NHWC batch at the bottom and right ("reflect" or "replicate")."""
     return F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode=mode).permute(0, 2, 3, 1)
@@ -121,7 +160,8 @@ class Pipeline:
     def set_output_size(self, lq_hw: Tuple[int, int]) -> None:
         self.output_size = lq_hw
 
-    def apply_cleaner(self, lq: torch.Tensor) -> torch.Tensor:
+    def apply_cleaner(self, lq: torch.Tensor, tiled: bool = False, tile_size: int = 512,
+                      tile_stride: int = 256) -> torch.Tensor:
         raise NotImplementedError
 
     def tokenize(self, prompt: str, bs: int) -> torch.Tensor:
@@ -167,23 +207,62 @@ class Pipeline:
         aug_noise: Optional[torch.Tensor] = None,
         noise_table: Optional[torch.Tensor] = None,
         clock: Optional[StageClock] = None,
+        vae_encoder_tiled: bool = False,
+        vae_encoder_tile_size: int = 256,
+        vae_decoder_tiled: bool = False,
+        vae_decoder_tile_size: int = 256,
+        vae_tile_mode: str = "blend",
+        cldm_tiled: bool = False,
+        cldm_tile_size: int = 512,
+        cldm_tile_stride: int = 256,
+        cldm_tiles_per_batch: int = 1,
+        control_interval: int = 1,
+        turbo_encoder: bool = False,
         **sampler_kwargs,
     ) -> torch.Tensor:
         """Stage 2 on a [0, 1] NHWC condition image -> [-1, 1] NHWC fp32.
 
         Noise comes from ``generator`` (start, augmentation, then the
         sampler's draws) or from ``x_T``, ``aug_noise`` (with ``noise_aug``)
-        and ``noise_table`` (for a sampler that draws) given in its place."""
+        and ``noise_table`` (for a sampler that draws) given in its place.
+        The tiling arguments follow the JAX ``apply_cldm`` (see the module's
+        notes); x_T and the noise then have the padded latent's shape."""
         if start_point_type not in ("noise", "cond"):
             raise ValueError(f"unknown start point {start_point_type!r}")
         clock = clock or StageClock(None, self.device)
         cldm = self.cldm
         bs, h0, w0, _ = cond_img.shape
-        cond_img = pad_to_multiples_of(cond_img, 64)
+        # pad by the requested tiling, then decide the tiny-input disables
+        # on the padded size (the JAX order)
+        cond_img = pad_to_multiples_of(cond_img, 8 if vae_encoder_tiled or cldm_tiled else 64)
+        if vae_encoder_tiled and min(cond_img.shape[1:3]) < vae_encoder_tile_size:
+            vae_encoder_tiled = False
+        if vae_encoder_tiled and vae_encoder_tile_size % 8 != 0:
+            raise ValueError("VAE encoder tile size must be a multiple of 8")
         h1, w1 = cond_img.shape[1] // 8, cond_img.shape[2] // 8
+        if cldm_tiled and (h1 < cldm_tile_size // 8 or w1 < cldm_tile_size // 8):
+            cldm_tiled = False
+        if cldm_tiled and cldm_tile_size % 64 != 0:
+            raise ValueError("Diffusion tile size must be a multiple of 64")
+        if vae_decoder_tiled and min(h1, w1) < vae_decoder_tile_size // 8:
+            vae_decoder_tiled = False
+        if control_interval > 1 and cldm_tiled:
+            raise ValueError(
+                "control_interval > 1 (turbo) is not supported with cldm_tiled — the per-tile "
+                "ControlNet calls cannot share one residual cache; drop one of the two flags")
+        if control_interval > 1 or turbo_encoder:
+            raise NotImplementedError("control_interval / turbo_encoder: the turbo control "
+                                      "cache is not ported yet")
+        # sync_gn tiling is batch 1 only: blend for larger batches (encoder and decoder)
+        tile_mode = vae_tile_mode if bs == 1 else "blend"
         sampler = build_sampler(sampler_type, self.schedule, rescale_cfg, **sampler_kwargs)
         use_cfg = cfg_scale != 1.0
-        cond = cldm.prepare_condition(cond_img, self.tokenize(pos_prompt, bs))
+        cond = cldm.prepare_condition(cond_img, self.tokenize(pos_prompt, bs),
+                                      tiled=vae_encoder_tiled, tile_size=vae_encoder_tile_size,
+                                      tile_mode=tile_mode)
+        if not cldm_tiled:
+            # the untiled UNet needs a latent of x8 (three downsamples)
+            cond["c_img"] = pad_to_multiples_of(cond["c_img"], 8)
         uncond = None
         if use_cfg:
             # the condition image is the same, so only the text differs
@@ -204,18 +283,23 @@ class Pipeline:
             cond = {**cond, "c_img": c_img}
             if uncond is not None:
                 uncond = {**uncond, "c_img": c_img}
-        tables = None
-        if self.hoist:
-            ctx_full = (cond["c_txt"] if uncond is None
-                        else torch.cat([cond["c_txt"], uncond["c_txt"]], dim=0))
-            tables = cldm.make_hoist_tables(ctx_full, sampler.model_ts(steps))
+        if cldm_tiled:
+            model_fn = tiled_model_function(cldm, strength, cldm_tile_size, cldm_tile_stride,
+                                            cldm_tiles_per_batch)
+        else:
+            tables = None
+            if self.hoist:
+                ctx_full = (cond["c_txt"] if uncond is None
+                            else torch.cat([cond["c_txt"], uncond["c_txt"]], dim=0))
+                tables = cldm.make_hoist_tables(ctx_full, sampler.model_ts(steps))
+            model_fn = model_function(cldm, strength, tables)
         clock.lap("hoist")
-        z = sampler.sample(model_function(cldm, strength, tables), start, cond, uncond,
-                           cfg_scale, steps,
+        z = sampler.sample(model_fn, start, cond, uncond, cfg_scale, steps,
                            generator=None if noise_table is not None else generator,
                            noise_table=noise_table)
         clock.lap("denoise")
-        x = cldm.vae_decode(z[:, :h1, :w1, :])
+        x = cldm.vae_decode(z[:, :h1, :w1, :], tiled=vae_decoder_tiled,
+                            tile_size=vae_decoder_tile_size // 8, tile_mode=tile_mode)
         clock.lap("decode")
         return x[:, :h0, :w0, :]
 
@@ -233,30 +317,23 @@ class Pipeline:
         noise_aug: int = 0,
         rescale_cfg: bool = False,
         cleaner_tiled: bool = False,
+        cleaner_tile_size: int = 512,
+        cleaner_tile_stride: int = 256,
         seed: int = 231,
         size_bucket: int = 0,
-        eta: float = 0.0,
-        s_churn: float = 0.0,
-        s_tmin: float = 0.0,
-        s_tmax: float = 300.0,
-        s_noise: float = 1.0,
-        order: int = 1,
         x_T: Optional[torch.Tensor] = None,
         aug_noise: Optional[torch.Tensor] = None,
         noise_table: Optional[torch.Tensor] = None,
         timings: Optional[Dict[str, float]] = None,
-        **unported,
+        **kwargs,
     ) -> np.ndarray:
         """lq: uint8 [B, H, W, 3] -> restored uint8 [B, *output_size, 3].
 
-        ``timings``: when a dict is given, seconds per stage (cleaner,
-        condition, hoist, denoise, decode, colour_fix) are added to it, each
-        stage ended by a device sync."""
-        if cleaner_tiled:
-            raise NotImplementedError("cleaner_tiled: tiling is not ported yet")
-        if unported:
-            raise NotImplementedError(
-                f"not ported yet (tiling, turbo, guidance): {sorted(unported)}")
+        ``kwargs``: ``apply_cldm``'s tiling arguments and the sampler's
+        (``eta``, ``s_churn``, ``s_tmin``, ``s_tmax``, ``s_noise``,
+        ``order``). ``timings``: when a dict is given, seconds per stage
+        (cleaner, condition, hoist, denoise, decode, colour_fix) are added
+        to it, each stage ended by a device sync."""
         clock = StageClock(timings, self.device)
         lq = np.asarray(lq)
         orig_hw = lq.shape[1:3]
@@ -266,7 +343,7 @@ class Pipeline:
                 lq = np.pad(lq, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
         lq_t = torch.as_tensor(lq, device=self.device).float().div(255.0).clamp(0, 1)
         self.set_output_size(tuple(lq_t.shape[1:3]))
-        cond_img = self.apply_cleaner(lq_t)
+        cond_img = self.apply_cleaner(lq_t, cleaner_tiled, cleaner_tile_size, cleaner_tile_stride)
         if any(s < self.min_cond_size for s in cond_img.shape[1:3]):
             raise ValueError(f"stage-1 output must be >= {self.min_cond_size}")
         ch, cw = cond_img.shape[1:3]
@@ -283,8 +360,7 @@ class Pipeline:
             cond_img, steps, strength, pos_prompt, neg_prompt, cfg_scale,
             start_point_type=start_point_type, sampler_type=sampler_type, noise_aug=noise_aug,
             rescale_cfg=rescale_cfg, generator=generator, x_T=x_T, aug_noise=aug_noise,
-            noise_table=noise_table, clock=clock, eta=eta, s_churn=s_churn, s_tmin=s_tmin,
-            s_tmax=s_tmax, s_noise=s_noise, order=order)
+            noise_table=noise_table, clock=clock, **kwargs)
         if size_bucket and (ch, cw) != tuple(sample.shape[1:3]):
             sample, cond_img = sample[:, :ch, :cw], cond_img[:, :ch, :cw]
         sample = wavelet_reconstruction((sample + 1) / 2, cond_img)
@@ -299,9 +375,10 @@ class Pipeline:
 
 
 class IdentityCleanerPipeline(Pipeline):
-    """Bicubic-only stage 1."""
+    """Bicubic-only stage 1 (the tiling arguments have nothing to tile)."""
 
-    def apply_cleaner(self, lq: torch.Tensor) -> torch.Tensor:
+    def apply_cleaner(self, lq: torch.Tensor, tiled: bool = False, tile_size: int = 512,
+                      tile_stride: int = 256) -> torch.Tensor:
         if min(lq.shape[1:3]) < self.min_cond_size:
             lq = resize_short_edge_to(lq, self.min_cond_size)
         return lq
@@ -317,9 +394,22 @@ class SwinIRPipeline(Pipeline):
         super().__init__(cldm, schedule, device, min_cond_size, tokenizer, hoist)
         self.cleaner = cleaner
 
-    def apply_cleaner(self, lq: torch.Tensor) -> torch.Tensor:
+    def _clean(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cleaner(x).clamp(0.0, 1.0)
+
+    def apply_cleaner(self, lq: torch.Tensor, tiled: bool = False, tile_size: int = 512,
+                      tile_stride: int = 256) -> torch.Tensor:
+        """Untiled: the LQ (its short edge resized to ``min_cond_size`` if
+        below it) padded to x64; tiled (when the LQ is at least a tile):
+        ``tile_size`` tiles at ``tile_stride``, each clipped, blended."""
+        if tiled and min(lq.shape[1:3]) >= tile_size:
+            if tile_size % 64 != 0:
+                raise ValueError("SwinIR tile size must be a multiple of 64")
+            out = make_tiled_fn(self._clean, tile_size, tile_stride)(lq)
+            if min(out.shape[1:3]) < self.min_cond_size:
+                out = resize_short_edge_to(out, self.min_cond_size)
+            return out
         if min(lq.shape[1:3]) < self.min_cond_size:
             lq = resize_short_edge_to(lq, self.min_cond_size)
         h0, w0 = lq.shape[1:3]
-        out = self.cleaner(pad_to_multiples_of(lq, 64)).clamp(0.0, 1.0)
-        return out[:, :h0, :w0, :]
+        return self._clean(pad_to_multiples_of(lq, 64))[:, :h0, :w0, :]

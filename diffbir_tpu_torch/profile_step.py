@@ -20,7 +20,12 @@ SwinIR cleaner, the v2.1 schedule with noise augmentation at 200, AdamW at
 lr 1e-5, batch 8 at 512x512. With ``--caption BITS`` (4, 8 or 16) it is one
 greedy decode step of LLaVA-1.5-7B (random bf16 weights from seed 0, the big
 linears on K5 at 4 bits, on K4 at 8) after a 624-row prefill, as
-``chip_smoke.py``'s captions run 59 of them. Prints
+``chip_smoke.py``'s captions run 59 of them. ``--request`` times whole
+512x512 requests instead; ``--request --tiled`` times 1024x1024 requests
+with the cleaner, the VAE and the diffusion tiled (the CLI's tile sizes:
+cleaner 512/256, VAE 256, diffusion 512/256, ``--tiles_per_batch`` latent
+tiles per model call), then times and profiles one tiled denoise step (the
+9 latent tiles of a 128x128 latent, folded CFG, no hoisting). Prints
 
 - host and device time per step, with the flash kernels (K1, and K2a/K2b in
   training) and with plain attention, in the order plain, kernel, kernel,
@@ -37,8 +42,8 @@ linears on K5 at 4 bits, on K4 at 8) after a 624-row prefill, as
 Run from the repository root on a machine with a card:
 
     python3 -m diffbir_tpu_torch.profile_step [--train | --caption 4 | --mode int8 |
-        --request] [--sampler edm_dpm++_3m_sde --steps 10] [--no-hoist]
-        [--trace step_trace.json]
+        --request [--tiled [--tiles_per_batch 3]]] [--sampler edm_dpm++_3m_sde --steps 10]
+        [--no-hoist] [--trace step_trace.json]
 """
 
 from __future__ import annotations
@@ -64,6 +69,9 @@ from .schedule import Schedule
 from .train import stage2
 
 LATENT, CFG, SEED = 64, 4.0, 0
+# the tiled request: a 1024x1024 condition, every tiling at the CLI's sizes
+TILED_SIZE = 1024
+TILED = dict(cleaner_tiled=True, vae_encoder_tiled=True, vae_decoder_tiled=True, cldm_tiled=True)
 TIMED_STEPS, TIMED_TRAIN_STEPS, PROFILED_STEPS = 10, 5, 3
 TRAIN_BATCH, TRAIN_LR, NOISE_AUG = 8, 1e-5, 200
 # the captioner's decode step: after a prompt of 35 + 576 + 13 rows
@@ -143,10 +151,52 @@ def build_step(seed: int, device: torch.device, mode: str = "default",
     return cldm, step
 
 
+def build_tiled_step(seed: int, device: torch.device, sampler: str = "spaced",
+                     steps: int = 50, tiles_per_batch: int = 1):
+    """A full-width bf16 ControlLDM and one denoise step of the tiled
+    1024x1024 request: the pipeline's ``tiled_model_function`` (latent tile
+    64 at stride 32, ``tiles_per_batch`` tiles a model call) on a 128x128
+    latent, folded CFG on the default prompts' stand-in ids, the condition
+    encoded by the tiled VAE, at the first timestep of the sampler's grid;
+    and the same step with the model function replaced by the identity
+    (the tiling's own slicing, weighting and blending alone)."""
+    from .pipeline import build_sampler, tiled_model_function
+    from .sampler.base import GuidedModel
+    from .tiling import make_tiled_fn
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device=device)
+    random_init_(cldm, gen).eval()
+    tokenizer = stand_in_tokenizer(seed)
+    pos, neg = (torch.as_tensor(tokenizer([text]), device=device)
+                for text in (POS_PROMPT, NEG_PROMPT))
+    with torch.no_grad():
+        img = torch.rand(1, TILED_SIZE, TILED_SIZE, 3, generator=gen, device=device)
+        cond = cldm.prepare_condition(img, pos, tiled=True)
+        uncond = dict(c_txt=cldm.encode_text(neg), c_img=cond["c_img"])
+    x = torch.randn(1, TILED_SIZE // 8, TILED_SIZE // 8, 4, generator=gen, device=device)
+    model = GuidedModel(tiled_model_function(cldm, 1.0, 512, 256, tiles_per_batch), cond, uncond)
+    t = float(np.max(build_sampler(sampler, Schedule.v21(), False).model_ts(steps)))
+
+    @torch.no_grad()
+    def step():
+        return model(x, t, CFG)
+
+    blend = GuidedModel(make_tiled_fn(lambda x_tiles, t, c: x_tiles, 64, 32, channel=4,
+                                      tiles_per_batch=tiles_per_batch), cond, uncond)
+
+    @torch.no_grad()
+    def blend_step():
+        return blend(x, t, CFG)
+
+    return step, blend_step
+
+
 def time_requests(seed: int, device: torch.device, sampler: str, steps: int,
-                  seeds=(1, 2, 3)) -> None:
-    """Whole 512x512 requests (``SwinIRPipeline.run``) after one warm-up:
-    seconds per request and per stage."""
+                  seeds=(1, 2, 3), tiles_per_batch=None) -> None:
+    """Whole 512x512 requests (``SwinIRPipeline.run``) after one warm-up, or
+    with ``tiles_per_batch`` tiled 1024x1024 ones: seconds per request and
+    per stage."""
     gen = torch.Generator(device=device).manual_seed(seed)
     cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device=device)
     random_init_(cldm, gen).eval()
@@ -157,8 +207,11 @@ def time_requests(seed: int, device: torch.device, sampler: str, steps: int,
     kw = dict(steps=steps, cfg_scale=CFG, pos_prompt=POS_PROMPT, neg_prompt=NEG_PROMPT)
     if sampler != "spaced":
         kw.update(sampler_type=sampler, eta=1.0)
-    lq = np.random.default_rng(seed).integers(0, 256, (1, 8 * LATENT, 8 * LATENT, 3),
-                                              dtype=np.uint8)
+    size = 8 * LATENT
+    if tiles_per_batch is not None:
+        size = TILED_SIZE
+        kw.update(TILED, cldm_tiles_per_batch=tiles_per_batch)
+    lq = np.random.default_rng(seed).integers(0, 256, (1, size, size, 3), dtype=np.uint8)
     pipe.run(lq, seed=0, **kw)
     for s in seeds:
         timings = {}
@@ -167,7 +220,8 @@ def time_requests(seed: int, device: torch.device, sampler: str, steps: int,
         pipe.run(lq, seed=s, timings=timings, **kw)
         dt = time.perf_counter() - t0
         split = ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
-        print(f"[request] {sampler} x {steps} steps, seed {s}: {dt:.4f} s ({split} s)")
+        print(f"[request] {size}x{size}{' tiled' if tiles_per_batch else ''}, {sampler} x "
+              f"{steps} steps, seed {s}: {dt:.4f} s ({split} s)")
 
 
 @dataclass
@@ -320,6 +374,10 @@ def main(argv=None) -> int:
                     help="the serving mode of the denoise step")
     ap.add_argument("--request", action="store_true",
                     help="time whole 512x512 requests instead of a step")
+    ap.add_argument("--tiled", action="store_true",
+                    help="with --request: tiled 1024x1024 requests, then a tiled denoise step")
+    ap.add_argument("--tiles_per_batch", type=int, default=1,
+                    help="latent tiles per model call of the tiled request")
     ap.add_argument("--sampler", default="spaced",
                     help="the sampler whose grid the step's hoisted tables hold")
     ap.add_argument("--steps", type=int, default=50, help="the sampler's step count")
@@ -333,9 +391,24 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     if args.request:
+        size = TILED_SIZE if args.tiled else 8 * LATENT
         print(f"[profile] {torch.cuda.get_device_name(0)}; SwinIR + ControlLDM sd21 bf16 "
-              f"requests at {8 * LATENT}x{8 * LATENT}")
-        time_requests(SEED, device, args.sampler, args.steps)
+              f"requests at {size}x{size}"
+              + (f", tiled, {args.tiles_per_batch} latent tiles a call" if args.tiled else ""))
+        time_requests(SEED, device, args.sampler, args.steps,
+                      tiles_per_batch=args.tiles_per_batch if args.tiled else None)
+        if not args.tiled:
+            return 0
+        step, blend_step = build_tiled_step(SEED, device, args.sampler, args.steps,
+                                            args.tiles_per_batch)
+        print(f"[profile] the tiled denoise step: 9 latent tiles of 64x64 over "
+              f"{TILED_SIZE // 8}x{TILED_SIZE // 8}, {args.tiles_per_batch} a model call "
+              f"(batch {2 * args.tiles_per_batch}, CFG {CFG} folded), not hoisted")
+        through_the_kernels(step, "tiled steps", args.trace)
+        p = profile_steps(blend_step, PROFILED_STEPS, None)
+        print(f"[profile] the same step's tiling alone (an identity model function): device "
+              f"busy {p['busy_ms_per_step']:.3f} ms per step in {p['kernels_per_step']:.0f} "
+              f"device kernels")
         return 0
     step_kw = dict(sampler=args.sampler, steps=args.steps, hoist=args.hoist)
     grid = f"{args.sampler} x {args.steps} grid, {'hoisted' if args.hoist else 'not hoisted'}"

@@ -3,7 +3,8 @@ the CPU: flash attention (K1 forward, K2a/K2b backward, K3 the prescaled-q
 forward), the int8 matmul (K4), the packed-int4 matmul (K5: its tile and
 GEMV forms), the fused ResBlock (K6: the tensor-core entry for bf16, the
 CUDA-core one for fp32) and the fused GEGLU FFN (K7); the build key; the serving modes'
-autograd and a small model; a small LLaVA captioner.
+autograd and a small model; a small model's pipeline, untiled and tiled; a
+small LLaVA captioner.
 
 These tests need a card: they skip without one. The GPU machine has no JAX,
 and ``tests/conftest.py`` imports it, so run them there without the conftest:
@@ -271,20 +272,14 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(q, k.cpu(), v)
 
 
-def test_small_fp32_pipeline_matches_cpu(cuda):
-    """A small fp32 model (head dim 64, so K1 runs at fp32) through the
-    pipeline on the card and on the CPU, same weights, noise and stand-in
-    prompt ids (the default negative prompt)."""
-    import numpy as np
-
+def _small_fp32_pair(cuda):
+    """A small fp32 ControlLDM (head dim 64, so K1 runs at fp32; a true f8
+    VAE) on the CPU and the same weights on the card."""
     from diffbir_tpu_torch.models.cldm import ControlLDM
     from diffbir_tpu_torch.models.clip import CLIPTextEncoder
     from diffbir_tpu_torch.models.layers import random_init_
     from diffbir_tpu_torch.models.unet import ControlNet, UNetModel
     from diffbir_tpu_torch.models.vae import AutoencoderKL
-    from diffbir_tpu_torch.pipeline import IdentityCleanerPipeline
-    from diffbir_tpu_torch.profile_step import stand_in_tokenizer
-    from diffbir_tpu_torch.schedule import Schedule
 
     kw = dict(model_channels=64, num_head_channels=64, channel_mult=(1, 2),
               attention_resolutions=(2, 1), context_dim=64, num_res_blocks=1)
@@ -298,21 +293,61 @@ def test_small_fp32_pipeline_matches_cpu(cuda):
     cpu = random_init_(small(), torch.Generator().manual_seed(3)).eval()
     gpu = small().to(cuda).eval()
     gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def _pipelines_on_both(cuda, lq, latent, steps=4, cfg=4.0, **tiles):
+    """apply_cldm's float output and run's uint8 output of the small pair's
+    IdentityCleanerPipeline on the CPU and on the card (same weights, x_T,
+    step noise and stand-in prompt ids: the default negative prompt), with
+    the K1 launches of each."""
+    from diffbir_tpu_torch.pipeline import IdentityCleanerPipeline
+    from diffbir_tpu_torch.profile_step import stand_in_tokenizer
+    from diffbir_tpu_torch.schedule import Schedule
+
     gen = torch.Generator().manual_seed(4)
-    steps, cfg = 4, 4.0
-    x_T = torch.randn(1, 8, 8, 4, generator=gen)
-    noise = torch.randn(steps, 1, 8, 8, 4, generator=gen)
-    lq = np.random.default_rng(5).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+    x_T = torch.randn(1, latent, latent, 4, generator=gen)
+    noise = torch.randn(steps, 1, latent, latent, 4, generator=gen)
     res = {}
-    for dev, model in ((torch.device("cpu"), cpu), (cuda, gpu)):
+    for dev, model in zip((torch.device("cpu"), cuda), _small_fp32_pair(cuda)):
         pipe = IdentityCleanerPipeline(model, Schedule.v21(), dev, min_cond_size=64,
                                        tokenizer=stand_in_tokenizer())
         cond_img = torch.as_tensor(lq, device=dev).float() / 255
         before = fa.KERNEL.launches
         with torch.no_grad():
-            flt = pipe.apply_cldm(cond_img, steps, 1.0, "", "", cfg, x_T=x_T, noise_table=noise)
-        out = pipe.run(lq, steps=steps, cfg_scale=cfg, x_T=x_T, noise_table=noise)
+            flt = pipe.apply_cldm(cond_img, steps, 1.0, "", "", cfg, x_T=x_T, noise_table=noise,
+                                  **tiles)
+        out = pipe.run(lq, steps=steps, cfg_scale=cfg, x_T=x_T, noise_table=noise, **tiles)
         res[dev.type] = (flt.cpu(), out, fa.KERNEL.launches - before)
+    return res
+
+
+def test_small_fp32_pipeline_matches_cpu(cuda):
+    """A small fp32 model (head dim 64, so K1 runs at fp32) through the
+    pipeline on the card and on the CPU, same weights, noise and stand-in
+    prompt ids (the default negative prompt)."""
+    import numpy as np
+
+    lq = np.random.default_rng(5).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+    res = _pipelines_on_both(cuda, lq, 8)
+    assert res["cpu"][2] == 0 and res["cuda"][2] > 0
+    assert bool(torch.isfinite(res["cuda"][0]).all())
+    assert (res["cpu"][0] - res["cuda"][0]).abs().max().item() <= 1e-3
+    assert np.abs(res["cpu"][1].astype(int) - res["cuda"][1].astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("mode", ["blend", "sync_gn"])
+def test_small_fp32_tiled_pipeline_matches_cpu(cuda, mode):
+    """The tiled path on the card against the CPU: a 128x128 condition, the
+    VAE encoder and decoder tiled at 64 pixels in ``mode``, 9 latent tiles
+    of 8x8 per step in groups of 4 (the last one short)."""
+    import numpy as np
+
+    lq = np.random.default_rng(6).integers(0, 256, (1, 128, 128, 3), dtype=np.uint8)
+    res = _pipelines_on_both(cuda, lq, 16, vae_encoder_tiled=True, vae_encoder_tile_size=64,
+                             vae_decoder_tiled=True, vae_decoder_tile_size=64,
+                             vae_tile_mode=mode, cldm_tiled=True, cldm_tile_size=64,
+                             cldm_tile_stride=32, cldm_tiles_per_batch=4)
     assert res["cpu"][2] == 0 and res["cuda"][2] > 0
     assert bool(torch.isfinite(res["cuda"][0]).all())
     assert (res["cpu"][0] - res["cuda"][0]).abs().max().item() <= 1e-3

@@ -11,8 +11,9 @@
   PNG equal to a direct ``pipeline.run`` of the same request;
 - ``python -m diffbir_tpu_torch.inference --device cpu`` (run in process)
   with the CLI's defaults but 2 steps, prompts through a stand-in merges
-  file; unported flags, a missing weight file and a missing merges file
-  raise, naming them, and without a card the CLI refuses to run.
+  file; the tiling flags (cleaner, VAE, diffusion) reach ``pipeline.run``;
+  unported flags, a missing weight file and a missing merges file raise,
+  naming them, and without a card the CLI refuses to run.
 """
 
 import csv
@@ -190,11 +191,39 @@ def test_loop_names_seeds_prompt_log_and_direct_run(tiny_cli):
     assert [r[0] for r in rows[1:]] == ["lq_0.png", "lq_1.png", "lq_2.png", "lq.png"]
 
 
-@pytest.mark.parametrize("flag", [["--cldm_tiled"], ["--control_interval", "2"],
-                                  ["--guidance"], ["--fast_gelu"], ["--vae_decoder_tiled"]])
+@pytest.mark.parametrize("flag", [["--control_interval", "2"], ["--guidance"], ["--fast_gelu"]])
 def test_unported_flags_raise_naming_the_flag(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         main(_cli(tmp_path, *flag))
+
+
+TILE_FLAGS = ["--cleaner_tiled", "--cleaner_tile_size", "64", "--cleaner_tile_stride", "32",
+              "--vae_encoder_tiled", "--vae_encoder_tile_size", "64",
+              "--vae_decoder_tiled", "--vae_decoder_tile_size", "64",
+              "--cldm_tiled", "--cldm_tile_size", "64", "--cldm_tile_stride", "32"]
+
+
+@pytest.mark.parametrize("mode,per", [("blend", 1), ("sync_gn", 4)])
+def test_cli_tiling_flags_reach_the_pipeline(tiny_cli, mode, per):
+    """The CLI with every tiling flag on a 128x128 condition (--upscale 4):
+    9 cleaner tiles, 9 blend or 4 sync_gn VAE tiles, 9 latent tiles per
+    step in groups of ``per``; the PNG equals a direct ``pipeline.run``
+    with the same tile arguments, and differs from the untiled request."""
+    flags = TILE_FLAGS + ["--vae_tile_mode", mode, "--cldm_tiles_per_batch", str(per),
+                          "--upscale", "4"]
+    loop = main(_cli(tiny_cli, *flags))
+    out = read_png(str(tiny_cli / "out" / "lq.png"))
+    assert out.shape == (128, 128, 3) and out.std() > 1.0
+    lq = loop.after_load_lq(read_rgb(str(tiny_cli / "in" / "lq.png")))
+    a = loop.args
+    tiles = dict(cleaner_tiled=True, cleaner_tile_size=64, cleaner_tile_stride=32,
+                 vae_encoder_tiled=True, vae_encoder_tile_size=64, vae_decoder_tiled=True,
+                 vae_decoder_tile_size=64, vae_tile_mode=mode, cldm_tiled=True,
+                 cldm_tile_size=64, cldm_tile_stride=32, cldm_tiles_per_batch=per)
+    run = dict(steps=2, pos_prompt=a.pos_prompt, neg_prompt=a.neg_prompt, cfg_scale=a.cfg_scale,
+               sampler_type=a.sampler, seed=a.seed, eta=a.eta, s_tmax=a.s_tmax, order=a.order)
+    np.testing.assert_array_equal(loop.pipeline.run(lq[None], **run, **tiles)[0], out)
+    assert np.any(loop.pipeline.run(lq[None], **run)[0] != out)
 
 
 def test_cli_refusals(tiny_cli, monkeypatch):

@@ -8,6 +8,8 @@ and to the port through ``weights.convert.flax_to_state_dict`` with
 Tolerance: max abs error <= 1e-4 * max(1, max |ref|).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,14 @@ from diffbir_tpu_torch.models.unet import ControlNet, UNetModel
 from diffbir_tpu_torch.models.vae import AutoencoderKL
 from diffbir_tpu_torch.ops import flash_attention as port_flash
 from diffbir_tpu_torch.weights.convert import convert_leaf, flax_to_state_dict
+
+# The suite runs in several pytest workers on one host, and every worker
+# imports this module while it collects. torch's default of one OpenMP
+# thread per core in each worker oversubscribes the host and slows every
+# worker, the JAX ones too; two threads each, unless OMP_NUM_THREADS says
+# otherwise.
+if "OMP_NUM_THREADS" not in os.environ:
+    torch.set_num_threads(min(torch.get_num_threads(), 2))
 
 # head dim 64 (so self-attention takes the flash dispatch), two levels
 UNET_KW = dict(model_channels=64, num_head_channels=64, channel_mult=(1, 2),

@@ -173,9 +173,7 @@ def test_prompt_text_without_a_tokenizer_raises(cldm_pair, lq):
     assert out.shape == (1, 64, 64, 3)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(cleaner_tiled=True), dict(vae_decoder_tiled=True), dict(control_interval=2),
-])
+@pytest.mark.parametrize("kwargs", [dict(control_interval=2)])
 def test_unported_options_raise(identity_pair, lq, kwargs):
     _, tp = identity_pair
     with pytest.raises(NotImplementedError):
