@@ -8,8 +8,9 @@ Phases (any failure exits non-zero before the last line is printed):
      convolutions, so fp32 comparisons are exact-math comparisons.
   1. build every kernel from diffbir_tpu_torch/csrc, one nvcc per source, all
      started together: K1/K3 (flash forward: the tensor-core entries for
-     bf16 at d = 64 and 128, the CUDA-core entries K1_cc/K3_cc for fp32 and
-     d = 256/512), K2a/K2b (flash backward: the tensor-core entries for bf16
+     bf16 at d = 64 and 128, the wide tensor-core K1_wide for bf16 at d =
+     512, the CUDA-core entries K1_cc/K3_cc for fp32, d = 256 and K3 at d =
+     512), K2a/K2b (flash backward: the tensor-core entries for bf16
      at d = 64 and 128, the CUDA-core entries K2a_cc/K2b_cc for fp32 and d =
      256/512), K4 (int8 matmul: the tensor-core tile form, the GEMV form
      K4_gemv, the CUDA-core entry K4_cc), K5 (packed-int4 matmul: the same
@@ -19,17 +20,21 @@ Phases (any failure exits non-zero before the last line is printed):
      HGMMA/HMMA instructions in the tensor-core kernels (cuobjdump -sass,
      where the toolkit has it).
   2. K1 against its plain PyTorch version at the serving shapes, the
-     training shapes (with lse), the VAE's d = 512 shapes (at 8192 tokens,
-     where the dispatch sends them to flash, and below), the captioner's
-     vision tower ([1,577,16,64]), ragged, Sq != Skv, d = 128, fp32 and
-     strided cases, each saying by counter which entry ran (``fwd_entries``);
-     a tensor-core K1 that skips the last kv tile must fail the o and lse
-     limits; median times of the entry, the plain version and the library
-     call beside the bound; at [2,4096,5,64], [8,4096,5,64] with lse and
-     [1,577,16,64] the CUDA-core entry on the same inputs too, with TFLOP/s;
-     then K1's CUDA-core entry where a path launches it (the untiled VAE's
-     d = 512 mid-block at 1024x1024, [1,16384,1,512] bf16): against its
-     plain version, beside SDPA (the backend it took named) and the bound.
+     training shapes (with lse), the VAE's d = 512 shapes (on K1_wide: from
+     FLASH_MIN_WIDE = 4096 tokens, where the dispatch sends them to flash,
+     and a ragged one below), the captioner's vision tower ([1,577,16,64]),
+     ragged, Sq != Skv, d = 128, fp32 and strided cases, each saying by
+     counter which entry ran (``fwd_entries``); a tensor-core K1 that skips
+     the last kv tile must fail the o and lse limits; median times of the
+     entry, the plain version and the library call beside the bound (at d =
+     512 the reading behind FLASH_MIN_WIDE: K1_wide against plain); at
+     [2,4096,5,64], [8,4096,5,64] with lse and [1,577,16,64] the CUDA-core
+     entry on the same inputs too, with TFLOP/s; then K1_wide where the
+     untiled VAE's d = 512 mid-block runs it at 1024x1024 ([1,16384,1,512]
+     bf16) and at 1024x512 ([1,8192,1,512]): one K1_wide launch each, o and
+     lse against the plain version, beside SDPA (the backend it took named),
+     the bound and, at 16384 tokens, the CUDA-core entry on the same inputs;
+     the entry run without its last kv tile must fail the o and lse limits.
   3. K1 with its logsumexp, K2a (dq) and K2b (dk, dv) against their plain
      versions at the training shapes (batch 8), ragged cases (Sq and Skv
      multiples of neither tile, Sq != Skv, less than one tile), a strided
@@ -116,8 +121,9 @@ Phases (any failure exits non-zero before the last line is printed):
      [tiled_request]: first at full width on the model of phase 5, one
      denoise step's tiled model call (9 latent tiles of 64x64 over 128x128,
      3 a call, three seeds) against a per-tile loop written here (limit
-     TILED_CALL_TOL x max|ref|; planted fault: every tile handed tile 0's
-     hint), the streamed sync_gn decode of a 128x128 latent against
+     TILED_CALL_TOL x max|ref|) and each tile's rows of one call bit-equal
+     to a call that repeats that tile (planted fault for both: every tile
+     handed tile 0's hint), the streamed sync_gn decode of a 128x128 latent against
      Decoder(gn_cross=True) on the stacked tiles (limit BF16_TOL x
      max|ref|; planted fault: per-tile GroupNorm statistics), and the
      sync_gn VAE's peak memory streamed against the gn_cross modules on the
@@ -125,7 +131,7 @@ Phases (any failure exits non-zero before the last line is printed):
      on a seeded 256x256 PNG at --upscale 4 (a 1024x1024 condition) in six
      variants (TILED_VARIANTS: every tiling, once more bit-identical; 3
      tiles a call; the sync_gn VAE; the diffusion alone tiled; untiled;
-     the int8 flags): exact launches (K1_cc 2 where the VAE is untiled),
+     the int8 flags): exact launches (K1_wide 2 where the VAE is untiled),
      seconds per stage, peak device memory (the tiled one below the
      untiled), the PNG's size.
  10. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
@@ -138,8 +144,8 @@ Phases (any failure exits non-zero before the last line is printed):
      K1+K2 against the same through plain attention, and the same with the
      attention sites' q/k/v gradients dropped must fail the limits.
 The second-to-last line is a JSON list of the kernels, every "ms" and
-"library_ms" the median of single host calls timed by CUDA events (K1_cc's
-at [1,16384,1,512], the shape its path gives it); K4-K7
+"library_ms" the median of single host calls timed by CUDA events (K1_wide's
+at [1,16384,1,512], the untiled 1024x1024 VAE's mid-block); K4-K7
 add "device_ms" and "library_device_ms", the device time per call of
 launches run back to back (K6 also "conv_library_device_ms", the site's two
 bf16 cuDNN convolutions alone). The last line is {"ok": true, "device":
@@ -166,18 +172,23 @@ SEEDS = (1, 2, 3)
 # sums in another order, ~1e-6 relative.
 BF16_TOL, FP32_TOL, MODEL_REL_TOL = 2.0 ** -6, 1e-4, 5e-2
 # self-attention sites per denoise step: UNet 6 in + 1 mid + 9 out,
-# ControlNet 6 in + 1 mid, each called once at batch 2 under folded CFG. The
-# VAE's d = 512 mid-block attention (encode and decode, 4096 tokens at
-# 512x512) takes plain math below FLASH_MIN_WIDE tokens, so no K1.
+# ControlNet 6 in + 1 mid, each called once at batch 2 under folded CFG.
 K1_SITES_PER_STEP = 23
 K1_PER_REQUEST = K1_SITES_PER_STEP * STEPS
+# The VAE's d = 512 mid-block attention, once in the encoder and once in the
+# decoder of a request, goes to flash from FLASH_MIN_WIDE = 4096 latent
+# tokens (a 512x512 condition and larger) and runs on the wide tensor-core
+# K1 (K1_wide); a tiled VAE's tiles (1024-2916 tokens) take plain math.
+K1_WIDE_PER_REQUEST = 2
 # Training step: gradients reach the 7 ControlNet sites and the 9 UNet
 # output-block sites, not the UNet's 6 input and 1 middle sites (control is
 # added after the middle block). K1 runs at all 23 sites in the forward, and
 # again at the 16 sites with gradients when checkpointing recomputes them;
-# the frozen VAE encodes take plain math.
+# the frozen VAE encodes the batch's gt and its cleaned lq, [8,4096,1,512]
+# each, on K1_wide without a gradient.
 K2_SITES_PER_TRAIN_STEP = 7 + 9
 K1_PER_TRAIN_STEP = K1_SITES_PER_STEP + K2_SITES_PER_TRAIN_STEP
+K1_WIDE_PER_TRAIN_STEP = 2
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 8, 2, 5
 # kernel vs plain attention, one step's ControlNet gradient at batch 2 in
 # bf16: both paths round every activation and gradient to bf16 and differ
@@ -260,11 +271,11 @@ K4_PER_HOIST = KV_SITES + sum(n for _, n in EMB_SITES)
 # FFN + packed flash) and "int8" (int8 dense + fused ResBlock on int8 convs +
 # packed flash).
 PER_REQUEST = {
-    "serve": {"K1": K1_PER_REQUEST},
+    "serve": {"K1": K1_PER_REQUEST, "K1_wide": K1_WIDE_PER_REQUEST},
     "serve_fused": {"K3": K3_PER_CALL * STEPS, "K6": K6_PER_CALL * STEPS,
-                    "K7": K7_PER_CALL * STEPS},
+                    "K7": K7_PER_CALL * STEPS, "K1_wide": K1_WIDE_PER_REQUEST},
     "serve_int8": {"K3": K3_PER_CALL * STEPS, "K4": K4_PER_STEP * STEPS + K4_PER_HOIST,
-                   "K6": K6_PER_CALL * STEPS},
+                   "K6": K6_PER_CALL * STEPS, "K1_wide": K1_WIDE_PER_REQUEST},
 }
 # The CLI's default request (python -m diffbir_tpu_torch.inference --task sr
 # --upscale 4 on a 128x128 PNG: 10 steps of edm_dpm++_3m_sde at CFG 6.0, a
@@ -273,9 +284,10 @@ PER_REQUEST = {
 # 11 timesteps of the EDM grid.
 CLI_STEPS, CLI_LQ, CLI_UPSCALE = 10, 128, 4
 CLI_PATHS = {
-    "cli_request": ({"K1": K1_SITES_PER_STEP * CLI_STEPS}, []),
+    "cli_request": ({"K1": K1_SITES_PER_STEP * CLI_STEPS, "K1_wide": K1_WIDE_PER_REQUEST}, []),
     "cli_request_int8": ({"K3": K3_PER_CALL * CLI_STEPS, "K6": K6_PER_CALL * CLI_STEPS,
-                          "K4": K4_PER_STEP * CLI_STEPS + K4_PER_HOIST},
+                          "K4": K4_PER_STEP * CLI_STEPS + K4_PER_HOIST,
+                          "K1_wide": K1_WIDE_PER_REQUEST},
                          ["--quant_dense", "--fused_resblock", "--quant_conv"]),
 }
 # [tiled_request]: the CLI on a seeded 256x256 PNG at --upscale 4, a 1024x1024
@@ -284,8 +296,8 @@ CLI_PATHS = {
 # 49 + 49 blend VAE tiles (sync_gn: 16 + 16), 9 latent tiles of 64x64 per
 # step, each group of tiles one model call at batch 2 x tiles_per_batch (not
 # hoisted: 23 K1 a call). An untiled VAE runs its d = 512 mid-block on the
-# 128x128 latent's 16384 tokens: flash, on K1's CUDA-core entry (K1_cc),
-# once in the encoder and once in the decoder. Variant f: b with the int8
+# 128x128 latent's 16384 tokens: flash, on K1_wide, once in the encoder and
+# once in the decoder. Variant f: b with the int8
 # flags, 285 K4 a call (in-loop: the 32 timestep rows of batch 6 on the
 # GEMV form, the rest on the tile form), 32 K6 and 23 K3.
 TILED_LQ = 256
@@ -294,7 +306,12 @@ TILED_ALL = ["--cleaner_tiled", "--vae_encoder_tiled", "--vae_decoder_tiled", "-
 CLDM_TILES = 9
 # the tiled model call's check, one step at each seed; at three tiles a
 # call (batch 6) against one tile a call (batch 2) it read 0.78-0.89 of
-# BF16_TOL x max|ref| on the H100 over these seeds, its planted fault 41x
+# BF16_TOL x max|ref| on the H100 over these seeds, its planted fault 41x.
+# A row's value depends on its batch position, not on the other rows: the
+# bf16 3x3 convolutions at the 8x8 level (cuDNN) round the same image
+# another way at another position (python3 -m diffbir_tpu_torch.batch_rows);
+# so the call is also held, bit for bit, to calls that repeat one tile, at
+# the same position.
 TILED_CALL_SEEDS = (13, 14, 15)
 TILED_CALL_TOL = 4 * BF16_TOL
 # outputs at which the sync_gn VAE's memory is read, streamed and stacked
@@ -306,15 +323,17 @@ TILED_VARIANTS = {
     "b": (TILED_ALL + ["--cldm_tiles_per_batch", "3"],
           {"K1": TILED_CALLS // 3 * K1_SITES_PER_STEP}),
     "c": (TILED_ALL + ["--vae_tile_mode", "sync_gn"], {"K1": TILED_CALLS * K1_SITES_PER_STEP}),
-    "d": (["--cldm_tiled"], {"K1": TILED_CALLS * K1_SITES_PER_STEP, "K1_cc": 2}),
-    "e": ([], {"K1": CLI_STEPS * K1_SITES_PER_STEP, "K1_cc": 2}),
+    "d": (["--cldm_tiled"], {"K1": TILED_CALLS * K1_SITES_PER_STEP,
+                             "K1_wide": K1_WIDE_PER_REQUEST}),
+    "e": ([], {"K1": CLI_STEPS * K1_SITES_PER_STEP, "K1_wide": K1_WIDE_PER_REQUEST}),
     "f": (TILED_ALL + ["--cldm_tiles_per_batch", "3"] + INT8_FLAGS,
           {"K3": TILED_CALLS // 3 * K3_PER_CALL, "K6": TILED_CALLS // 3 * K6_PER_CALL,
            "K4": TILED_CALLS // 3 * K4_TILE_PER_CALL,
            "K4_gemv": TILED_CALLS // 3 * K4_GEMV_PER_CALL}),
 }
-# the VAE's mid-block attention of an untiled 1024x1024 request
-K1_WIDE = (1, TILED_SIZE ** 2 // 64, 1, 512)
+# the VAE's mid-block attention of an untiled request at 1024x1024 and at
+# 1024x512 (8192 latent tokens)
+VAE_MID_SHAPES = ((1, TILED_SIZE ** 2 // 64, 1, 512), (1, 8192, 1, 512))
 # the other samplers of the CLI, one 256x256 request each, twice
 SAMPLER_SIZE, SAMPLER_STEPS = 256, 4
 MODE_SEEDS = (1, 2)
@@ -337,6 +356,7 @@ CAPTION_PATHS = {
                      "K4_gemv": QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION},
     "caption_bf16": {"K1": K1_PER_CAPTION},
     "captioned_request": {"K1": K1_PER_CAPTION + K1_PER_REQUEST,
+                          "K1_wide": K1_WIDE_PER_REQUEST,
                           "K5": QUANT_PREFILL_PER_CAPTION,
                           "K5_gemv": QUANT_PER_CAPTION - QUANT_PREFILL_PER_CAPTION},
 }
@@ -477,7 +497,7 @@ def phase_build():
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {kernel.source.name}:", line.strip())
-    tensor_core_sass(_cuda, "K1", ("flash_fwd_tc_kernel",))
+    tensor_core_sass(_cuda, "K1", ("flash_fwd_tc_kernel", "flash_fwd_wide_kernel"))
     tensor_core_sass(_cuda, "K2a", ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"))
     tensor_core_sass(_cuda, "K4", ("quant_matmul_tc_kernel",))
     tensor_core_sass(_cuda, "K5", ("int4_tc_kernel",))
@@ -518,7 +538,8 @@ def tensor_core_sass(_cuda, key: str, names) -> None:
             ) if args else ""
             print(f"[build] SASS {name}<{inst}>: {hgmma} HGMMA, {hmma} HMMA")
             check(hgmma > 0, f"{f} has no wgmma instruction")
-    cores = [c for f, c in counts.items() if "_tc_" not in f]
+    cores = [c for f, c in counts.items()
+             if "_tc_" not in f and not any(name in f for name in names)]
     print(f"[build] SASS of the {len(cores)} CUDA-core instances in {lib.name}: "
           f"{sum(c[0] for c in cores)} HGMMA, {sum(c[1] for c in cores)} HMMA")
 
@@ -564,7 +585,7 @@ def phase_kernel(fa):
     each on the entry that ``fwd_entries`` names (by counter); at the three
     headline shapes the CUDA-core entry on the same inputs and the planted
     fault too. Returns the kernel lines' numbers of K1 and K1_cc at
-    [2,4096,5,64] bf16."""
+    [2,4096,5,64] bf16 and the largest o error of K1_wide."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -580,8 +601,9 @@ def phase_kernel(fa):
              ("strided", bf, False)]
     # the UNet's serving and training shapes and the vision tower's
     headline_shapes = ((2, 4096, 4096, 5, 64), (8, 4096, 4096, 5, 64), (1, 577, 577, 16, 64))
-    entries = ("K1", "K1_cc")
-    max_err, numbers = {"K1": 0.0, "K1_cc": 0.0}, {}
+    entries = {fa.KERNEL_TC: "K1", fa.KERNEL_WIDE_TC: "K1_wide", fa.KERNEL: "K1_cc"}
+    max_err, numbers = {key: 0.0 for key in entries.values()}, {}
+    wide = []  # (label, Sq, K1_wide ms, plain ms) at d = 512
     for shape, dtype, with_lse in cases:
         q, k, v = qkv_case(gen, shape, dtype)
         b, sq, h, d = q.shape
@@ -600,12 +622,12 @@ def phase_kernel(fa):
                 return fa.flash_attention_lse_ref(q, k, v)
             return fa.flash_attention_ref(q, k, v)
 
-        before = {n: KERNELS[n].launches for n in entries}
+        before = {n: KERNELS[n].launches for n in entries.values()}
         outs = run()
         torch.cuda.synchronize()
-        moved = {n: KERNELS[n].launches - before[n] for n in entries}
-        key = "K1" if fa.fwd_entries(q) is fa.KERNEL_TC else "K1_cc"
-        check(moved == {n: int(n == key) for n in entries},
+        moved = {n: KERNELS[n].launches - before[n] for n in entries.values()}
+        key = entries[fa.fwd_entries(q)]
+        check(moved == {n: int(n == key) for n in entries.values()},
               f"K1 at {label} launched {moved}, expected one launch of {key}")
         outs = outs if with_lse else (outs,)
         refs = plain() if with_lse else (plain(),)
@@ -623,6 +645,8 @@ def phase_kernel(fa):
               ", ".join(f"{n} max_abs_err {e:.3e}, limit {lim:.3e}" for n, (e, lim) in errs.items())
               + f" ({tol:g} x max|ref|, lse {FP32_TOL:g}); {key} {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if key == "K1_wide":
+            wide.append((label, sq, ms, plain_ms))
         if shape in headline_shapes:
             cc = run(fa.KERNEL)
             cc_errs = fwd_errors(cc if with_lse else (cc,), refs, tol)
@@ -648,9 +672,16 @@ def phase_kernel(fa):
                 numbers = {"K1": {"ms": ms, **common}, "K1_cc": {"ms": cc_ms, **common}}
         del q, k, v, outs, refs
         torch.cuda.empty_cache()
-    for key in entries:
+    from diffbir_tpu_torch.ops.attention import FLASH_MIN_WIDE
+
+    faster = all(ms < plain_ms for _, sq, ms, plain_ms in wide if sq >= FLASH_MIN_WIDE)
+    print(f"[kernel] d = 512 goes to flash from FLASH_MIN_WIDE = {FLASH_MIN_WIDE} tokens; "
+          "K1_wide / plain ms: " + "; ".join(f"{label} {ms:.4f} / {plain_ms:.4f}"
+                                              for label, _, ms, plain_ms in wide)
+          + f"; K1_wide faster at every size from there: {'yes' if faster else 'no'}")
+    for key in ("K1", "K1_cc"):
         numbers[key]["max_abs_err"] = max_err[key]
-    return numbers
+    return numbers, max_err["K1_wide"]
 
 
 def sdpa_backends(q, k, v, out) -> list:
@@ -674,45 +705,66 @@ def sdpa_backends(q, k, v, out) -> list:
 
 
 def phase_k1_wide(fa):
-    """K1's CUDA-core entry (K1_cc) where a path launches it: the VAE's
-    d = 512 mid-block attention on the 16384 tokens of an untiled 1024x1024
-    request, [1,16384,1,512] bf16, by counter on that entry, against its
-    plain version (its fp32 logits take 1 GiB), with the library call
-    (SDPA; the backend it took named) and the bound beside. Returns K1_cc's
-    kernel-line numbers."""
+    """K1_wide where the untiled VAE's d = 512 mid-block attention runs it,
+    at each shape of VAE_MID_SHAPES: one launch of that entry (by counter),
+    o within BF16_TOL and lse within FP32_TOL x max|ref| of the plain
+    version (its fp32 logits take 1 GiB at 16384 tokens), the entry run
+    without its last kv tile failing both limits, and its time beside the
+    plain version's, the library call's (SDPA; the backend it took named),
+    the bound and, at the first shape, the CUDA-core entry's on the same
+    inputs. Returns K1_wide's kernel-line numbers at the first shape."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    b, s, h, d = K1_WIDE
-    q, k, v = qkv_case(gen, (b, s, s, h, d), torch.bfloat16)
-    label = "x".join(map(str, q.shape))
-    check(fa.fwd_entries(q) is fa.KERNEL, f"K1 at {label} is not on its CUDA-core entry")
-    before = counts()
-    out = fa.flash_attention_fwd(q, k, v)
-    torch.cuda.synchronize()
-    moved = launched_since(before)
-    check(moved == {"K1_cc": 1}, f"K1 at {label} launched {moved}, expected one K1_cc")
-    ref = fa.flash_attention_ref(q, k, v)
-    err = hold(f"K1_cc at {label}", out, ref, BF16_TOL)
-    print(f"[kernel] K1_cc {label} bf16: {show(out, ref)}")
-    del ref
-    torch.cuda.empty_cache()
-    ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v), 5, 1)
-    plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v), 3, 1)
-    lib = sdpa_fwd(q, k, v)
-    backends = sdpa_backends(q, k, v, lib)
-    lib_ms = median_ms(lambda: sdpa_fwd(q, k, v), 5, 1)
-    bms, by = bound_ms(2, b, h, s, s, d, torch.bfloat16, nbytes(q, k, v, out))
-    tflops = 4.0 * b * h * s * s * d / 1e9
-    print(f"[kernel] K1_cc {label} bf16 (the untiled VAE mid-block at {TILED_SIZE}^2): "
-          f"{ms:.4f} ms ({tflops / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
-          f"(SDPA, backend {'/'.join(backends) or 'not identified'}) {lib_ms:.4f} ms, bound "
-          f"{bms:.4f} ms ({by}; {bms / ms:.1%} of it)")
-    del q, k, v, out, lib
-    torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
-            "bound_by": by, "max_abs_err": err, "shape": label,
-            "library": "SDPA " + ("/".join(backends) or "backend not identified")}
+    numbers = None
+    for b, s, h, d in VAE_MID_SHAPES:
+        q, k, v = qkv_case(gen, (b, s, s, h, d), torch.bfloat16)
+        label = "x".join(map(str, q.shape))
+        check(fa.fwd_entries(q) is fa.KERNEL_WIDE_TC, f"K1 at {label} is not on K1_wide")
+        before = counts()
+        outs = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        torch.cuda.synchronize()
+        moved = launched_since(before)
+        check(moved == {"K1_wide": 1}, f"K1 at {label} launched {moved}, expected one K1_wide")
+        refs = fa.flash_attention_lse_ref(q, k, v)
+        errs = fwd_errors(outs, refs, BF16_TOL)
+        for n, (err, limit) in errs.items():
+            check(err <= limit, f"K1_wide {n} disagrees with its plain version at {label}: "
+                  f"{err} > {limit}")
+        faulty = fa.launch_fwd(fa.KERNEL_WIDE_TC, q, k[:, :-64], v[:, :-64], True)
+        torch.cuda.synchronize()
+        ratios = {n: e / lim for n, (e, lim) in fwd_errors(faulty, refs, BF16_TOL).items()}
+        print(f"[kernel] K1_wide {label} bf16: " + ", ".join(
+            f"{n} max_abs_err {e:.3e}, limit {lim:.3e}" for n, (e, lim) in errs.items())
+            + f" ({BF16_TOL:g} x max|ref|, lse {FP32_TOL:g}); the entry without its last kv "
+            "tile: max err / limit " + ", ".join(f"{n} {r:.1f}" for n, r in ratios.items()))
+        check(all(r > 1.0 for r in ratios.values()),
+              f"the limits do not catch a skipped kv tile at {label}: {ratios}")
+        del refs, faulty
+        torch.cuda.empty_cache()
+        ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v), 10, 2)
+        plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v), 3, 1)
+        lib = sdpa_fwd(q, k, v)
+        backends = sdpa_backends(q, k, v, lib)
+        lib_ms = median_ms(lambda: sdpa_fwd(q, k, v), 10, 2)
+        bms, by = bound_ms(2, b, h, s, s, d, torch.bfloat16, nbytes(q, k, v, outs[0]))
+        tflops = 4.0 * b * h * s * s * d / 1e9
+        cc = ""
+        if numbers is None:
+            cc_ms = median_ms(lambda: fa.launch_fwd(fa.KERNEL, q, k, v), 3, 1)
+            cc = f", the CUDA-core entry on the same inputs {cc_ms:.4f} ms"
+        print(f"[kernel] K1_wide {label} bf16 (an untiled VAE's mid-block at {s} latent "
+              f"tokens): {ms:.4f} ms ({tflops / ms:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, library (SDPA, backend "
+              f"{'/'.join(backends) or 'not identified'}) {lib_ms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}; {bms / ms:.1%} of it){cc}")
+        if numbers is None:
+            numbers = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                       "bound_by": by, "max_abs_err": errs["o"][0], "shape": label,
+                       "library": "SDPA " + ("/".join(backends) or "backend not identified")}
+        del q, k, v, outs, lib
+        torch.cuda.empty_cache()
+    return numbers
 
 
 def check_power_fwd(fa, label, q, k, v, with_lse):
@@ -1820,11 +1872,13 @@ def phase_tiled_model_call(cldm):
     prompts, t = 999) at each seed of TILED_CALL_SEEDS, through the
     pipeline's ``tiled_model_function`` against ``per_tile_loop`` (one call
     per 64x64 tile at stride 32): at tiles_per_batch 3 (three calls at
-    batch 6, which the libraries round another way than calls at batch 2)
-    within TILED_CALL_TOL x max|ref|; at tiles_per_batch 1 (the loop's own
+    batch 6, whose rows a cuDNN convolution rounds by their batch position,
+    see TILED_CALL_TOL) within TILED_CALL_TOL x max|ref|; at tiles_per_batch 1 (the loop's own
     calls; only the blend's fp32 sums differ) within FP32_TOL x max|ref|.
-    A planted fault (every tile handed tile 0's hint) must fail the
-    limit."""
+    Each tile's rows of one three-tile call must equal, bit for bit, the
+    same rows of a call that repeats that tile (no op reads across the
+    batch). A planted fault (every tile handed tile 0's hint) must fail the
+    limit and the bit-for-bit check."""
     import torch
 
     from diffbir_tpu_torch.pipeline import tile_model_function, tiled_model_function
@@ -1856,6 +1910,23 @@ def phase_tiled_model_call(cldm):
         hold("the tiled model call", out, ref, TILED_CALL_TOL)
         hold("the tiled model call at tiles_per_batch 1", out1, ref, FP32_TOL)
     model_tile = tile_model_function(cldm, 1.0, tile)
+    corners = [(hi, wi) for hi in starts for wi in starts][:per]
+
+    def group(cs, hints=None):
+        tiles = torch.cat([x[:, hi: hi + tile, wi: wi + tile] for hi, wi in cs])
+        with torch.no_grad():
+            return model_tile(tiles, t, cond, tile_coords=tuple(hints or cs))
+
+    mixed = group(corners)
+    for j, corner in enumerate(corners):
+        check(torch.equal(mixed[2 * j: 2 * j + 2], group([corner] * per)[2 * j: 2 * j + 2]),
+              f"the tiled model call: tile {j}'s rows differ from a call that repeats it")
+    faulty = group(corners, hints=[corners[0]] * per)
+    check(not torch.equal(faulty[2: 4], mixed[2: 4]), "the bit-for-bit check misses tile 0's "
+          "hint handed to tile 1")
+    print(f"[tiled_request] model call of tiles {corners}: each tile's rows bit-equal to a "
+          f"call that repeats that tile (batch {2 * per}, same position); with tile 0's hint "
+          f"handed to every tile, tile 1's rows differ")
 
     def tile_zero_hint(x_tiles, t, c, tile_coords=()):
         return model_tile(x_tiles, t, c, tile_coords=((0, 0),) * len(tile_coords))
@@ -2482,18 +2553,18 @@ def phase_train(fa):
         print(f"[train] step {i} ({kind}): loss {loss:.5f}, grad norm {gnorm:.5f}, "
               f"{dt:.3f} s; launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
         check(np.isfinite(loss) and np.isfinite(gnorm), f"non-finite loss or grad norm at {i}")
-        # K1 and K2 on the tensor-core entries, none on the CUDA-core ones
-        # (K1_cc, K2a_cc, K2b_cc: left out of n when 0)
-        expected = {"K1": K1_PER_TRAIN_STEP, "K2a": K2_SITES_PER_TRAIN_STEP,
-                    "K2b": K2_SITES_PER_TRAIN_STEP}
+        # K1, K1_wide and K2 on the tensor-core entries, none on the
+        # CUDA-core ones (K1_cc, K2a_cc, K2b_cc: left out of n when 0)
+        expected = {"K1": K1_PER_TRAIN_STEP, "K1_wide": K1_WIDE_PER_TRAIN_STEP,
+                    "K2a": K2_SITES_PER_TRAIN_STEP, "K2b": K2_SITES_PER_TRAIN_STEP}
         check(n == expected, f"expected launches {expected} per step, got {n}")
         if i >= TRAIN_WARMUP:
             step_s.append(dt)
     launches = counts()
-    print(f"[train] {TRAIN_WARMUP + TRAIN_TIMED} steps: K1 {launches['K1']}, K2a "
-          f"{launches['K2a']} and K2b {launches['K2b']} launches on the tensor-core entries, "
-          f"{launches['K1_cc']}, {launches['K2a_cc']} and {launches['K2b_cc']} on the "
-          f"CUDA-core entries")
+    print(f"[train] {TRAIN_WARMUP + TRAIN_TIMED} steps: K1 {launches['K1']}, K1_wide "
+          f"{launches['K1_wide']}, K2a {launches['K2a']} and K2b {launches['K2b']} launches on "
+          f"the tensor-core entries, {launches['K1_cc']}, {launches['K2a_cc']} and "
+          f"{launches['K2b_cc']} on the CUDA-core entries")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(step_s)
     print(f"[train] batch {TRAIN_BATCH} at {SIZE}x{SIZE}: timed steps "
@@ -2576,7 +2647,8 @@ def main() -> int:
         print(f"chip_smoke: FAIL: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
         return 1
-    KERNELS.update(K1=fa.KERNEL_TC, K1_cc=fa.KERNEL, K2a=fa.KERNEL_DQ_TC,
+    KERNELS.update(K1=fa.KERNEL_TC, K1_wide=fa.KERNEL_WIDE_TC, K1_cc=fa.KERNEL,
+                   K2a=fa.KERNEL_DQ_TC,
                    K2b=fa.KERNEL_DKV_TC, K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV,
                    K3=fa.KERNEL_PRESCALED_TC, K3_cc=fa.KERNEL_PRESCALED, K4=qm.KERNEL_TC,
                    K4_gemv=qm.KERNEL_GEMV, K4_cc=qm.KERNEL, K5=qm.KERNEL_INT4_TC,
@@ -2588,10 +2660,9 @@ def main() -> int:
               f"expected one visible card, got {torch.cuda.device_count()}")
         phase_device()
         phase_build()
-        numbers = phase_kernel(fa)
+        numbers, wide_err = phase_kernel(fa)
         wide = phase_k1_wide(fa)
-        numbers["K1_cc"] = {**wide, "max_abs_err": max(wide["max_abs_err"],
-                                                       numbers["K1_cc"]["max_abs_err"])}
+        numbers["K1_wide"] = {**wide, "max_abs_err": max(wide["max_abs_err"], wide_err)}
         k2 = phase_backward_kernels(fa)
         numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_k3(fa), **phase_k4(qm),
                        **phase_k5(qm), **phase_k6(fr), **phase_k7(ff))
@@ -2630,6 +2701,8 @@ def main() -> int:
     src, ref = "diffbir_tpu_torch/csrc/", "diffbir_tpu/ops/"
     entries = (
         ("K1", "flash_attention_fwd_tc", "flash_attention_fwd.cu", "flash_attention.py:81"),
+        ("K1_wide", "flash_attention_fwd_wide_tc", "flash_attention_fwd.cu",
+         "flash_attention.py:81"),
         ("K1_cc", "flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:81"),
         ("K2a", "flash_attention_bwd_dq_tc", "flash_attention_bwd.cu", "flash_attention.py:371"),
         ("K2b", "flash_attention_bwd_dkv_tc", "flash_attention_bwd.cu",

@@ -16,15 +16,17 @@
 // (1 there). The CUDA-core kernel's plain entry passes q_scale = 1, which
 // changes no value.
 //
-// Two designs in one source, each with its own entry points:
+// Three designs in one source, each with its own entry points:
 // - on the tensor cores (flash_fwd_tc_kernel; entries flash_attention_fwd_tc
 //   and flash_attention_fwd_prescaled_tc): bf16 at d = 64 and 128, which is
 //   every self-attention site of the port's UNet, ControlNet and vision tower;
+// - on the tensor cores for one wide head (flash_fwd_wide_kernel; entry
+//   flash_attention_fwd_wide_tc): bf16 at d = 512, the VAE's single-head
+//   mid-block attention (K1 only: the VAE never takes the packed layout);
 // - on the CUDA cores (flash_fwd_kernel; entries flash_attention_fwd and
-//   flash_attention_fwd_prescaled): fp32 at any d, bf16 at d = 256 and 512.
-//   The tensor cores have no fp32 mode that keeps fp32's limit (TF32
-//   rounds); the d = 512 VAE sites reach the kernel only at 8192 tokens and
-//   more (below that ops/attention.py sends them to plain math).
+//   flash_attention_fwd_prescaled): fp32 at any d, bf16 at d = 256, and K3
+//   at d = 512. The tensor cores have no fp32 mode that keeps fp32's limit
+//   (TF32 rounds). No path of the port reaches these.
 //
 // What bounds it on an H100: at the main path's shapes (S = 4096, d = 64) the
 // kernel does 4*S^2*d flops per head against q, k and v read once per block
@@ -52,6 +54,32 @@
 //   memory once they land, bf16(fp32(q) * q_scale), before the first wgmma.
 // - At d = 64 two blocks share an SM, so one block's softmax overlaps the
 //   other's products.
+//
+// Wide tensor-core design (d = 512, bf16; flash_fwd_wide_kernel). At the
+// VAE's shapes ([1,16384,1,512]: B*H = 1) it does 4*S^2*512 flops against
+// 64 MB of q, k, v and o, so it is compute-bound, and the grid's only
+// parallelism is Sq / 64 query tiles (256 at 16384 tokens, 128 at 8192,
+// against 132 SMs). What d = 512 changes against the d <= 128 design:
+// - o's 64 x 512 fp32 accumulator is 128 KB, more than one warpgroup's
+//   registers: a block owns 64 query rows, and its two warpgroups split o's
+//   columns, 256 each (4 panels of 64, 128 registers a thread).
+// - Both warpgroups need the whole P of a kv tile. Each computes the same
+//   64 x 64 S = Q.K^T over all 512 dims (32 wgmma k-steps from shared
+//   memory) and runs the same online softmax on it, so P stays in registers
+//   as the A fragment of its own O += P.V, as in the d <= 128 design; the
+//   price is the S product done twice (1.5x the bound's flops). Splitting
+//   S's d-reduction between the warpgroups instead, the partial sums swapped
+//   through shared memory, measured slower on an H100 (the swap sits
+//   between S and the softmax). Both round identically, so m and l agree.
+// - Shared memory: q (64 x 512 bf16, 64 KB), one 64-row tile of k and one
+//   of v (64 KB each): 192 KB of the 227 KB, so one stage each, staggered:
+//   the next k tile is loaded as soon as both warpgroups are done with S
+//   (under the softmax and P.V), the next v tile as soon as both are done
+//   with P.V (under the next S).
+// - Each block reads all of k and v (from L2 after the first block), 64 KB
+//   per tile for 3 x 64 x 64 x 512 MACs: the L2 rate, not the tensor
+//   cores, may bind. Thread-block clusters that share a tile would halve
+//   that traffic (not done). It reaches ~25 % of the bound at 16384 tokens.
 //
 // CUDA-core design. One block covers ROWS query rows of one (batch, head).
 // Each query row belongs to G = D/32 consecutive lanes; a lane owns 32 of the
@@ -374,6 +402,142 @@ __global__ void __launch_bounds__(NT, D == 64 ? 2 : 1) flash_fwd_tc_kernel(
   }
 }
 
+// o (and lse) of 64 query rows of one (batch, head) at d = 512: warpgroup
+// wg keeps o's columns [256 wg, 256 wg + 256) (panels 4 wg .. 4 wg + 3).
+__global__ void __launch_bounds__(NT, 1) flash_fwd_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Skv, Strides st,
+    float scale) {
+  constexpr int D = 512, BQ = 64, BK = 64, KS = D / 16, NP = D / 64 / 2;
+  constexpr uint32_t T = BQ * D * 2;  // bytes of each tile: q, k, v
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ks = qs + T, vs = ks + T;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32, wrow = (tid % 128) / 32 * 16 + lane / 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const bf16* qb = q + b * st.sb[0] + h * st.sh[0];
+  const bf16* kb = k + b * st.sb[1] + h * st.sh[1];
+  const bf16* vb = v + b * st.sb[2] + h * st.sh[2];
+
+  // copy groups, in commit order: q and k tile 0, v tile 0, then per tile t
+  // k tile t + 1 (after S) and v tile t + 1 (after P.V); so at each wait
+  // below the group waited for is the older of the two in flight
+  load_tile<BQ, D>(qs, qb, st.ss[0], q0, Sq, tid);
+  load_tile<BK, D>(ks, kb, st.ss[1], 0, Skv, tid);
+  cp_async_commit();
+  load_tile<BK, D>(vs, vb, st.ss[2], 0, Skv, tid);
+  cp_async_commit();
+
+  float acc[NP][32], s[32];
+  float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const int nt = (Skv + BK - 1) / BK;
+
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<1>();  // q and k tile t have landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q.K^T (64 x 64), the same in both warpgroups
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss(s, desc_k<BQ>(qs, 0, kk), desc_k<BK>(ks, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+    __syncthreads();  // both warpgroups are done with k tile t
+    if (t + 1 < nt) load_tile<BK, D>(ks, kb, st.ss[1], (t + 1) * BK, Skv, tid);
+    cp_async_commit();
+
+    // logits in log2 units, NEG_INF past Skv; the row max over the quad
+    float mt[2] = {kNegInf, kNegInf};
+    if ((t + 1) * BK > Skv) {
+      const int col0 = t * BK + 2 * (lane % 4);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = col0 + 8 * (i / 4) + (i % 2) < Skv ? s[i] * scale2 : kNegInf;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale2;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mt[(i / 2) % 2] = fmaxf(mt[(i / 2) % 2], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mt[hr] = fmaxf(mt[hr], __shfl_xor_sync(0xffffffffu, mt[hr], 1));
+      mt[hr] = fmaxf(mt[hr], __shfl_xor_sync(0xffffffffu, mt[hr], 2));
+      const float m_new = fmaxf(m2[hr], mt[hr]);
+      alpha[hr] = exp2f(m2[hr] - m_new);
+      m2[hr] = m_new;
+      l[hr] *= alpha[hr];
+    }
+    // p = exp(s - m) in fp32 into l, rounded to bf16 as the A fragments
+    uint32_t a[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int hr = (i / 2) % 2;
+      const float p0 = exp2f(s[i] - m2[hr]), p1 = exp2f(s[i + 1] - m2[hr]);
+      l[hr] += p0 + p1;
+      a[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[pn][i] *= alpha[(i / 2) % 2];
+
+    cp_async_wait<1>();  // v tile t has landed (k tile t + 1 may be in flight)
+    fence_proxy_async();
+    __syncthreads();
+    // O[:, this warpgroup's 256 columns] += P.V
+    wgmma_fence();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(acc[pn], a[kk], desc_mn<BK>(vs, wg * NP + pn, kk));
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) fence_acc(acc[pn]);
+    __syncthreads();  // both warpgroups are done with v tile t
+    if (t + 1 < nt) load_tile<BK, D>(vs, vb, st.ss[2], (t + 1) * BK, Skv, tid);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {  // the quad's shares of l
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wrow + 8 * hr;
+    if (row >= Sq) continue;
+    const float l_inv = l[hr] == 0.f ? 1.f : 1.f / l[hr];
+    bf16* out = o + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D + wg * NP * 64 +
+                2 * (lane % 4);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + pn * 64 + 8 * j) =
+            pack_bf16(acc[pn][4 * j + 2 * hr] * l_inv, acc[pn][4 * j + 2 * hr + 1] * l_inv);
+    if (lse != nullptr && wg == 0 && lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] =
+          m2[hr] * LN2 + logf(l[hr] == 0.f ? 1.f : l[hr]);
+  }
+}
+
 }  // namespace tc
 
 template <typename T, int D, int NT, int BK>
@@ -450,26 +614,34 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
   return cudaGetLastError();
 }
 
-// As run, on the tensor cores: bf16 (dtype 1) at D = 64 or 128, every row of
-// q, k and v 16-byte aligned (cp.async moves 16 bytes).
-int run_tc(bool prescale, const void* q, const void* k, const void* v, void* o, void* lse,
-           int dtype, int B, int H, int Sq, int Skv, int D, const long long* st,
-           float q_scale, float scale, void* stream) {
+// The tensor-core entries' operands: bf16 (dtype 1), every row of q, k and
+// v 16-byte aligned (cp.async moves 16 bytes); the strides as the kernels
+// take them. Returns cudaSuccess or the error the entry reports.
+cudaError_t tc_operands(const void* q, const void* k, const void* v, int dtype, int B, int H,
+                        int Sq, int Skv, const long long* st, tc::Strides& s) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || dtype != 1) return cudaErrorInvalidValue;
   const void* ptrs[3] = {q, k, v};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
   for (int i = 0; i < 9; ++i)
     if (st[i] % 8 != 0) return cudaErrorMisalignedAddress;
-  tc::Strides s;
   for (int t = 0; t < 3; ++t) {
     s.sb[t] = st[3 * t];
     s.ss[t] = st[3 * t + 1];
     s.sh[t] = st[3 * t + 2];
   }
+  return cudaSuccess;
+}
+
+// As run, on the tensor cores: D = 64 or 128, operands as tc_operands.
+int run_tc(bool prescale, const void* q, const void* k, const void* v, void* o, void* lse,
+           int dtype, int B, int H, int Sq, int Skv, int D, const long long* st,
+           float q_scale, float scale, void* stream) {
+  tc::Strides s;
+  cudaError_t err = tc_operands(q, k, v, dtype, B, H, Sq, Skv, st, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  cudaError_t err;
   if (D == 64)
     err = prescale
               ? launch_tc<64, true>(q, k, v, o, lse_f, B, H, Sq, Skv, s, q_scale, scale, cs)
@@ -481,6 +653,23 @@ int run_tc(bool prescale, const void* q, const void* k, const void* v, void* o, 
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The wide kernel: 256 threads, 64 query rows a block; q, one k and one v
+// tile of 64 x 512 bf16, with 1 KB of slack for the swizzle's alignment.
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int H, int Sq, int Skv, const tc::Strides& st, float scale,
+                        cudaStream_t stream) {
+  constexpr int smem = 1024 + 3 * 64 * 512 * 2;
+  auto kernel = tc::flash_fwd_wide_kernel;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = wgmma_tile::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + 63) / 64, B * H);
+  kernel<<<grid, tc::NT, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), lse, H, Sq, Skv, st, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -539,6 +728,26 @@ int flash_attention_fwd_prescaled_tc(const void* q, const void* k, const void* v
                                      float q_scale, float scale, void* stream) {
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   return run_tc(true, q, k, v, o, lse, dtype, B, H, Sq, Skv, D, st, q_scale, scale, stream);
+}
+
+// The wide tensor-core entry: the same arguments as flash_attention_fwd;
+// bf16 (dtype 1) at D = 512 only, with every row of q, k and v 16-byte
+// aligned (else cudaErrorInvalidValue, cudaErrorMisalignedAddress).
+int flash_attention_fwd_wide_tc(const void* q, const void* k, const void* v, void* o,
+                                void* lse, int dtype,
+                                int B, int H, int Sq, int Skv, int D,
+                                long long q_sb, long long q_ss, long long q_sh,
+                                long long k_sb, long long k_ss, long long k_sh,
+                                long long v_sb, long long v_ss, long long v_sh,
+                                float scale, void* stream) {
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  if (D != 512) return static_cast<int>(cudaErrorInvalidValue);
+  tc::Strides s;
+  cudaError_t err = tc_operands(q, k, v, dtype, B, H, Sq, Skv, st, s);
+  if (err == cudaSuccess)
+    err = launch_wide(q, k, v, o, static_cast<float*>(lse), B, H, Sq, Skv, s, scale,
+                      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }
 
 const char* cuda_error_string(int code) {

@@ -8,13 +8,18 @@ before the PV product.
 Dispatch: every self-attention call (Skv == Sq) without mask or bias and with
 d in {64, 128, 256} goes to ``flash_attention`` (the CUDA kernels for a CUDA
 tensor, their plain version for a CPU tensor). The wide single-head sites
-(d > 256: the VAE's d = 512 mid-block attention) go to flash only from
-``FLASH_MIN_WIDE`` = 8192 tokens, and to plain math below it, as the
-reference dispatches them (``diffbir_tpu/ops/attention.py:86-96``,
-``DIFFBIR_TPU_FLASH_MIN_WIDE``): there the plain version's O(S^2) fp32 logits
-start to threaten device memory (256 MiB a head at 8192 tokens, 26.8 GB at
-81920); below it, on an H100, the plain version is the faster one
-(``chip_smoke.py`` times both at [8,4096,1,512]). ``layout="packed"`` (the
+(d > 256: the VAE's d = 512 mid-block attention) go to flash from
+``FLASH_MIN_WIDE`` = 4096 tokens (a 512x512 image), and to plain math below
+it. The reference sends them to flash from 8192 tokens
+(``diffbir_tpu/ops/attention.py:86-96``, ``DIFFBIR_TPU_FLASH_MIN_WIDE``), a
+threshold set on a TPU for memory; the port's is the card's reading: on an
+NVIDIA H100 80GB HBM3 at a 700 W power limit, flash's d = 512 tensor-core
+entry took 0.330 ms against 0.589 ms for the plain version at
+[1,4096,1,512], 1.279 against 4.071 at [8,4096,1,512], 0.640 against 2.035
+at [1,8192,1,512] and 2.224 against 7.508 at [1,16384,1,512]
+(``chip_smoke.py``, which times both at these shapes). 4096 is the smaller
+of the two thresholds considered, 4096 and 8192, at which flash wins there
+and at every larger size measured. ``layout="packed"`` (the
 JAX package's ``DIFFBIR_TPU_FLASH_LAYOUT=packed``) runs the flash calls
 through K3, K1 with q pre-scaled once in bf16, where the JAX packed kernel
 runs: a forward without gradient and Sq <= 1024 or Sq % 1024 == 0.
@@ -33,7 +38,7 @@ import torch
 FLASH_HEAD_DIMS = (64, 128, 256, 512)
 FLASH_LAYOUTS = ("folded", "packed")
 # tokens from which a d > 256 self-attention goes to flash (see above)
-FLASH_MIN_WIDE = 8192
+FLASH_MIN_WIDE = 4096
 
 
 def packed_applies(sq: int) -> bool:

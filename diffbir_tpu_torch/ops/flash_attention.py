@@ -34,13 +34,17 @@ training path) all four run on them: wgmma, bf16 tiles loaded with cp.async
 in two stages, p and ds kept in registers as the next product's A operand
 (entries ``flash_attention_fwd_tc`` / ``_fwd_prescaled_tc`` /
 ``_bwd_dq_tc`` / ``_bwd_dkv_tc``, counted on ``KERNEL_TC`` /
-``KERNEL_PRESCALED_TC`` / ``KERNEL_DQ_TC`` / ``KERNEL_DKV_TC``). fp32 at any
-d and bf16 at d = 256 and 512 go to the CUDA-core entries (``KERNEL``,
-``KERNEL_PRESCALED``, ``KERNEL_DQ``, ``KERNEL_DKV``): the tensor cores have
-no fp32 mode that keeps fp32's limit, and the port's d = 512 sites (the VAE)
-reach the forward only at 8192 tokens and more and never run a backward.
-``fwd_entries`` and ``bwd_entries`` state the rule; nothing falls back from
-one entry to another, and a tensor-core launch that fails raises.
+``KERNEL_PRESCALED_TC`` / ``KERNEL_DQ_TC`` / ``KERNEL_DKV_TC``). The K1
+forward in bf16 at d = 512 (the VAE's single-head mid-block attention) has
+a tensor-core design of its own (``flash_attention_fwd_wide_tc``, counted on
+``KERNEL_WIDE_TC``): 64 query rows a block, o's 512 columns split over two
+warpgroups. fp32 at any d, bf16 at d = 256, K3 at d = 512 and the backward
+at d = 512 go to the CUDA-core entries (``KERNEL``, ``KERNEL_PRESCALED``,
+``KERNEL_DQ``, ``KERNEL_DKV``): the tensor cores have no fp32 mode that
+keeps fp32's limit, and no path of the port reaches the others (the VAE
+takes neither the packed layout nor a gradient). ``fwd_entries`` and
+``bwd_entries`` state the rule; nothing falls back from one entry to
+another, and a tensor-core launch that fails raises.
 
 Layouts: q, o, dO [B,Sq,H,D]; k, v [B,Skv,H,D]; lse fp32 [B,H,Sq] (not the
 TPU's lane-replicated (BQ, 128) blocks).
@@ -74,6 +78,8 @@ KERNEL_TC = CudaKernel("flash_attention_fwd.cu", "flash_attention_fwd_tc",
                        _FWD_ARGS + [ctypes.c_float, _ptr])
 KERNEL_PRESCALED_TC = CudaKernel("flash_attention_fwd.cu", "flash_attention_fwd_prescaled_tc",
                                  _FWD_ARGS + [ctypes.c_float, ctypes.c_float, _ptr])
+KERNEL_WIDE_TC = CudaKernel("flash_attention_fwd.cu", "flash_attention_fwd_wide_tc",
+                            _FWD_ARGS + [ctypes.c_float, _ptr])
 KERNEL_DQ = CudaKernel(
     "flash_attention_bwd.cu",
     "flash_attention_bwd_dq",
@@ -94,8 +100,11 @@ KERNEL_DKV_TC = CudaKernel(
     "flash_attention_bwd_dkv_tc",
     [_ptr] * 8 + [_i32] * 6 + [_ptr, ctypes.c_float, _ptr],
 )
-# head dims of the tensor-core entries (bf16 only)
+# head dims of the tensor-core entries (bf16 only): KERNEL_TC and
+# KERNEL_PRESCALED_TC, the backward's KERNEL_DQ_TC and KERNEL_DKV_TC; and of
+# the wide forward KERNEL_WIDE_TC
 TC_HEAD_DIMS = (64, 128)
+WIDE_TC_HEAD_DIMS = (512,)
 
 
 # --------------------------------------------------------------------------- #
@@ -219,15 +228,18 @@ def _strides(*ts: torch.Tensor) -> list:
 
 
 def fwd_entries(q: torch.Tensor, prescale_q: bool = False) -> CudaKernel:
-    """The forward entry for q's dtype and head dim: the tensor-core K1
-    (``KERNEL_TC``; K3, ``KERNEL_PRESCALED_TC``, with ``prescale_q``) for
-    bf16 at d in ``TC_HEAD_DIMS``, the CUDA-core K1 (``KERNEL``; K3,
-    ``KERNEL_PRESCALED``) for fp32 at any d and for bf16 at d = 256 and
-    512."""
-    tensor_cores = q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+    """The forward entry for q's dtype and head dim: in bf16 the tensor-core
+    K1 (``KERNEL_TC``; K3, ``KERNEL_PRESCALED_TC``, with ``prescale_q``) at d
+    in ``TC_HEAD_DIMS`` and the wide tensor-core K1 (``KERNEL_WIDE_TC``) at d
+    in ``WIDE_TC_HEAD_DIMS``; the CUDA-core K1 (``KERNEL``; K3,
+    ``KERNEL_PRESCALED``) for fp32 at any d, for bf16 at d = 256, and for K3
+    at d = 512."""
+    bf16, d = q.dtype == torch.bfloat16, q.shape[-1]
     if prescale_q:
-        return KERNEL_PRESCALED_TC if tensor_cores else KERNEL_PRESCALED
-    return KERNEL_TC if tensor_cores else KERNEL
+        return KERNEL_PRESCALED_TC if bf16 and d in TC_HEAD_DIMS else KERNEL_PRESCALED
+    if bf16 and d in TC_HEAD_DIMS:
+        return KERNEL_TC
+    return KERNEL_WIDE_TC if bf16 and d in WIDE_TC_HEAD_DIMS else KERNEL
 
 
 def launch_fwd(kernel: CudaKernel, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -269,7 +281,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return flash_attention_lse_ref(q, k, v)
         return flash_attention_ref(q, k, v, prescale_q=prescale_q)
     kernel = fwd_entries(q, prescale_q)
-    if kernel in (KERNEL_TC, KERNEL_PRESCALED_TC):
+    if kernel in (KERNEL_TC, KERNEL_PRESCALED_TC, KERNEL_WIDE_TC):
         q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
     return launch_fwd(kernel, q, k, v, with_lse)
 
@@ -277,7 +289,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_entries(q: torch.Tensor) -> Tuple[CudaKernel, CudaKernel]:
     """The (K2a, K2b) entries for q's dtype and head dim: the tensor-core
     entries for bf16 at d in ``TC_HEAD_DIMS``, the CUDA-core entries for fp32
-    at any d and for bf16 at d = 256 and 512."""
+    at any d and for bf16 at d = 256 and 512 (no path of the port runs a
+    backward at d >= 256)."""
     if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS:
         return KERNEL_DQ_TC, KERNEL_DKV_TC
     return KERNEL_DQ, KERNEL_DKV

@@ -77,13 +77,15 @@ TRAIN_BATCH, TRAIN_LR, NOISE_AUG = 8, 1e-5, 200
 # the captioner's decode step: after a prompt of 35 + 576 + 13 rows
 CAPTION_ROWS, CAPTION_NEW = 624, 60
 # substrings of the device kernel names of the port's kernels: K1 (K3 is its
-# PRESCALE instance), K2a and K2b (the tensor-core entries, and the CUDA-core
-# ones that fp32 and d >= 256 take), K4 (the tile form, the GEMV form with
-# its split reduction, the CUDA-core entry), K5 (the same three), K6 (the
+# PRESCALE instance; the VAE's d = 512 on its wide kernel), K2a and K2b (the
+# tensor-core entries, and the CUDA-core ones that fp32 and d >= 256 take),
+# K4 (the tile form, the GEMV form with its split reduction, the CUDA-core
+# entry), K5 (the same three), K6 (the
 # tensor-core entry's GroupNorm statistics and apply launches, convolutions
 # and split reductions; the CUDA-core entry's launches) and K7 (the
 # tensor-core launches, the CUDA-core ones)
-KERNELS = {"K1/K3": "flash_fwd_tc_kernel", "K1/K3 (CUDA cores)": "flash_fwd_kernel",
+KERNELS = {"K1/K3": "flash_fwd_tc_kernel", "K1 (d = 512)": "flash_fwd_wide_kernel",
+           "K1/K3 (CUDA cores)": "flash_fwd_kernel",
            "K2a": "flash_bwd_dq_tc_kernel", "K2b": "flash_bwd_dkv_tc_kernel",
            "K2a (CUDA cores)": "flash_bwd_dq_kernel", "K2b (CUDA cores)": "flash_bwd_dkv_kernel",
            "K4": "quant_matmul_tc_kernel", "K4 GEMV": "gemv::",

@@ -54,11 +54,18 @@ def _qkv(cuda, b, sq, skv, h, d, dtype, seed=0):
     return q, k, v
 
 
+FWD_ENTRIES = (fa.KERNEL_TC, fa.KERNEL_PRESCALED_TC, fa.KERNEL, fa.KERNEL_PRESCALED,
+               fa.KERNEL_WIDE_TC)
+
+
 def _fwd_launches():
-    """Launch counts of the four forward entries: tensor-core K1, K3, then
-    the CUDA-core K1, K3."""
-    return [e.launches for e in (fa.KERNEL_TC, fa.KERNEL_PRESCALED_TC, fa.KERNEL,
-                                 fa.KERNEL_PRESCALED)]
+    """Launch counts of the five forward entries: tensor-core K1, K3, then
+    the CUDA-core K1, K3, then the wide tensor-core K1."""
+    return [e.launches for e in FWD_ENTRIES]
+
+
+def _one_launch_of(entry):
+    return [int(e is entry) for e in FWD_ENTRIES]
 
 
 def _moved(before, after):
@@ -72,14 +79,16 @@ def _moved(before, after):
 def test_kernel_matches_plain_version(cuda, b, sq, skv, h, d, dtype, tol):
     """Every head dim, ragged Sq and Skv (cross shapes too), both dtypes;
     one launch counted per call, on the entry that ``fwd_entries`` names
-    (the tensor-core K1 for bf16 at d = 64/128)."""
+    (the tensor-core K1 for bf16 at d = 64/128, the wide one at d = 512)."""
     q, k, v = _qkv(cuda, b, sq, skv, h, d, dtype)
     before = _fwd_launches()
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    tensor_cores = dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS
-    assert fa.fwd_entries(q) is (fa.KERNEL_TC if tensor_cores else fa.KERNEL)
-    assert _moved(before, _fwd_launches()) == ([1, 0, 0, 0] if tensor_cores else [0, 0, 1, 0])
+    bf16 = dtype == torch.bfloat16
+    entry = (fa.KERNEL_TC if bf16 and d in fa.TC_HEAD_DIMS
+             else fa.KERNEL_WIDE_TC if bf16 and d in fa.WIDE_TC_HEAD_DIMS else fa.KERNEL)
+    assert fa.fwd_entries(q) is entry
+    assert _moved(before, _fwd_launches()) == _one_launch_of(entry)
     assert out.dtype == dtype and out.shape == q.shape and out.is_contiguous()
     ref = fa.flash_attention_ref(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, tol)
@@ -98,7 +107,7 @@ def test_tensor_core_forward_matches_plain_version(cuda, b, sq, skv, h, d, with_
     before = _fwd_launches()
     res = fa.flash_attention_fwd(q, k, v, with_lse=with_lse)
     torch.cuda.synchronize()
-    assert _moved(before, _fwd_launches()) == [1, 0, 0, 0]
+    assert _moved(before, _fwd_launches()) == _one_launch_of(fa.KERNEL_TC)
     outs = res if with_lse else (res,)
     refs = fa.flash_attention_lse_ref(q, k, v) if with_lse else (fa.flash_attention_ref(q, k, v),)
     for out, ref, tol in zip(outs, refs, (BF16_TOL, FP32_TOL)):
@@ -117,7 +126,7 @@ def test_tensor_core_forward_reads_strided_views(cuda, offset):
     assert not q.is_contiguous() and (q.data_ptr() % 16 == 0) == (offset == 0)
     before = _fwd_launches()
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-    assert _moved(before, _fwd_launches()) == [1, 0, 0, 0]
+    assert _moved(before, _fwd_launches()) == _one_launch_of(fa.KERNEL_TC)
     o_d, lse_d = fa.flash_attention_fwd(*(t.contiguous() for t in (q, k, v)), with_lse=True)
     torch.cuda.synchronize()
     assert torch.equal(o, o_d) and torch.equal(lse, lse_d)
@@ -137,6 +146,64 @@ def test_tensor_core_forward_entries_refuse_what_they_do_not_take(cuda):
     assert _fwd_launches() == before
 
 
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 4096, 4096, 1, 512), (2, 257, 257, 1, 512), (1, 1000, 1000, 1, 512),
+    (1, 130, 77, 1, 512), (1, 40, 40, 1, 512), (1, 70, 200, 2, 512),
+])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_wide_tensor_core_forward_matches_plain_version(cuda, b, sq, skv, h, d, with_lse):
+    """The wide tensor-core K1 (bf16, d = 512) with and without lse: ragged
+    Sq and Skv (multiples of neither 64-row tile), Sq != Skv, less than one
+    tile, two heads; one launch on its own count; o within 2^-6 x
+    max|ref|, lse within 1e-4."""
+    q, k, v = _qkv(cuda, b, sq, skv, h, d, torch.bfloat16)
+    before = _fwd_launches()
+    res = fa.flash_attention_fwd(q, k, v, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert _moved(before, _fwd_launches()) == _one_launch_of(fa.KERNEL_WIDE_TC)
+    outs = res if with_lse else (res,)
+    refs = fa.flash_attention_lse_ref(q, k, v) if with_lse else (fa.flash_attention_ref(q, k, v),)
+    for out, ref, tol in zip(outs, refs, (BF16_TOL, FP32_TOL)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype and out.is_contiguous()
+        assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, tol)
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+def test_wide_tensor_core_forward_reads_strided_views(cuda, offset):
+    """bf16 d = 512 q, k, v as views of one projection output, read in place
+    (offset 0) or copied first because their rows are not 16-byte aligned
+    (offset 4 elements): the same bits as on contiguous copies."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    qkv = torch.randn(1, 300, 3 * 512 + 8, generator=gen, device=cuda).bfloat16()
+    q, k, v = (t.reshape(1, 300, 1, 512)
+               for t in qkv[..., offset:offset + 1536].chunk(3, dim=-1))
+    assert not q.is_contiguous() and (q.data_ptr() % 16 == 0) == (offset == 0)
+    before = _fwd_launches()
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    assert _moved(before, _fwd_launches()) == _one_launch_of(fa.KERNEL_WIDE_TC)
+    o_d, lse_d = fa.flash_attention_fwd(*(t.contiguous() for t in (q, k, v)), with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_d) and torch.equal(lse, lse_d)
+    ref = fa.flash_attention_ref(q, k, v)
+    assert (o.float() - ref.float()).abs().max().item() <= _limit(ref, BF16_TOL)
+
+
+def test_wide_tensor_core_entry_refuses_what_it_does_not_take(cuda):
+    """The wide tensor-core K1 takes bf16 at d = 512 with 16-byte aligned
+    rows only: launched on fp32, on bf16 at d = 64 or 256, or on rows that
+    start 8 bytes off, it raises and counts nothing."""
+    before = _fwd_launches()
+    for dtype, d in ((torch.float32, 512), (torch.bfloat16, 64), (torch.bfloat16, 256)):
+        q, k, v = _qkv(cuda, 1, 64, 64, 1, d, dtype)
+        with pytest.raises(RuntimeError):
+            fa.launch_fwd(fa.KERNEL_WIDE_TC, q, k, v)
+    flat = torch.zeros(64 * 512 + 4, device=cuda, dtype=torch.bfloat16)
+    q = flat[4:].reshape(1, 64, 1, 512)
+    with pytest.raises(RuntimeError):
+        fa.launch_fwd(fa.KERNEL_WIDE_TC, q, q, q)
+    assert _fwd_launches() == before
+
+
 def test_gradients_flow_through_tensor_core_flash_attention(cuda):
     """bf16 at d = 64 under autograd: the tensor-core K1 with lse forward and
     the tensor-core K2a/K2b backward, each once; q, k and v get gradients
@@ -149,7 +216,8 @@ def test_gradients_flow_through_tensor_core_flash_attention(cuda):
     out = fa.flash_attention(*leaves)
     out.backward(g)
     torch.cuda.synchronize()
-    assert _moved(before, _fwd_launches() + _bwd_launches()) == [1, 0, 0, 0, 1, 1, 0, 0]
+    assert _moved(before, _fwd_launches() + _bwd_launches()) == (
+        _one_launch_of(fa.KERNEL_TC) + [1, 1, 0, 0])
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
     assert torch.equal(out.detach(), o)
     for leaf, ref in zip(leaves, fa.flash_attention_bwd_ref(q, k, v, o, lse, g)):
@@ -427,7 +495,8 @@ def test_prescaled_flash_matches_plain_version(cuda, shape, dtype, tol):
     out = fa.flash_attention(q, k, v, prescale_q=True)
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
-    assert _moved(before, _fwd_launches()) == ([0, 1, 0, 0] if bf16 else [0, 0, 0, 1])
+    assert _moved(before, _fwd_launches()) == _one_launch_of(
+        fa.KERNEL_PRESCALED_TC if bf16 else fa.KERNEL_PRESCALED)
     _close(out, fa.flash_attention_ref(q, k, v, prescale_q=True), tol)
     if dtype == torch.float32:
         assert torch.equal(out, fa.flash_attention(q, k, v))

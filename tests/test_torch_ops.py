@@ -27,7 +27,7 @@ from diffbir_tpu_torch import schedule
 from diffbir_tpu_torch.models import layers
 from diffbir_tpu_torch.ops import _cuda
 from diffbir_tpu_torch.ops import flash_attention as port_flash
-from diffbir_tpu_torch.ops.attention import attention, plain_attention
+from diffbir_tpu_torch.ops.attention import FLASH_MIN_WIDE, attention, plain_attention
 from diffbir_tpu_torch.sampler.spaced import SpacedSampler
 from diffbir_tpu_torch.utils import common
 from diffbir_tpu_torch.weights.convert import flax_to_state_dict
@@ -135,7 +135,7 @@ def test_schedule_tables_match_jax():
 # attention: the flash kernel's plain version and the dispatch
 # --------------------------------------------------------------------------- #
 FWD_ENTRIES = (port_flash.KERNEL_TC, port_flash.KERNEL_PRESCALED_TC, port_flash.KERNEL,
-               port_flash.KERNEL_PRESCALED)
+               port_flash.KERNEL_PRESCALED, port_flash.KERNEL_WIDE_TC)
 
 
 @pytest.mark.parametrize("b,sq,skv,h,d", [
@@ -185,7 +185,7 @@ def test_attention_dispatch_sends_only_plain_self_attention_to_flash(monkeypatch
     attention(x, x, x)  # self, d=64: flash
     attention(torch.randn(1, 4, 1, 256), torch.randn(1, 4, 1, 256), torch.randn(1, 4, 1, 256))
     attention(torch.randn(1, 4, 1, 512), torch.randn(1, 4, 1, 512),
-              torch.randn(1, 4, 1, 512))  # d=512 below 8192 tokens: plain
+              torch.randn(1, 4, 1, 512))  # d=512 below FLASH_MIN_WIDE tokens: plain
     attention(x, ctx, ctx)  # cross: plain
     attention(x, x, x, bias=torch.zeros(1, 2, 16, 16))  # bias: plain
     attention(x, x, x, mask=torch.ones(1, 1, 16, 16, dtype=torch.bool))  # mask: plain
@@ -196,12 +196,15 @@ def test_attention_dispatch_sends_only_plain_self_attention_to_flash(monkeypatch
         attention(x, x, x, impl="xla")
 
 
-@pytest.mark.parametrize("tokens,flash", [(16, False), (4096, False), (8191, False),
-                                          (8192, True), (8200, True)])
+@pytest.mark.parametrize("tokens,flash", [(16, False), (FLASH_MIN_WIDE - 1, False),
+                                          (FLASH_MIN_WIDE, True), (8191, True), (8192, True),
+                                          (8200, True)])
 def test_wide_self_attention_goes_to_flash_from_8192_tokens(monkeypatch, tokens, flash):
-    """d = 512 (the VAE's mid-block) takes the reference's dispatch: plain
-    math below 8192 tokens, flash from there; d = 64 takes flash at any
-    length. Both callees are counted, not run."""
+    """d = 512 (the VAE's mid-block) takes plain math below FLASH_MIN_WIDE
+    tokens (4096, the H100's reading) and flash from there, so also from
+    the reference's 8192 on; d = 64 takes flash at any length. Both callees
+    are counted, not run."""
+    assert FLASH_MIN_WIDE == 4096
     from diffbir_tpu_torch.ops import attention as attention_mod
 
     calls = []
@@ -220,16 +223,20 @@ def test_wide_self_attention_goes_to_flash_from_8192_tokens(monkeypatch, tokens,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 128, 256, 512])
 def test_fwd_entries_state_the_rule(d, dtype, prescale_q):
-    """bf16 at d = 64/128 takes the tensor-core K1 (K3 when prescaled); fp32
-    at any d and bf16 at d = 256/512 the CUDA-core entries."""
+    """bf16 at d = 64/128 takes the tensor-core K1 (K3 when prescaled), bf16
+    at d = 512 the wide tensor-core K1 (K3 stays on the CUDA cores); fp32 at
+    any d and bf16 at d = 256 the CUDA-core entries."""
     q = torch.empty(2, 8, 1, d, dtype=dtype, device="meta")
-    tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
-    expected = {(True, False): port_flash.KERNEL_TC,
-                (True, True): port_flash.KERNEL_PRESCALED_TC,
-                (False, False): port_flash.KERNEL,
-                (False, True): port_flash.KERNEL_PRESCALED}[(tensor_cores, prescale_q)]
+    bf16 = dtype == torch.bfloat16
+    if prescale_q:
+        expected = (port_flash.KERNEL_PRESCALED_TC if bf16 and d in (64, 128)
+                    else port_flash.KERNEL_PRESCALED)
+    elif bf16 and d in (64, 128):
+        expected = port_flash.KERNEL_TC
+    else:
+        expected = port_flash.KERNEL_WIDE_TC if bf16 and d == 512 else port_flash.KERNEL
     assert port_flash.fwd_entries(q, prescale_q) is expected
-    assert port_flash.TC_HEAD_DIMS == (64, 128)
+    assert port_flash.TC_HEAD_DIMS == (64, 128) and port_flash.WIDE_TC_HEAD_DIMS == (512,)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():

@@ -20,6 +20,10 @@ the CPU, on tiny configs and seeded numpy inputs.
   96x96 LQ) and 4 (128x128, a short last group), against JAX within 1 uint8
   level; the port is handed JAX's x_T and step noise. (The JAX tiled
   program unrolls one UNet per tile group: ~8 s of compile each.)
+- The tiled model call's rows read nothing across the batch: each tile's
+  rows of a three-tile call equal, bit for bit, those of a call that
+  repeats that tile at the same batch position (a wrong hint must break
+  it).
 - The policy: sync_gn falls back to blend at batch 2, tiny inputs switch
   tiling off, and the tile-size and turbo ValueErrors.
 """
@@ -48,12 +52,13 @@ from diffbir_tpu.schedule import Schedule as JaxSchedule
 from diffbir_tpu_torch import tiling
 from diffbir_tpu_torch.models.cldm import ControlLDM
 from diffbir_tpu_torch.models.clip import CLIPTextEncoder
-from diffbir_tpu_torch.models.layers import GroupNorm32
+from diffbir_tpu_torch.models.layers import GroupNorm32, random_init_
 from diffbir_tpu_torch.models.swinir import SwinIR
 from diffbir_tpu_torch.models.unet import ControlNet, UNetModel
 from diffbir_tpu_torch.models.vae import AutoencoderKL, Decoder, Encoder
 from diffbir_tpu_torch.models.vae_stream import decode_sync, encode_sync_moments
-from diffbir_tpu_torch.pipeline import IdentityCleanerPipeline, SwinIRPipeline
+from diffbir_tpu_torch.pipeline import (IdentityCleanerPipeline, SwinIRPipeline,
+                                        tile_model_function)
 from diffbir_tpu_torch.schedule import Schedule
 from tests.test_torch_models import CLIP_KW, UNET_KW, assert_close, fill_params, load_port
 from tests.test_torch_pipeline import jax_noise, word_tokenizer
@@ -298,6 +303,37 @@ def test_tiled_swinir_cleaner_matches_jax():
 # --------------------------------------------------------------------------- #
 # the tiled pipeline
 # --------------------------------------------------------------------------- #
+def test_tiled_model_call_rows_do_not_read_across_the_batch():
+    """Each tile's rows of one three-tile model call (batch 6: tile-major,
+    cond then uncond) equal, bit for bit, the same rows of a call that
+    repeats that tile, so no op, hint or context row reaches another row.
+    The position is held fixed because the card's cuDNN convolutions round
+    a row by its batch position (``diffbir_tpu_torch.batch_rows``). Every
+    weight is drawn by ``random_init_``, so every path carries signal;
+    handing every tile tile 0's hint must break the equality."""
+    cldm = random_init_(ControlLDM(unet=UNetModel(**UNET_KW), vae=AutoencoderKL(**VAE_KW),
+                                   clip=CLIPTextEncoder(**CLIP_KW),
+                                   controlnet=ControlNet(**UNET_KW)),
+                        torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(5)
+    x, c_img = (torch.from_numpy(rng.standard_normal((2, 32, 32, 4)).astype(np.float32))
+                for _ in range(2))
+    c_txt = torch.from_numpy(rng.standard_normal((2, 77, 64)).astype(np.float32))
+    cond = {"c_txt": c_txt, "c_img": c_img}
+    model_tile = tile_model_function(cldm, 1.0, 16)
+    corners = tiling.sliding_windows(32, 32, 16, 8)[:3]
+
+    def call(cs, hints=None):
+        tiles = torch.cat([x[:, hi: hi + 16, wi: wi + 16] for hi, wi in cs])
+        with torch.no_grad():
+            return model_tile(tiles, 500.0, cond, tile_coords=tuple(hints or cs))
+
+    mixed = call(corners)
+    for j, corner in enumerate(corners):
+        assert torch.equal(mixed[2 * j: 2 * j + 2], call([corner] * 3)[2 * j: 2 * j + 2])
+    assert not torch.equal(call(corners, hints=[corners[0]] * 3)[2: 4], mixed[2: 4])
+
+
 TILED_RUN = dict(cldm_tiled=True, cldm_tile_size=64, cldm_tile_stride=32,
                  vae_decoder_tiled=True, vae_decoder_tile_size=64)
 

@@ -63,6 +63,7 @@ def port_tiny(params, use_checkpoint=False):
     (256, 77, 2, 64),    # kv shorter than a block: the masked kv path
     (200, 200, 2, 64),   # ragged q and kv against 128-row blocks
     (256, 256, 1, 512),
+    (150, 150, 1, 512),  # ragged at d = 512 against 128-row blocks
 ])
 def test_flash_lse_and_backward_match_pallas_interpret(sq, skv, h, d, monkeypatch):
     if sq == 200:
