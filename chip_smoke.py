@@ -45,6 +45,13 @@ Phases (any failure exits non-zero before the last line is printed):
      version and the library call (scaled_dot_product_attention forward, and
      its backward through autograd), beside the bound; at [8,4096,5,64] the
      tensor-core entries beside the CUDA-core ones, with TFLOP/s.
+     [d512_backward]: the VAE's d = 512 mid-block attention under a gradient
+     (RGB guidance's) at [1,4096,1,512] and [1,16384,1,512] bf16, forward plus
+     backward three ways: K1_wide + K2a_cc + K2b_cc, the plain version under
+     autograd, SDPA; beside the bound and plain's peak memory; K2a_cc and
+     K2b_cc at the first shape against their plain versions, timed alone,
+     with a skipped kv tile failing the limits; the dispatch's threshold
+     under a gradient (FLASH_MIN_WIDE_GRAD) printed and held to the reading.
   4. the serving modes' and the captioner's kernels at their paths' shapes,
      each against its plain version, each with a planted fault that must
      fail the limits, and with median times of kernel, plain version and a
@@ -97,7 +104,12 @@ Phases (any failure exits non-zero before the last line is printed):
      tables below; each request checks its launch counts, latency, stage
      split and peak memory. Then [samplers]: every other sampler of the CLI
      on a 256x256 condition (stage 2, SAMPLER_STEPS steps, CFG 4.0, eta 1),
-     twice from one seed: finite, bit-identical, K1 only.
+     twice from one seed: finite, bit-identical, K1 only. [turbo] at the
+     model call: through each of the five samplers that take the turbo model
+     function, the cached model at interval 1 bit-equal to the plain model
+     function with and without the UNet encoder cache (interval 2 not).
+     [fast_gelu] at the model call: the tanh GELU within MODEL_REL_TOL of
+     erf; under --fused_ffn bit-equal to --fused_ffn alone, K7 unchanged.
   8. the LLaVA-1.5-7B captioner at full width (CLIP ViT-L/14-336 +
      projector + Llama-7B, random bf16 weights from seed 0 generated on the
      card), a seeded 512x512
@@ -118,6 +130,18 @@ Phases (any failure exits non-zero before the last line is printed):
      (K1 230; with --quant_dense --fused_resblock --quant_conv, K3 230, K6
      320 and K4 2355 tile launches), the PNG equal to a direct
      ``pipeline.run`` of the request, a rerun bit-identical.
+     [guidance]: the same request at --guidance --g_scale 0.5 with latent
+     mse, RGB w_mse, and RGB w_mse at --g_repeat 2 --g_start 600 --g_stop
+     200 (GUIDANCE_PATHS): exact launches (those of the default request),
+     the PNG equal to pipeline.run's, a rerun bit-identical, and the final
+     latent (or decoded image) closer to the guidance target than the
+     unguided request's; w_mse on the latent and guidance with dpm++_m2 raise
+     ValueError. [turbo]: the request at --control_interval 2 and 3, each
+     with and without --turbo_encoder, and with the int8 flags at 2
+     (TURBO_PATHS): exact launches from the site tables (K1 195, 188, 160,
+     146; int8: K3 195, K6 270, K4 2005), PSNR/SSIM against interval 1 and
+     the request and denoise seconds beside it; --cldm_tiled with turbo
+     raises ValueError. One request with --fast_gelu (FAST_GELU_PATHS).
      [tiled_request]: first at full width on the model of phase 5, one
      denoise step's tiled model call (9 latent tiles of 64x64 over 128x128,
      3 a call, three seeds) against a per-tile loop written here (limit
@@ -331,9 +355,63 @@ TILED_VARIANTS = {
            "K4": TILED_CALLS // 3 * K4_TILE_PER_CALL,
            "K4_gemv": TILED_CALLS // 3 * K4_GEMV_PER_CALL}),
 }
+# [guidance]: the CLI request guided at --g_scale 0.5, toward the cleaned
+# condition image's latent (mse) or the image itself through the decoder
+# (RGB, w_mse). RGB guidance's decoder attention at 4096 tokens under the
+# gradient takes plain math (FLASH_MIN_WIDE_GRAD), so every guided request
+# launches what the default one does. w_mse on the latent fails, as in JAX.
+GUIDANCE = ["--guidance", "--g_scale", "0.5"]
+GUIDANCE_PATHS = {
+    "cli_guidance_latent_mse": (CLI_PATHS["cli_request"][0], GUIDANCE + ["--g_loss", "mse"]),
+    "cli_guidance_rgb": (CLI_PATHS["cli_request"][0], GUIDANCE + ["--g_space", "rgb"]),
+    "cli_guidance_rgb_window": (CLI_PATHS["cli_request"][0], GUIDANCE + [
+        "--g_space", "rgb", "--g_repeat", "2", "--g_start", "600", "--g_stop", "200"]),
+}
+# [turbo]: a model call's self-attention sites (each with 10 K4 products in
+# the int8 mode) and ResBlocks, by part: the UNet's encoder (input blocks and
+# middle: 6 + 1 sites, 8 + 2 ResBlocks) and decoder (9, 12), the ControlNet
+# (7, 10). A request at --control_interval k refreshes the ControlNet on
+# ceil(10 / k) of its 10 calls; with --turbo_encoder the UNet's encoder too.
+UNET_ENC_SITES, UNET_DEC_SITES, CN_SITES = 7, 9, 7
+UNET_ENC_RES, UNET_DEC_RES, CN_RES = 10, 12, 10
+K4_PER_SITE = K4_PER_STEP // K1_SITES_PER_STEP
+
+
+def turbo_launches(k: int, encoder: bool, int8: bool = False) -> dict:
+    """Exact launches of the CLI request at --control_interval k."""
+    refreshes = -(-CLI_STEPS // k)
+    every, refreshed = (UNET_DEC_SITES, CN_SITES + UNET_ENC_SITES) if encoder else (
+        UNET_DEC_SITES + UNET_ENC_SITES, CN_SITES)
+    sites = every * CLI_STEPS + refreshed * refreshes
+    if not int8:
+        return {"K1": sites, "K1_wide": K1_WIDE_PER_REQUEST}
+    res = (UNET_DEC_RES * CLI_STEPS + (CN_RES + UNET_ENC_RES) * refreshes if encoder
+           else (UNET_DEC_RES + UNET_ENC_RES) * CLI_STEPS + CN_RES * refreshes)
+    return {"K3": sites, "K6": res, "K4": K4_PER_SITE * sites + K4_PER_HOIST,
+            "K1_wide": K1_WIDE_PER_REQUEST}
+
+
+TURBO_PATHS = {
+    f"cli_turbo_k{k}{'_encoder' if enc else ''}": (
+        turbo_launches(k, enc), ["--control_interval", str(k)] + ["--turbo_encoder"] * enc)
+    for k in (2, 3) for enc in (False, True)}
+TURBO_PATHS["cli_turbo_k2_int8"] = (turbo_launches(2, False, int8=True),
+                                    ["--control_interval", "2"] + INT8_FLAGS)
+assert [TURBO_PATHS[p][0]["K1"] for p in ("cli_turbo_k2", "cli_turbo_k3", "cli_turbo_k2_encoder",
+                                           "cli_turbo_k3_encoder")] == [195, 188, 160, 146]
+assert (K1_SITES_PER_STEP == UNET_ENC_SITES + UNET_DEC_SITES + CN_SITES
+        and K6_PER_CALL == UNET_ENC_RES + UNET_DEC_RES + CN_RES
+        and TURBO_PATHS["cli_turbo_k2_int8"][0]["K6"] == 270
+        and turbo_launches(1, False, int8=True) == CLI_PATHS["cli_request_int8"][0])
+TURBO_SAMPLER_STEPS = 4  # DDIM takes no 3-step uniform grid over 1000 steps
+# [fast_gelu]: the tanh GELU changes no launch
+FAST_GELU_PATHS = {"cli_fast_gelu": (CLI_PATHS["cli_request"][0], ["--fast_gelu"])}
 # the VAE's mid-block attention of an untiled request at 1024x1024 and at
 # 1024x512 (8192 latent tokens)
 VAE_MID_SHAPES = ((1, TILED_SIZE ** 2 // 64, 1, 512), (1, 8192, 1, 512))
+# the decoder's mid-block attention under RGB guidance's gradient: a 512x512
+# request and an untiled 1024x1024 one
+D512_GRAD_SHAPES = ((1, 4096, 1, 512), (1, 16384, 1, 512))
 # the other samplers of the CLI, one 256x256 request each, twice
 SAMPLER_SIZE, SAMPLER_STEPS = 256, 4
 MODE_SEEDS = (1, 2)
@@ -930,6 +1008,120 @@ def phase_backward_kernels(fa):
     headline["dq"]["max_abs_err"] = max_err["dq"]
     headline["dkv"]["max_abs_err"] = max_err["dkv"]
     return headline
+
+
+def phase_d512_backward(fa):
+    """[d512_backward]: one forward plus backward of the VAE's d = 512
+    mid-block attention under a gradient (RGB guidance differentiates
+    through the decoder) at D512_GRAD_SHAPES, three ways: (a) K1_wide with
+    lse, then K2a_cc and K2b_cc (the CUDA-core backward that ``bwd_entries``
+    names for bf16 at d = 512); (b) the plain version under autograd; (c)
+    SDPA forward and backward, the library yardstick; beside the bound (6
+    products of 2 S^2 d: S and P.V, then dV, dP, dQ and dK with P kept) and
+    plain's peak memory. At the first shape K2a_cc and K2b_cc against their
+    plain versions, each timed alone, and a skipped kv tile failing the
+    limits (``check_power``). Prints the threshold of the dispatch under a
+    gradient (``FLASH_MIN_WIDE_GRAD``) and checks it against the reading:
+    plain math below it wherever plain was faster. Returns the kernel lines'
+    numbers of K2a_cc and K2b_cc at the first shape."""
+    import torch
+
+    from diffbir_tpu_torch.ops.attention import FLASH_MIN_WIDE_GRAD, plain_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    numbers, readings = {}, []
+    for b, s, h, d in D512_GRAD_SHAPES:
+        q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(4))
+        label = "x".join(map(str, q.shape))
+        check(fa.bwd_entries(q) == (fa.KERNEL_DQ, fa.KERNEL_DKV),
+              f"bf16 d = 512 backward is not on the CUDA-core entries at {label}")
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def flash():
+            o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+            return fa.flash_attention_bwd(q, k, v, o, lse, g)
+
+        def plain():
+            return torch.autograd.grad(plain_attention(*leaves), leaves, g)
+
+        def sdpa():
+            return torch.autograd.grad(sdpa_fwd(*leaves), leaves, g.transpose(1, 2))
+
+        before = counts()
+        flash()
+        torch.cuda.synchronize()
+        moved = launched_since(before)
+        check(moved == {"K1_wide": 1, "K2a_cc": 1, "K2b_cc": 1},
+              f"(a) at {label} launched {moved}")
+        iters = 3 if s > 4096 else 10
+        t = {"a": median_ms(flash, iters, 1), "b": median_ms(plain, iters, 1),
+             "c": median_ms(sdpa, iters, 1)}
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        plain()
+        torch.cuda.synchronize()
+        plain_gib = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        bms, by = bound_ms(6, b, h, s, s, d, torch.bfloat16, 2 * nbytes(q, k, v, g))
+        print(f"[d512_backward] {label} bf16 forward + backward: (a) K1_wide + K2a_cc + "
+              f"K2b_cc {t['a']:.4f} ms, (b) plain under autograd {t['b']:.4f} ms (peak "
+              f"{plain_gib:.3f} GiB above its inputs), (c) SDPA {t['c']:.4f} ms; bound "
+              f"{bms:.4f} ms ({by}); (a) / (b) {t['a'] / t['b']:.1f}x, (a) / (c) "
+              f"{t['a'] / t['c']:.1f}x")
+        readings.append((s, t))
+        if not numbers:
+            numbers = d512_kernels(fa, q, k, v, g, t["c"], iters)
+        del q, k, v, g, leaves
+        torch.cuda.empty_cache()
+    print(f"[d512_backward] d = 512 under a gradient goes to plain math below "
+          f"FLASH_MIN_WIDE_GRAD = {FLASH_MIN_WIDE_GRAD} tokens, to K1_wide + K2a_cc + K2b_cc "
+          f"from there")
+    for s, t in readings:
+        check(s >= FLASH_MIN_WIDE_GRAD or t["b"] <= t["a"],
+              f"plain math under a gradient is slower than flash at {s} tokens "
+              f"({t['b']} > {t['a']} ms), below FLASH_MIN_WIDE_GRAD")
+    return numbers
+
+
+def d512_kernels(fa, q, k, v, g, library_ms: float, iters: int) -> dict:
+    """K2a_cc and K2b_cc on one d = 512 case: dq, dk and dv (and K1_wide's o
+    and lse) against the plain versions, the limits' power, and each entry's
+    time beside its plain version's and its bound (3 and 4 products);
+    ``library_ms``: SDPA's forward plus backward on the same inputs."""
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
+    refs = dict(zip(NAMES, (o_ref, lse_ref, *fa.flash_attention_bwd_ref(q, k, v, o, lse, g))))
+    limits = {n: limit_of(r, FP32_TOL if n == "lse" else BF16_TOL) for n, r in refs.items()}
+    errs = {n: (x.float() - refs[n].float()).abs().max().item()
+            for n, x in zip(NAMES, (o, lse, *grads))}
+    label = "x".join(map(str, q.shape))
+    print(f"[d512_backward] K1_wide + K2a_cc + K2b_cc {label} bf16: max err / limit "
+          + ", ".join(f"{n} {e:.3e} / {limits[n]:.3e}" for n, e in errs.items())
+          + f" (limit {BF16_TOL:g} x max|ref|, lse {FP32_TOL:g} x max|ref|)")
+    for n, e in errs.items():
+        check(e <= limits[n], f"{n} disagrees with its plain version at {label}: "
+              f"{e} > {limits[n]}")
+    check_power(fa, q, k, v, g, o, lse, refs, limits)
+    b, s, h, d = q.shape
+    in_bytes = nbytes(q, k, v, o, g, lse)
+    out = {}
+    for key, launch, ref, products, n_out in (
+            ("K2a_cc", fa.launch_dq, fa.flash_attention_bwd_dq_ref, 3, nbytes(grads[0])),
+            ("K2b_cc", fa.launch_dkv, fa.flash_attention_bwd_dkv_ref, 4, nbytes(*grads[1:]))):
+        kernel = fa.KERNEL_DQ if key == "K2a_cc" else fa.KERNEL_DKV
+        ms = median_ms(lambda: launch(kernel, q, k, v, o, lse, g), iters, 1)
+        plain_ms = median_ms(lambda: ref(q, k, v, o, lse, g), iters, 1)
+        bms, by = bound_ms(products, b, h, s, s, d, q.dtype, in_bytes + n_out)
+        err = errs["dq"] if key == "K2a_cc" else max(errs["dk"], errs["dv"])
+        print(f"[d512_backward] {key} {label} bf16: {ms:.4f} ms "
+              f"({products * 2.0 * b * h * s * s * d / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; {bms / ms:.2%} of it)")
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": library_ms, "max_abs_err": err, "shape": label,
+                    "library": "SDPA forward + backward"}
+    return out
 
 
 def build_models():
@@ -1763,32 +1955,62 @@ def stages(t: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in t.items())
 
 
-def phase_cli_request(path: str):
-    """[cli_request]: ``python -m diffbir_tpu_torch.inference`` run in this
-    process (``main``) on a seeded 128x128 PNG with --upscale 4 and the
-    CLI's defaults (v2.1, 10 steps of edm_dpm++_3m_sde at CFG 6.0, the
-    default prompts through a stand-in merges file written here), random
-    full-width weights (DIFFBIR_TPU_RANDOM_INIT), plus the path's flags:
-    exact launches, seconds per stage, the PNG equal to a direct
-    ``pipeline.run`` of the request, and a rerun bit-identical. Returns the
-    launch counts of the entry point's run."""
+def cli_request_argv(path: str, flags) -> tuple:
+    """(root, argv) of a CLI request under build/cli_request/``path``: a
+    seeded 128x128 PNG in ``root``/in, the output to ``root``/out, --upscale
+    4 and ``flags``."""
     import shutil
 
     import numpy as np
-    import torch
 
-    from diffbir_tpu_torch.inference.__main__ import main
-    from diffbir_tpu_torch.utils.image_io import read_png, read_rgb, write_png
+    from diffbir_tpu_torch.utils.image_io import write_png
 
-    expected, flags = CLI_PATHS[path]
     root = os.path.join("build", "cli_request", path)
     shutil.rmtree(root, ignore_errors=True)
     in_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
     os.makedirs(in_dir)
     write_png(os.path.join(in_dir, "lq.png"), np.random.default_rng(7).integers(
         0, 256, (CLI_LQ, CLI_LQ, 3), dtype=np.uint8))
-    argv = ["--task", "sr", "--input", in_dir, "--output", out_dir,
-            "--upscale", str(CLI_UPSCALE), *flags]
+    return root, ["--task", "sr", "--input", in_dir, "--output", out_dir,
+                  "--upscale", str(CLI_UPSCALE), *flags]
+
+
+def cli_refuses(label: str, flags, error, match: str) -> None:
+    """The CLI request with ``flags`` raises ``error`` naming ``match``."""
+    from diffbir_tpu_torch.inference.__main__ import main
+
+    root, argv = cli_request_argv("refused", flags)
+    with cli_environment(root):
+        try:
+            main(argv)
+        except error as e:
+            check(match in str(e), f"{label}: {type(e).__name__} does not say {match!r}: {e}")
+            print(f"[{label}] {' '.join(flags)}: {type(e).__name__}: {e}")
+            return
+    check(False, f"{label}: {' '.join(flags)} ran; expected {error.__name__}")
+
+
+def phase_cli_request(path: str, spec=None):
+    """[cli_request]: ``python -m diffbir_tpu_torch.inference`` run in this
+    process (``main``) on a seeded 128x128 PNG with --upscale 4 and the
+    CLI's defaults (v2.1, 10 steps of edm_dpm++_3m_sde at CFG 6.0, the
+    default prompts through a stand-in merges file written here), random
+    full-width weights (DIFFBIR_TPU_RANDOM_INIT), plus the path's flags
+    (``spec`` = (expected launches, flags), CLI_PATHS[path] by default):
+    exact launches, seconds per stage, the PNG equal to a direct
+    ``pipeline.run`` of the request (the loop's pipeline: its guidance, its
+    model's serving flags), and a rerun bit-identical. Returns the launch
+    counts of the entry point's run and {"png", "seconds", "stages"} of it
+    and of the rerun of its loop ("rerun_seconds", "rerun_stages")."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.inference.__main__ import main
+    from diffbir_tpu_torch.utils.image_io import read_png, read_rgb
+
+    expected, flags = spec or CLI_PATHS[path]
+    root, argv = cli_request_argv(path, flags)
+    in_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
     with cli_environment(root):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1809,7 +2031,8 @@ def phase_cli_request(path: str):
         direct = loop.pipeline.run(
             lq[None], steps=a.steps, pos_prompt=a.pos_prompt, neg_prompt=a.neg_prompt,
             cfg_scale=a.cfg_scale, sampler_type=a.sampler, seed=a.seed, eta=a.eta,
-            s_tmax=a.s_tmax, order=a.order)
+            s_tmax=a.s_tmax, order=a.order, control_interval=a.control_interval,
+            turbo_encoder=a.turbo_encoder)
         check(np.array_equal(direct[0], out), f"{path}: the PNG differs from pipeline.run")
         loop.timings = {}
         before = counts()
@@ -1825,9 +2048,182 @@ def phase_cli_request(path: str):
     print(f"[{path}] the PNG ({size}x{size}) read back equal to pipeline.run's output; a rerun "
           f"of the loop: {dt2:.3f} s ({stages(loop.timings)} s), bit-identical; peak device "
           f"memory {peak:.2f} GiB")
+    info = {"png": out, "seconds": dt, "stages": first, "rerun_seconds": dt2,
+            "rerun_stages": dict(loop.timings)}
     del loop
     torch.cuda.empty_cache()
-    return launches
+    return launches, info
+
+
+@contextlib.contextmanager
+def recording_vae():
+    """Records the last VAE encode of ``ControlLDM`` (its image in and latent
+    out: a request's RGB and latent guidance targets) and the last decode
+    (its latent in and image out: the request's final ones), detached."""
+    from diffbir_tpu_torch.models.cldm import ControlLDM
+
+    encode, decode = ControlLDM.vae_encode, ControlLDM.vae_decode
+    rec = {}
+
+    def vae_encode(self, image, *args, **kw):
+        out = encode(self, image, *args, **kw)
+        rec["image"], rec["latent"] = image.detach().float(), out.detach().float()
+        return out
+
+    def vae_decode(self, z, *args, **kw):
+        out = decode(self, z, *args, **kw)
+        rec["z"], rec["x"] = z.detach().float(), out.detach().float()
+        return out
+
+    ControlLDM.vae_encode, ControlLDM.vae_decode = vae_encode, vae_decode
+    try:
+        yield rec
+    finally:
+        ControlLDM.vae_encode, ControlLDM.vae_decode = encode, decode
+
+
+def phase_guidance(baseline: dict) -> dict:
+    """[guidance]: the CLI request under each of GUIDANCE_PATHS
+    (``phase_cli_request``: exact launches, the PNG equal to pipeline.run's,
+    a rerun bit-identical), each closer to its guidance target than the
+    unguided request (``baseline``, the default [cli_request]'s record of
+    ``recording_vae``) on the same seed: the final latent to the condition's
+    latent (mse), or the final decoded image to the condition image (RGB),
+    in mean squared distance; then w_mse on the latent and guidance with a
+    sampler outside spaced, ddim and edm_* must raise ValueError. Returns
+    each path's launch counts."""
+    import torch
+
+    paths = {}
+    for path, spec in GUIDANCE_PATHS.items():
+        with recording_vae() as rec:
+            paths[path], _ = phase_cli_request(path, spec)
+        rgb = "rgb" in spec[1]
+        out, target = ("x", "image") if rgb else ("z", "latent")
+        d = torch.mean((rec[out] - rec[target]) ** 2).item()
+        d0 = torch.mean((baseline[out] - baseline[target]) ** 2).item()
+        print(f"[guidance] {path}: mean squared distance of the request's "
+              f"{'decoded image' if rgb else 'final latent'} to its guidance target "
+              f"{d:.6f}, the unguided request's {d0:.6f}")
+        check(d < d0, f"{path}: guidance did not move the output toward its target "
+              f"({d} >= {d0})")
+    cli_refuses("guidance", GUIDANCE, ValueError, "--g_space rgb")
+    cli_refuses("guidance", GUIDANCE + ["--g_space", "rgb", "--sampler", "dpm++_m2"],
+                ValueError, "dpm++_m2")
+    return paths
+
+
+def phase_turbo_model(cldm):
+    """[turbo], at the model call: through each sampler that takes the turbo
+    model function, TURBO_SAMPLER_STEPS steps at SAMPLER_SIZE on the default
+    prompts' hoisted tables, the cached model at interval 1 gives the plain
+    model function's output bit for bit, with and without the encoder
+    cache; at interval 2 it does not."""
+    import torch
+
+    from diffbir_tpu_torch.pipeline import TURBO_SAMPLERS, build_sampler, model_function
+    from diffbir_tpu_torch.profile_step import NEG_PROMPT, POS_PROMPT, stand_in_tokenizer
+    from diffbir_tpu_torch.schedule import Schedule
+
+    tokenizer = stand_in_tokenizer()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lat = SAMPLER_SIZE // 8
+    with torch.no_grad():
+        img = torch.rand(1, SAMPLER_SIZE, SAMPLER_SIZE, 3, generator=gen, device="cuda")
+        pos, neg = (torch.as_tensor(tokenizer([t]), device="cuda")
+                    for t in (POS_PROMPT, NEG_PROMPT))
+        cond = cldm.prepare_condition(img, pos)
+        uncond = {"c_txt": cldm.encode_text(neg), "c_img": cond["c_img"]}
+    x_T = torch.randn(1, lat, lat, 4, generator=gen, device="cuda")
+    table = torch.randn(TURBO_SAMPLER_STEPS, *x_T.shape, generator=gen, device="cuda")
+    for name in TURBO_SAMPLERS:
+        sampler = build_sampler(name, Schedule.v21(), False, eta=1.0)
+        tables = cldm.make_hoist_tables(torch.cat([cond["c_txt"], uncond["c_txt"]]),
+                                        sampler.model_ts(TURBO_SAMPLER_STEPS))
+
+        def sample(model_fn):
+            kw = ({} if name == "ddim" else {"noise_table": table})
+            return sampler.sample(model_fn, x_T, cond, uncond, CFG, TURBO_SAMPLER_STEPS, **kw)
+
+        plain = sample(model_function(cldm, 1.0, tables))
+        same = [torch.equal(sample(cldm.make_cached_control_model(1.0, 1, enc, tables)), plain)
+                for enc in (False, True)]
+        moved = not torch.equal(sample(cldm.make_cached_control_model(1.0, 2, False, tables)),
+                                plain)
+        print(f"[turbo] {name}, {TURBO_SAMPLER_STEPS} steps at {SAMPLER_SIZE}x{SAMPLER_SIZE}: "
+              f"interval 1 bit-equal to the plain model function: {same[0]} (control cached), "
+              f"{same[1]} (control and UNet encoder); interval 2 moves off it: {moved}")
+        check(all(same) and moved, f"[turbo] {name}: interval 1 {same}, interval 2 moved {moved}")
+        torch.cuda.empty_cache()
+
+
+def phase_turbo_cli(baseline: dict) -> dict:
+    """[turbo], at the CLI: each request of TURBO_PATHS (``phase_cli_request``:
+    exact launches from the site tables, the PNG equal to pipeline.run's, a
+    rerun bit-identical), its PSNR and SSIM against the interval-1 request's
+    PNG (``baseline``: the default [cli_request], or the int8 one; reported,
+    not gated: the weights are random) and its request and denoise seconds
+    beside that request's, in a fresh process and in the rerun of its loop;
+    then --control_interval 2 with --cldm_tiled must raise ValueError.
+    Returns each path's launch counts."""
+    import torch
+
+    from diffbir_tpu_torch.utils.common import psnr, ssim
+
+    def image(png):
+        return torch.as_tensor(png, dtype=torch.float32)[None] / 255.0
+
+    paths = {}
+    for path, spec in TURBO_PATHS.items():
+        paths[path], info = phase_cli_request(path, spec)
+        ref = baseline["cli_request_int8" if "int8" in path else "cli_request"]
+        a, b = image(info["png"]), image(ref["png"])
+        print(f"[turbo] {path} ({' '.join(spec[1])}): against interval 1, PSNR "
+              f"{psnr(a, b).item():.2f} dB, SSIM {ssim(a, b).item():.4f}; request "
+              f"{info['seconds']:.3f} s (denoise {info['stages']['denoise']:.3f} s) against "
+              f"{ref['seconds']:.3f} s (denoise {ref['stages']['denoise']:.3f} s); rerun "
+              f"{info['rerun_seconds']:.3f} s (denoise {info['rerun_stages']['denoise']:.3f} s) "
+              f"against {ref['rerun_seconds']:.3f} s (denoise "
+              f"{ref['rerun_stages']['denoise']:.3f} s)")
+    cli_refuses("turbo", ["--control_interval", "2", "--cldm_tiled"], ValueError, "cldm_tiled")
+    return paths
+
+
+def phase_fast_gelu(cldm):
+    """[fast_gelu], at the model call (batch 2, a 64x64 latent, the default
+    prompts' context): the tanh GELU within MODEL_REL_TOL of exact erf and
+    not equal to it; under --fused_ffn (the "fused" mode) --fast_gelu leaves
+    the call bit-equal and K7's launches unchanged (K7 keeps erf)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x, c_img = (torch.randn(2, 64, 64, 4, generator=gen, device="cuda") for _ in range(2))
+    t = torch.tensor([999.0, 500.0], device="cuda")
+    ctx = default_prompt_context(cldm)
+    cond = {"c_txt": ctx, "c_img": c_img}
+
+    def call(**flags):
+        cldm.set_serving(**flags)
+        before = counts()
+        with torch.no_grad():
+            out = cldm(x, t, cond).float()
+        torch.cuda.synchronize()
+        return out, launched_since(before)
+
+    exact, n_exact = call()
+    fast, n_fast = call(fast_gelu=True)
+    rel = ((fast - exact).abs().max() / exact.abs().max()).item()
+    print(f"[fast_gelu] model call [2,64,64,4]: tanh GELU against exact erf, relative max err "
+          f"{rel:.3e} (tol {MODEL_REL_TOL:g}); launches {n_fast} (erf: {n_exact})")
+    check(0 < rel <= MODEL_REL_TOL and n_fast == n_exact,
+          f"[fast_gelu] the tanh GELU: rel err {rel}, launches {n_fast} vs {n_exact}")
+    fused, n_fused = call(fused_resblock=True, fused_ffn=True)
+    fused_fast, n_fused_fast = call(fused_resblock=True, fused_ffn=True, fast_gelu=True)
+    print(f"[fast_gelu] --fused_ffn --fast_gelu against --fused_ffn: bit-equal "
+          f"{torch.equal(fused, fused_fast)}; launches {n_fused_fast} (without: {n_fused})")
+    check(torch.equal(fused, fused_fast) and n_fused == n_fused_fast
+          and n_fused.get("K7") == K7_PER_CALL, "[fast_gelu] --fused_ffn does not keep erf")
+    cldm.set_mode("default")
 
 
 def blend_weights(n: int):
@@ -2664,7 +3060,8 @@ def main() -> int:
         wide = phase_k1_wide(fa)
         numbers["K1_wide"] = {**wide, "max_abs_err": max(wide["max_abs_err"], wide_err)}
         k2 = phase_backward_kernels(fa)
-        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_k3(fa), **phase_k4(qm),
+        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_d512_backward(fa), **phase_k3(fa),
+                       **phase_k4(qm),
                        **phase_k5(qm), **phase_k6(fr), **phase_k7(ff))
         torch.cuda.empty_cache()
         cldm, swinir = build_models()
@@ -2674,17 +3071,26 @@ def main() -> int:
         paths.update(phase_modes(cldm, swinir))
         cldm.set_mode("default")
         phase_samplers(cldm)
+        phase_turbo_model(cldm)
+        phase_fast_gelu(cldm)
         phase_tiled_model_call(cldm)
         phase_sync_gn_decode(cldm)
         phase_sync_gn_memory(cldm)
         paths.update(phase_llava(qm, cldm, swinir))
         del cldm, swinir
         torch.cuda.empty_cache()
+        cli_runs, records = {}, {}
         for path in CLI_PATHS:
-            paths[path] = phase_cli_request(path)
+            with recording_vae() as records[path]:
+                paths[path], cli_runs[path] = phase_cli_request(path)
+        paths.update(phase_guidance(records["cli_request"]))
+        paths.update(phase_turbo_cli(cli_runs))
+        for path, spec in FAST_GELU_PATHS.items():
+            paths[path], _ = phase_cli_request(path, spec)
         paths.update(phase_tiled_request())
         paths["train"] = phase_train(fa)
-        cli = {path: expected for path, (expected, _) in CLI_PATHS.items()}
+        cli = {path: expected for path, (expected, _) in {
+            **CLI_PATHS, **GUIDANCE_PATHS, **TURBO_PATHS, **FAST_GELU_PATHS}.items()}
         tiled = {f"tiled_{name}": expected for name, (_, expected) in TILED_VARIANTS.items()}
         for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled}.items():
             # no other kernel
@@ -2706,6 +3112,9 @@ def main() -> int:
         ("K1_cc", "flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:81"),
         ("K2a", "flash_attention_bwd_dq_tc", "flash_attention_bwd.cu", "flash_attention.py:371"),
         ("K2b", "flash_attention_bwd_dkv_tc", "flash_attention_bwd.cu",
+         "flash_attention.py:410"),
+        ("K2a_cc", "flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:371"),
+        ("K2b_cc", "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
          "flash_attention.py:410"),
         ("K3", "flash_attention_fwd_prescaled_tc", "flash_attention_fwd.cu",
          "flash_attention.py:229"),

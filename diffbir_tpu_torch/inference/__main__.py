@@ -9,9 +9,13 @@ or "cpu", never chosen for the caller. The serving flags
 (``--quant_dense --fused_resblock --quant_conv --fused_ffn``) compose on the
 loaded model (``ControlLDM.set_serving``); the tiling flags (cleaner, VAE
 encoder and decoder, diffusion, ``--vae_tile_mode``,
-``--cldm_tiles_per_batch``) reach ``Pipeline.run``. A flag of a path that
-is not ported (turbo, guidance, tasks other than sr, versions v2 and
-custom, ``--fast_gelu``) raises NotImplementedError naming the flag.
+``--cldm_tiles_per_batch``) and the turbo flags (``--control_interval``,
+``--turbo_encoder``) reach ``Pipeline.run``; ``--fast_gelu`` reaches
+``set_serving``; restoration guidance (``--guidance`` with ``--g_loss``,
+``--g_scale``, ``--g_start``, ``--g_stop``, ``--g_space``, ``--g_repeat``)
+becomes the pipeline's ``cond_fn``. A flag of a path that is not ported
+(tasks other than sr, versions v2 and custom, ``--train_cfg``, ``--ckpt``)
+raises NotImplementedError naming the flag.
 """
 
 from __future__ import annotations
@@ -38,11 +42,7 @@ DEFAULT_NEG_PROMPT = (
 )
 
 # flag -> its default: any other value asks for a path that is not ported
-UNPORTED = {
-    "control_interval": 1, "turbo_encoder": False,
-    "guidance": False, "g_loss": "w_mse", "g_scale": 0.0, "g_start": 1001, "g_stop": -1,
-    "g_space": "latent", "g_repeat": 1, "fast_gelu": False, "train_cfg": "", "ckpt": "",
-}
+UNPORTED = {"train_cfg": "", "ckpt": ""}
 
 
 def build_parser() -> ArgumentParser:
@@ -123,8 +123,7 @@ def check_ported(args: Namespace) -> None:
     """NotImplementedError naming the first flag of a path not ported."""
     for name, default in UNPORTED.items():
         if getattr(args, name) != default:
-            raise NotImplementedError(f"--{name}: not ported yet (turbo, guidance, "
-                                      f"--fast_gelu and custom models wait)")
+            raise NotImplementedError(f"--{name}: not ported yet (custom models wait)")
     if args.task != "sr":
         raise NotImplementedError(f"--task {args.task}: not ported yet (only sr)")
     if args.version in ("v2", "custom"):

@@ -35,7 +35,7 @@ class BSRInferenceLoop(InferenceLoop):
 
     def load_pipeline(self) -> None:
         self.pipeline = SwinIRPipeline(self.cleaner, self.cldm, self.schedule, self.device,
-                                       tokenizer=self._tokenizer())
+                                       tokenizer=self._tokenizer(), cond_fn=self.cond_fn)
 
     def after_load_lq(self, lq: np.ndarray) -> np.ndarray:
         h, w = lq.shape[:2]

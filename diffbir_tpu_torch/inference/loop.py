@@ -1,17 +1,20 @@
 """Base inference loop: model loading -> per-image restoration -> save.
 
 Counterpart of ``diffbir_tpu/inference/loop.py``: the load order (cleaner,
-ControlLDM, pipeline, captioner), the schedule per version, the input scan
-(one file, or a folder's images in name order), the caption + user prompt
-join, ``n_samples`` in chunks of ``batch_size`` with the seed advanced per
-chunk (``seed + offset``), the tiling flags passed to ``pipeline.run``, the
-output names, and ``prompt.csv``.
+ControlLDM, guidance, pipeline, captioner), the schedule per version, the
+input scan (one file, or a folder's images in name order), the caption +
+user prompt join, ``n_samples`` in chunks of ``batch_size`` with the seed
+advanced per chunk (``seed + offset``), the tiling and turbo flags passed
+to ``pipeline.run``, the output names, and ``prompt.csv``.
 
 - Weights: the DiffBIR checkpoints by name (``pretrained_models``), loaded
   into the float model, then the CLI's serving flags applied
-  (``ControlLDM.set_serving``), as the JAX loop quantises after loading.
-  With ``DIFFBIR_TPU_RANDOM_INIT=1`` random weights from ``--seed`` take
-  their place (the JAX loop's switch): the production path, no file read.
+  (``ControlLDM.set_serving``, ``--fast_gelu`` too), as the JAX loop
+  quantises after loading. With ``DIFFBIR_TPU_RANDOM_INIT=1`` random
+  weights from ``--seed`` take their place (the JAX loop's switch): the
+  production path, no file read.
+- Guidance (``--guidance``, ``--g_*``): ``load_cond_fn`` builds the
+  ``utils.cond_fn`` loss the pipeline holds, as in JAX.
 - ``--precision fp16`` runs in bf16, as in JAX.
 - Images: PNG only (``utils.image_io``, no image library); outputs are
   PNGs, named ``<stem>.png`` or ``<stem>_<i>.png`` with ``n_samples`` > 1.
@@ -38,6 +41,7 @@ from ..models.cldm import ControlLDM
 from ..models.layers import random_init_
 from ..schedule import Schedule
 from ..utils.caption import build_captioner
+from ..utils.cond_fn import MSEGuidance, WeightedMSEGuidance
 from ..utils.image_io import read_rgb, write_png
 from ..weights.convert import load_into, load_stable_diffusion, load_torch_state_dict
 from .pretrained_models import resolve_model
@@ -73,6 +77,7 @@ class InferenceLoop:
         t0 = time.perf_counter()
         self.load_cleaner()
         self.load_cldm()
+        self.load_cond_fn()
         self.load_pipeline()
         self.load_captioner()
         if self.device.type == "cuda":
@@ -111,8 +116,18 @@ class InferenceLoop:
             quant_dense=bool(getattr(args, "quant_dense", False)),
             fused_resblock=bool(getattr(args, "fused_resblock", False)),
             quant_conv=bool(getattr(args, "quant_conv", False)),
-            fused_ffn=bool(getattr(args, "fused_ffn", False)))
+            fused_ffn=bool(getattr(args, "fused_ffn", False)),
+            fast_gelu=bool(getattr(args, "fast_gelu", False)))
         self.schedule = make_schedule_for_version(args.version)
+
+    def load_cond_fn(self) -> None:
+        """The guidance loss of ``--g_loss`` with ``--g_*``, or None."""
+        a = self.args
+        if not getattr(a, "guidance", False):
+            self.cond_fn = None
+            return
+        cls = {"mse": MSEGuidance, "w_mse": WeightedMSEGuidance}[a.g_loss]
+        self.cond_fn = cls(a.g_scale, a.g_start, a.g_stop, a.g_space, a.g_repeat)
 
     def load_pipeline(self) -> None:  # pragma: no cover - overridden
         raise NotImplementedError
@@ -201,6 +216,8 @@ class InferenceLoop:
             vae_decoder_tile_size=a.vae_decoder_tile_size, vae_tile_mode=a.vae_tile_mode,
             cldm_tiled=a.cldm_tiled, cldm_tile_size=a.cldm_tile_size,
             cldm_tile_stride=a.cldm_tile_stride, cldm_tiles_per_batch=a.cldm_tiles_per_batch,
+            control_interval=getattr(a, "control_interval", 1),
+            turbo_encoder=getattr(a, "turbo_encoder", False),
             size_bucket=getattr(a, "size_bucket", 0),
             # distinct chunks of n_samples get distinct seeds
             seed=a.seed + seed_offset,

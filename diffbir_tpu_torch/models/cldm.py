@@ -13,8 +13,9 @@ The opt-in serving modes of the JAX CLI (``--fused_resblock``,
 ``tiny()``; ``quantize_dense_params`` and ``quantize_conv_params`` turn a
 float model's UNet and ControlNet into the int8 layout in place, after the
 cast to the compute dtype, in the order of the JAX loop
-(``inference/loop.py``); ``set_serving`` composes the CLI's four flags,
-``set_mode`` its two named modes.
+(``inference/loop.py``); ``set_serving`` composes the CLI's four flags and
+``--fast_gelu`` (the tanh GELU in every unfused GEGLU), ``set_mode`` its
+two named modes.
 
 Denoise-loop hoisting (``make_hoist_tables``, the JAX ``hoist_context_kv``,
 ``hoist_emb_tables`` and ``make_hoist_lookup``): every cross-attention
@@ -30,7 +31,13 @@ concatenated posterior mean and logvar); "sync_gn" cuts non-overlapping
 tiles with an edge-replicated halo (32 image pixels for the encoder, 11
 latent pixels for the decoder), streams them through ``vae_stream`` with
 every GroupNorm over all tiles, and keeps each tile's centre (batch 1 only).
-Not ported yet: the turbo control cache.
+
+Turbo (``make_cached_control_model``, the JAX method of the same name): a
+model function that runs the ControlNet only on every ``interval``-th call
+and reuses its 13 residuals in between (arXiv:2312.03209); with
+``cache_unet_encoder`` the UNet's encoder and middle block too, so a cached
+call runs only the UNet's decoder (arXiv:2312.09608). Its state (the call
+count and the cache) lives in the object; a request makes a fresh one.
 """
 
 from __future__ import annotations
@@ -44,10 +51,12 @@ from torch import nn
 
 from ..ops.fused_resblock import quantize_conv_weight
 from ..ops.quant_matmul import QuantLinear
+from ..sampler.base import timestep_vector
 from ..tiling import make_tiled_fn
 from .clip import CLIPTextEncoder
 from .layers import Linear, QuantConv
 from .unet import (
+    GEGLU,
     BasicTransformerBlock,
     ControlNet,
     CrossAttention,
@@ -161,10 +170,13 @@ class ControlLDM(nn.Module):
                 m.fused = ffn and not isinstance(m.net[2], QuantLinear)
 
     def set_serving(self, quant_dense: bool = False, fused_resblock: bool = False,
-                    quant_conv: bool = False, fused_ffn: bool = False) -> "ControlLDM":
+                    quant_conv: bool = False, fused_ffn: bool = False,
+                    fast_gelu: bool = False) -> "ControlLDM":
         """The CLI's serving flags on a float model: ``quant_dense`` and
         ``quant_conv`` quantise in place from the current weights (nothing
-        undoes them); the packed flash layout under any flag, else folded."""
+        undoes them); the packed flash layout under any of the four, else
+        folded; ``fast_gelu`` the tanh GELU in every GEGLU that is not fused
+        (K7 keeps erf, as the JAX fused kernel does), else exact erf."""
         if quant_conv and not fused_resblock:
             raise ValueError("quant_conv requires the fused ResBlock path (--fused_resblock)")
         if quant_dense:
@@ -174,6 +186,9 @@ class ControlLDM(nn.Module):
             quantize_conv_params(self)
         self.set_flash_layout(
             "packed" if quant_dense or fused_resblock or fused_ffn else "folded")
+        for m in self._denoisers():
+            if isinstance(m, GEGLU):
+                m.approximate = "tanh" if fast_gelu else "none"
         return self
 
     def set_mode(self, mode: str) -> "ControlLDM":
@@ -213,6 +228,16 @@ class ControlLDM(nn.Module):
             control_scales = (float(control_scales),) * len(control)
         control = tuple(c * s for c, s in zip(control, control_scales))
         return _nhwc(self.unet(x, t, cond["c_txt"], control=control, hoisted=hoisted))
+
+    def make_cached_control_model(self, strength: float, interval: int,
+                                  cache_unet_encoder: bool = False,
+                                  tables: Optional["HoistTables"] = None
+                                  ) -> "CachedControlModel":
+        """Turbo: a sampler ``model_fn`` that refreshes the ControlNet's
+        residuals (and with ``cache_unet_encoder`` the UNet's encoder) on
+        every ``interval``-th call only; ``tables``: the request's hoisted
+        rows, on refreshed and cached calls alike."""
+        return CachedControlModel(self, strength, interval, cache_unet_encoder, tables)
 
     # ------------------------------------------------------------------ #
     # denoise-loop hoisting (exact math: the loop's own module calls)
@@ -387,6 +412,43 @@ def _stitch(tiles: torch.Tensor, corners, ts: int, halo: int) -> torch.Tensor:
     for t, (i, j) in enumerate(corners):
         out[:, i: i + ts, j: j + ts] = tiles[t: t + 1, halo: halo + ts, halo: halo + ts]
     return out
+
+
+class CachedControlModel:
+    """The turbo model function (``ControlLDM.make_cached_control_model``):
+    ``model_fn(x, t, cond)`` as ``pipeline.model_function``'s, which on call
+    i runs the ControlNet where i % interval == 0 and otherwise reuses the
+    unscaled residuals of the last such call, scaling them by ``strength``
+    every call; with ``cache_unet_encoder`` it caches the UNet's encoder
+    output (``phase="encode"``) the same way and runs only the decoder
+    (``phase="decode"``). ``calls``, ``control`` and ``encoded`` are its
+    state; at interval 1 it is the plain model call, op for op."""
+
+    def __init__(self, cldm: ControlLDM, strength: float, interval: int,
+                 cache_unet_encoder: bool = False, tables: Optional[HoistTables] = None):
+        if interval < 1:
+            raise ValueError(f"control interval must be >= 1, got {interval}")
+        self.cldm, self.strength, self.interval = cldm, float(strength), interval
+        self.cache_unet_encoder, self.tables = cache_unet_encoder, tables
+        self.calls, self.control, self.encoded = 0, None, None
+
+    def __call__(self, x: torch.Tensor, t: float, cond: Mapping[str, torch.Tensor]
+                 ) -> torch.Tensor:
+        cldm = self.cldm
+        hoisted = None if self.tables is None else self.tables.lookup(t)
+        xn, tv, ctx = _nchw(x), timestep_vector(t, x), cond["c_txt"]
+        if self.calls % self.interval == 0:
+            self.control = cldm.controlnet(xn, _nchw(cond["c_img"]), tv, ctx, hoisted)
+            if self.cache_unet_encoder:
+                self.encoded = cldm.unet(xn, tv, ctx, hoisted=hoisted, phase="encode")
+        self.calls += 1
+        control = tuple(c * self.strength for c in self.control)
+        if self.cache_unet_encoder:
+            out = cldm.unet(None, tv, ctx, control=control, hoisted=hoisted, phase="decode",
+                            cached=self.encoded)
+        else:
+            out = cldm.unet(xn, tv, ctx, control=control, hoisted=hoisted)
+        return _nhwc(out)
 
 
 class HoistTables:

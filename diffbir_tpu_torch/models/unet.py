@@ -1,11 +1,20 @@
 """SD2.1 UNet + IRControlNet, NCHW torch modules.
 
-Counterpart of ``diffbir_tpu/models/unet.py`` (full-mode forward only): the
+Counterpart of ``diffbir_tpu/models/unet.py``: the
 ADM-style UNet (model_channels 320, mult (1,2,4,4), SpatialTransformer at
 ds 4/2/1, 64-wide heads, linear transformer projections, context 1024) and
 the ControlNet copy of its encoder with the hint concatenated at the input
 conv and 13 zero-conv residuals. Control residuals are a tuple argument.
-Attribute names equal the DiffBIR checkpoint keys.
+Attribute names equal the DiffBIR checkpoint keys. The UNet's forward has
+the JAX phases: "full", "encode" (the input and middle blocks only: the
+middle block's output before the control residual, and the skips) and
+"decode" (the rest, from such a ``cached`` pair: encoder propagation
+across timesteps, arXiv:2312.09608, for the turbo control cache).
+
+``GEGLU.approximate``: "none" (exact erf, the reference) or "tanh" (the
+CLI's ``--fast_gelu``, set by ``ControlLDM.set_serving``; the JAX package
+reads ``DIFFBIR_TPU_FAST_GELU`` at trace time instead). The fused FFN (K7)
+keeps the exact erf either way, as the JAX fused kernel does.
 
 ``use_checkpoint`` recomputes every ResBlock and SpatialTransformer in the
 backward instead of keeping its activations (the JAX package's ``nn.remat``
@@ -181,10 +190,11 @@ class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int, dtype, device=None, quant: bool = False):
         super().__init__()
         self.proj = _dense(dim, inner * 2, quant, dtype=dtype, device=device)
+        self.approximate = "none"  # exact erf GELU; "tanh" under --fast_gelu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
-        return h * F.gelu(gate)  # exact erf GELU
+        return h * F.gelu(gate, approximate=self.approximate)
 
 
 class FeedForward(nn.Module):
@@ -393,17 +403,31 @@ class UNetModel(_Encoder):
             GroupNorm32(ch, device=device), nn.SiLU(),
             conv(ch, out_channels, 3, dtype=torch.float32, device=device))
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
+    def forward(self, x: Optional[torch.Tensor], timesteps: torch.Tensor, context: torch.Tensor,
                 control: Optional[Tuple[torch.Tensor, ...]] = None,
-                hoisted: Optional[Mapping[nn.Module, torch.Tensor]] = None) -> torch.Tensor:
+                hoisted: Optional[Mapping[nn.Module, torch.Tensor]] = None,
+                phase: str = "full",
+                cached: Optional[Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]] = None):
+        """``phase``: "full" (the output), "encode" (``(h_mid, skips)``, before
+        the control residual is added) or "decode" (the output from
+        ``cached`` = such a pair; ``x`` is not read)."""
+        if phase not in ("full", "encode", "decode"):
+            raise ValueError(f"unknown phase {phase!r}")
         emb = self._embed_unless_hoisted(timesteps, hoisted)
         context = context.to(self.dtype)
-        h = x.to(self.dtype)
-        hs = []
-        for block in self.input_blocks:
-            h = block(h, emb, context, hoisted)
-            hs.append(h)
-        h = self.middle_block(h, emb, context, hoisted)
+        if phase == "decode":
+            if cached is None:
+                raise ValueError('phase="decode" needs cached=(h_mid, skips)')
+            h, hs = cached[0], list(cached[1])
+        else:
+            h = x.to(self.dtype)
+            hs = []
+            for block in self.input_blocks:
+                h = block(h, emb, context, hoisted)
+                hs.append(h)
+            h = self.middle_block(h, emb, context, hoisted)
+            if phase == "encode":
+                return h, tuple(hs)
         if control is not None:
             h = h + control[-1].to(h.dtype)
         for block in self.output_blocks:

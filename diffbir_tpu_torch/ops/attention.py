@@ -19,7 +19,21 @@ entry took 0.330 ms against 0.589 ms for the plain version at
 at [1,8192,1,512] and 2.224 against 7.508 at [1,16384,1,512]
 (``chip_smoke.py``, which times both at these shapes). 4096 is the smaller
 of the two thresholds considered, 4096 and 8192, at which flash wins there
-and at every larger size measured. ``layout="packed"`` (the
+and at every larger size measured.
+
+Under a gradient (RGB guidance differentiates through the VAE decoder) the
+backward decides: d = 512 has no tensor-core backward, and the CUDA-core
+K2a/K2b lose to plain math under autograd. On the same card, one forward
+plus backward took 15.70 ms through K1_wide + K2a_cc + K2b_cc against 2.29
+ms for the plain version at [1,4096,1,512], 365.70 against 22.70 ms at
+[1,16384,1,512] (SDPA 7.45 and 69.40 ms; ``chip_smoke.py``'s
+``[d512_backward]``). So such a call goes to plain math below
+``FLASH_MIN_WIDE_GRAD`` = 65536 tokens (a 2048x2048 image, the reference
+demo's largest), where plain's memory ends it: its peak above the inputs
+grew as the square of the tokens, 0.27 GiB at 4096 and 4.09 GiB at 16384,
+so ~65 GiB at 65536, more than the 80 GB card holds beside the decoder's
+own activations under a gradient. The JAX package sends d = 512 below 8192
+tokens to plain math with or without a gradient. ``layout="packed"`` (the
 JAX package's ``DIFFBIR_TPU_FLASH_LAYOUT=packed``) runs the flash calls
 through K3, K1 with q pre-scaled once in bf16, where the JAX packed kernel
 runs: a forward without gradient and Sq <= 1024 or Sq % 1024 == 0.
@@ -39,6 +53,8 @@ FLASH_HEAD_DIMS = (64, 128, 256, 512)
 FLASH_LAYOUTS = ("folded", "packed")
 # tokens from which a d > 256 self-attention goes to flash (see above)
 FLASH_MIN_WIDE = 4096
+# the same under a gradient (see above: the backward's reading)
+FLASH_MIN_WIDE_GRAD = 65536
 
 
 def packed_applies(sq: int) -> bool:
@@ -87,16 +103,20 @@ def attention(
     layout: str = "folded",
 ) -> torch.Tensor:
     """Dispatching attention used by all models. ``impl``: "auto" (flash
-    where the call qualifies) or "plain" (always the plain math).
+    where the call qualifies; d > 256 from ``FLASH_MIN_WIDE`` tokens, or
+    from ``FLASH_MIN_WIDE_GRAD`` where autograd records a gradient of q, k
+    or v) or "plain" (always the plain math).
     ``layout``: "folded" (K1) or "packed" (K3 where it applies, see above)."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if layout not in FLASH_LAYOUTS:
         raise ValueError(f"unknown flash layout {layout!r}")
     d, sq = q.shape[-1], q.shape[1]
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     flash = (
         impl == "auto" and mask is None and bias is None
-        and k.shape[1] == sq and d in FLASH_HEAD_DIMS and (d <= 256 or sq >= FLASH_MIN_WIDE)
+        and k.shape[1] == sq and d in FLASH_HEAD_DIMS
+        and (d <= 256 or sq >= (FLASH_MIN_WIDE_GRAD if grad else FLASH_MIN_WIDE))
     )
     if not flash:
         return plain_attention(q, k, v, mask=mask, bias=bias)

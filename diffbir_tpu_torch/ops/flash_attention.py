@@ -41,8 +41,10 @@ a tensor-core design of its own (``flash_attention_fwd_wide_tc``, counted on
 warpgroups. fp32 at any d, bf16 at d = 256, K3 at d = 512 and the backward
 at d = 512 go to the CUDA-core entries (``KERNEL``, ``KERNEL_PRESCALED``,
 ``KERNEL_DQ``, ``KERNEL_DKV``): the tensor cores have no fp32 mode that
-keeps fp32's limit, and no path of the port reaches the others (the VAE
-takes neither the packed layout nor a gradient). ``fwd_entries`` and
+keeps fp32's limit, and no path of the port reaches the others: the VAE
+never takes the packed layout, and RGB guidance's gradient through its
+decoder goes to plain math below ``attention.FLASH_MIN_WIDE_GRAD`` tokens,
+where the CUDA-core backward loses to it. ``fwd_entries`` and
 ``bwd_entries`` state the rule; nothing falls back from one entry to
 another, and a tensor-core launch that fails raises.
 
@@ -289,8 +291,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_entries(q: torch.Tensor) -> Tuple[CudaKernel, CudaKernel]:
     """The (K2a, K2b) entries for q's dtype and head dim: the tensor-core
     entries for bf16 at d in ``TC_HEAD_DIMS``, the CUDA-core entries for fp32
-    at any d and for bf16 at d = 256 and 512 (no path of the port runs a
-    backward at d >= 256)."""
+    at any d and for bf16 at d = 256 and 512 (a d = 512 backward of the
+    port's paths, RGB guidance's, takes plain math below
+    ``FLASH_MIN_WIDE_GRAD`` tokens)."""
     if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS:
         return KERNEL_DQ_TC, KERNEL_DKV_TC
     return KERNEL_DQ, KERNEL_DKV

@@ -39,9 +39,19 @@ slicing the condition latent at each tile and repeating the text context
 per tile; hoisting is off there, as in JAX (the call batch changes per
 group). ``SwinIRPipeline`` tiles its cleaner with ``make_tiled_fn``.
 
-Not ported yet, and refused with NotImplementedError naming the option:
-turbo control caching (``control_interval``, ``turbo_encoder``) and
-restoration guidance.
+Turbo (``control_interval`` k > 1, the JAX order of checks): the ControlNet
+runs on every k-th model call only (``cldm.make_cached_control_model``),
+with ``turbo_encoder`` the UNet's encoder too; the hoisted rows apply on
+refreshed and cached calls alike. Only the samplers that call the model
+once a step take it (``TURBO_SAMPLERS``), and not the tiled diffusion
+(ValueError); a request makes a fresh cache.
+
+Restoration guidance: a pipeline holds a ``cond_fn`` (``utils.cond_fn``, set
+as the JAX loop sets it) and hands it to spaced, ddim and the ``edm_*``
+samplers; the others raise ValueError. Latent guidance pulls x0 toward the
+condition latent as encoded (x8-padded, before ``noise_aug``); RGB guidance
+toward ``cond_img * 2 - 1``, through ``cldm.vae_decode`` inside the
+gradient.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from .sampler.edm import EDMSampler
 from .sampler.spaced import SpacedSampler
 from .schedule import Schedule
 from .tiling import make_tiled_fn
+from .utils.cond_fn import RGBSpaceGuidance
 from .utils.common import (
     StageClock,
     bicubic_resize,
@@ -70,6 +81,9 @@ from .utils.common import (
 )
 
 SOT, EOT = 49406, 49407
+# the samplers that take a stateful (turbo) model function: one model call a
+# step, in order
+TURBO_SAMPLERS = ("spaced", "ddim", "edm_dpm++_3m_sde", "edm_dpm++_2m_sde", "edm_euler_a")
 
 SAMPLER_CHOICES = [
     "dpm++_m2", "spaced", "ddim",
@@ -148,13 +162,14 @@ class Pipeline:
     def __init__(self, cldm: ControlLDM, schedule: Schedule, device: torch.device,
                  min_cond_size: int = 512,
                  tokenizer: Optional[Callable[[List[str]], np.ndarray]] = None,
-                 hoist: bool = True):
+                 hoist: bool = True, cond_fn=None):
         self.cldm = cldm
         self.schedule = schedule
         self.device = torch.device(device)
         self.min_cond_size = min_cond_size
         self.tokenizer = tokenizer
         self.hoist = hoist
+        self.cond_fn = cond_fn
         self.output_size: Tuple[int, int] = None
 
     def set_output_size(self, lq_hw: Tuple[int, int]) -> None:
@@ -229,6 +244,11 @@ class Pipeline:
         notes); x_T and the noise then have the padded latent's shape."""
         if start_point_type not in ("noise", "cond"):
             raise ValueError(f"unknown start point {start_point_type!r}")
+        cond_fn = self.cond_fn
+        if cond_fn is not None and not (
+                sampler_type in ("spaced", "ddim") or sampler_type.startswith("edm")):
+            raise ValueError(f"restoration guidance is not supported with sampler "
+                             f"{sampler_type!r}; use spaced, ddim, or an edm_* sampler")
         clock = clock or StageClock(None, self.device)
         cldm = self.cldm
         bs, h0, w0, _ = cond_img.shape
@@ -250,9 +270,10 @@ class Pipeline:
             raise ValueError(
                 "control_interval > 1 (turbo) is not supported with cldm_tiled — the per-tile "
                 "ControlNet calls cannot share one residual cache; drop one of the two flags")
-        if control_interval > 1 or turbo_encoder:
-            raise NotImplementedError("control_interval / turbo_encoder: the turbo control "
-                                      "cache is not ported yet")
+        turbo = control_interval > 1
+        if turbo and sampler_type not in TURBO_SAMPLERS:
+            raise ValueError("control_interval > 1 requires a stateful-scan sampler "
+                             f"(one of {', '.join(TURBO_SAMPLERS)})")
         # sync_gn tiling is batch 1 only: blend for larger batches (encoder and decoder)
         tile_mode = vae_tile_mode if bs == 1 else "blend"
         sampler = build_sampler(sampler_type, self.schedule, rescale_cfg, **sampler_kwargs)
@@ -263,6 +284,7 @@ class Pipeline:
         if not cldm_tiled:
             # the untiled UNet needs a latent of x8 (three downsamples)
             cond["c_img"] = pad_to_multiples_of(cond["c_img"], 8)
+        clean_c_img = cond["c_img"]  # the latent guidance target: before noise_aug
         uncond = None
         if use_cfg:
             # the condition image is the same, so only the text differs
@@ -292,11 +314,22 @@ class Pipeline:
                 ctx_full = (cond["c_txt"] if uncond is None
                             else torch.cat([cond["c_txt"], uncond["c_txt"]], dim=0))
                 tables = cldm.make_hoist_tables(ctx_full, sampler.model_ts(steps))
-            model_fn = model_function(cldm, strength, tables)
+            if turbo:
+                model_fn = cldm.make_cached_control_model(strength, control_interval,
+                                                          turbo_encoder, tables)
+            else:
+                model_fn = model_function(cldm, strength, tables)
         clock.lap("hoist")
+        guidance = {}
+        if cond_fn is not None:
+            if cond_fn.space == "rgb":
+                guidance = dict(cond_fn=RGBSpaceGuidance(cond_fn, cldm.vae_decode),
+                                guidance_target=cond_img * 2.0 - 1.0)
+            else:
+                guidance = dict(cond_fn=cond_fn, guidance_target=clean_c_img)
         z = sampler.sample(model_fn, start, cond, uncond, cfg_scale, steps,
                            generator=None if noise_table is not None else generator,
-                           noise_table=noise_table)
+                           noise_table=noise_table, **guidance)
         clock.lap("denoise")
         x = cldm.vae_decode(z[:, :h1, :w1, :], tiled=vae_decoder_tiled,
                             tile_size=vae_decoder_tile_size // 8, tile_mode=tile_mode)
@@ -390,8 +423,8 @@ class SwinIRPipeline(Pipeline):
     def __init__(self, cleaner: SwinIR, cldm: ControlLDM, schedule: Schedule,
                  device: torch.device, min_cond_size: int = 512,
                  tokenizer: Optional[Callable[[List[str]], np.ndarray]] = None,
-                 hoist: bool = True):
-        super().__init__(cldm, schedule, device, min_cond_size, tokenizer, hoist)
+                 hoist: bool = True, cond_fn=None):
+        super().__init__(cldm, schedule, device, min_cond_size, tokenizer, hoist, cond_fn)
         self.cleaner = cleaner
 
     def _clean(self, x: torch.Tensor) -> torch.Tensor:

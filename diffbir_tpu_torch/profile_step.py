@@ -25,7 +25,12 @@ linears on K5 at 4 bits, on K4 at 8) after a 624-row prefill, as
 with the cleaner, the VAE and the diffusion tiled (the CLI's tile sizes:
 cleaner 512/256, VAE 256, diffusion 512/256, ``--tiles_per_batch`` latent
 tiles per model call), then times and profiles one tiled denoise step (the
-9 latent tiles of a 128x128 latent, folded CFG, no hoisting). Prints
+9 latent tiles of a 128x128 latent, folded CFG, no hoisting). ``--control_interval K
+[--turbo_encoder]`` profiles the turbo model function's refresh step and
+its cached step (with ``--request``: 512x512 requests plain and turbo in
+turns, five seeds); ``--guidance latent|rgb`` one guided step (the call, then
+one round of mse guidance toward the condition latent, or of w_mse toward
+the condition image through the VAE decoder, on its output). Prints
 
 - host and device time per step, with the flash kernels (K1, and K2a/K2b in
   training) and with plain attention, in the order plain, kernel, kernel,
@@ -43,6 +48,7 @@ Run from the repository root on a machine with a card:
 
     python3 -m diffbir_tpu_torch.profile_step [--train | --caption 4 | --mode int8 |
         --request [--tiled [--tiles_per_batch 3]]] [--sampler edm_dpm++_3m_sde --steps 10]
+        [--control_interval 2 [--turbo_encoder] | --guidance latent|rgb]
         [--no-hoist] [--trace step_trace.json]
 """
 
@@ -117,14 +123,23 @@ def stand_in_tokenizer(seed: int = SEED, context_length: int = 77):
 
 
 def build_step(seed: int, device: torch.device, mode: str = "default",
-               sampler: str = "spaced", steps: int = 50, hoist: bool = True):
+               sampler: str = "spaced", steps: int = 50, hoist: bool = True,
+               control_interval: int = 1, turbo_encoder: bool = False,
+               guidance: str | None = None):
     """A full-width bf16 ControlLDM in a serving mode
     (``ControlLDM.set_mode``) and one sampler step's folded-CFG call, cond
     and uncond on the default prompts' stand-in ids, through the pipeline's
     model function at the first timestep of the sampler's grid (the
-    hoisted tables of that grid unless ``hoist`` is False)."""
+    hoisted tables of that grid unless ``hoist`` is False). Returns the
+    model and {name: step}: "step"; with ``control_interval`` > 1 the turbo
+    model function's "refresh step" (ControlNet, and with ``turbo_encoder``
+    the UNet encoder, run and cached) and "cached step" (the cache reused);
+    with ``guidance`` "latent" (mse toward the condition latent) or "rgb"
+    (w_mse toward the condition image, through the VAE decoder) the
+    "guided step": the call, then one guidance round on its output as x0."""
     from .pipeline import build_sampler, model_function
-    from .sampler.base import GuidedModel
+    from .sampler.base import GuidedModel, apply_guidance
+    from .utils.cond_fn import MSEGuidance, RGBSpaceGuidance, WeightedMSEGuidance
 
     gen = torch.Generator(device=device).manual_seed(seed)
     cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device=device)
@@ -143,14 +158,38 @@ def build_step(seed: int, device: torch.device, mode: str = "default",
     if hoist:
         with torch.no_grad():
             tables = cldm.make_hoist_tables(torch.cat([cond["c_txt"], uncond["c_txt"]]), grid)
-    model = GuidedModel(model_function(cldm, 1.0, tables), cond, uncond)
     t = float(np.max(grid))
+    if control_interval > 1:
+        cached = cldm.make_cached_control_model(1.0, control_interval, turbo_encoder, tables)
+        turbo = GuidedModel(cached, cond, uncond)
+
+        @torch.no_grad()
+        def turbo_step(call: int):
+            cached.calls = call  # a refresh where call % interval == 0
+            return turbo(x, t, CFG)
+
+        return cldm, {"refresh step": lambda: turbo_step(0),
+                      "cached step": lambda: turbo_step(1)}
+    model = GuidedModel(model_function(cldm, 1.0, tables), cond, uncond)
 
     @torch.no_grad()
     def step():
         return model(x, t, CFG)
 
-    return cldm, step
+    if guidance is None:
+        return cldm, {"step": step}
+    if guidance == "rgb":
+        cond_fn = RGBSpaceGuidance(WeightedMSEGuidance(0.5, 1001, -1, "rgb", 1),
+                                   cldm.vae_decode)
+        target = img * 2 - 1
+    else:
+        cond_fn, target = MSEGuidance(0.5, 1001, -1, "latent", 1), cond["c_img"]
+
+    @torch.no_grad()
+    def guided_step():
+        return apply_guidance(cond_fn, target, step().float(), True)
+
+    return cldm, {"guided step": guided_step}
 
 
 def build_tiled_step(seed: int, device: torch.device, sampler: str = "spaced",
@@ -195,10 +234,12 @@ def build_tiled_step(seed: int, device: torch.device, sampler: str = "spaced",
 
 
 def time_requests(seed: int, device: torch.device, sampler: str, steps: int,
-                  seeds=(1, 2, 3), tiles_per_batch=None) -> None:
+                  seeds=(1, 2, 3), tiles_per_batch=None, turbo=None) -> None:
     """Whole 512x512 requests (``SwinIRPipeline.run``) after one warm-up, or
     with ``tiles_per_batch`` tiled 1024x1024 ones: seconds per request and
-    per stage."""
+    per stage. With ``turbo`` (``run``'s turbo arguments) each seed runs
+    plain, turbo, turbo, plain, and the medians of the denoise seconds of
+    each are printed."""
     gen = torch.Generator(device=device).manual_seed(seed)
     cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device=device)
     random_init_(cldm, gen).eval()
@@ -214,16 +255,27 @@ def time_requests(seed: int, device: torch.device, sampler: str, steps: int,
         size = TILED_SIZE
         kw.update(TILED, cldm_tiles_per_batch=tiles_per_batch)
     lq = np.random.default_rng(seed).integers(0, 256, (1, size, size, 3), dtype=np.uint8)
+    variants = [("", {})] if turbo is None else [
+        ("plain", {}), ("turbo", turbo), ("turbo", turbo), ("plain", {})]
     pipe.run(lq, seed=0, **kw)
+    denoise = {}
     for s in seeds:
-        timings = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.run(lq, seed=s, timings=timings, **kw)
-        dt = time.perf_counter() - t0
-        split = ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
-        print(f"[request] {size}x{size}{' tiled' if tiles_per_batch else ''}, {sampler} x "
-              f"{steps} steps, seed {s}: {dt:.4f} s ({split} s)")
+        for label, extra in variants:
+            timings = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.run(lq, seed=s, timings=timings, **kw, **extra)
+            dt = time.perf_counter() - t0
+            denoise.setdefault(label, []).append(timings["denoise"])
+            split = ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
+            print(f"[request] {size}x{size}{' tiled' if tiles_per_batch else ''}, {sampler} x "
+                  f"{steps} steps, seed {s}{' ' + label if label else ''}: {dt:.4f} s "
+                  f"({split} s)")
+    if turbo is not None:
+        med = {k: statistics.median(v) for k, v in denoise.items()}
+        print(f"[request] median denoise over {len(denoise['plain'])} requests each "
+              f"(plain, turbo, turbo, plain per seed): plain {med['plain']:.4f} s, turbo "
+              f"{med['turbo']:.4f} s ({med['turbo'] / med['plain'] - 1:+.1%}); {turbo}")
 
 
 @dataclass
@@ -385,6 +437,13 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=50, help="the sampler's step count")
     ap.add_argument("--no-hoist", dest="hoist", action="store_false",
                     help="the denoise step without the hoisted tables")
+    ap.add_argument("--control_interval", type=int, default=1,
+                    help="turbo: profile the refresh step and the cached step of this interval "
+                         "(with --request: time requests plain and turbo in turns)")
+    ap.add_argument("--turbo_encoder", action="store_true",
+                    help="with --control_interval: cache the UNet encoder too")
+    ap.add_argument("--guidance", choices=("latent", "rgb"), default=None,
+                    help="profile one guided step: the call and one guidance round")
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the profiled steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -397,8 +456,13 @@ def main(argv=None) -> int:
         print(f"[profile] {torch.cuda.get_device_name(0)}; SwinIR + ControlLDM sd21 bf16 "
               f"requests at {size}x{size}"
               + (f", tiled, {args.tiles_per_batch} latent tiles a call" if args.tiled else ""))
+        turbo = None
+        if args.control_interval > 1:
+            turbo = dict(control_interval=args.control_interval,
+                         turbo_encoder=args.turbo_encoder)
         time_requests(SEED, device, args.sampler, args.steps,
-                      tiles_per_batch=args.tiles_per_batch if args.tiled else None)
+                      seeds=(1, 2, 3) if turbo is None else (1, 2, 3, 4, 5),
+                      tiles_per_batch=args.tiles_per_batch if args.tiled else None, turbo=turbo)
         if not args.tiled:
             return 0
         step, blend_step = build_tiled_step(SEED, device, args.sampler, args.steps,
@@ -419,20 +483,28 @@ def main(argv=None) -> int:
         print(f"[profile] {torch.cuda.get_device_name(0)}; LLaVA-1.5-7B decode step at "
               f"{args.caption} bits after a {CAPTION_ROWS}-row prefill")
         return through_the_kernels(step, "decode steps", args.trace)
-    if args.mode != "default":
-        _, step = build_step(SEED, device, args.mode, **step_kw)
+    if args.mode != "default" or args.control_interval > 1 or args.guidance:
+        _, steps = build_step(SEED, device, args.mode, control_interval=args.control_interval,
+                              turbo_encoder=args.turbo_encoder, guidance=args.guidance,
+                              **step_kw)
+        option = (f", turbo every {args.control_interval} calls"
+                  + (" with the encoder cached" if args.turbo_encoder else "")
+                  if args.control_interval > 1 else "")
+        option += f", {args.guidance} guidance" if args.guidance else ""
         print(f"[profile] {torch.cuda.get_device_name(0)}; ControlLDM sd21 bf16 in the "
               f"\"{args.mode}\" mode, batch 2 (CFG {CFG} folded), {LATENT}x{LATENT} latent, "
-              f"{grid}")
-        return through_the_kernels(step, "steps", args.trace)
+              f"{grid}{option}")
+        for what, step in steps.items():
+            through_the_kernels(step, what + "s", args.trace)
+        return 0
     if args.train:
         cldm, step = build_train_step(SEED, device)
         timed = TIMED_TRAIN_STEPS
         what = (f"stage-2 train step, batch {TRAIN_BATCH} at {8 * LATENT}x{8 * LATENT}, "
                 "checkpointing")
     else:
-        cldm, step = build_step(SEED, device, **step_kw)
-        timed = TIMED_STEPS
+        cldm, steps = build_step(SEED, device, **step_kw)
+        step, timed = steps["step"], TIMED_STEPS
         what = f"batch 2 (CFG {CFG} folded), {LATENT}x{LATENT} latent, {grid}"
     print(f"[profile] {torch.cuda.get_device_name(0)}; ControlLDM sd21 bf16, {what}")
     for impl in ("plain", "auto", "auto", "plain"):

@@ -7,7 +7,13 @@ The model function's contract: ``model_fn(x, t, cond)``, where ``t`` is the
 step's model timestep as a host float, the same for every row (as every
 sampler's is); the model function makes its own [B] timestep tensor. So a
 step's hoisted rows are found on the host (``cldm.HoistTables.lookup``).
-Restoration guidance (``apply_guidance``) is not ported yet.
+The samplers call the model function once per model evaluation, in order,
+so a model function that carries state from call to call (the turbo
+control cache, ``cldm.CachedControlModel``) works through them.
+
+Restoration guidance (``utils.cond_fn``): ``guidance_gate`` is the host
+table of the steps it acts on (model t in [t_stop, t_start]);
+``apply_guidance`` adds ``repeat`` gradient steps to an x0 prediction.
 """
 
 from __future__ import annotations
@@ -58,6 +64,25 @@ class GuidedModel:
 
     def __call__(self, x: torch.Tensor, t: float, cfg_scale: float) -> torch.Tensor:
         return self.combine(self.raw(self.batch(x), t), cfg_scale)
+
+
+def guidance_gate(cond_fn, model_ts) -> np.ndarray:
+    """Host bool table: guidance acts where the model t is in [t_stop,
+    t_start]."""
+    model_ts = np.asarray(model_ts)
+    return (model_ts <= cond_fn.t_start) & (model_ts >= cond_fn.t_stop)
+
+
+def apply_guidance(cond_fn, target: torch.Tensor, x0: torch.Tensor, g_on: bool
+                   ) -> torch.Tensor:
+    """``repeat`` rounds of x0 += cond_fn's gradient step where ``g_on``;
+    ``repeat <= 0`` is off, as the reference's ``for _ in range(repeat)``."""
+    if not g_on:
+        return x0
+    for _ in range(int(cond_fn.repeat)):
+        g, _loss = cond_fn(target, x0)
+        x0 = x0 + g
+    return x0
 
 
 class NoiseSource:

@@ -4,7 +4,9 @@ Counterpart of ``diffbir_tpu/sampler/ddim.py``: uniform or quad timestep
 selection with the +1 shift, sigma(eta), the v -> eps conversion and
 batched CFG; the rows are the JAX scan's fp32 tables. With ``eta`` 0 (the
 pipeline's setting, as in the reference) no noise is drawn; otherwise one
-draw per step, row i of a ``noise_table`` [steps, *x].
+draw per step, row i of a ``noise_table`` [steps, *x]. With ``cond_fn``
+(restoration guidance) pred_x0 takes the guidance rounds where
+``guidance_gate`` allows and e_t follows it, on every step, as in JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from ..schedule import make_ddim_params
-from .base import GuidedModel, ModelFn, NoiseSource, Sampler
+from .base import GuidedModel, ModelFn, NoiseSource, Sampler, apply_guidance, guidance_gate
 
 
 class DDIMSampler(Sampler):
@@ -45,8 +47,11 @@ class DDIMSampler(Sampler):
                uncond: Optional[Mapping[str, torch.Tensor]], cfg_scale: float, steps: int,
                generator: Optional[torch.Generator] = None,
                noise_table: Optional[torch.Tensor] = None,
-               discretize: str = "uniform") -> torch.Tensor:
+               discretize: str = "uniform", cond_fn=None,
+               guidance_target: Optional[torch.Tensor] = None) -> torch.Tensor:
         tables = self.make_tables(steps, cfg_scale, discretize)
+        if cond_fn is not None:
+            g_on = guidance_gate(cond_fn, tables["model_t"])
         if noise_table is not None and tuple(noise_table.shape) != (steps, *x_T.shape):
             raise ValueError(f"noise_table shape {tuple(noise_table.shape)} != "
                              f"{(steps, *x_T.shape)}")
@@ -63,6 +68,10 @@ class DDIMSampler(Sampler):
             sqrt_oma = float(np.sqrt(np.float32(1.0) - row["a_t"]))
             e_t = sqrt_a * out + sqrt_oma * x if v_param else out
             pred_x0 = (x - sqrt_oma * e_t) / sqrt_a
+            if cond_fn is not None:
+                pred_x0 = apply_guidance(cond_fn, guidance_target, pred_x0, g_on[i])
+                # keep the ODE direction consistent with the guided x0
+                e_t = (x - sqrt_a * pred_x0) / sqrt_oma
             dir_xt = float(np.sqrt(np.float32(1.0) - row["a_prev"] - row["sigma"] ** 2)) * e_t
             x = float(np.sqrt(row["a_prev"])) * pred_x0 + dir_xt
             if row["sigma"] != 0:

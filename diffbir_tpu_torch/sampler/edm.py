@@ -16,6 +16,14 @@ at step i where that step's noise coefficient is non-zero, row i of a
 ``noise_table`` [steps, *x]; dpm++_sde takes rows [steps, 2, *x] (its two
 reference noise-sampler calls); the other solvers draw in call order (row
 after row of a table), where the JAX solvers call ``jax.random.normal``.
+
+Restoration guidance (``cond_fn``) keeps the JAX package's two semantics.
+The row solvers guide each step's denoised output, gated per row by
+``guidance_gate`` on the row's model t, so the multistep history holds the
+guided values. The unrolled solvers add exactly one euler-equivalent nudge
+a step, ``(guide(D) - D) * (1 - sigma_next / sigma_from)`` from the step's
+primary evaluation D (``gnudge``), gated by the host model t of
+sigma_from; dpm_adaptive too, on each accepted step.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from .base import GuidedModel, ModelFn, NoiseSource, Sampler
+from .base import GuidedModel, ModelFn, NoiseSource, Sampler, apply_guidance, guidance_gate
 
 SOLVER_HPARAMS = {
     "euler": ("s_churn", "s_tmin", "s_tmax", "s_noise"),
@@ -67,6 +75,13 @@ def _lms_coeff(order, t, i, j):
         return prod
 
     return integrate.quad(fn, t[i], t[i + 1], epsrel=1e-4)[0]
+
+
+def _nudged(x: torch.Tensor, gnudge, denoised: torch.Tensor, sigma_from: float,
+            sigma_to: float) -> torch.Tensor:
+    """x plus the step's guidance nudge (``gnudge``) where guidance acts."""
+    nudge = None if gnudge is None else gnudge(denoised, sigma_from, sigma_to)
+    return x if nudge is None else x + nudge
 
 
 def _f32(v) -> float:
@@ -113,10 +128,12 @@ class EDMSampler(Sampler):
     def sample(self, model_fn: ModelFn, x_T: torch.Tensor, cond: Mapping[str, torch.Tensor],
                uncond: Optional[Mapping[str, torch.Tensor]], cfg_scale: float, steps: int,
                generator: Optional[torch.Generator] = None,
-               noise_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+               noise_table: Optional[torch.Tensor] = None, cond_fn=None,
+               guidance_target: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Denoise ``x_T`` (fp32 NHWC, unit variance). Exactly one of
         ``generator`` and ``noise_table`` supplies the noise (see the
-        module's notes for the table's layout)."""
+        module's notes for the table's layout); ``cond_fn`` guides toward
+        ``guidance_target``."""
         sigmas, ts = self.make_schedule(steps)
         use_cfg = uncond is not None and cfg_scale != 1.0
         model = GuidedModel(model_fn, cond, uncond if use_cfg else None)
@@ -129,7 +146,8 @@ class EDMSampler(Sampler):
                              f"{want[self.solver_type]}")
         noise = NoiseSource(x.shape, x.device, generator, noise_table)
         if self.solver_type in ROW_SOLVERS:
-            return self._sample_rows(model, x, steps, cfg_scale, noise)
+            return self._sample_rows(model, x, steps, cfg_scale, noise, cond_fn,
+                                     guidance_target)
         v_param = self.parameterization == "v"
 
         def den(xx, sigma: float, cfg: float) -> torch.Tensor:
@@ -149,8 +167,19 @@ class EDMSampler(Sampler):
             t_model = self._model_t(sigma, sigmas, ts)
             return float(self.cfg_scales(cfg_scale, np.array([t_model]))[0])
 
+        gnudge = None
+        if cond_fn is not None:
+            def gnudge(denoised, sigma_from: float, sigma_to: float):
+                """The step's guidance displacement, or None where the gate
+                is off."""
+                t_model = self._model_t(sigma_from, sigmas, ts)
+                if not guidance_gate(cond_fn, np.array([t_model]))[0]:
+                    return None
+                guided = apply_guidance(cond_fn, guidance_target, denoised, True)
+                return (guided - denoised) * (1.0 - float(sigma_to) / float(sigma_from))
+
         solver = getattr(self, "_solve_" + self.solver_type.replace("+", "p"))
-        return solver(den, x, sigmas, cfg_at, noise)
+        return solver(den, x, sigmas, cfg_at, noise, gnudge)
 
     # ------------------------------------------------------------------ #
     # the row solvers: per-step coefficients on the host, fp32 as JAX reads
@@ -250,18 +279,21 @@ class EDMSampler(Sampler):
         return {k: [_f32(v) for v in vals] for k, vals in rows.items()}
 
     def _sample_rows(self, model: GuidedModel, x, steps: int, cfg_scale: float,
-                     noise: NoiseSource):
+                     noise: NoiseSource, cond_fn=None, guidance_target=None):
         """x_{i+1} = a x + b D + A (D - D1) + B (D1 - D2) + noise z, with D
         the step's x0 prediction and D1, D2 the two before (dpm++_3m_sde;
         dpm++_2m_sde has B = 0, euler_a A = B = 0). A term whose
         coefficient is 0 is skipped (exact: it adds 0)."""
         tables = self.make_tables(steps, cfg_scale)
+        g_on = (guidance_gate(cond_fn, tables["t_model"]) if cond_fn is not None
+                else np.zeros(steps, bool))
         d1 = d2 = None
         for i in range(steps):
             r = {k: v[i] for k, v in tables.items()}
             x2 = model.batch(x)
             out = model.raw(x2 * r["c_in"], r["t_model"]).float()
             denoised = model.combine(out * r["c_out"] + x2 * r["c_skip"], r["cfg"])
+            denoised = apply_guidance(cond_fn, guidance_target, denoised, g_on[i])
             x_new = r["b"] * denoised if r["a"] == 0.0 else r["a"] * x + r["b"] * denoised
             if r["coefA"]:
                 x_new = x_new + r["coefA"] * (denoised - d1)
@@ -289,16 +321,17 @@ class EDMSampler(Sampler):
             x = x + eps * float((sigma_hat**2 - sigma**2) ** 0.5)
         return x, sigma_hat
 
-    def _solve_euler(self, den, x, sigmas, cfg_at, noise):
+    def _solve_euler(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         n = len(sigmas) - 1
         for i in range(n):
             x, sigma_hat = self._churned(x, sigmas[i], n + 1, noise)
             denoised = den(x, sigma_hat, cfg_at(sigma_hat))
             d = (x - denoised) / sigma_hat
             x = x + d * float(sigmas[i + 1] - sigma_hat)
+            x = _nudged(x, gnudge, denoised, sigma_hat, sigmas[i + 1])
         return x
 
-    def _solve_heun(self, den, x, sigmas, cfg_at, noise):
+    def _solve_heun(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         n = len(sigmas) - 1
         for i in range(n):
             x, sigma_hat = self._churned(x, sigmas[i], n + 1, noise)
@@ -312,9 +345,10 @@ class EDMSampler(Sampler):
                 x_2 = x + d * dt
                 d_2 = (x_2 - den(x_2, s1, cfg_at(s1))) / s1
                 x = x + (d + d_2) / 2 * dt
+            x = _nudged(x, gnudge, denoised, sigma_hat, sigmas[i + 1])
         return x
 
-    def _solve_dpm_2(self, den, x, sigmas, cfg_at, noise):
+    def _solve_dpm_2(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         n = len(sigmas) - 1
         for i in range(n):
             x, sigma_hat = self._churned(x, sigmas[i], n + 1, noise)
@@ -327,9 +361,10 @@ class EDMSampler(Sampler):
                 x_2 = x + d * (sigma_mid - sigma_hat)
                 d_2 = (x_2 - den(x_2, sigma_mid, cfg_at(sigma_mid))) / sigma_mid
                 x = x + d_2 * float(sigmas[i + 1] - sigma_hat)
+            x = _nudged(x, gnudge, denoised, sigma_hat, sigmas[i + 1])
         return x
 
-    def _solve_dpm_2_a(self, den, x, sigmas, cfg_at, noise):
+    def _solve_dpm_2_a(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         n = len(sigmas) - 1
         for i in range(n):
             denoised = den(x, sigmas[i], cfg_at(sigmas[i]))
@@ -337,15 +372,17 @@ class EDMSampler(Sampler):
             d = (x - denoised) / float(sigmas[i])
             if sd == 0:
                 x = x + d * float(sd - sigmas[i])
+                x = _nudged(x, gnudge, denoised, sigmas[i], sd)
             else:
                 sigma_mid = float(np.exp(np.log(sigmas[i]) * 0.5 + np.log(sd) * 0.5))
                 x_2 = x + d * float(sigma_mid - sigmas[i])
                 d_2 = (x_2 - den(x_2, sigma_mid, cfg_at(sigma_mid))) / sigma_mid
                 x = x + d_2 * float(sd - sigmas[i])
+                x = _nudged(x, gnudge, denoised, sigmas[i], sd)
                 x = x + noise.draw() * self.s_noise * float(su)
         return x
 
-    def _solve_lms(self, den, x, sigmas, cfg_at, noise):
+    def _solve_lms(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         n = len(sigmas) - 1
         ds = []
         for i in range(n):
@@ -356,6 +393,7 @@ class EDMSampler(Sampler):
             cur_order = min(i + 1, self.order)
             coeffs = [float(_lms_coeff(cur_order, sigmas, i, j)) for j in range(cur_order)]
             x = x + sum(c * d_ for c, d_ in zip(coeffs, reversed(ds)))
+            x = _nudged(x, gnudge, denoised, sigmas[i], sigmas[i + 1])
         return x
 
     # -- k-diffusion DPM-Solver (eps-parameterised, t = -log sigma) -------- #
@@ -395,7 +433,7 @@ class EDMSampler(Sampler):
         return (x - sig(t_next) * em * eps
                 - sig(t_next) / r2 * (em / h - 1) * (eps_r2 - eps))
 
-    def _solve_dpm_fast(self, den, x, sigmas, cfg_at, noise):
+    def _solve_dpm_fast(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         """DPM-Solver-Fast, fixed step."""
         pos = sigmas[sigmas > 0]
         t_start, t_end = -np.log(pos.max()), -np.log(pos.min())
@@ -412,12 +450,16 @@ class EDMSampler(Sampler):
             else:
                 t_next_, su = t_next, 0.0
             eps0 = self._kd_eps(den, x, t, cfg_at)
-            x = self._kd_step(den, x, t, float(t_next_), o, cfg_at, eps0=eps0)
+            x_new = self._kd_step(den, x, t, float(t_next_), o, cfg_at, eps0=eps0)
+            if gnudge is not None:
+                sig = float(np.exp(-t))
+                x_new = _nudged(x_new, gnudge, x - sig * eps0, sig, float(np.exp(-t_next_)))
+            x = x_new
             if su > 0:
                 x = x + float(su) * self.s_noise * noise.draw()
         return x
 
-    def _solve_dpm_adaptive(self, den, x, sigmas, cfg_at, noise):
+    def _solve_dpm_adaptive(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         """DPM-Solver-12/23 with PID-controlled adaptive steps: the eager
         float64 controller of the JAX solver (the error norm read back once
         a try)."""
@@ -472,6 +514,9 @@ class EDMSampler(Sampler):
             if factor >= accept_safety:
                 errs[2], errs[1] = errs[1], errs[0]
                 x_prev = x_low
+                if gnudge is not None:
+                    sig = float(np.exp(-s_))
+                    x_high = _nudged(x_high, gnudge, x - sig * eps0, sig, float(np.exp(-t_)))
                 x = x_high
                 if su > 0:
                     x = x + float(su) * s_noise * noise.draw()
@@ -479,7 +524,7 @@ class EDMSampler(Sampler):
             h *= factor
         return x
 
-    def _solve_dpmpp_2s_a(self, den, x, sigmas, cfg_at, noise):
+    def _solve_dpmpp_2s_a(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         n = len(sigmas) - 1
         for i in range(n):
             denoised = den(x, sigmas[i], cfg_at(sigmas[i]))
@@ -495,17 +540,19 @@ class EDMSampler(Sampler):
                 sig_s = float(np.exp(-s))
                 denoised_2 = den(x_2, sig_s, cfg_at(sig_s))
                 x = float(np.exp(-t_next + t)) * x - float(np.expm1(-h)) * denoised_2
+            x = _nudged(x, gnudge, denoised, sigmas[i], sd)
             if sigmas[i + 1] > 0:
                 x = x + noise.draw() * self.s_noise * float(su)
         return x
 
-    def _solve_dpmpp_sde(self, den, x, sigmas, cfg_at, noise, r=0.5):
+    def _solve_dpmpp_sde(self, den, x, sigmas, cfg_at, noise, gnudge=None, r=0.5):
         n = len(sigmas) - 1
         for i in range(n):
             denoised = den(x, sigmas[i], cfg_at(sigmas[i]))
             if sigmas[i + 1] == 0:
                 d = (x - denoised) / float(sigmas[i])
                 x = x + d * float(sigmas[i + 1] - sigmas[i])
+                x = _nudged(x, gnudge, denoised, sigmas[i], sigmas[i + 1])
                 continue
             t, t_next = -np.log(sigmas[i]), -np.log(sigmas[i + 1])
             h = t_next - t
@@ -532,9 +579,10 @@ class EDMSampler(Sampler):
             denoised_d = (1 - fac) * denoised + fac * denoised_2
             x = float(np.exp(-(t_next_ - t))) * x - float(np.expm1(t - t_next_)) * denoised_d
             x = x + n2 * self.s_noise * float(su)
+            x = _nudged(x, gnudge, denoised, sigmas[i], sigmas[i + 1])
         return x
 
-    def _solve_dpmpp_2m(self, den, x, sigmas, cfg_at, noise):
+    def _solve_dpmpp_2m(self, den, x, sigmas, cfg_at, noise, gnudge=None):
         n = len(sigmas) - 1
         old_denoised = None
         for i in range(n):
@@ -552,5 +600,6 @@ class EDMSampler(Sampler):
                     r_ = float(h_last / h)
                     denoised_d = (1 + 1 / (2 * r_)) * denoised - (1 / (2 * r_)) * old_denoised
                     x = ratio * x - em * denoised_d
+            x = _nudged(x, gnudge, denoised, sigmas[i], sigmas[i + 1])
             old_denoised = denoised
         return x

@@ -5,6 +5,8 @@ per-step coefficients (``make_tables``), walked by a Python loop instead of a
 ``lax.scan``. The state is fp32. Per-step noise comes from a
 ``torch.Generator``, or from a pre-drawn table (one row per step, as the JAX
 EDM sampler's ``noise_table``) so that a test can feed in JAX's draws.
+With ``cond_fn`` (restoration guidance) each step's x0 prediction takes the
+guidance rounds where ``guidance_gate`` allows, before the posterior mean.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from ..schedule import make_spaced_coeffs
-from .base import GuidedModel, ModelFn, NoiseSource, Sampler
+from .base import GuidedModel, ModelFn, NoiseSource, Sampler, apply_guidance, guidance_gate
 
 
 class SpacedSampler(Sampler):
@@ -51,14 +53,19 @@ class SpacedSampler(Sampler):
         steps: int,
         generator: Optional[torch.Generator] = None,
         noise_table: Optional[torch.Tensor] = None,
+        cond_fn=None,
+        guidance_target: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Denoise ``x_T`` (fp32 NHWC). Exactly one of ``generator`` and
-        ``noise_table`` ([steps, *x_T.shape]) supplies the per-step noise."""
+        ``noise_table`` ([steps, *x_T.shape]) supplies the per-step noise;
+        ``cond_fn`` guides x0 toward ``guidance_target``."""
         noise = NoiseSource(x_T.shape, x_T.device, generator, noise_table)
         if noise_table is not None and tuple(noise_table.shape) != (steps, *x_T.shape):
             raise ValueError(f"noise_table shape {tuple(noise_table.shape)} != "
                              f"{(steps, *x_T.shape)}")
         tables = self.make_tables(steps, cfg_scale)
+        g_on = (guidance_gate(cond_fn, tables["model_t"]) if cond_fn is not None
+                else np.zeros(steps, bool))
         model = GuidedModel(model_fn, cond, uncond)
         x = x_T.float()
         for i in range(steps):
@@ -68,6 +75,7 @@ class SpacedSampler(Sampler):
                 x0 = row["sqrt_recip"] * x - row["sqrt_recipm1"] * out
             else:
                 x0 = row["sqrt_ac"] * x - row["sqrt_omac"] * out
+            x0 = apply_guidance(cond_fn, guidance_target, x0, g_on[i])
             mean = row["coef1"] * x0 + row["coef2"] * x
             x = mean + row["nonzero"] * row["sqrt_var"] * noise.draw(i)
         return x

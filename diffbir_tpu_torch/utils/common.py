@@ -8,7 +8,8 @@ weight matrices are built on the host and applied as two products. (This is
 not ``F.interpolate(mode="bicubic")``, which uses a = -0.75 and no
 antialiasing.) ``pil_bicubic_resize`` is Pillow's bicubic resize of a uint8
 image, bit for bit (the blind-SR loop's pre-upscale, the captioner's
-preprocessing).
+preprocessing). ``ssim``, ``psnr`` and ``rgb2ycbcr_y`` are the JAX
+package's image metrics (the turbo drift readings use them).
 """
 
 from __future__ import annotations
@@ -164,6 +165,54 @@ def pil_bicubic_resize(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tens
     if oh != h:
         img = pil_resample(img, pil_bicubic_coeffs(h, oh), axis=0)
     return img.to(torch.uint8)
+
+
+def rgb2ycbcr_y(x: torch.Tensor) -> torch.Tensor:
+    """BT.601 Y of an RGB image in [0, 1], NHWC -> NHW."""
+    w = x.new_tensor([65.481, 128.553, 24.966]) / 255.0
+    return (x * w).sum(dim=-1) + 16.0 / 255.0
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean SSIM per batch item of two [0, 1] NHWC batches (Wang et al.: an
+    11x11 Gaussian window of sigma 1.5, K1 = 0.01, K2 = 0.03, valid
+    padding, averaged over space and channels), in fp32; the variances
+    clamped at 0 and the covariance to their Cauchy-Schwarz bound, as in
+    JAX (float error otherwise reads marginally above 1)."""
+    a, b = a.float(), b.float()
+    r = torch.arange(11, dtype=torch.float32, device=a.device) - 5.0
+    g = torch.exp(-(r ** 2) / (2.0 * 1.5 ** 2))
+    g = g / g.sum()
+    c = a.shape[-1]
+
+    def blur(x):  # separable depthwise Gaussian, valid padding
+        x = x.permute(0, 3, 1, 2)
+        x = F.conv2d(x, g.reshape(1, 1, 11, 1).repeat(c, 1, 1, 1), groups=c)
+        return F.conv2d(x, g.reshape(1, 1, 1, 11).repeat(c, 1, 1, 1), groups=c)
+
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    mu_a, mu_b = blur(a), blur(b)
+    var_a = (blur(a * a) - mu_a ** 2).clamp(min=0.0)
+    var_b = (blur(b * b) - mu_b ** 2).clamp(min=0.0)
+    bound = torch.sqrt(var_a * var_b)
+    cov = torch.minimum(torch.maximum(blur(a * b) - mu_a * mu_b, -bound), bound)
+    s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)) / (
+        (mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2))
+    return s.mean(dim=(1, 2, 3))
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, crop_border: int = 0,
+         test_y: bool = False) -> torch.Tensor:
+    """PSNR per batch item of two [0, 1] NHWC batches, in dB (the mean
+    squared error in float64), optionally on the BT.601 Y channel and
+    without a ``crop_border`` margin."""
+    if crop_border:
+        a = a[:, crop_border:-crop_border, crop_border:-crop_border]
+        b = b[:, crop_border:-crop_border, crop_border:-crop_border]
+    if test_y:
+        a, b = rgb2ycbcr_y(a)[..., None], rgb2ycbcr_y(b)[..., None]
+    mse = ((a.double() - b.double()) ** 2).mean(dim=(1, 2, 3))
+    return 10.0 * torch.log10(1.0 / (mse + 1e-12))
 
 
 class StageClock:

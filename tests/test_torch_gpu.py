@@ -3,8 +3,10 @@ the CPU: flash attention (K1 forward, K2a/K2b backward, K3 the prescaled-q
 forward), the int8 matmul (K4), the packed-int4 matmul (K5: its tile and
 GEMV forms), the fused ResBlock (K6: the tensor-core entry for bf16, the
 CUDA-core one for fp32) and the fused GEGLU FFN (K7); the build key; the serving modes'
-autograd and a small model; a small model's pipeline, untiled and tiled; a
-small LLaVA captioner.
+autograd and a small model; a small model's pipeline, untiled and tiled,
+and RGB-guided; the d = 512 attention under a gradient (plain math, against
+K1_wide + K2a_cc + K2b_cc); turbo at interval 1 bit-equal to the plain
+model; a small LLaVA captioner.
 
 These tests need a card: they skip without one. The GPU machine has no JAX,
 and ``tests/conftest.py`` imports it, so run them there without the conftest:
@@ -364,11 +366,11 @@ def _small_fp32_pair(cuda):
     return cpu, gpu
 
 
-def _pipelines_on_both(cuda, lq, latent, steps=4, cfg=4.0, **tiles):
+def _pipelines_on_both(cuda, lq, latent, steps=4, cfg=4.0, cond_fn=None, **tiles):
     """apply_cldm's float output and run's uint8 output of the small pair's
-    IdentityCleanerPipeline on the CPU and on the card (same weights, x_T,
-    step noise and stand-in prompt ids: the default negative prompt), with
-    the K1 launches of each."""
+    IdentityCleanerPipeline (guided by ``cond_fn``) on the CPU and on the
+    card (same weights, x_T, step noise and stand-in prompt ids: the default
+    negative prompt), with the K1 launches of each."""
     from diffbir_tpu_torch.pipeline import IdentityCleanerPipeline
     from diffbir_tpu_torch.profile_step import stand_in_tokenizer
     from diffbir_tpu_torch.schedule import Schedule
@@ -379,7 +381,7 @@ def _pipelines_on_both(cuda, lq, latent, steps=4, cfg=4.0, **tiles):
     res = {}
     for dev, model in zip((torch.device("cpu"), cuda), _small_fp32_pair(cuda)):
         pipe = IdentityCleanerPipeline(model, Schedule.v21(), dev, min_cond_size=64,
-                                       tokenizer=stand_in_tokenizer())
+                                       tokenizer=stand_in_tokenizer(), cond_fn=cond_fn)
         cond_img = torch.as_tensor(lq, device=dev).float() / 255
         before = fa.KERNEL.launches
         with torch.no_grad():
@@ -417,6 +419,75 @@ def test_small_fp32_tiled_pipeline_matches_cpu(cuda, mode):
                              vae_tile_mode=mode, cldm_tiled=True, cldm_tile_size=64,
                              cldm_tile_stride=32, cldm_tiles_per_batch=4)
     assert res["cpu"][2] == 0 and res["cuda"][2] > 0
+    assert bool(torch.isfinite(res["cuda"][0]).all())
+    assert (res["cpu"][0] - res["cuda"][0]).abs().max().item() <= 1e-3
+    assert np.abs(res["cpu"][1].astype(int) - res["cuda"][1].astype(int)).max() <= 1
+
+
+def test_wide_attention_under_a_gradient_takes_plain_math_on_the_card(cuda):
+    """The VAE's d = 512 attention at 4096 tokens (a 512x512 decode) under a
+    gradient, as RGB guidance takes it: ``attention`` goes to plain math
+    (no kernel launch; ``FLASH_MIN_WIDE_GRAD``), and its gradients agree with
+    the flash route's (K1_wide, then K2a_cc and K2b_cc, one launch each)
+    within two bf16 ulps of each one's largest element."""
+    from diffbir_tpu_torch.ops.attention import FLASH_MIN_WIDE_GRAD, attention
+
+    assert 4096 < FLASH_MIN_WIDE_GRAD
+    q, k, v = _qkv(cuda, 1, 4096, 4096, 1, 512, torch.bfloat16, seed=12)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(13),
+                    device=cuda).to(torch.bfloat16)
+    grads = {}
+    for route, fn in (("plain", attention), ("flash", fa.flash_attention)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = _fwd_launches() + _bwd_launches()
+        grads[route] = torch.autograd.grad(fn(*leaves), leaves, g)
+        torch.cuda.synchronize()
+        moved = _moved(before, _fwd_launches() + _bwd_launches())
+        assert moved == ([0] * 9 if route == "plain"
+                         else _one_launch_of(fa.KERNEL_WIDE_TC) + [0, 0, 1, 1])
+    for a, c in zip(grads["plain"], grads["flash"]):
+        assert (a.float() - c.float()).abs().max().item() <= 2 * _limit(c, BF16_TOL)
+
+
+def test_turbo_at_interval_1_is_the_plain_model_on_the_card(cuda):
+    """The cached (turbo) model at interval 1 through the CLI's sampler is
+    the plain model function bit for bit on the card, with and without the
+    UNet encoder cache, on the request's hoisted tables."""
+    from diffbir_tpu_torch.pipeline import build_sampler, model_function
+    from diffbir_tpu_torch.schedule import Schedule
+
+    _, model = _small_fp32_pair(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x_T = torch.randn(1, 8, 8, 4, generator=gen, device=cuda)
+    c_img = torch.randn(1, 8, 8, 4, generator=gen, device=cuda)
+    cond, uncond = ({"c_txt": torch.randn(1, 77, 64, generator=gen, device=cuda),
+                     "c_img": c_img} for _ in range(2))
+    noise = torch.randn(4, 1, 8, 8, 4, generator=gen, device=cuda)
+    sampler = build_sampler("edm_dpm++_3m_sde", Schedule.v21(), False, eta=1.0)
+    tables = model.make_hoist_tables(torch.cat([cond["c_txt"], uncond["c_txt"]]),
+                                     sampler.model_ts(4))
+
+    def sample(model_fn):
+        with torch.no_grad():
+            return sampler.sample(model_fn, x_T, cond, uncond, 4.0, 4, noise_table=noise)
+
+    plain = sample(model_function(model, 1.0, tables))
+    for encoder in (False, True):
+        out = sample(model.make_cached_control_model(1.0, 1, encoder, tables))
+        assert torch.equal(out, plain)
+    assert not torch.equal(sample(model.make_cached_control_model(1.0, 2, True, tables)), plain)
+
+
+def test_small_fp32_rgb_guided_pipeline_matches_cpu(cuda):
+    """RGB guidance (w_mse, the gradient through the VAE decoder) in the
+    small fp32 pipeline on the card and on the CPU, same weights and
+    noise: within 1e-3 (float) and 1 uint8 level."""
+    import numpy as np
+
+    from diffbir_tpu_torch.utils.cond_fn import WeightedMSEGuidance
+
+    lq = np.random.default_rng(7).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+    res = _pipelines_on_both(cuda, lq, 8, cond_fn=WeightedMSEGuidance(0.05, 1001, -1, "rgb", 2))
     assert bool(torch.isfinite(res["cuda"][0]).all())
     assert (res["cpu"][0] - res["cuda"][0]).abs().max().item() <= 1e-3
     assert np.abs(res["cpu"][1].astype(int) - res["cuda"][1].astype(int)).max() <= 1

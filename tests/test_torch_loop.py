@@ -12,8 +12,12 @@
 - ``python -m diffbir_tpu_torch.inference --device cpu`` (run in process)
   with the CLI's defaults but 2 steps, prompts through a stand-in merges
   file; the tiling flags (cleaner, VAE, diffusion) reach ``pipeline.run``;
-  unported flags, a missing weight file and a missing merges file raise,
-  naming them, and without a card the CLI refuses to run.
+  the turbo flags, guidance (latent and RGB) and ``--fast_gelu`` run, the
+  PNG within 1 uint8 level of the JAX ``SwinIRPipeline`` on the loop's own
+  weights (converted with the JAX ``fill_flax_params``) and JAX's draws
+  (handed to the port's ``pipeline.run``); unported flags, a missing weight
+  file and a missing merges file raise, naming them, and without a card the
+  CLI refuses to run.
 """
 
 import csv
@@ -21,10 +25,19 @@ import os
 import runpy
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
+
+from diffbir_tpu.models.cldm import ControlLDM as JaxControlLDM
+from diffbir_tpu.models.swinir import SwinIR as JaxSwinIR
+from diffbir_tpu.pipeline import SwinIRPipeline as JaxSwinIRPipeline
+from diffbir_tpu.schedule import Schedule as JaxSchedule
+from diffbir_tpu.utils import cond_fn as jax_cond
+from diffbir_tpu.weights.convert import fill_flax_params
 
 from diffbir_tpu_torch.inference import bsr_loop, loop as loop_mod
 from diffbir_tpu_torch.inference.__main__ import DEFAULT_NEG_PROMPT, DEFAULT_POS_PROMPT, main
@@ -35,6 +48,7 @@ from diffbir_tpu_torch.models.swinir import SwinIR
 from diffbir_tpu_torch.utils.common import pil_bicubic_resize
 from diffbir_tpu_torch.utils.image_io import read_png, read_rgb, write_png
 from diffbir_tpu_torch.weights.convert import load_into, load_torch_state_dict
+from tests.test_torch_pipeline import jax_noise
 
 SWIN_KW = dict(embed_dim=24, depths=(2,), num_heads=(4,), window_size=4)
 
@@ -191,10 +205,62 @@ def test_loop_names_seeds_prompt_log_and_direct_run(tiny_cli):
     assert [r[0] for r in rows[1:]] == ["lq_0.png", "lq_1.png", "lq_2.png", "lq.png"]
 
 
-@pytest.mark.parametrize("flag", [["--control_interval", "2"], ["--guidance"], ["--fast_gelu"]])
-def test_unported_flags_raise_naming_the_flag(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        main(_cli(tmp_path, *flag))
+def _jax_weights(tree_shapes, module):
+    """A JAX param tree of ``tree_shapes`` holding ``module``'s tensors."""
+    sd = {k: v.numpy() for k, v in module.state_dict().items()}
+    return jax.tree_util.tree_map(jnp.asarray, fill_flax_params(tree_shapes, sd)[0])
+
+
+def _jax_cli_reference(loop, lq, monkeypatch):
+    """The JAX SwinIRPipeline's output for the loop's request: the loop's
+    tiny random SwinIR and ControlLDM converted, its tokenizer, its flags
+    (turbo, guidance, and DIFFBIR_TPU_FAST_GELU for --fast_gelu)."""
+    a = loop.args
+    js = JaxSwinIR(**SWIN_KW)
+    sparams = _jax_weights(jax.eval_shape(js.init, jax.random.PRNGKey(0),
+                                          jnp.zeros((1, 64, 64, 3))), loop.cleaner)
+    jc = JaxControlLDM.tiny()
+    shapes = jc.eval_shapes((8, 8))
+    params = {n: _jax_weights(shapes[n], getattr(loop.cldm, n)) for n in shapes}
+    cond_fn = None
+    if a.guidance:
+        cls = {"mse": jax_cond.MSEGuidance, "w_mse": jax_cond.WeightedMSEGuidance}[a.g_loss]
+        cond_fn = cls(a.g_scale, a.g_start, a.g_stop, a.g_space, a.g_repeat)
+    if a.fast_gelu:
+        monkeypatch.setenv("DIFFBIR_TPU_FAST_GELU", "1")
+    sched = JaxSchedule.create(timesteps=1000, beta_schedule="linear", linear_start=0.00085,
+                               linear_end=0.0120, parameterization="v", zero_snr=True)
+    jp = JaxSwinIRPipeline(jax.jit(lambda x: jnp.clip(js.apply(sparams, x), 0.0, 1.0)), jc,
+                           params, sched, tokenizer=loop.pipeline.tokenizer, cond_fn=cond_fn,
+                           min_cond_size=64)
+    return jp.run(lq[None], steps=a.steps, pos_prompt=a.pos_prompt, neg_prompt=a.neg_prompt,
+                  cfg_scale=a.cfg_scale, sampler_type=a.sampler, seed=a.seed, eta=a.eta,
+                  s_tmax=a.s_tmax, order=a.order, control_interval=a.control_interval,
+                  turbo_encoder=a.turbo_encoder)[0]
+
+
+@pytest.mark.parametrize("flag", [
+    ["--control_interval", "2", "--turbo_encoder"],
+    ["--guidance", "--g_space", "rgb", "--g_scale", "0.05"],
+    ["--fast_gelu"],
+    ["--guidance", "--g_loss", "mse", "--g_scale", "0.01", "--g_repeat", "2", "--g_start",
+     "600", "--g_stop", "200"],
+])
+def test_unported_flags_raise_naming_the_flag(tiny_cli, monkeypatch, flag):
+    """Once refused as unported, now ported: the turbo flags, guidance (RGB
+    w_mse; latent mse in a window, two rounds) and --fast_gelu run through
+    the CLI (fp32, on JAX's draws), and the PNG is within 1 uint8 level of
+    the JAX pipeline's on the same weights and request."""
+    x_T, noise = jax_noise(231, (1, 8, 8, 4), 2)
+    run = bsr_loop.SwinIRPipeline.run
+    monkeypatch.setattr(bsr_loop.SwinIRPipeline, "run", lambda self, lq, **kw: run(
+        self, lq, x_T=x_T, noise_table=noise, **kw))
+    loop = main(_cli(tiny_cli, "--precision", "fp32", *flag))
+    out = read_png(str(tiny_cli / "out" / "lq.png"))
+    assert out.shape == (64, 64, 3) and out.std() > 1.0
+    lq = loop.after_load_lq(read_rgb(str(tiny_cli / "in" / "lq.png")))
+    ref = _jax_cli_reference(loop, lq, monkeypatch)
+    assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
 
 
 TILE_FLAGS = ["--cleaner_tiled", "--cleaner_tile_size", "64", "--cleaner_tile_stride", "32",
@@ -231,6 +297,13 @@ def test_cli_refusals(tiny_cli, monkeypatch):
         main(_cli(tiny_cli)[:1] + ["face"] + _cli(tiny_cli)[2:])
     with pytest.raises(NotImplementedError, match="v2"):
         main(_cli(tiny_cli, "--version", "v2"))
+    for flag in (["--train_cfg", "cfg.yaml"], ["--ckpt", "x.pt"]):
+        with pytest.raises(NotImplementedError, match=flag[0]):
+            main(_cli(tiny_cli, *flag))
+    # the default guidance loss (w_mse) weighs an RGB target: on the latent it
+    # fails, as in JAX (its gray contraction meets 4 channels)
+    with pytest.raises(ValueError, match="--g_space rgb"):
+        main(_cli(tiny_cli, "--guidance"))
     if not torch.cuda.is_available():  # the card is the default device
         args = [a for a in _cli(tiny_cli) if a not in ("--device", "cpu")]
         with pytest.raises(RuntimeError, match="--device cpu"):

@@ -8,6 +8,10 @@ Two configurations, as the JAX CLI runs them:
 - "int8": ``--quant_dense --fused_resblock --quant_conv``, packed, on the
   JAX ``quantize_dense_params`` + ``quantize_conv_params`` tree, converted.
 
+``--fast_gelu`` (``set_serving(fast_gelu=True)``, the tanh GELU) against
+JAX's ``DIFFBIR_TPU_FAST_GELU=1`` on the float and the int8 model; under
+``--fused_ffn`` it changes nothing (K7 keeps erf, as JAX's kernel does).
+
 The tiny ControlLDM forward, then ``IdentityCleanerPipeline.run`` (3 spaced
 steps, CFG 4.0, the v2.1 schedule, the JAX pipeline's x_T and noise, the
 default negative prompt through a stand-in tokenizer, so cond and uncond
@@ -51,7 +55,7 @@ from diffbir_tpu.models import cldm as jax_cldm
 from diffbir_tpu.pipeline import IdentityCleanerPipeline as JaxIdentityPipeline
 from diffbir_tpu.schedule import Schedule as JaxSchedule
 from diffbir_tpu_torch.models import cldm as port_cldm
-from diffbir_tpu_torch.models.unet import CrossAttention, FeedForward, ResBlock
+from diffbir_tpu_torch.models.unet import GEGLU, CrossAttention, FeedForward, ResBlock
 from diffbir_tpu_torch.ops.quant_matmul import QuantLinear
 from diffbir_tpu_torch.pipeline import IdentityCleanerPipeline
 from diffbir_tpu_torch.schedule import Schedule
@@ -133,6 +137,66 @@ def test_controlldm_forward_matches_jax_in_mode(mode, float_params, jax_env):
             out_f = float_model(torch.from_numpy(x), torch.from_numpy(t), cond)
         with pytest.raises(AssertionError):
             assert_close(ref, out_f.numpy(), tol=FORWARD_TOL[mode])
+
+
+def _forward_inputs():
+    rng = np.random.default_rng(1)
+    x, c_img = (rng.standard_normal((2, 8, 8, 4)).astype(np.float32) for _ in range(2))
+    c_txt = rng.standard_normal((2, 77, 64)).astype(np.float32)
+    return x, np.array([999.0, 21.0], np.float32), {"c_txt": c_txt, "c_img": c_img}
+
+
+def _port_forward(tc, x, t, cond):
+    with torch.no_grad():
+        return tc(torch.from_numpy(x), torch.from_numpy(t),
+                  {k: torch.from_numpy(v) for k, v in cond.items()}).numpy()
+
+
+@pytest.mark.parametrize("mode", ["default", "int8"])
+def test_fast_gelu_matches_jax(mode, float_params, monkeypatch):
+    """--fast_gelu (``set_serving(fast_gelu=True)``): the tanh GELU in every
+    unfused GEGLU, the int8 ones too, against the JAX model traced afresh
+    under DIFFBIR_TPU_FAST_GELU=1 (its switch, read at trace time), within
+    the mode's forward tolerance; and not the exact-erf output."""
+    if mode == "int8":
+        monkeypatch.setenv("DIFFBIR_TPU_FLASH_LAYOUT", "packed")
+        jc, params, tc = _pair("int8", float_params)
+        flags = MODES["int8"]
+    else:
+        jc = jax_cldm.ControlLDM.tiny()
+        params = jax.tree_util.tree_map(jnp.asarray, float_params)
+        tc = port_cldm.ControlLDM.tiny()
+        tc.load_state_dict(flax_to_state_dict(float_params), strict=True)
+        tc, flags = tc.eval(), {}
+    x, t, cond = _forward_inputs()
+    exact = _port_forward(tc, x, t, cond)
+    tc.set_serving(**flags, fast_gelu=True)
+    geglus = [m for m in tc._denoisers() if isinstance(m, GEGLU)]
+    assert geglus and {m.approximate for m in geglus} == {"tanh"}
+    out = _port_forward(tc, x, t, cond)
+    monkeypatch.setenv("DIFFBIR_TPU_FAST_GELU", "1")
+    ref = jax.jit(lambda p: jc(p, x, t, cond))(params)
+    assert_close(ref, out, tol=FORWARD_TOL.get(mode, 1e-4))
+    assert np.abs(out - exact).max() > 1e-4
+    if mode == "default":  # the limit's power: the exact-erf output misses it
+        with pytest.raises(AssertionError):
+            assert_close(ref, exact)
+    tc.set_serving(**flags)
+    assert {m.approximate for m in geglus} == {"none"}
+
+
+def test_fused_ffn_keeps_erf_under_fast_gelu(float_params, jax_env, monkeypatch):
+    """With --fused_ffn every FFN is one K7 call, which keeps the exact erf
+    as the JAX fused kernel does: --fast_gelu changes nothing there, bit for
+    bit, and JAX under both switches agrees."""
+    jc, params, tc = _pair("fused", float_params)
+    x, t, cond = _forward_inputs()
+    fused = _port_forward(tc, x, t, cond)
+    tc.set_serving(fused_resblock=True, fused_ffn=True, fast_gelu=True)
+    np.testing.assert_array_equal(_port_forward(tc, x, t, cond), fused)
+    monkeypatch.setenv("DIFFBIR_TPU_FAST_GELU", "1")
+    ref = jax.jit(lambda p: jc(p, x, t, cond))(params)
+    assert_close(ref, fused, tol=FORWARD_TOL["fused"])
 
 
 def _pipelines(mode, float_params):

@@ -175,9 +175,17 @@ def test_prompt_text_without_a_tokenizer_raises(cldm_pair, lq):
 
 @pytest.mark.parametrize("kwargs", [dict(control_interval=2)])
 def test_unported_options_raise(identity_pair, lq, kwargs):
-    _, tp = identity_pair
-    with pytest.raises(NotImplementedError):
-        tp.run(lq, steps=2, **kwargs)
+    """Once refused as unported, now ported: turbo at interval 2 runs, within
+    1 uint8 level of the JAX pipeline's run of the same request, and off
+    the plain request's output."""
+    jp, tp = identity_pair
+    ref = jp.run(lq, steps=STEPS, cfg_scale=CFG, seed=SEED, **kwargs)
+    x_T, noise = jax_noise(SEED, (1, 8, 8, 4), STEPS)
+    out = tp.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise, **kwargs)
+    assert out.shape == ref.shape == (1, 64, 64, 3)
+    assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+    plain = tp.run(lq, steps=STEPS, cfg_scale=CFG, x_T=x_T, noise_table=noise)
+    assert np.any(plain != out)
 
 
 # --------------------------------------------------------------------------- #
