@@ -129,7 +129,17 @@ Phases (any failure exits non-zero before the last line is printed):
      build/), random full-width weights; seconds per stage, exact launches
      (K1 230; with --quant_dense --fused_resblock --quant_conv, K3 230, K6
      320 and K4 2355 tile launches), the PNG equal to a direct
-     ``pipeline.run`` of the request, a rerun bit-identical.
+     ``pipeline.run`` of the request, a rerun bit-identical. The same for
+     the other tasks and versions (CLI_PATHS, each K1 230 + K1_wide 2):
+     [cli_request_v2] (--version v2: the BSRNet x4 cleaner on the PNG, eps
+     schedule), [cli_denoise_v2] (--task denoise --version v2: SCUNet),
+     [cli_denoise] (--task denoise, v2.1 SwinIR), [cli_face] (--task face
+     on a 512x512 PNG at --upscale 1), [cli_custom] (--version custom: a
+     train config holding train_stage2_v2.1.yaml's model section, the SD
+     base and the ControlNet written in bf16 from a random full-width model
+     under build/, the seconds of the writing printed). [cleaner_bsrnet]:
+     the full-width BSRNet cleaner alone on a 256x256 LQ, tiled 128/64 and
+     untiled: shape, finiteness, seconds, peak memory.
      [guidance]: the same request at --guidance --g_scale 0.5 with latent
      mse, RGB w_mse, and RGB w_mse at --g_repeat 2 --g_start 600 --g_stop
      200 (GUIDANCE_PATHS): exact launches (those of the default request),
@@ -307,13 +317,34 @@ PER_REQUEST = {
 # (--quant_dense --fused_resblock --quant_conv): its timestep tables hold the
 # 11 timesteps of the EDM grid.
 CLI_STEPS, CLI_LQ, CLI_UPSCALE = 10, 128, 4
+CLI_DEFAULT = {"K1": K1_SITES_PER_STEP * CLI_STEPS, "K1_wide": K1_WIDE_PER_REQUEST}
+# The other tasks and versions (PR 13), each on a 512x512 condition and so
+# with the default request's launches: the v2 BSRNet sr path (x4 on the
+# 128x128 PNG itself), the v2 SCUNet denoise path and the v2.1 SwinIR one
+# (pre-upscaled x4), the v2.1 face path on a 512x512 PNG at --upscale 1,
+# and --version custom (a train config beside the PNG holding
+# configs/train/train_stage2_v2.1.yaml's model section; the SD base and the
+# ControlNet written in bf16 from a random full-width model, CUSTOM_SEED).
+CUSTOM_ROOT = os.path.join("build", "cli_request", "cli_custom")
+CUSTOM_SEED = 231
 CLI_PATHS = {
-    "cli_request": ({"K1": K1_SITES_PER_STEP * CLI_STEPS, "K1_wide": K1_WIDE_PER_REQUEST}, []),
+    "cli_request": (CLI_DEFAULT, []),
     "cli_request_int8": ({"K3": K3_PER_CALL * CLI_STEPS, "K6": K6_PER_CALL * CLI_STEPS,
                           "K4": K4_PER_STEP * CLI_STEPS + K4_PER_HOIST,
                           "K1_wide": K1_WIDE_PER_REQUEST},
                          ["--quant_dense", "--fused_resblock", "--quant_conv"]),
+    "cli_request_v2": (CLI_DEFAULT, ["--version", "v2"]),
+    "cli_denoise_v2": (CLI_DEFAULT, ["--task", "denoise", "--version", "v2"]),
+    "cli_denoise": (CLI_DEFAULT, ["--task", "denoise"]),
+    "cli_face": (CLI_DEFAULT, ["--task", "face", "--upscale", "1"]),
+    "cli_custom": (CLI_DEFAULT, [
+        "--version", "custom", "--train_cfg", os.path.join(CUSTOM_ROOT, "train.yaml"),
+        "--ckpt", os.path.join(CUSTOM_ROOT, "controlnet.pt")]),
 }
+CLI_LQ_SIZE = {"cli_face": 512}  # the PNG's side where it is not CLI_LQ
+# [cleaner_bsrnet]: the full-width BSRNet x4 cleaner alone, tiled at the
+# CLI's --cleaner_tile_size 128 --cleaner_tile_stride 64 on a 256x256 LQ
+CLEANER_LQ, CLEANER_TILE, CLEANER_STRIDE = 256, 128, 64
 # [tiled_request]: the CLI on a seeded 256x256 PNG at --upscale 4, a 1024x1024
 # condition (the JAX package's scripts/bench_highres.py workload), the CLI's
 # tile sizes (cleaner 512/256, VAE 256, diffusion 512/256): 9 cleaner tiles,
@@ -1957,8 +1988,9 @@ def stages(t: dict) -> str:
 
 def cli_request_argv(path: str, flags) -> tuple:
     """(root, argv) of a CLI request under build/cli_request/``path``: a
-    seeded 128x128 PNG in ``root``/in, the output to ``root``/out, --upscale
-    4 and ``flags``."""
+    seeded PNG (CLI_LQ square, or CLI_LQ_SIZE[path]) in ``root``/in, the
+    output to ``root``/out (both made anew), --task sr and --upscale 4 unless
+    ``flags`` name others, and ``flags``."""
     import shutil
 
     import numpy as np
@@ -1966,13 +1998,59 @@ def cli_request_argv(path: str, flags) -> tuple:
     from diffbir_tpu_torch.utils.image_io import write_png
 
     root = os.path.join("build", "cli_request", path)
-    shutil.rmtree(root, ignore_errors=True)
     in_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
+    for d in (in_dir, out_dir):
+        shutil.rmtree(d, ignore_errors=True)
     os.makedirs(in_dir)
+    side = CLI_LQ_SIZE.get(path, CLI_LQ)
     write_png(os.path.join(in_dir, "lq.png"), np.random.default_rng(7).integers(
-        0, 256, (CLI_LQ, CLI_LQ, 3), dtype=np.uint8))
-    return root, ["--task", "sr", "--input", in_dir, "--output", out_dir,
-                  "--upscale", str(CLI_UPSCALE), *flags]
+        0, 256, (side, side, 3), dtype=np.uint8))
+    task = [] if "--task" in flags else ["--task", "sr"]
+    upscale = [] if "--upscale" in flags else ["--upscale", str(CLI_UPSCALE)]
+    return root, [*task, "--input", in_dir, "--output", out_dir, *upscale, *flags]
+
+
+def write_custom_model(root: str) -> None:
+    """--version custom's files under ``root``: train.yaml (the model section
+    of configs/train/train_stage2_v2.1.yaml, as written there, and a train
+    section naming the SD base), and, from a full-width ControlLDM with
+    random weights from CUSTOM_SEED, the SD base (sd.ckpt: the UNet, VAE and
+    CLIP under the SD checkpoint's prefixes) and the ControlNet
+    (controlnet.pt), both bf16. Prints the seconds the writing took."""
+    import torch
+
+    from diffbir_tpu_torch.models.cldm import ControlLDM
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.weights.convert import SD_MODULE_MAP
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join("configs", "train", "train_stage2_v2.1.yaml")) as f:
+        lines = f.read().splitlines()
+    start = lines.index("model:")
+    end = next(i for i in range(start + 1, len(lines))
+               if lines[i][:1] not in ("", " ", "#"))
+    sd_path = os.path.join(root, "sd.ckpt")
+    with open(os.path.join(root, "train.yaml"), "w") as f:
+        f.write("\n".join(lines[start:end]) + f"\ntrain:\n  sd_path: {sd_path}\n"
+                "  swinir_path: swinir_realesrgan\n")
+    t0 = time.perf_counter()
+    cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device="cuda")
+    random_init_(cldm, torch.Generator(device="cuda").manual_seed(CUSTOM_SEED))
+    sd = {prefix + k: v.cpu() for name, prefix in SD_MODULE_MAP.items()
+          for k, v in getattr(cldm, name).state_dict().items()}
+    cn = {k: v.cpu() for k, v in cldm.controlnet.state_dict().items()}
+    del cldm
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    torch.save({"state_dict": sd}, sd_path)
+    torch.save(cn, os.path.join(root, "controlnet.pt"))
+    t2 = time.perf_counter()
+    size = sum(os.path.getsize(os.path.join(root, n)) for n in ("sd.ckpt", "controlnet.pt"))
+    print(f"[cli_custom] wrote the SD base ({sum(v.numel() for v in sd.values()) / 1e6:.1f} M "
+          f"params) and the ControlNet ({sum(v.numel() for v in cn.values()) / 1e6:.1f} M), "
+          f"bf16, {size / 2**30:.3f} GiB: built on the card and copied to the host in "
+          f"{t1 - t0:.3f} s, written in {t2 - t1:.3f} s; train.yaml holds "
+          f"train_stage2_v2.1.yaml's model section")
 
 
 def cli_refuses(label: str, flags, error, match: str) -> None:
@@ -2011,6 +2089,8 @@ def phase_cli_request(path: str, spec=None):
     expected, flags = spec or CLI_PATHS[path]
     root, argv = cli_request_argv(path, flags)
     in_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
+    if path == "cli_custom":
+        write_custom_model(CUSTOM_ROOT)
     with cli_environment(root):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2022,7 +2102,7 @@ def phase_cli_request(path: str, spec=None):
         n = {k: v for k, v in launches.items() if v}
         first = dict(loop.timings)
         out = read_png(os.path.join(out_dir, "lq.png"))
-        size = CLI_LQ * CLI_UPSCALE
+        size = int(CLI_LQ_SIZE.get(path, CLI_LQ) * loop.args.upscale)
         check(out.shape == (size, size, 3) and float(out.std()) > 1.0,
               f"{path}: bad output {out.shape}, std {out.std()}")
         check(n == expected, f"{path}: expected launches {expected}, got {n}")
@@ -2044,7 +2124,10 @@ def phase_cli_request(path: str, spec=None):
               f"{path}: the rerun differs")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{path}] python -m diffbir_tpu_torch.inference {' '.join(argv)}: {dt:.3f} s "
-          f"({stages(first)} s); launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
+          f"({stages(first)} s); {type(loop).__name__}, cleaner "
+          f"{type(loop.cleaner).__name__}, {type(loop.pipeline).__name__}, "
+          f"{loop.schedule.parameterization} schedule; launches "
+          + ", ".join(f"{k} {v}" for k, v in n.items()))
     print(f"[{path}] the PNG ({size}x{size}) read back equal to pipeline.run's output; a rerun "
           f"of the loop: {dt2:.3f} s ({stages(loop.timings)} s), bit-identical; peak device "
           f"memory {peak:.2f} GiB")
@@ -2053,6 +2136,56 @@ def phase_cli_request(path: str, spec=None):
     del loop
     torch.cuda.empty_cache()
     return launches, info
+
+
+def phase_cleaner_bsrnet():
+    """[cleaner_bsrnet]: the full-width BSRNet cleaner (RRDBNet: nf 64, 23
+    RRDBs, gc 32; bf16, random weights from seed 0) through
+    ``BSRNetPipeline.apply_cleaner`` on a seeded 256x256 LQ at --upscale 4,
+    tiled at CLEANER_TILE / CLEANER_STRIDE (9 tiles, x4, blended) and
+    untiled, twice each: the 1024x1024 output's shape, finiteness and
+    spread, seconds (the second run warm), peak device memory; none of the
+    port's kernels runs (cuDNN convolutions)."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.models.bsrnet import RRDBNet
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.pipeline import BSRNetPipeline
+
+    cleaner = RRDBNet(dtype=torch.bfloat16, device="meta").to_empty(device="cuda")
+    random_init_(cleaner, torch.Generator(device="cuda").manual_seed(0)).eval()
+    pipe = BSRNetPipeline(cleaner, None, None, torch.device("cuda"), upscale=CLI_UPSCALE)
+    pipe.set_output_size((CLEANER_LQ, CLEANER_LQ))
+    lq = torch.as_tensor(np.random.default_rng(19).random(
+        (1, CLEANER_LQ, CLEANER_LQ, 3), dtype=np.float32), device="cuda")
+    size = CLEANER_LQ * CLI_UPSCALE
+    before, outs = counts(), {}
+    for tiled in (True, False):
+        secs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = pipe.apply_cleaner(lq, tiled, CLEANER_TILE, CLEANER_STRIDE)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        label = f"tiled {CLEANER_TILE}/{CLEANER_STRIDE}" if tiled else "untiled"
+        check(tuple(out.shape) == (1, size, size, 3), f"cleaner_bsrnet {label}: shape "
+              f"{tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"cleaner_bsrnet {label}: non-finite output")
+        outs[label] = out
+        print(f"[cleaner_bsrnet] {label}: {CLEANER_LQ}x{CLEANER_LQ} -> {tuple(out.shape)} "
+              f"fp32, finite, std {float(out.std()):.4f}; {secs[0]:.4f} s, warm "
+              f"{secs[1]:.4f} s; peak device memory {peak:.3f} GiB")
+    check(not any(launched_since(before).values()), "cleaner_bsrnet launched a port kernel")
+    a, b = outs.values()
+    print(f"[cleaner_bsrnet] tiled against untiled (blended seams; not gated): max "
+          f"{float((a - b).abs().max()):.4f}, mean {float((a - b).abs().mean()):.6f}")
+    del cleaner, pipe, outs, a, b
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -3083,6 +3216,7 @@ def main() -> int:
         for path in CLI_PATHS:
             with recording_vae() as records[path]:
                 paths[path], cli_runs[path] = phase_cli_request(path)
+        phase_cleaner_bsrnet()
         paths.update(phase_guidance(records["cli_request"]))
         paths.update(phase_turbo_cli(cli_runs))
         for path, spec in FAST_GELU_PATHS.items():

@@ -1,4 +1,8 @@
+from .bfr_loop import BFRInferenceLoop
+from .bid_loop import BIDInferenceLoop
 from .bsr_loop import BSRInferenceLoop
+from .custom_loop import CustomInferenceLoop
 from .loop import InferenceLoop
 
-__all__ = ["InferenceLoop", "BSRInferenceLoop"]
+__all__ = ["InferenceLoop", "BSRInferenceLoop", "BFRInferenceLoop", "BIDInferenceLoop",
+           "CustomInferenceLoop"]

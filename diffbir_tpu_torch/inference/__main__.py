@@ -13,9 +13,14 @@ encoder and decoder, diffusion, ``--vae_tile_mode``,
 ``--turbo_encoder``) reach ``Pipeline.run``; ``--fast_gelu`` reaches
 ``set_serving``; restoration guidance (``--guidance`` with ``--g_loss``,
 ``--g_scale``, ``--g_start``, ``--g_stop``, ``--g_space``, ``--g_repeat``)
-becomes the pipeline's ``cond_fn``. A flag of a path that is not ported
-(tasks other than sr, versions v2 and custom, ``--train_cfg``, ``--ckpt``)
-raises NotImplementedError naming the flag.
+becomes the pipeline's ``cond_fn``.
+
+Tasks: sr (``BSRInferenceLoop``), face (aligned faces,
+``BFRInferenceLoop``) and denoise (``BIDInferenceLoop``), each in versions
+v1, v2 and v2.1; ``--version custom`` takes ``CustomInferenceLoop`` (a
+train config's cleaner and schedule, ``--ckpt``'s ControlNet) whatever the
+task. ``--task unaligned_face`` (face detection and pasting back) is not
+ported: it raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -40,9 +45,6 @@ DEFAULT_NEG_PROMPT = (
     "quality, low quality, frames, watermark, signature, jpeg artifacts, deformed, "
     "lowres, over-smooth."
 )
-
-# flag -> its default: any other value asks for a path that is not ported
-UNPORTED = {"train_cfg": "", "ckpt": ""}
 
 
 def build_parser() -> ArgumentParser:
@@ -120,14 +122,11 @@ def build_parser() -> ArgumentParser:
 
 
 def check_ported(args: Namespace) -> None:
-    """NotImplementedError naming the first flag of a path not ported."""
-    for name, default in UNPORTED.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(f"--{name}: not ported yet (custom models wait)")
-    if args.task != "sr":
-        raise NotImplementedError(f"--task {args.task}: not ported yet (only sr)")
-    if args.version in ("v2", "custom"):
-        raise NotImplementedError(f"--version {args.version}: not ported yet (v1 and v2.1)")
+    """NotImplementedError naming a path that is not ported; ValueError for
+    flags that do not combine."""
+    if args.task == "unaligned_face" and args.version != "custom":
+        raise NotImplementedError("--task unaligned_face: not ported yet (the face detector, "
+                                  "the face parser and the paste-back wait)")
     if args.quant_conv and not args.fused_resblock:
         raise ValueError("--quant_conv requires --fused_resblock")
 
@@ -144,9 +143,13 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
-    from . import BSRInferenceLoop
+    from . import BFRInferenceLoop, BIDInferenceLoop, BSRInferenceLoop, CustomInferenceLoop
 
-    loop = {"sr": BSRInferenceLoop}[args.task](args)
+    if args.version == "custom":
+        loop = CustomInferenceLoop(args)
+    else:
+        loop = {"sr": BSRInferenceLoop, "face": BFRInferenceLoop,
+                "denoise": BIDInferenceLoop}[args.task](args)
     loop.run()
     print(f"done! results saved to {args.output}")
     return loop

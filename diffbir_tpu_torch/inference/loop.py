@@ -10,9 +10,13 @@ to ``pipeline.run``, the output names, and ``prompt.csv``.
 - Weights: the DiffBIR checkpoints by name (``pretrained_models``), loaded
   into the float model, then the CLI's serving flags applied
   (``ControlLDM.set_serving``, ``--fast_gelu`` too), as the JAX loop
-  quantises after loading. With ``DIFFBIR_TPU_RANDOM_INIT=1`` random
-  weights from ``--seed`` take their place (the JAX loop's switch): the
-  production path, no file read.
+  quantises after loading. The ControlNet by version and task: v1 face
+  ``v1_face``, v1 sr or denoise ``v1_general``, v2 ``v2``, v2.1 ``v2.1``;
+  the SD base ``sd_v2.1`` for v1 and v2 (eps schedule), ``sd_v2.1_zsnr``
+  for v2.1 (zero SNR, v). With ``DIFFBIR_TPU_RANDOM_INIT=1`` random
+  weights take their place (the JAX loop's switch): the ControlLDM's from
+  ``--seed``, a cleaner's from seed 0 (``_load_cleaner``); the production
+  path, no file read.
 - Guidance (``--guidance``, ``--g_*``): ``load_cond_fn`` builds the
   ``utils.cond_fn`` loss the pipeline holds, as in JAX.
 - ``--precision fp16`` runs in bf16, as in JAX.
@@ -42,6 +46,7 @@ from ..models.layers import random_init_
 from ..schedule import Schedule
 from ..utils.caption import build_captioner
 from ..utils.cond_fn import MSEGuidance, WeightedMSEGuidance
+from ..utils.common import pil_bicubic_resize
 from ..utils.image_io import read_rgb, write_png
 from ..weights.convert import load_into, load_stable_diffusion, load_torch_state_dict
 from .pretrained_models import resolve_model
@@ -66,6 +71,16 @@ def build_on(factory, device: torch.device, **kw) -> torch.nn.Module:
     """A module built without memory (meta), then given empty storage on
     ``device``: its values come from a checkpoint or ``random_init_``."""
     return factory(device="meta", **kw).to_empty(device=device)
+
+
+def controlnet_name(version: str, task: str) -> str:
+    """The IRControlNet checkpoint of a version and task."""
+    if version == "v1":
+        name = {"sr": "v1_general", "denoise": "v1_general", "face": "v1_face"}.get(task)
+        if name is None:
+            raise ValueError(f"DiffBIR v1 doesn't support task: {task}")
+        return name
+    return version
 
 
 class InferenceLoop:
@@ -95,6 +110,20 @@ class InferenceLoop:
     def load_cleaner(self) -> None:  # pragma: no cover - overridden
         raise NotImplementedError
 
+    def _load_cleaner(self, factory, name: str) -> torch.nn.Module:
+        """A stage-1 cleaner built by ``factory`` (keywords ``device``,
+        ``dtype``): random weights from seed 0 under
+        ``DIFFBIR_TPU_RANDOM_INIT``, else the checkpoint ``name`` (a
+        registry name or a path) loaded strictly. The JAX
+        ``load_cleaner_params``."""
+        cleaner = build_on(factory, self.device, dtype=self._dtype())
+        if random_init_requested():
+            random_init_(cleaner, self._generator(0))
+        else:
+            path = resolve_model(name)
+            load_into(cleaner, load_torch_state_dict(path), path=path)
+        return cleaner.eval()
+
     def load_cldm(self) -> None:
         args = self.args
         cldm = build_on(ControlLDM.sd21, self.device, dtype=self._dtype())
@@ -103,22 +132,20 @@ class InferenceLoop:
         else:
             sd_path = resolve_model("sd_v2.1_zsnr" if args.version == "v2.1" else "sd_v2.1")
             load_stable_diffusion(cldm, load_torch_state_dict(sd_path), sd_path)
-            if args.version == "v1":
-                cn_key = {"sr": "v1_general", "denoise": "v1_general",
-                          "face": "v1_face"}.get(args.task)
-                if cn_key is None:
-                    raise ValueError(f"DiffBIR v1 doesn't support task: {args.task}")
-            else:
-                cn_key = "v2" if args.version == "v2" else "v2.1"
-            cn_path = resolve_model(cn_key)
+            cn_path = resolve_model(controlnet_name(args.version, args.task))
             load_into(cldm.controlnet, load_torch_state_dict(cn_path), path=cn_path)
-        self.cldm = cldm.eval().set_serving(
+        self.cldm = self._serving(cldm)
+        self.schedule = make_schedule_for_version(args.version)
+
+    def _serving(self, cldm: ControlLDM) -> ControlLDM:
+        """The loaded float model in eval mode with the CLI's serving flags."""
+        args = self.args
+        return cldm.eval().set_serving(
             quant_dense=bool(getattr(args, "quant_dense", False)),
             fused_resblock=bool(getattr(args, "fused_resblock", False)),
             quant_conv=bool(getattr(args, "quant_conv", False)),
             fused_ffn=bool(getattr(args, "fused_ffn", False)),
             fast_gelu=bool(getattr(args, "fast_gelu", False)))
-        self.schedule = make_schedule_for_version(args.version)
 
     def load_cond_fn(self) -> None:
         """The guidance loss of ``--g_loss`` with ``--g_*``, or None."""
@@ -169,6 +196,13 @@ class InferenceLoop:
 
     def after_load_lq(self, lq: np.ndarray) -> np.ndarray:
         return lq
+
+    def pre_upscale(self, lq: np.ndarray) -> np.ndarray:
+        """The LQ resized by ``--upscale`` with Pillow's bicubic (bit for
+        bit), for the x1 cleaners."""
+        h, w = lq.shape[:2]
+        up = self.args.upscale
+        return pil_bicubic_resize(torch.from_numpy(lq), (int(h * up), int(w * up))).numpy()
 
     def _add(self, stage: str, seconds: float) -> None:
         self.timings[stage] = self.timings.get(stage, 0.0) + seconds

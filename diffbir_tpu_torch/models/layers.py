@@ -105,6 +105,14 @@ class Conv2d(nn.Conv2d):
         return super().forward(x.to(self.weight.dtype))
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """Transposed conv that runs in its weights' dtype (weight (in, out, kh,
+    kw), as torch and the KAIR checkpoints store it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
 class Linear(nn.Linear):
     """Linear that runs in its weights' dtype (the input is cast to it)."""
 

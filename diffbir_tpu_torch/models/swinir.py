@@ -158,10 +158,24 @@ class SwinIR(nn.Module):
     Only the realesrgan head is ported: x8 pixel unshuffle, ``1conv``
     residual connection, ``nearest+conv`` x8 upsampler, img_range 1."""
 
+    # the ported head: the constructor's other keywords (a train config's
+    # ``model.swinir.params``) must take these values
+    HEAD = dict(in_chans=3, sf=SCALE, img_range=1.0, upsampler="nearest+conv",
+                resi_connection="1conv", unshuffle=True, unshuffle_scale=SCALE)
+
     def __init__(self, embed_dim: int = 180, depths: Sequence[int] = (6,) * 8,
                  num_heads: Sequence[int] = (6,) * 8, window_size: int = 8,
-                 mlp_ratio: float = 2.0, dtype=torch.float32, device=None):
+                 mlp_ratio: float = 2.0, dtype=torch.float32, device=None,
+                 img_size: int = 64, drop_path_rate: float = 0.0, **head):
+        """``img_size`` is unused (shapes come from the input), as in JAX;
+        ``drop_path_rate`` acts in training only."""
         super().__init__()
+        for name, value in head.items():
+            if name not in self.HEAD:
+                raise TypeError(f"SwinIR got an unexpected keyword {name!r}")
+            if value != self.HEAD[name]:
+                raise NotImplementedError(f"SwinIR {name}={value!r}: only the realesrgan head "
+                                          f"({name}={self.HEAD[name]!r}) is ported")
         kw = dict(dtype=dtype, device=device)
         self.window_size = window_size
         self.dtype = dtype

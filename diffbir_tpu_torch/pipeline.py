@@ -37,7 +37,13 @@ batch > 1. The tiled diffusion (``tiled_model_function``) runs each step's
 model call over latent tiles in groups of ``cldm_tiles_per_batch``,
 slicing the condition latent at each tile and repeating the text context
 per tile; hoisting is off there, as in JAX (the call batch changes per
-group). ``SwinIRPipeline`` tiles its cleaner with ``make_tiled_fn``.
+group). The cleaner pipelines tile their cleaner with ``make_tiled_fn``:
+SwinIR and SCUNet at x1, BSRNet at x4.
+
+Cleaners (``CleanerPipeline``, the JAX pipelines' ``cleaner_apply``
+clipped to [0, 1]): ``SwinIRPipeline`` (x1 on a pre-upscaled input, padded
+to x64), ``BSRNetPipeline`` (x4 on the LQ, then bicubic to lq x
+``upscale``) and ``SCUNetPipeline`` (x1 on a pre-upscaled input).
 
 Turbo (``control_interval`` k > 1, the JAX order of checks): the ControlNet
 runs on every k-th model call only (``cldm.make_cached_control_model``),
@@ -63,7 +69,6 @@ import torch
 import torch.nn.functional as F
 
 from .models.cldm import ControlLDM, HoistTables
-from .models.swinir import SwinIR
 from .sampler.base import ModelFn, Sampler, timestep_vector
 from .sampler.ddim import DDIMSampler
 from .sampler.dpms import DPMSolverSampler
@@ -417,10 +422,11 @@ class IdentityCleanerPipeline(Pipeline):
         return lq
 
 
-class SwinIRPipeline(Pipeline):
-    """x1 SwinIR cleaner on a pre-upscaled input, output clipped to [0, 1]."""
+class CleanerPipeline(Pipeline):
+    """A pipeline whose stage 1 is a network (NHWC [0, 1] in), its output
+    clipped to [0, 1]."""
 
-    def __init__(self, cleaner: SwinIR, cldm: ControlLDM, schedule: Schedule,
+    def __init__(self, cleaner: torch.nn.Module, cldm: ControlLDM, schedule: Schedule,
                  device: torch.device, min_cond_size: int = 512,
                  tokenizer: Optional[Callable[[List[str]], np.ndarray]] = None,
                  hoist: bool = True, cond_fn=None):
@@ -429,6 +435,10 @@ class SwinIRPipeline(Pipeline):
 
     def _clean(self, x: torch.Tensor) -> torch.Tensor:
         return self.cleaner(x).clamp(0.0, 1.0)
+
+
+class SwinIRPipeline(CleanerPipeline):
+    """x1 SwinIR cleaner on a pre-upscaled input."""
 
     def apply_cleaner(self, lq: torch.Tensor, tiled: bool = False, tile_size: int = 512,
                       tile_stride: int = 256) -> torch.Tensor:
@@ -446,3 +456,43 @@ class SwinIRPipeline(Pipeline):
             lq = resize_short_edge_to(lq, self.min_cond_size)
         h0, w0 = lq.shape[1:3]
         return self._clean(pad_to_multiples_of(lq, 64))[:, :h0, :w0, :]
+
+
+class BSRNetPipeline(CleanerPipeline):
+    """x4 BSRNet cleaner on the LQ itself; the output is lq x ``upscale``."""
+
+    def __init__(self, *args, upscale: float = 4.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.upscale = upscale
+
+    def set_output_size(self, lq_hw: Tuple[int, int]) -> None:
+        self.output_size = (int(lq_hw[0] * self.upscale), int(lq_hw[1] * self.upscale))
+
+    def apply_cleaner(self, lq: torch.Tensor, tiled: bool = False, tile_size: int = 512,
+                      tile_stride: int = 256) -> torch.Tensor:
+        """The x4 cleaner (tiled when the LQ is at least a tile: x4 tiles
+        blended), then resized: its short edge to ``min_cond_size`` when
+        the output size is below it, else bicubic to the output size."""
+        fn = self._clean
+        if tiled and min(lq.shape[1:3]) >= tile_size:
+            fn = make_tiled_fn(fn, tile_size, tile_stride, scale_type="up", scale=4)
+        out = fn(lq)
+        if min(self.output_size) < self.min_cond_size:
+            return resize_short_edge_to(out, self.min_cond_size)
+        return bicubic_resize(out, self.output_size)
+
+
+class SCUNetPipeline(CleanerPipeline):
+    """x1 SCUNet denoiser on a pre-upscaled input."""
+
+    def apply_cleaner(self, lq: torch.Tensor, tiled: bool = False, tile_size: int = 512,
+                      tile_stride: int = 256) -> torch.Tensor:
+        """The cleaner (tiled when the LQ is at least a tile), its short
+        edge resized to ``min_cond_size`` if below it."""
+        fn = self._clean
+        if tiled and min(lq.shape[1:3]) >= tile_size:
+            fn = make_tiled_fn(fn, tile_size, tile_stride)
+        out = fn(lq)
+        if min(out.shape[1:3]) < self.min_cond_size:
+            out = resize_short_edge_to(out, self.min_cond_size)
+        return out

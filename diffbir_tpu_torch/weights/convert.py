@@ -10,6 +10,16 @@ the leaf name and the layout change, by the rules of
 - ``in_proj_weight`` (d, 3d) -> (3d, d)
 - ``params`` collection keys are dropped.
 
+A 4-D kernel is either a conv's HWIO or a transposed conv's: flax's
+``ConvTranspose(transpose_kernel=True)`` (every site of the repository:
+SCUNet's up-convolutions) stores (kh, kw, out, in), and the same
+HWIO -> OIHW permutation gives torch's ``ConvTranspose2d`` weight (in, out,
+kh, kw). Given the module's shapes (``flax_to_state_dict(tree, shapes=)``),
+a kernel that does not fit that way is read as flax's default
+``ConvTranspose`` layout (kh, kw, in, out) of the spatially flipped kernel,
+and refused where in == out, since there the two layouts share a shape: the
+inverse of the JAX ``_convert_value``.
+
 A quantised scope (the JAX int8 serving layout: a dict holding ``kernel_q``)
 keeps its tensors in the JAX layout, so the int8 kernels of both packages
 read one tensor:
@@ -32,7 +42,7 @@ tree), so this module needs no JAX.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,9 +68,13 @@ def _torch_key(path: Tuple[str, ...]) -> Tuple[str, bool]:
     return ".".join([*mods, name]), leaf in ("kernel", "in_proj_weight")
 
 
-def convert_leaf(path: Tuple[str, ...], leaf, quant: bool = False) -> Tuple[str, np.ndarray]:
+def convert_leaf(path: Tuple[str, ...], leaf, quant: bool = False,
+                 shape: Optional[Tuple[int, ...]] = None) -> Tuple[str, np.ndarray]:
     """One flax leaf -> (torch key, array in torch layout; a view where the
-    layout allows). ``quant``: the leaf lies in a quantised scope."""
+    layout allows). ``quant``: the leaf lies in a quantised scope.
+    ``shape``: the torch tensor's shape, where known: a 4-D kernel that does
+    not fit it by the HWIO rule is taken for a default-layout ConvTranspose
+    kernel (see the module's notes), and any other misfit raises."""
     path = tuple(p for p in path if p != "params")
     if quant:
         *mods, name = path
@@ -71,20 +85,34 @@ def convert_leaf(path: Tuple[str, ...], leaf, quant: bool = False) -> Tuple[str,
     key, transpose = _torch_key(path)
     v = np.asarray(leaf, dtype=np.float32)
     if transpose:
-        if v.ndim == 4:  # HWIO -> OIHW
-            v = v.transpose(3, 2, 0, 1)
+        if v.ndim == 4:  # HWIO -> OIHW; (kh, kw, out, in) -> (in, out, kh, kw)
+            orig, v = v, v.transpose(3, 2, 0, 1)
+            if shape is not None and tuple(v.shape) != tuple(shape):
+                if orig.shape[2] == orig.shape[3]:
+                    raise ValueError(f"{key}: ambiguous ConvTranspose layout (in_ch == "
+                                     "out_ch): use transpose_kernel=True in the flax module")
+                v = orig[::-1, ::-1].transpose(2, 3, 0, 1)
         elif v.ndim == 2:
             v = v.T
+    if shape is not None and tuple(v.shape) != tuple(shape):
+        raise ValueError(f"{key}: shape {tuple(v.shape)}, the module {tuple(shape)}")
     return key, v
 
 
-def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(tree: Mapping[str, Any],
+                       shapes: Optional[Mapping[str, Tuple[int, ...]]] = None
+                       ) -> Dict[str, torch.Tensor]:
     """Nested dicts of arrays (a flax variable tree, or a dict of such trees
     keyed by submodule name) -> {torch key: tensor} (fp32; int8 ``weight_q``
-    in quantised scopes)."""
+    in quantised scopes). ``shapes``: the target module's {key: shape}, to
+    check every float leaf and to place the kernels of transposed convs
+    (see the module's notes)."""
     out: Dict[str, torch.Tensor] = {}
     for path, leaf, quant in _flatten(tree):
-        key, v = convert_leaf(path, leaf, quant)
+        shape = None
+        if shapes is not None and not quant:
+            shape = shapes.get(_torch_key(tuple(p for p in path if p != "params"))[0])
+        key, v = convert_leaf(path, leaf, quant, shape)
         out[key] = torch.from_numpy(np.ascontiguousarray(v))
     return out
 

@@ -6,7 +6,8 @@ CUDA-core one for fp32) and the fused GEGLU FFN (K7); the build key; the serving
 autograd and a small model; a small model's pipeline, untiled and tiled,
 and RGB-guided; the d = 512 attention under a gradient (plain math, against
 K1_wide + K2a_cc + K2b_cc); turbo at interval 1 bit-equal to the plain
-model; a small LLaVA captioner.
+model; the small BSRNet and SCUNet cleaners against the CPU; a small LLaVA
+captioner.
 
 These tests need a card: they skip without one. The GPU machine has no JAX,
 and ``tests/conftest.py`` imports it, so run them there without the conftest:
@@ -422,6 +423,33 @@ def test_small_fp32_tiled_pipeline_matches_cpu(cuda, mode):
     assert bool(torch.isfinite(res["cuda"][0]).all())
     assert (res["cpu"][0] - res["cuda"][0]).abs().max().item() <= 1e-3
     assert np.abs(res["cpu"][1].astype(int) - res["cuda"][1].astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("name", ["bsrnet", "scunet"])
+def test_small_cleaners_on_the_card_match_the_cpu(cuda, name):
+    """A small BSRNet (x4) and SCUNet (plain and shifted windows, edge pad)
+    in fp32 on the card against the CPU on the same weights and input
+    (1e-4 x max|ref|); no kernel of the port runs."""
+    from diffbir_tpu_torch.models.bsrnet import RRDBNet
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.scunet import SCUNet
+
+    def build(device):
+        model = (RRDBNet(nf=16, nb=2, gc=8, device=device) if name == "bsrnet" else
+                 SCUNet(config=(2, 1, 1, 2, 1, 1, 2), dim=16, head_dim=8, device=device))
+        return random_init_(model, torch.Generator(device=device).manual_seed(3)).eval()
+
+    cpu, gpu = build("cpu"), build(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.rand(2, 40, 52, 3, generator=torch.Generator().manual_seed(4))
+    kernels = [k for m in (fa, qm, fr, ffn) for k in vars(m).values()
+               if isinstance(k, _cuda.CudaKernel)]
+    before = [k.launches for k in kernels]
+    with torch.no_grad():
+        ref, out = cpu(x), gpu(x.to(cuda)).cpu()
+    assert [k.launches for k in kernels] == before
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert (out - ref).abs().max().item() <= FP32_TOL * ref.abs().max().item()
 
 
 def test_wide_attention_under_a_gradient_takes_plain_math_on_the_card(cuda):
