@@ -168,6 +168,28 @@ Phases (any failure exits non-zero before the last line is printed):
      the int8 flags): exact launches (K1_wide 2 where the VAE is untiled),
      seconds per stage, peak device memory (the tiled one below the
      untiled), the PNG's size.
+     The unaligned face path and the serving front ends: [face_detect] the
+     full-width RetinaFace (ResNet-50, random frozen-BatchNorm weights from
+     a seed, its heads scaled by 1/20) on a seeded 640x640 image: loc, conf
+     and landms against the same module on the CPU at fp32, with cuDNN's
+     TF32 on (a process's default; limit TF32_TOL x max|ref|) and off
+     (FACE_FP32_TOL), then detect_faces' ms warm; [face_parse] ParseNet at
+     512x512 the same way, parse's ms; [cli_unaligned_face] ``python -m
+     diffbir_tpu_torch.inference --task unaligned_face --upscale 2`` on a
+     seeded 256x256 PNG, RetinaFace and ParseNet read strictly from
+     facexlib-layout files written from those random weights, the
+     landmarks fixed to two faces through the loop's face_helper: exact
+     launches (three 512x512 requests: K1 690, K1_wide 6), seconds per
+     stage (detect/align and paste apart), the files and the merged PNG, a
+     rerun bit-identical; [http_serve] diffbir_tpu_torch.serve's
+     BatchingServer and handler on 127.0.0.1 (an ephemeral port) over the
+     v2.1 sr pipeline at --upscale 4: 4 concurrent same-key 128x128 PNGs ->
+     one pipeline call at batch 4 (K1 230, K1_wide 2), 2 of another seed ->
+     another call, a --batch 1 server's response bit-equal to pipeline.run,
+     latency p50/p95 at batch 1 and 4, peak memory; [demo_http] one run_gradio
+     request through its _Handler equal to process() called directly. Each
+     time and memory figure of these phases is printed beside the card's
+     name and power limit.
  10. training path: stage-2 IRControlNet train steps at full width (SD2.1 +
      IRControlNet with gradient checkpointing, ControlNet initialised from the
      UNet, frozen realesrgan SwinIR cleaner, v2.1 schedule, noise aug at 200,
@@ -567,6 +589,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# the card's name and power limit, as nvidia-smi gives them: printed beside
+# the face and serving phases' times and memory
+CARD = []
+
+
 def phase_device():
     import torch
 
@@ -576,6 +603,7 @@ def phase_device():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     for line in smi.stdout.strip().splitlines():
         print(line)
+    CARD.append(smi.stdout.strip().splitlines()[0].strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[device] torch", torch.__version__, "cuda", torch.version.cuda,
@@ -3021,6 +3049,448 @@ def phase_llava(qm, cldm, swinir):
 
 
 
+# --------------------------------------------------------------------------- #
+# the unaligned face path and the serving front ends
+# --------------------------------------------------------------------------- #
+# RetinaFace against the same module on the CPU at fp32. cuDNN's default
+# TF32 rounds each convolution's operands to 10 mantissa bits (~5e-4 of a
+# product); through the ~70 convolutions of a random ResNet-50 + FPN + SSH
+# the outputs drift by up to ~1e-2 of the largest: the limit is 5e-2. With
+# TF32 off both sides are fp32 sums in another order: 1e-3.
+TF32_TOL, FACE_FP32_TOL = 5e-2, 1e-3
+DETECT_SIZE, PARSE_SIZE = 640, 512
+# [cli_unaligned_face]: a seeded 256x256 PNG at --upscale 2 (512x512), two
+# faces fixed through the loop's face_helper hook: three 512x512 stage-2
+# requests (two face crops, the background), each K1 230 + K1_wide 2.
+UNALIGNED_LQ, UNALIGNED_UPSCALE, UNALIGNED_FACES = 256, 2, 2
+UNALIGNED = {"K1": (UNALIGNED_FACES + 1) * K1_SITES_PER_STEP * CLI_STEPS,
+             "K1_wide": (UNALIGNED_FACES + 1) * K1_WIDE_PER_REQUEST}
+# [http_serve]: the v2.1 sr pipeline behind serve.BatchingServer at --upscale 4
+# on 128x128 PNGs (512x512 conditions, 10 steps of the default sampler): a
+# batch of any size is one pipeline call, K1 230 + K1_wide 2.
+SERVE_BATCH, SERVE_LATENCY_ROUNDS = 4, 5
+
+
+def card() -> str:
+    return f"[{CARD[0] if CARD else 'card not read'}]"
+
+
+def face_weights_file(module, path: str) -> None:
+    """``module``'s weights in facexlib's layout: ``module.`` prefixes and
+    every BatchNorm's ``num_batches_tracked``, as the published files."""
+    import torch
+
+    sd = {}
+    for k, v in module.state_dict().items():
+        sd["module." + k] = v.detach().cpu().clone()
+        if k.endswith("running_var"):
+            sd["module." + k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    torch.save(sd, path)
+
+
+def random_face_models(seed: int):
+    """A full-width RetinaFace (heads scaled by 1/20, so that scores and
+    boxes fall in a detector's range) and ParseNet with seeded random
+    weights (``random_init_``: the BatchNorms at identity), on the card."""
+    import torch
+
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.parsenet import ParseNet
+    from diffbir_tpu_torch.models.retinaface import RetinaFace
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    det = random_init_(RetinaFace(device="cuda"), gen).eval()
+    with torch.no_grad():
+        for heads in (det.BboxHead, det.ClassHead, det.LandmarkHead):
+            for h in heads:
+                h.conv1x1.weight.div_(20)
+                h.conv1x1.bias.div_(20)
+    parse = random_init_(ParseNet(device="cuda"), gen).eval()
+    return det, parse
+
+
+def against_cpu(label: str, module, x, tol_tf32: float, tol_fp32: float) -> dict:
+    """``module``'s outputs on ``x`` on the card, with cuDNN's TF32 on (a
+    process's default) and off, each against the same module on the CPU at
+    fp32 (limits tol x max|ref|); returns {"tf32": err, "fp32": err}."""
+    import copy
+
+    import torch
+
+    with torch.no_grad():
+        refs = module_outputs(copy.deepcopy(module).cpu(), x.cpu())
+        errs = {}
+        for mode, tol in (("tf32", tol_tf32), ("fp32", tol_fp32)):
+            torch.backends.cudnn.allow_tf32 = mode == "tf32"
+            outs = module_outputs(module, x)
+            err = max(float((o.cpu() - r).abs().max() / r.abs().max()) for o, r in
+                      zip(outs, refs))
+            errs[mode] = err
+            check(all(bool(torch.isfinite(o).all()) for o in outs), f"{label}: non-finite")
+            check(err <= tol, f"{label} ({mode}) against the CPU: {err:.3e} x max|ref| > {tol}")
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"[{label}] against the same module on the CPU at fp32: cuDNN TF32 on (the "
+          f"default) {errs['tf32']:.3e} x max|ref| (limit {tol_tf32:g}: TF32 rounds conv "
+          f"operands to 10 mantissa bits), TF32 off {errs['fp32']:.3e} (limit {tol_fp32:g})")
+    return errs
+
+
+def module_outputs(module, x):
+    out = module(x)
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def phase_face_detect(det) -> None:
+    """[face_detect]: the full-width RetinaFace on a seeded 640x640 image:
+    loc/conf/landms against the CPU, then ``detect_faces`` (pad, mean,
+    network, decode, NMS) warm; no kernel of the port."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.models.retinaface import RetinaFaceDetector
+
+    img = np.random.default_rng(21).integers(0, 256, (DETECT_SIZE, DETECT_SIZE, 3),
+                                             dtype=np.uint8)
+    x = (torch.from_numpy(img).float().cuda() - torch.tensor([104.0, 117.0, 123.0],
+                                                              device="cuda"))[None]
+    before = counts()
+    against_cpu("face_detect", det, x, TF32_TOL, FACE_FP32_TOL)
+    detector = RetinaFaceDetector(det)
+    torch.backends.cudnn.allow_tf32 = True
+    faces = detector.detect_faces(img, 0.8)
+    ms = median_ms(lambda: detector.detect_faces(img, 0.8), iters=10, warmup=1)
+    torch.backends.cudnn.allow_tf32 = False
+    check(faces.shape[1] == 15 and bool(torch.isfinite(faces).all()), "detect_faces: bad output")
+    check(not launched_since(before), "face_detect launched a kernel of the port")
+    print(f"[face_detect] RetinaFace-ResNet50 {sum(p.numel() for p in det.parameters()) / 1e6:.1f}"
+          f" M params, fp32, {DETECT_SIZE}x{DETECT_SIZE}: detect_faces {ms:.3f} ms warm (median "
+          f"of 10 host calls, TF32 on), {faces.shape[0]} faces kept above 0.8 {card()}")
+
+
+def phase_face_parse(parse) -> None:
+    """[face_parse]: the full-width ParseNet on a seeded 512x512 face:
+    logits and image against the CPU, ``parse`` warm."""
+    import torch
+
+    from diffbir_tpu_torch.models.parsenet import FaceParser
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    face = torch.rand(PARSE_SIZE, PARSE_SIZE, 3, generator=gen, device="cuda")
+    before = counts()
+    against_cpu("face_parse", parse, face[None] * 2 - 1, TF32_TOL, FACE_FP32_TOL)
+    parser = FaceParser(parse)
+    torch.backends.cudnn.allow_tf32 = True
+    classes = parser.parse(face)
+    ms = median_ms(lambda: parser.parse(face), iters=10, warmup=1)
+    torch.backends.cudnn.allow_tf32 = False
+    check(classes.shape == (PARSE_SIZE, PARSE_SIZE) and classes.dtype == torch.int32,
+          f"parse: bad class map {tuple(classes.shape)} {classes.dtype}")
+    check(not launched_since(before), "face_parse launched a kernel of the port")
+    print(f"[face_parse] ParseNet {sum(p.numel() for p in parse.parameters()) / 1e6:.2f} M "
+          f"params, fp32, {PARSE_SIZE}x{PARSE_SIZE}: parse {ms:.3f} ms warm (median of 10 host "
+          f"calls, TF32 on), {int(classes.unique().numel())} classes in the map {card()}")
+
+
+def two_faces(img):
+    """The landmarks of two faces placed by the image's size (the smoke's
+    fixed detection: a random detector finds arbitrary faces)."""
+    import numpy as np
+
+    from diffbir_tpu_torch.utils.face import FFHQ_TEMPLATE_512
+
+    h, w = img.shape[:2]
+    out = []
+    for cx, cy, a, s in ((0.3 * w, 0.35 * h, 0.2, 0.3), (0.68 * w, 0.62 * h, -0.1, 0.4)):
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]) * s * w / 512
+        out.append((FFHQ_TEMPLATE_512 - 256) @ rot.T + [cx, cy])
+    return np.asarray(out, np.float32)
+
+
+def phase_cli_unaligned_face(det, parse) -> dict:
+    """[cli_unaligned_face]: ``python -m diffbir_tpu_torch.inference --task
+    unaligned_face --upscale 2`` in process on a seeded 256x256 PNG, random
+    full-width weights, the CLI's defaults; RetinaFace and ParseNet read
+    strictly from facexlib-layout files written from ``det`` and ``parse``
+    into the run's weights folder; the landmarks fixed to two faces through
+    the loop's ``face_helper``. Exact launches (three 512x512 requests),
+    seconds per stage (detect/align and paste apart), the files and the
+    merged PNG, a rerun bit-identical. Returns the launch counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.inference import unaligned_bfr_loop as ua
+    from diffbir_tpu_torch.inference.__main__ import main
+    from diffbir_tpu_torch.inference.pretrained_models import MODELS
+    from diffbir_tpu_torch.utils.face import FaceRestoreHelper
+    from diffbir_tpu_torch.utils.image_io import read_png, write_png
+
+    root = os.path.join("build", "cli_request", "cli_unaligned_face")
+    shutil.rmtree(root, ignore_errors=True)
+    in_dir, out_dir, weights = (os.path.join(root, d) for d in ("in", "out", "weights"))
+    for d in (in_dir, weights):
+        os.makedirs(d)
+    write_png(os.path.join(in_dir, "lq.png"), np.random.default_rng(23).integers(
+        0, 256, (UNALIGNED_LQ, UNALIGNED_LQ, 3), dtype=np.uint8))
+    for name, module in (("retinaface_resnet50", det), ("parsenet", parse)):
+        face_weights_file(module, os.path.join(weights, os.path.basename(MODELS[name])))
+    argv = ["--task", "unaligned_face", "--input", in_dir, "--output", out_dir,
+            "--upscale", str(UNALIGNED_UPSCALE)]
+    hook = ua.UnAlignedBFRInferenceLoop.face_helper
+    ua.UnAlignedBFRInferenceLoop.face_helper = lambda self: FaceRestoreHelper(
+        landmarks_fn=two_faces, detector=self.detector, face_parser=self.face_parser,
+        device=self.device)
+    saved = os.environ.get("DIFFBIR_TPU_WEIGHTS")
+    os.environ["DIFFBIR_TPU_WEIGHTS"] = weights
+    try:
+        with cli_environment(root):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()  # count only this path from here
+            t0 = time.perf_counter()
+            loop = main(argv)
+            dt = time.perf_counter() - t0
+            launches = counts()
+            n = {k: v for k, v in launches.items() if v}
+            first = dict(loop.timings)
+            check(loop.face_parser is not None, "cli_unaligned_face: the parser did not load")
+            check(n == UNALIGNED, f"cli_unaligned_face: expected launches {UNALIGNED}, got {n}")
+            names = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                           for d, _, fs in os.walk(out_dir) for f in fs)
+            want = sorted(["lq.png", "prompt.csv", "restored_backgrounds/lq_0.png"] + [
+                f"{d}/lq_face{i}{s}.png" for i in range(UNALIGNED_FACES)
+                for d, s in (("cropped_faces", ""), ("restored_faces", "_0"))])
+            check(names == want, f"cli_unaligned_face: files {names}, expected {want}")
+            merged = read_png(os.path.join(out_dir, "lq.png"))
+            size = UNALIGNED_LQ * UNALIGNED_UPSCALE
+            check(merged.shape == (size, size, 3) and float(merged.std()) > 1.0,
+                  f"cli_unaligned_face: bad merged PNG {merged.shape}")
+            pngs = {name: read_png(os.path.join(out_dir, name)) for name in names
+                    if name.endswith(".png")}
+            loop.timings = {}
+            before = counts()
+            t1 = time.perf_counter()
+            loop.run()
+            dt2 = time.perf_counter() - t1
+            check(launched_since(before) == UNALIGNED, "cli_unaligned_face: the rerun launched "
+                  "another count")
+            for name, png in pngs.items():
+                check(np.array_equal(read_png(os.path.join(out_dir, name)), png),
+                      f"cli_unaligned_face: the rerun's {name} differs")
+    finally:
+        ua.UnAlignedBFRInferenceLoop.face_helper = hook
+        if saved is None:
+            os.environ.pop("DIFFBIR_TPU_WEIGHTS", None)
+        else:
+            os.environ["DIFFBIR_TPU_WEIGHTS"] = saved
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[cli_unaligned_face] python -m diffbir_tpu_torch.inference {' '.join(argv)}: "
+          f"{dt:.3f} s ({stages(first)} s); the detector and parser read strictly from "
+          f"facexlib-layout files; launches " + ", ".join(f"{k} {v}" for k, v in n.items())
+          + f"; peak device memory {peak:.2f} GiB {card()}")
+    print(f"[cli_unaligned_face] {len(names)} files ({', '.join(names)}), merged "
+          f"{merged.shape[1]}x{merged.shape[0]}; a rerun of the loop: {dt2:.3f} s "
+          f"({stages(loop.timings)} s), bit-identical {card()}")
+    del loop
+    torch.cuda.empty_cache()
+    return launches
+
+
+def percentile(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values), q))
+
+
+def http_post(port: int, payload: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/restore",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def concurrent(fn, args_list) -> list:
+    """``fn(*args)`` for each in threads started together; the results in
+    order (an exception re-raised)."""
+    import threading
+
+    out = [None] * len(args_list)
+
+    def run(i, a):
+        try:
+            out[i] = fn(*a)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(args_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r in out:
+        if isinstance(r, Exception):
+            raise r
+    return out
+
+
+@contextlib.contextmanager
+def http_server(handler):
+    """A threaded HTTP server of ``handler`` on 127.0.0.1 and an ephemeral
+    port (yielded), shut down afterwards."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+
+
+def phase_http_serve() -> dict:
+    """[http_serve]: ``diffbir_tpu_torch.serve``'s BatchingServer and handler
+    on 127.0.0.1 over the v2.1 sr pipeline (``build_pipelines``, random
+    full-width weights, --upscale 4): 4 concurrent same-key 128x128 PNGs
+    make one pipeline call at batch 4 (K1 230 + K1_wide 2), 2 of another
+    seed a separate call; a --batch 1 server's response bit-equal to
+    ``pipeline.run`` of the same request; per-request latency p50/p95 of
+    the --batch 1 server one request at a time and of the --batch 4 one 4
+    at a time, peak memory. Returns the launch counts of the batch-4 call."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch import serve
+    from diffbir_tpu_torch.utils.image_io import decode_png, encode_png
+
+    root = os.path.join("build", "http_serve")
+    os.makedirs(root, exist_ok=True)
+    with cli_environment(root):
+        args = serve.build_parser().parse_args(["--upscale", str(CLI_UPSCALE)])
+        pipe = serve.build_pipelines(args, ["sr"])["sr"]
+        calls = []
+        run = pipe.run
+
+        def counted(lq, **kw):
+            calls.append(len(lq))
+            return run(lq, **kw)
+
+        pipe.run = counted
+        # --batch 4 (its window wide enough that 4 threads started together
+        # land in it), and --batch 1 (no window: the collector never waits)
+        srv = serve.BatchingServer(pipe, SERVE_BATCH, max_wait_ms=500.0)
+        srv1 = serve.BatchingServer(pipe, 1, max_wait_ms=500.0)
+        imgs = [np.random.default_rng(30 + i).integers(0, 256, (CLI_LQ, CLI_LQ, 3),
+                                                       dtype=np.uint8) for i in range(4)]
+
+        def request(port, img, seed):
+            t0 = time.perf_counter()
+            out = http_post(port, {"image": base64.b64encode(encode_png(img)).decode(),
+                                   "seed": seed})
+            return decode_png(base64.b64decode(out["image"])), time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with http_server(serve.make_handler(srv, float(CLI_UPSCALE))) as port, \
+                http_server(serve.make_handler(srv1, float(CLI_UPSCALE))) as port1:
+            request(port, imgs[0], 231)  # warm
+            calls.clear()
+            reset_counts()
+            four = concurrent(request, [(port, im, 231) for im in imgs])
+            launches = counts()
+            n = {k: v for k, v in launches.items() if v}
+            check(calls == [4], f"http_serve: 4 same-key requests made pipeline calls {calls}")
+            check(n == CLI_DEFAULT, f"http_serve: the batch-4 call launched {n}, expected "
+                  f"{CLI_DEFAULT}")
+            size = CLI_LQ * CLI_UPSCALE
+            check(all(o.shape == (size, size, 3) for o, _ in four), "http_serve: bad shapes")
+            calls.clear()
+            two = concurrent(request, [(port, im, 7) for im in imgs[:2]])
+            check(calls == [2], f"http_serve: 2 requests of seed 7 made calls {calls}")
+            calls.clear()
+            lat1 = [request(port1, imgs[0], 231)[1] for _ in range(SERVE_LATENCY_ROUNDS)]
+            check(calls == [1] * SERVE_LATENCY_ROUNDS, f"http_serve: batch-1 calls {calls}")
+            lat4 = []
+            for _ in range(SERVE_LATENCY_ROUNDS):
+                lat4 += [t for _, t in concurrent(request, [(port, im, 231) for im in imgs])]
+            one = request(port1, imgs[0], 231)[0]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        up = serve.upscale_image(imgs[0], float(CLI_UPSCALE))
+        direct = run(up[None], steps=10, cfg_scale=6.0, pos_prompt="", neg_prompt="",
+                     sampler_type="edm_dpm++_3m_sde", seed=231, size_bucket=64)[0]
+        check(np.array_equal(one, direct), "http_serve: the batch-1 response differs from "
+              "pipeline.run of the same request")
+        check(not np.array_equal(two[0][0], one), "http_serve: seeds 7 and 231 gave one image")
+        srv.stop()
+        srv1.stop()
+    del pipe, srv, srv1, run
+    torch.cuda.empty_cache()
+    print(f"[http_serve] BatchingServer (batch {SERVE_BATCH}, wait 500 ms, bucket 64) on "
+          f"127.0.0.1:{port}, v2.1 sr, {CLI_LQ}x{CLI_LQ} PNGs at --upscale {CLI_UPSCALE}: 4 "
+          f"same-key requests -> one call at batch 4 (launches "
+          + ", ".join(f"{k} {v}" for k, v in n.items()) + "); 2 of another seed -> one call "
+          "at batch 2; the batch-1 response bit-equal to pipeline.run")
+    print(f"[http_serve] per-request latency, a --batch 1 server, one request at a time: p50 "
+          f"{percentile(lat1, 50):.3f} s, p95 {percentile(lat1, 95):.3f} s ({len(lat1)} "
+          f"requests); the --batch 4 server, 4 at a time: p50 {percentile(lat4, 50):.3f} s, p95 "
+          f"{percentile(lat4, 95):.3f} s ({len(lat4)} requests); peak device memory "
+          f"{peak:.2f} GiB {card()}")
+    return launches
+
+
+def phase_demo_http() -> dict:
+    """[demo_http]: one ``diffbir_tpu_torch.run_gradio`` request (a 128x128
+    PNG, the demo's defaults at --upscale 4) through its ``_Handler`` equal
+    to ``process()`` called directly. Returns the launch counts of the
+    handler's request."""
+    import base64
+    from argparse import Namespace
+
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch import run_gradio
+    from diffbir_tpu_torch.utils.image_io import decode_png, encode_png
+
+    root = os.path.join("build", "demo_http")
+    os.makedirs(root, exist_ok=True)
+    img = np.random.default_rng(40).integers(0, 256, (CLI_LQ, CLI_LQ, 3), dtype=np.uint8)
+    with cli_environment(root):
+        process = run_gradio.build_runner(Namespace(
+            upscale=float(CLI_UPSCALE), steps=10, precision="bf16", version="v2.1", tasks="sr",
+            device="cuda"))
+        run_gradio._Handler.process = staticmethod(process)
+        with http_server(run_gradio._Handler) as port:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = http_post(port, {"image": base64.b64encode(encode_png(img)).decode(),
+                                   "seed": 5, "a_field_the_demo_ignores": 1})
+            dt = time.perf_counter() - t0
+            launches = counts()
+        got = decode_png(base64.b64decode(out["image"]))
+        direct = process(img, seed=5)
+    n = {k: v for k, v in launches.items() if v}
+    check(np.array_equal(got, direct), "demo_http: the response differs from process()")
+    check(n == CLI_DEFAULT, f"demo_http: launched {n}, expected {CLI_DEFAULT}")
+    del process
+    run_gradio._Handler.process = None
+    torch.cuda.empty_cache()
+    print(f"[demo_http] run_gradio._Handler POST /restore ({CLI_LQ}x{CLI_LQ} PNG, an unknown "
+          f"key ignored): {dt:.3f} s, launches " + ", ".join(f"{k} {v}" for k, v in n.items())
+          + f"; equal to process() called directly {card()}")
+    return launches
+
+
 def controlnet_grad(cldm, loss_fn, batch, draws):
     """The ControlNet's flattened gradient of one loss (zeros for a tensor
     that got none) and the number of its tensors that got none."""
@@ -3222,11 +3692,21 @@ def main() -> int:
         for path, spec in FAST_GELU_PATHS.items():
             paths[path], _ = phase_cli_request(path, spec)
         paths.update(phase_tiled_request())
+        det, parse = random_face_models(20)
+        phase_face_detect(det)
+        phase_face_parse(parse)
+        paths["cli_unaligned_face"] = phase_cli_unaligned_face(det, parse)
+        del det, parse
+        paths["http_serve"] = phase_http_serve()
+        paths["demo_http"] = phase_demo_http()
         paths["train"] = phase_train(fa)
         cli = {path: expected for path, (expected, _) in {
             **CLI_PATHS, **GUIDANCE_PATHS, **TURBO_PATHS, **FAST_GELU_PATHS}.items()}
         tiled = {f"tiled_{name}": expected for name, (_, expected) in TILED_VARIANTS.items()}
-        for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled}.items():
+        served = {"cli_unaligned_face": UNALIGNED, "http_serve": CLI_DEFAULT,
+                  "demo_http": CLI_DEFAULT}
+        for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled,
+                               **served}.items():
             # no other kernel
             check(all(n == 0 for k, n in paths[path].items() if k not in expected),
                   f"{path} launched other kernels: {paths[path]}")

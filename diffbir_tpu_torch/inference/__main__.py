@@ -17,10 +17,12 @@ becomes the pipeline's ``cond_fn``.
 
 Tasks: sr (``BSRInferenceLoop``), face (aligned faces,
 ``BFRInferenceLoop``) and denoise (``BIDInferenceLoop``), each in versions
-v1, v2 and v2.1; ``--version custom`` takes ``CustomInferenceLoop`` (a
+v1, v2 and v2.1; unaligned_face (``UnAlignedBFRInferenceLoop``: RetinaFace
+detection, a face request per aligned crop, the background request, the
+paste back) in v2 and v2.1, v1 raising the ValueError of its ControlNet
+matrix, as in JAX; ``--version custom`` takes ``CustomInferenceLoop`` (a
 train config's cleaner and schedule, ``--ckpt``'s ControlNet) whatever the
-task. ``--task unaligned_face`` (face detection and pasting back) is not
-ported: it raises NotImplementedError naming it.
+task.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..pipeline import SAMPLER_CHOICES
+from .loop import controlnet_name
 
 DEFAULT_POS_PROMPT = (
     "Cinematic, High Contrast, highly detailed, taken using a Canon EOS R camera, "
@@ -122,11 +125,10 @@ def build_parser() -> ArgumentParser:
 
 
 def check_ported(args: Namespace) -> None:
-    """NotImplementedError naming a path that is not ported; ValueError for
-    flags that do not combine."""
-    if args.task == "unaligned_face" and args.version != "custom":
-        raise NotImplementedError("--task unaligned_face: not ported yet (the face detector, "
-                                  "the face parser and the paste-back wait)")
+    """ValueError for a version that lacks the task (v1 unaligned_face)
+    and for flags that do not combine, before anything loads."""
+    if args.version != "custom":
+        controlnet_name(args.version, args.task)
     if args.quant_conv and not args.fused_resblock:
         raise ValueError("--quant_conv requires --fused_resblock")
 
@@ -143,13 +145,14 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
-    from . import BFRInferenceLoop, BIDInferenceLoop, BSRInferenceLoop, CustomInferenceLoop
+    from . import (BFRInferenceLoop, BIDInferenceLoop, BSRInferenceLoop, CustomInferenceLoop,
+                   UnAlignedBFRInferenceLoop)
 
     if args.version == "custom":
         loop = CustomInferenceLoop(args)
     else:
-        loop = {"sr": BSRInferenceLoop, "face": BFRInferenceLoop,
-                "denoise": BIDInferenceLoop}[args.task](args)
+        loop = {"sr": BSRInferenceLoop, "face": BFRInferenceLoop, "denoise": BIDInferenceLoop,
+                "unaligned_face": UnAlignedBFRInferenceLoop}[args.task](args)
     loop.run()
     print(f"done! results saved to {args.output}")
     return loop

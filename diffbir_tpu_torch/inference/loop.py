@@ -267,6 +267,11 @@ class InferenceLoop:
     def save(self, img: np.ndarray, sample_idx: int) -> None:
         name = self.output_name(sample_idx)
         write_png(os.path.join(self.save_dir, name), img)
+        self.log_prompt(name)
+
+    def log_prompt(self, name: str) -> None:
+        """Append ``name``'s row to ``prompt.csv`` (the header first when
+        the file is new)."""
         csv_path = os.path.join(self.save_dir, "prompt.csv")
         new = not os.path.exists(csv_path)
         with open(csv_path, "a", newline="") as f:

@@ -5,6 +5,8 @@ type 0), RGB (2) or RGBA (6). ``read_png`` undoes the five scanline filters
 (so it reads what an encoder with adaptive filtering wrote) and checks each
 chunk's CRC; ``write_png`` writes RGB with the "None" filter. Any other
 format, bit depth or PNG feature raises ValueError naming the file.
+``decode_png`` and ``encode_png`` do the same on bytes (the HTTP front
+ends' bodies).
 """
 
 from __future__ import annotations
@@ -56,9 +58,22 @@ def _unfilter(data: bytes, h: int, w: int, bpp: int, path: str) -> np.ndarray:
 def read_png(path: str) -> np.ndarray:
     """The image as uint8 [H, W, C]: C = 1 (grey), 3 (RGB) or 4 (RGBA)."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return decode_png(f.read(), path)
+
+
+# the leading bytes of the formats a client may send instead of a PNG
+_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+                  (b"RIFF", "WebP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
+def decode_png(buf: bytes, path: str = "the image") -> np.ndarray:
+    """``read_png`` of PNG bytes (``path`` names them in errors); another
+    format raises ValueError naming it."""
     if not buf.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (only PNG is read without an image library)")
+        fmt = next((name for magic, name in _OTHER_FORMATS if buf.startswith(magic)),
+                   "an unknown format")
+        raise ValueError(f"{path}: {fmt}, not a PNG (only PNG is read without an image "
+                         "library)")
     pos, header, idat = len(_SIGNATURE), None, []
     while pos + 8 <= len(buf):
         length, ctype = struct.unpack(">I4s", buf[pos:pos + 8])
@@ -87,7 +102,11 @@ def read_png(path: str) -> np.ndarray:
 def read_rgb(path: str) -> np.ndarray:
     """uint8 [H, W, 3]: grey replicated, alpha dropped (PIL's
     ``convert("RGB")``)."""
-    img = read_png(path)
+    return to_rgb(read_png(path))
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """A decoded PNG as uint8 [H, W, 3] (``read_rgb``'s conversion)."""
     if img.shape[-1] == 1:
         return np.repeat(img, 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
@@ -98,13 +117,20 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
         ">I", zlib.crc32(ctype + body))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write uint8 [H, W, 3] as an 8-bit RGB PNG."""
+def encode_png(img: np.ndarray, path: str = "the image") -> bytes:
+    """uint8 [H, W, 3] as the bytes of an 8-bit RGB PNG."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
-        raise ValueError(f"{path}: write_png takes uint8 [H, W, 3], got {img.shape} {img.dtype}")
+        raise ValueError(f"{path}: a PNG is written from uint8 [H, W, 3], got {img.shape} "
+                         f"{img.dtype}")
     h, w, _ = img.shape
     raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    return (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write uint8 [H, W, 3] as an 8-bit RGB PNG."""
+    data = encode_png(img, path)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+        f.write(data)

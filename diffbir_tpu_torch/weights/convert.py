@@ -36,6 +36,10 @@ The LLaVA captioner's functional trees (lists of layers, HF key names) go
 through ``llava_to_state_dict`` instead; its quantised scopes hold ``w_q`` or
 ``w_q4``, so a LayerNorm's ``scale`` is never taken for a quantised one.
 
+The face networks' trees (``RetinaFace``, ``ParseNet``: frozen BatchNorm
+``scale``/``bias``/``running_mean``/``running_var``) convert by the same
+rules; their facexlib torch files load with ``load_facexlib``.
+
 The tree is plain nested dicts of numpy arrays (``jax.device_get`` of a flax
 tree), so this module needs no JAX.
 """
@@ -233,3 +237,16 @@ def load_stable_diffusion(cldm: torch.nn.Module, sd: Mapping[str, torch.Tensor],
     """The UNet, VAE and CLIP of ``cldm`` from a full SD2.1 checkpoint."""
     for name, prefix in SD_MODULE_MAP.items():
         load_into(getattr(cldm, name), sd, prefix, path)
+
+
+def load_facexlib(module: torch.nn.Module, path: str) -> torch.nn.Module:
+    """A facexlib checkpoint (``detection_Resnet50_Final.pth``,
+    ``parsing_parsenet.pth``: ``module.`` prefixes stripped) loaded into the
+    port's network with ``load_state_dict(strict=True)``: a missing or an
+    extra key raises, naming the file (BatchNorm's ``num_batches_tracked``
+    is taken and not read)."""
+    try:
+        module.load_state_dict(load_torch_state_dict(path), strict=True)
+    except RuntimeError as e:
+        raise RuntimeError(f"{path}: {e}") from e
+    return module.eval()

@@ -15,9 +15,10 @@
   the turbo flags, guidance (latent and RGB) and ``--fast_gelu`` run, the
   PNG within 1 uint8 level of the JAX ``SwinIRPipeline`` on the loop's own
   weights (converted with the JAX ``fill_flax_params``) and JAX's draws
-  (handed to the port's ``pipeline.run``); ``--task unaligned_face`` (not
-  ported), a missing weight file and a missing merges file raise, naming
-  them, and without a card the CLI refuses to run.
+  (handed to the port's ``pipeline.run``); ``--task unaligned_face`` at v1
+  (no ControlNet for it) and without the detector's weights, a missing
+  weight file and a missing merges file raise, naming them, and without a
+  card the CLI refuses to run.
 """
 
 import csv
@@ -293,13 +294,17 @@ def test_cli_tiling_flags_reach_the_pipeline(tiny_cli, mode, per):
 
 
 def test_cli_refusals(tiny_cli, monkeypatch):
-    # the face, denoise, v2 and custom paths are ported (tests/test_torch_tasks.py);
-    # the unaligned face path is not
-    with pytest.raises(NotImplementedError, match="--task unaligned_face"):
+    # --task unaligned_face (tests/test_torch_unaligned.py): v1 has no
+    # ControlNet for it (ValueError, as in JAX); v2 and v2.1 ask for the face
+    # detector's weights by name before anything else loads
+    monkeypatch.setenv("DIFFBIR_TPU_WEIGHTS", str(tiny_cli / "weights"))
+    with pytest.raises(FileNotFoundError, match="detection_Resnet50_Final.pth"):
         main(_cli(tiny_cli)[:1] + ["unaligned_face"] + _cli(tiny_cli)[2:])
     for version in ("v1", "v2", "v2.1"):
         argv = _cli(tiny_cli, "--version", version)
-        with pytest.raises(NotImplementedError, match="--task unaligned_face"):
+        error, match = ((ValueError, "unaligned_face") if version == "v1" else
+                        (FileNotFoundError, "detection_Resnet50_Final.pth"))
+        with pytest.raises(error, match=match):
             main(argv[:1] + ["unaligned_face"] + argv[2:])
     # the default guidance loss (w_mse) weighs an RGB target: on the latent it
     # fails, as in JAX (its gray contraction meets 4 channels)

@@ -18,8 +18,8 @@ condition 64 pixels) and JAX's draws handed to the port's ``pipeline.run``:
 - the version and task matrix of the checkpoints: every cleaner and the
   v1/v2/v2.1 ControlNets and SD bases by name, a KAIR-layout cleaner
   checkpoint loaded strictly;
-- ``--task unaligned_face`` and an orbax directory as ``--ckpt`` raise,
-  naming themselves.
+- ``--task unaligned_face`` without the detector's weights (naming the
+  file) and at v1, and an orbax directory as ``--ckpt``, raise.
 """
 
 import os
@@ -260,9 +260,15 @@ def test_a_cleaner_checkpoint_loads_then_the_sd_base_is_asked_for(
         main(_cli(tiny, task, "--version", version))
 
 
-def test_refusals(tiny):
-    with pytest.raises(NotImplementedError, match="--task unaligned_face"):
+def test_refusals(tiny, monkeypatch):
+    # --task unaligned_face runs (tests/test_torch_unaligned.py) where its
+    # detector's weights are; without them it names the file, and v1 has no
+    # ControlNet for it, as in JAX
+    monkeypatch.setenv("DIFFBIR_TPU_WEIGHTS", str(tiny / "weights"))
+    with pytest.raises(FileNotFoundError, match="detection_Resnet50_Final.pth"):
         main(_cli(tiny, "unaligned_face"))
+    with pytest.raises(ValueError, match="DiffBIR v1 doesn't support task: unaligned_face"):
+        main(_cli(tiny, "unaligned_face", "--version", "v1"))
     orbax = tiny / "ckpt_0001"
     orbax.mkdir()
     (tiny / "train.yaml").write_text(TRAIN_CFG.format(sd="sd_v2.1"))
