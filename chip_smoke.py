@@ -174,7 +174,9 @@ Phases (any failure exits non-zero before the last line is printed):
      and landms against the same module on the CPU at fp32, with cuDNN's
      TF32 on (a process's default; limit TF32_TOL x max|ref|) and off
      (FACE_FP32_TOL), then detect_faces' ms warm; [face_parse] ParseNet at
-     512x512 the same way, parse's ms; [cli_unaligned_face] ``python -m
+     512x512 the same way, parse's ms; [face_blur] the helper's Gaussian
+     blur (grouped convolutions) on the card with TF32 on in the process
+     against the CPU (BLUR_TOL), its ms; [cli_unaligned_face] ``python -m
      diffbir_tpu_torch.inference --task unaligned_face --upscale 2`` on a
      seeded 256x256 PNG, RetinaFace and ParseNet read strictly from
      facexlib-layout files written from those random weights, the
@@ -199,6 +201,31 @@ Phases (any failure exits non-zero before the last line is printed):
      ones); then at batch 2 one step's ControlNet gradient through
      K1+K2 against the same through plain attention, and the same with the
      attention sites' q/k/v gradients dropped must fail the limits.
+ 11. RAM++ and the file-driven trainer. [ram]: RAM++ at full width (swin-L
+     at 384x384, 4585 classes x 51 descriptors, bf16, random weights) on a
+     seeded image: logits against the same weights in fp32 on the CPU (limit
+     RAM_REL_TOL x max|ref|), each stage's error and the same weights' in
+     fp32 on the card, two planted faults that must fail the limit, ms per
+     image, peak memory, no kernel of the port (its attention is plain
+     math). [cli_ram_caption]: one --captioner
+     ram CLI request, RAM++ read from a checkpoint of those weights and a
+     stand-in tag list whose thresholds pass every RAM_EVERY-th tag: the
+     caption equal to those tags, prompt.csv holding it, K1 230 + K1_wide 2.
+     [train_data]: realesrgan_dataset on 16 synthetic 512x512 PNGs plus the
+     v2.1 batch transform at batch 8: seconds per batch, gt and lq ranges.
+     [train_cli]: ``python -m diffbir_tpu_torch.train_stage2`` in this
+     process on a copy of train_stage2_v2.1.yaml (the txt list of the
+     folder, batch 8, queue 16, 4 steps, a log line and launch counts each
+     step, checkpoints every 2, the SD base and SwinIR from random bf16
+     files): K1 39, K1_wide 2, K2a 16 and K2b 16 a step, none on the
+     CUDA-core entries; step and data-wait seconds beside [train]'s bare
+     step; the checkpoint files; a resume from step 2 whose restored fp32
+     masters and AdamW moments are bit-equal to the saved ones, on to step
+     4; the preview at 4 images (K1 1150, K1_wide 2); then 20 more steps
+     with no checkpoint inside: their waits on the data, the step's own
+     work and the worker's transform seconds. [train_custom]: one
+     --version custom request with the trained controlnet_4.pth (K1 230 +
+     K1_wide 2, the PNG equal to pipeline.run's).
 The second-to-last line is a JSON list of the kernels, every "ms" and
 "library_ms" the median of single host calls timed by CUDA events (K1_wide's
 at [1,16384,1,512], the untiled 1024x1024 VAE's mid-block); K4-K7
@@ -253,6 +280,41 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 8, 2, 5
 # ~10x those. The same step with the attention sites' q/k/v gradients dropped
 # must fail them (the check's power is shown in the run).
 GRAD_COS_MIN, GRAD_NORM_REL_TOL = 0.9999, 2e-3
+# [train]'s timed step seconds, read by [train_cli] beside its own steps
+TRAIN_STEP_S = []
+# RAM++ at full width (swin-L at 384^2, 4585 classes x 51 descriptors, bf16,
+# random weights from RAM_SEED): its logits against the same weights in fp32
+# on the CPU, limit RAM_REL_TOL x max|ref|, and its sigmoids (what the tag
+# thresholds read) within RAM_PROB_TOL. At random_init_'s fan-in scale a
+# class's query is ~1 % of the tagging head's input, so the logits spread
+# over the classes by 1 % of their mean (std 0.0032 about -0.34), below
+# bf16's rounding, and no limit on them could tell one class from another.
+# The label rows are therefore scaled by RAM_LABEL_SCALE and wordvec_proj's
+# weights by RAM_QUERY_SCALE (N(0, 1)): the logits spread by std 0.39
+# about -0.34, as a trained head's vary from class to class. Measured on an
+# H100 over two images: 9.5e-3-9.8e-3 x max|ref| and 5.0e-3-5.2e-3 (the
+# limits ~2.5x and ~2x those); the same weights in fp32 on the card read
+# within RAM_FP32_TOL, so the gap is bf16's rounding; two planted faults
+# (the label rows rolled by one class, the last tagging layer skipped)
+# read 1.0 and must read above RAM_REL_TOL. The
+# --captioner ram request reads those weights from a file, and a stand-in
+# tag list of 4585 tags whose every RAM_EVERY-th threshold sits RAM_MARGIN
+# below that class's probability on the request's PNG (the rest at 2.0,
+# which no probability passes), so the caption is known.
+RAM_SEED, RAM_REL_TOL, RAM_PROB_TOL, RAM_EVERY, RAM_MARGIN = 41, 2.5e-2, 1e-2, 50, 0.02
+RAM_FP32_TOL = 1e-5
+RAM_LABEL_SCALE, RAM_QUERY_SCALE = 3.0, 512 ** 0.5
+# the training data and the file-driven trainer: a folder of TRAIN_IMAGES
+# synthetic 512x512 PNGs, the v2.1 train config at batch TRAIN_BATCH with a
+# pool of TRAIN_QUEUE pairs, TRAIN_CLI_STEPS steps, a checkpoint every
+# TRAIN_CKPT_EVERY, the preview at PREVIEW_N images
+TRAIN_ROOT = os.path.join("build", "train_cli")
+TRAIN_IMAGES, TRAIN_QUEUE, TRAIN_CLI_STEPS, TRAIN_CKPT_EVERY, PREVIEW_N = 16, 16, 4, 2, 4
+# then TRAIN_STEADY_STEPS more steps with no checkpoint inside, to read the
+# loop's waits on the data in its steady state; [train_data]'s transform
+# seconds, read beside them
+TRAIN_STEADY_STEPS = 20
+TRAIN_DATA_S = []
 # The serving modes, per model call at batch 2 (folded CFG) on a 64x64 latent:
 # K6 runs at every ResBlock, 32: the UNet's 8 input, 2 middle and 12 output
 # blocks (whose inputs concatenate the skips, hence Cin up to 2560) and the
@@ -3056,8 +3118,10 @@ def phase_llava(qm, cldm, swinir):
 # TF32 rounds each convolution's operands to 10 mantissa bits (~5e-4 of a
 # product); through the ~70 convolutions of a random ResNet-50 + FPN + SSH
 # the outputs drift by up to ~1e-2 of the largest: the limit is 5e-2. With
-# TF32 off both sides are fp32 sums in another order: 1e-3.
-TF32_TOL, FACE_FP32_TOL = 5e-2, 1e-3
+# TF32 off both sides are fp32 sums in another order: 1e-3. The helper's
+# Gaussian blur on the card against the CPU: BLUR_TOL, the limit the CPU
+# tests hold it to against cv2.
+TF32_TOL, FACE_FP32_TOL, BLUR_TOL = 5e-2, 1e-3, 1e-5
 DETECT_SIZE, PARSE_SIZE = 640, 512
 # [cli_unaligned_face]: a seeded 256x256 PNG at --upscale 2 (512x512), two
 # faces fixed through the loop's face_helper hook: three 512x512 stage-2
@@ -3189,6 +3253,38 @@ def phase_face_parse(parse) -> None:
     print(f"[face_parse] ParseNet {sum(p.numel() for p in parse.parameters()) / 1e6:.2f} M "
           f"params, fp32, {PARSE_SIZE}x{PARSE_SIZE}: parse {ms:.3f} ms warm (median of 10 host "
           f"calls, TF32 on), {int(classes.unique().numel())} classes in the map {card()}")
+
+
+def phase_face_blur() -> None:
+    """[face_blur]: ``utils.warp.gaussian_blur`` (grouped convolutions) on
+    the card at the face helper's sizes and on a batch of colour images,
+    with cuDNN's TF32 on in the process (the function turns it off for its
+    convolutions and back on), against the same call on the CPU (limit
+    BLUR_TOL x max|ref|, what the CPU tests hold it to against cv2); ms
+    warm."""
+    import torch
+
+    from diffbir_tpu_torch.utils import warp
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = {"parse mask 512^2, 101 taps, sigma 11": ((1, 512, 512, 1), 101, 11.0),
+             "soft mask 1024^2, 51 taps": ((1, 1024, 1024, 1), 51, 0.0),
+             "batch 8x512^2x3, 51 taps": ((8, 512, 512, 3), 51, 0.0)}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rows = []
+        for name, (shape, k, sigma) in cases.items():
+            x = torch.rand(shape, generator=gen, device="cuda") * 255
+            out = warp.gaussian_blur(x, k, sigma)
+            check(torch.backends.cudnn.allow_tf32, "gaussian_blur left cuDNN's TF32 off")
+            err = rel_err(out, warp.gaussian_blur(x.cpu(), k, sigma).numpy())
+            check(err <= BLUR_TOL, f"[face_blur] {name}: {err:.3e} x max|ref| > {BLUR_TOL:g}")
+            ms = median_ms(lambda: warp.gaussian_blur(x, k, sigma), iters=10, warmup=1)
+            rows.append(f"{name} {err:.3e} x max|ref|, {ms:.3f} ms")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"[face_blur] {card()} gaussian_blur on the card (cuDNN TF32 on in the process) "
+          f"against the CPU (limit {BLUR_TOL:g} x max|ref|): " + "; ".join(rows))
 
 
 def two_faces(img):
@@ -3566,6 +3662,7 @@ def phase_train(fa):
           f"{launches['K2b_cc']} on the CUDA-core entries")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(step_s)
+    TRAIN_STEP_S.extend(step_s)
     print(f"[train] batch {TRAIN_BATCH} at {SIZE}x{SIZE}: timed steps "
           f"{', '.join(f'{x:.3f}' for x in step_s)} s (median {med:.3f} s, "
           f"{TRAIN_BATCH / med:.2f} images/s); peak device memory {peak:.2f} GiB")
@@ -3623,6 +3720,575 @@ def phase_train(fa):
           "the gradient limits do not catch dropped attention gradients")
     return launches
 
+
+
+# --------------------------------------------------------------------------- #
+# RAM++ and the training data and loop
+def build_ram():
+    """RAM++ at full width in bf16 on the card, random weights from
+    RAM_SEED (``random_init_``; reweight_scale at RAM++'s init log(1/0.07);
+    the label rows and the class queries scaled by RAM_LABEL_SCALE and
+    RAM_QUERY_SCALE)."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.captioners.ram import RAMPlus
+    from diffbir_tpu_torch.models.layers import random_init_
+
+    model = RAMPlus(dtype=torch.bfloat16, device="meta").to_empty(device="cuda")
+    random_init_(model, torch.Generator(device="cuda").manual_seed(RAM_SEED))
+    with torch.no_grad():
+        model.reweight_scale.fill_(float(np.log(1 / 0.07)))
+        model.label_embed.mul_(RAM_LABEL_SCALE)
+        model.wordvec_proj.weight.mul_(RAM_QUERY_SCALE)
+    return model.eval()
+
+
+def phase_ram(model):
+    """[ram]: RAM++'s logits of a seeded 512x384 image on the card against
+    the same weights in fp32 on the CPU; ms per image and peak memory; no
+    kernel of the port launched (its attention is plain math, XLA's in
+    JAX)."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.captioners.ram import RAMPlus, preprocess
+
+    n_params = sum(p.numel() for p in model.parameters())
+    img = np.random.default_rng(8).integers(0, 256, (512, 384, 3), dtype=np.uint8)
+    x = torch.from_numpy(preprocess(img)[None]).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    with torch.no_grad():
+        out = model(x)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    launched = {k: v for k, v in counts().items() if v}
+    check(not launched, f"RAM++ launched kernels of the port: {launched}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    act = (torch.cuda.max_memory_allocated() - base) / 2**30
+    cpu = RAMPlus(dtype=torch.float32)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()}, strict=True)
+    t0 = time.perf_counter()
+    refs = ram_stages(cpu, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    ref = refs["logits"]
+    got = out.float().cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    limit = RAM_REL_TOL * float(np.abs(ref).max())
+    dp = float(np.abs(1 / (1 + np.exp(-got)) - 1 / (1 + np.exp(-ref))).max())
+    print(f"[ram] RAM++ at full width (swin-L 384^2, {model.num_class} classes x "
+          f"{model.des_per_class} descriptors, {n_params / 1e6:.1f} M params, bf16, random "
+          f"weights from seed {RAM_SEED}) on a 512x384 image: logits {tuple(got.shape)}, "
+          f"max|err| {err:.4e} = {err / float(np.abs(ref).max()):.4e} x max|ref| against the "
+          f"same weights in fp32 on the CPU (limit {RAM_REL_TOL:g} x max|ref| = {limit:.4e}); "
+          f"sigmoids {dp:.4e} apart (limit {RAM_PROB_TOL:g}); the reference's logits "
+          f"{float(ref.mean()):.4f} +- {float(ref.std()):.4f} over the classes; the CPU run "
+          f"{cpu_s:.2f} s")
+    check(np.isfinite(got).all() and err <= limit and dp <= RAM_PROB_TOL,
+          "RAM++'s logits disagree with the CPU")
+
+    # where the error comes from: each stage of the bf16 model, and the same
+    # weights in fp32 on the card (TF32 off), against the CPU's fp32 stages
+    stage_err = {k: rel_err(v, refs[k]) for k, v in ram_stages(model, x).items()}
+    card32 = cpu.cuda()
+    err32 = {k: rel_err(v, refs[k]) for k, v in ram_stages(card32, x).items()}
+    del card32, cpu
+    torch.cuda.empty_cache()
+    print("[ram] error x max|ref| of each stage against the CPU's fp32: bf16 on the card "
+          + ", ".join(f"{k} {v:.4e}" for k, v in stage_err.items())
+          + "; fp32 on the card " + ", ".join(f"{k} {v:.4e}" for k, v in err32.items()))
+    check(err32["logits"] <= RAM_FP32_TOL, f"RAM++ in fp32 on the card: {err32['logits']:.3e} "
+          f"x max|ref| from the CPU > {RAM_FP32_TOL:g}")
+
+    # the limit's power: planted faults in the card's model must fail it
+    faults = {}
+    with torch.no_grad():
+        rows = model.label_embed.data
+        try:
+            model.label_embed.data = rows.roll(model.des_per_class, 0)
+            faults["label rows rolled by one class"] = rel_err(model(x), ref)
+        finally:
+            model.label_embed.data = rows
+        layers = model.tagging_head.encoder.layer
+        try:
+            model.tagging_head.encoder.layer = layers[:-1]
+            faults["the last tagging layer skipped"] = rel_err(model(x), ref)
+        finally:
+            model.tagging_head.encoder.layer = layers
+    print("[ram] planted faults against the same limit: " + ", ".join(
+        f"{k} {v:.4e} x max|ref|" for k, v in faults.items()))
+    for k, v in faults.items():
+        check(v > RAM_REL_TOL, f"[ram] the limit {RAM_REL_TOL:g} passes a fault: {k} ({v:.3e})")
+    print(f"[ram] {card()} {statistics.median(times):.3f} ms per image (median of 5 after a "
+          f"warm-up: {', '.join(f'{t:.3f}' for t in times)}); peak device memory "
+          f"{peak:.3f} GiB ({act:.3f} GiB above the weights); no kernel of the port")
+    return got
+
+
+def rel_err(out, ref) -> float:
+    """max|out - ref| / max|ref| of two arrays or tensors, on the host."""
+    import numpy as np
+    import torch
+
+    out = out.float().cpu().numpy() if torch.is_tensor(out) else out
+    return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+
+def ram_stages(model, x) -> dict:
+    """RAM++'s image embeddings (``image_proj``), the tagging head's output
+    and the logits on ``x``, as fp32 numpy arrays (forward hooks)."""
+    import torch
+
+    outs = {}
+    hooks = [getattr(model, name).register_forward_hook(
+        lambda mod, args, out, name=name: outs.__setitem__(name, out.float().cpu().numpy()))
+        for name in ("image_proj", "tagging_head")]
+    try:
+        with torch.no_grad():
+            outs["logits"] = model(x).float().cpu().numpy()
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs
+
+
+def phase_cli_ram_caption(model) -> dict:
+    """[cli_ram_caption]: one ``--captioner ram`` CLI request (the default
+    sr request on a 128x128 PNG) with RAM++ read from a checkpoint of
+    ``model`` and a stand-in tag list written here (RAM_EVERY, RAM_MARGIN):
+    the caption equal to the known tags and not empty, prompt.csv holding
+    it ahead of the positive prompt, K1 230 and K1_wide 2; the caption's
+    seconds. Returns the launch counts."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.captioners import ram
+    from diffbir_tpu_torch.inference.__main__ import main
+    from diffbir_tpu_torch.utils.image_io import read_rgb
+
+    root, argv = cli_request_argv("cli_ram_caption", ["--captioner", "ram"])
+    data = os.path.join(root, "ram_data")
+    os.makedirs(data, exist_ok=True)
+    ckpt = os.path.join(root, ram.CKPT_NAME)
+    t0 = time.perf_counter()
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    write_s = time.perf_counter() - t0
+    lq = read_rgb(os.path.join(root, "in", "lq.png"))
+    with torch.no_grad():
+        probs = torch.sigmoid(model(torch.from_numpy(ram.preprocess(lq)[None]).cuda())[0])
+    probs = probs.float().cpu().numpy()
+    chosen = np.arange(model.num_class) % RAM_EVERY == 0
+    thresholds = np.where(chosen, probs - RAM_MARGIN, 2.0)
+    tags = [f"tag{i:04d}" for i in range(model.num_class)]
+    with open(os.path.join(data, ram.TAG_FILES[0]), "w") as f:
+        f.write("\n".join(tags) + "\n")
+    with open(os.path.join(data, ram.TAG_FILES[1]), "w") as f:
+        f.write("\n".join(f"{t:.6f}" for t in thresholds) + "\n")
+    expected = ", ".join(t for t, c in zip(tags, chosen) if c)
+    saved = {k: os.environ.get(k) for k in ("DIFFBIR_TPU_RAM_CKPT", "DIFFBIR_TPU_RAM_DATA")}
+    os.environ.update(DIFFBIR_TPU_RAM_CKPT=ckpt, DIFFBIR_TPU_RAM_DATA=data)
+    try:
+        with cli_environment(root):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            loop = main(argv)
+            dt = time.perf_counter() - t0
+            launches = counts()
+            n = {k: v for k, v in launches.items() if v}
+            cap_s = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                caption = loop.captioner(lq)
+                cap_s.append(time.perf_counter() - t1)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(n == CLI_DEFAULT, f"cli_ram_caption: expected launches {CLI_DEFAULT}, got {n}")
+    check(caption == expected and caption, f"cli_ram_caption: caption {caption[:200]!r}, "
+          f"expected {expected[:200]!r}")
+    with open(os.path.join(root, "out", "prompt.csv")) as f:
+        rows = list(csv.DictReader(f))
+    prompt = rows[-1]["prompt"]
+    check(rows[-1]["file_name"] == "lq.png" and prompt == f"{expected}, {loop.args.pos_prompt}",
+          f"cli_ram_caption: prompt.csv holds {prompt[:200]!r}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[cli_ram_caption] python -m diffbir_tpu_torch.inference {' '.join(argv)} "
+          f"(DIFFBIR_TPU_RAM_CKPT: RAM++'s weights written in {write_s:.3f} s; "
+          f"DIFFBIR_TPU_RAM_DATA: {model.num_class} stand-in tags, every {RAM_EVERY}th "
+          f"threshold {RAM_MARGIN} below its probability): {dt:.3f} s "
+          f"({stages(loop.timings)} s); launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
+    print(f"[cli_ram_caption] {card()} caption of {chosen.sum()} tags as expected "
+          f"({caption[:40]!r}...), ahead of the positive prompt in prompt.csv; the caption "
+          f"{statistics.median(cap_s):.3f} s (median of 3: "
+          f"{', '.join(f'{t:.3f}' for t in cap_s)}); peak device memory {peak:.2f} GiB")
+    del loop
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_train_folder() -> str:
+    """TRAIN_IMAGES synthetic 512x512 PNGs under TRAIN_ROOT/images (seeded
+    smooth colour fields with noise) and a txt list with a prompt a line;
+    returns the list's path."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from diffbir_tpu_torch.utils.image_io import write_png
+
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    folder = os.path.join(TRAIN_ROOT, "images")
+    os.makedirs(folder)
+    gen = torch.Generator().manual_seed(12)
+    lines = []
+    for i in range(TRAIN_IMAGES):
+        base = torch.rand(1, 3, 34, 34, generator=gen)
+        img = F.interpolate(base, size=(512, 512), mode="bicubic", align_corners=False)[0]
+        img = img + 0.03 * torch.randn(img.shape, generator=gen)
+        u8 = (img.clamp(0, 1) * 255).round().to(torch.uint8).permute(1, 2, 0).numpy()
+        path = os.path.join(folder, f"{i:03d}.png")
+        write_png(path, np.ascontiguousarray(u8))
+        lines.append(f"{path}\ta synthetic photo number {i}")
+    flist = os.path.join(TRAIN_ROOT, "train.txt")
+    with open(flist, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return flist
+
+
+def phase_train_data(flist: str) -> dict:
+    """[train_data]: the data pipeline alone on the card's host:
+    ``realesrgan_dataset`` on the PNG folder plus
+    ``realesrgan_batch_transform`` (train_stage2_v2.1.yaml's, with a pool
+    of TRAIN_QUEUE) at batch TRAIN_BATCH, four batches (the pool fills in
+    the first two): seconds per batch apart, the shapes and ranges of gt
+    and lq. Returns the seconds."""
+    import numpy as np
+
+    from diffbir_tpu_torch import config as cfglib
+    from diffbir_tpu_torch import dataset  # noqa: F401  (the registry names)
+
+    cfg = cfglib.load_yaml(os.path.join("configs", "train", "train_stage2_v2.1.yaml"))
+    dcfg = dict(cfg["dataset"]["train"]["params"])
+    del dcfg["file_metas"]
+    ds = cfglib.instantiate({"target": "realesrgan_dataset",
+                             "params": {**dcfg, "file_list": flist}})
+    bt = cfglib.instantiate(cfg["batch_transform"], queue_size=TRAIN_QUEUE)
+    it = ds.as_iterator(TRAIN_BATCH, seed=231)
+    load_s, transform_s = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        batch = next(it)
+        t1 = time.perf_counter()
+        out = bt(batch)
+        load_s.append(t1 - t0)
+        transform_s.append(time.perf_counter() - t1)
+    gt, lq = out["gt"], out["lq"]
+    check(gt.shape == lq.shape == (TRAIN_BATCH, SIZE, SIZE, 3) and np.isfinite(lq).all()
+          and -1 <= gt.min() and gt.max() <= 1 and 0 <= lq.min() and lq.max() <= 1,
+          f"[train_data] bad batch: gt {gt.shape} [{gt.min()}, {gt.max()}], lq {lq.shape}")
+    print(f"[train_data] realesrgan_dataset ({TRAIN_IMAGES} PNGs of {SIZE}x{SIZE}, "
+          f"crop_type none) + realesrgan_batch_transform (train_stage2_v2.1.yaml's, "
+          f"queue_size {TRAIN_QUEUE}) at batch {TRAIN_BATCH}: gt {gt.shape} in "
+          f"[{gt.min():.4f}, {gt.max():.4f}], lq {lq.shape} in [{lq.min():.4f}, "
+          f"{lq.max():.4f}], {len(set(out['txt']))} distinct prompts")
+    TRAIN_DATA_S.append(f"{min(transform_s):.3f}-{max(transform_s):.3f}")
+    print(f"[train_data] {card()} host seconds per batch: dataset (read, decode, kernels) "
+          f"{', '.join(f'{t:.3f}' for t in load_s)}; transform "
+          f"{', '.join(f'{t:.3f}' for t in transform_s)} (the torch CPU threads: "
+          f"{__import__('torch').get_num_threads()})")
+    return {"load": load_s, "transform": transform_s}
+
+
+def edit_config(src: str, dst: str, changes: dict) -> None:
+    """``src``'s YAML text with each key's value replaced (the key's one
+    line, found once) written to ``dst``; each change printed."""
+    with open(src) as f:
+        text = f.read()
+    for key, value in changes.items():
+        pattern = re.compile(rf"^(\s*(?:- )?{re.escape(key)}:)[^\n]*$", re.M)
+        check(len(pattern.findall(text)) == 1, f"{src}: {key} is not on one line")
+        text = pattern.sub(lambda m: f"{m.group(1)} {value}", text)
+        print(f"[train_cli] {os.path.basename(dst)}: {key}: {value}")
+    with open(dst, "w") as f:
+        f.write(text)
+
+
+@contextlib.contextmanager
+def timing_transform(seconds: list):
+    """Each call of the Real-ESRGAN batch transform (in the prefetch
+    worker) timed into ``seconds`` while in this context."""
+    from diffbir_tpu_torch.dataset.batch_transform import RealESRGANBatchTransform
+
+    call = RealESRGANBatchTransform.__call__
+
+    def timed(self, batch):
+        t0 = time.perf_counter()
+        out = call(self, batch)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    RealESRGANBatchTransform.__call__ = timed
+    try:
+        yield
+    finally:
+        RealESRGANBatchTransform.__call__ = call
+
+
+@contextlib.contextmanager
+def counting_train_steps(per_step: list):
+    """Each train step's launches (``launched_since``) appended to
+    ``per_step`` while the trainer builds its steps in this context."""
+    from diffbir_tpu_torch.train import stage2
+
+    make = stage2.make_train_step
+
+    def counting(*args, **kw):
+        step = make(*args, **kw)
+
+        def counted(*a, **k):
+            before = counts()
+            out = step(*a, **k)
+            per_step.append(launched_since(before))
+            return out
+
+        return counted
+
+    stage2.make_train_step = counting
+    try:
+        yield
+    finally:
+        stage2.make_train_step = make
+
+
+def phase_train_cli(flist: str) -> dict:
+    """[train_cli]: ``python -m diffbir_tpu_torch.train_stage2`` (``main``,
+    in this process) on a copy of train_stage2_v2.1.yaml (the changes
+    printed), the SD base and a SwinIR written in bf16 from random
+    full-width models: per-step launches, losses, step and data-wait
+    seconds beside [train]'s bare step; the checkpoint files; then a
+    resume from step 2 (the masters and AdamW moments bit-equal to the
+    saved ones) to step 4; the preview at PREVIEW_N images; then
+    TRAIN_STEADY_STEPS more steps with no checkpoint inside, their waits on
+    the data beside the worker's transform seconds. Returns the launch
+    counts of the trainer's runs."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch import config as cfglib
+    from diffbir_tpu_torch import train_stage2
+    from diffbir_tpu_torch.models import tokenizer
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.swinir import SwinIR
+
+    if not os.path.isfile(os.path.join(CUSTOM_ROOT, "sd.ckpt")):
+        write_custom_model(CUSTOM_ROOT)
+    swin_path = os.path.join(TRAIN_ROOT, "swinir.pth")
+    swinir = SwinIR(dtype=torch.bfloat16, device="meta").to_empty(device="cuda")
+    random_init_(swinir, torch.Generator(device="cuda").manual_seed(7))
+    torch.save({k: v.cpu() for k, v in swinir.state_dict().items()}, swin_path)
+    del swinir
+    exp = os.path.join(TRAIN_ROOT, "exp")
+    src = os.path.join("configs", "train", "train_stage2_v2.1.yaml")
+    cfg_path = os.path.join(TRAIN_ROOT, "train_stage2_v2.1.yaml")
+    changes = {"file_list": flist, "batch_size": TRAIN_BATCH, "queue_size": TRAIN_QUEUE,
+               "train_steps": TRAIN_CLI_STEPS, "log_every": 1, "ckpt_every": TRAIN_CKPT_EVERY,
+               "exp_dir": exp, "sd_path": os.path.join(CUSTOM_ROOT, "sd.ckpt"),
+               "swinir_path": swin_path}
+    edit_config(src, cfg_path, changes)
+    resume_path = os.path.join(TRAIN_ROOT, "resume.yaml")
+    edit_config(cfg_path, resume_path, {"resume": TRAIN_CKPT_EVERY})
+    with open(flist) as f:
+        prompts = [line.rstrip("\n").split("\t", 1)[1] for line in f if line.strip()]
+    bpe = os.path.join(TRAIN_ROOT, tokenizer.BPE_NAME)
+    tokenizer.write_stand_in_merges(bpe, prompts)
+    saved_bpe = os.environ.get("DIFFBIR_TPU_BPE_PATH")
+    os.environ["DIFFBIR_TPU_BPE_PATH"] = bpe
+    tokenizer.get_tokenizer.cache_clear()
+    expected = {"K1": K1_PER_TRAIN_STEP, "K1_wide": K1_WIDE_PER_TRAIN_STEP,
+                "K2a": K2_SITES_PER_TRAIN_STEP, "K2b": K2_SITES_PER_TRAIN_STEP}
+    per_step = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with counting_train_steps(per_step):
+            trainer = train_stage2.main(["--config", cfg_path])
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(trainer.step == TRAIN_CLI_STEPS and len(per_step) == TRAIN_CLI_STEPS,
+              f"[train_cli] ran {trainer.step} steps")
+        for i, n in enumerate(per_step):
+            n = {k: v for k, v in n.items() if v}
+            check(n == expected, f"[train_cli] step {i + 1}: expected launches {expected}, "
+                  f"got {n}")
+        check(all(np.isfinite(trainer.losses)), f"[train_cli] losses {trainer.losses}")
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        deploy = sorted(n for n in os.listdir(exp) if n.startswith("controlnet_"))
+        check(ckpts == ["2.pt", "4.pt"] and deploy == ["controlnet_2.pth", "controlnet_4.pth"],
+              f"[train_cli] files {ckpts} {deploy}")
+        sizes = {n: os.path.getsize(os.path.join(exp, "checkpoints", n)) / 2**30 for n in ckpts}
+        bare = statistics.median(TRAIN_STEP_S) if TRAIN_STEP_S else float("nan")
+        med = statistics.median(trainer.step_seconds[1:])
+        busy = [s - w for s, w in zip(trainer.step_seconds, trainer.wait_seconds)]
+        print(f"[train_cli] python -m diffbir_tpu_torch.train_stage2 --config {cfg_path}: "
+              f"{run_s:.3f} s (models built and loaded, {TRAIN_CLI_STEPS} steps, "
+              f"checkpoints); per step K1 {K1_PER_TRAIN_STEP}, K1_wide "
+              f"{K1_WIDE_PER_TRAIN_STEP}, K2a and K2b {K2_SITES_PER_TRAIN_STEP} each, no "
+              f"CUDA-core entry; losses {', '.join(f'{v:.5f}' for v in trainer.losses)}")
+        print(f"[train_cli] {card()} step seconds without the checkpoints' saves "
+              f"{', '.join(f'{v:.3f}' for v in trainer.step_seconds)} (median after the "
+              f"first {med:.3f} s, {TRAIN_BATCH / med:.2f} images/s; [train]'s bare step "
+              f"{bare:.3f} s, {TRAIN_BATCH / bare:.2f} images/s): waiting on next(it) "
+              f"{', '.join(f'{v:.3f}' for v in trainer.wait_seconds)} s, the rest "
+              f"{', '.join(f'{v:.3f}' for v in busy)} s; checkpoints "
+              + ", ".join(f"{n} {v:.3f} GiB" for n, v in sizes.items())
+              + f" plus controlnet_<step>.pth, saved in "
+              f"{', '.join(f'{v:.3f}' for v in trainer.save_seconds)} s; peak device memory "
+              f"{peak:.2f} GiB")
+        launches = counts()
+        del trainer
+        torch.cuda.empty_cache()
+
+        # resume from step 2: the full state restored bit for bit, then on to 4
+        saved = torch.load(os.path.join(exp, "checkpoints", f"{TRAIN_CKPT_EVERY}.pt"),
+                           map_location="cpu", weights_only=True)
+        before = counts()
+        with counting_train_steps(per_step):
+            t0 = time.perf_counter()
+            resumed = train_stage2.Stage2Trainer(cfglib.load_yaml(resume_path), "cuda")
+            build_s = time.perf_counter() - t0
+            opt = resumed.optimizer
+            check(resumed.step == TRAIN_CKPT_EVERY, f"[train_cli] resumed at {resumed.step}")
+            check(all(torch.equal(m.cpu(), s) for m, s in zip(opt.masters, saved["masters"])),
+                  "[train_cli] the restored masters differ from the saved ones")
+            state = opt.optimizer.state_dict()["state"]
+            moments = 0
+            for i, s in saved["optimizer"]["state"].items():
+                for key in ("exp_avg", "exp_avg_sq", "step"):
+                    check(torch.equal(state[i][key].cpu(), s[key]),
+                          f"[train_cli] the restored {key} of tensor {i} differs")
+                    moments += key != "step"
+            t0 = time.perf_counter()
+            resumed.run()
+            resume_s = time.perf_counter() - t0
+        check(resumed.step == TRAIN_CLI_STEPS, f"[train_cli] resumed run ended at {resumed.step}")
+        for n in per_step[TRAIN_CLI_STEPS:]:
+            n = {k: v for k, v in n.items() if v}
+            check(n == expected, f"[train_cli] resumed step: expected {expected}, got {n}")
+        for k, v in launched_since(before).items():
+            launches[k] += v
+        print(f"[train_cli] resume: {TRAIN_CKPT_EVERY}: built in {build_s:.3f} s, "
+              f"{len(opt.masters)} fp32 masters and {moments} AdamW moments bit-equal to "
+              f"{TRAIN_CKPT_EVERY}.pt, the step {resumed.step - TRAIN_CKPT_EVERY} more steps "
+              f"in {resume_s:.3f} s (losses {', '.join(f'{v:.5f}' for v in resumed.losses)})")
+
+        # the preview at PREVIEW_N images of a batch from the pipeline
+        it = resumed.data()
+        try:
+            batch = next(it)
+        finally:
+            it.close()
+        lq = batch["lq"][:PREVIEW_N]
+        tokens = resumed.tokens(batch)[:PREVIEW_N]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        before = counts()
+        t0 = time.perf_counter()
+        grid = train_stage2.preview(resumed.cldm, resumed.schedule, resumed.cleaner(lq),
+                                    tokens, gen)
+        torch.cuda.synchronize()
+        prev_s = time.perf_counter() - t0
+        n = {k: v for k, v in launched_since(before).items() if v}
+        want = {"K1": K1_SITES_PER_STEP * train_stage2.PREVIEW_STEPS,
+                "K1_wide": K1_WIDE_PER_REQUEST}
+        check(tuple(grid.shape) == (PREVIEW_N, SIZE, SIZE, 3) and bool(torch.isfinite(grid).all())
+              and n == want, f"[train_cli] preview {tuple(grid.shape)}, launches {n}")
+        for k, v in n.items():
+            launches[k] += v
+        print(f"[train_cli] {card()} preview ({train_stage2.PREVIEW_STEPS} spaced steps at CFG "
+              f"1.0, batch {PREVIEW_N}, decoded): {prev_s:.3f} s, {tuple(grid.shape)} in "
+              f"[{grid.min().item():.4f}, {grid.max().item():.4f}], launches "
+              + ", ".join(f"{k} {v}" for k, v in n.items()))
+        del batch, lq, tokens, grid
+        torch.cuda.empty_cache()
+
+        # the steady state: TRAIN_STEADY_STEPS more steps with no checkpoint
+        # inside (one after the last), the worker's transform timed
+        end = TRAIN_CLI_STEPS + TRAIN_STEADY_STEPS
+        resumed.tcfg.update(train_steps=end, ckpt_every=end)
+        done = len(resumed.step_seconds)
+        transform_s = []
+        before = counts()
+        with timing_transform(transform_s):
+            t0 = time.perf_counter()
+            resumed.run()
+            window_s = time.perf_counter() - t0 - sum(resumed.save_seconds[-1:])
+        check(resumed.step == end, f"[train_cli] the steady window ended at {resumed.step}")
+        for n in per_step[-TRAIN_STEADY_STEPS:]:
+            n = {k: v for k, v in n.items() if v}
+            check(n == expected, f"[train_cli] steady step: expected {expected}, got {n}")
+        for k, v in launched_since(before).items():
+            launches[k] += v
+        steps = resumed.step_seconds[done:]
+        waits = resumed.wait_seconds[done:]
+        busy = [a - b for a, b in zip(steps, waits)]
+        waited = sum(w > 0.01 for w in waits[2:])
+        print(f"[train_cli] {card()} steady window, steps {TRAIN_CLI_STEPS + 1}-{end} with no "
+              f"checkpoint inside: {TRAIN_STEADY_STEPS * TRAIN_BATCH / sum(steps):.2f} images/s "
+              f"({sum(steps):.3f} s of steps, {window_s:.3f} s with the loop's start; "
+              f"[train]'s bare step {TRAIN_BATCH / bare:.2f}); waiting on next(it): total "
+              f"{sum(waits):.3f} s, median {statistics.median(waits[2:]):.3f} s after the "
+              f"first two, {waited} of {len(waits) - 2} steps after the first two waited "
+              f"over 10 ms; the step's own work median {statistics.median(busy):.3f} s "
+              f"(bare {bare:.3f}); the worker's transform median "
+              f"{statistics.median(transform_s):.3f} s a batch "
+              f"({min(transform_s):.3f}-{max(transform_s):.3f}; alone in [train_data] "
+              f"{TRAIN_DATA_S[0]})")
+        print("[train_cli] steady window per step (wait/rest s): " + ", ".join(
+            f"{w:.3f}/{b:.3f}" for w, b in zip(waits, busy)) + "; transform s: "
+            + ", ".join(f"{t:.3f}" for t in transform_s))
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        if saved_bpe is None:
+            os.environ.pop("DIFFBIR_TPU_BPE_PATH", None)
+        else:
+            os.environ["DIFFBIR_TPU_BPE_PATH"] = saved_bpe
+        tokenizer.get_tokenizer.cache_clear()
+    return launches
+
+
+def phase_train_custom() -> dict:
+    """[train_custom]: ``--version custom --train_cfg <the trainer's config>
+    --ckpt controlnet_4.pth`` through phase_cli_request (K1 230, K1_wide 2,
+    the PNG equal to pipeline.run's); then TRAIN_ROOT is removed."""
+    import shutil
+
+    exp = os.path.join(TRAIN_ROOT, "exp")
+    flags = ["--version", "custom", "--train_cfg",
+             os.path.join(TRAIN_ROOT, "train_stage2_v2.1.yaml"),
+             "--ckpt", os.path.join(exp, f"controlnet_{TRAIN_CLI_STEPS}.pth")]
+    launches, _ = phase_cli_request("train_custom", (CLI_DEFAULT, flags))
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    return launches
 
 def main() -> int:
     # one card: the first that the caller shows, or the first of the machine
@@ -3695,16 +4361,28 @@ def main() -> int:
         det, parse = random_face_models(20)
         phase_face_detect(det)
         phase_face_parse(parse)
+        phase_face_blur()
         paths["cli_unaligned_face"] = phase_cli_unaligned_face(det, parse)
         del det, parse
         paths["http_serve"] = phase_http_serve()
         paths["demo_http"] = phase_demo_http()
         paths["train"] = phase_train(fa)
+        ram_model = build_ram()
+        phase_ram(ram_model)
+        paths["cli_ram_caption"] = phase_cli_ram_caption(ram_model)
+        del ram_model
+        torch.cuda.empty_cache()
+        flist = write_train_folder()
+        phase_train_data(flist)
+        paths["train_cli"] = phase_train_cli(flist)
+        paths["train_custom"] = phase_train_custom()
         cli = {path: expected for path, (expected, _) in {
             **CLI_PATHS, **GUIDANCE_PATHS, **TURBO_PATHS, **FAST_GELU_PATHS}.items()}
         tiled = {f"tiled_{name}": expected for name, (_, expected) in TILED_VARIANTS.items()}
         served = {"cli_unaligned_face": UNALIGNED, "http_serve": CLI_DEFAULT,
-                  "demo_http": CLI_DEFAULT}
+                  "demo_http": CLI_DEFAULT, "cli_ram_caption": CLI_DEFAULT,
+                  "train_custom": CLI_DEFAULT,
+                  "train_cli": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1}}
         for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled,
                                **served}.items():
             # no other kernel

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..models.llava import Llava
-from ..utils.common import StageClock, pil_bicubic_coeffs, pil_resample
+from ..utils.common import StageClock, pil_coeffs, pil_resample
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -42,9 +42,9 @@ def clip_preprocess(image, size: int, device=None) -> torch.Tensor:
     scale = size / min(w, h)
     out_w, out_h = max(size, round(w * scale)), max(size, round(h * scale))
     if out_w != w:
-        img = pil_resample(img, pil_bicubic_coeffs(w, out_w), axis=1)
+        img = pil_resample(img, pil_coeffs(w, out_w, "bicubic"), axis=1)
     if out_h != h:
-        img = pil_resample(img, pil_bicubic_coeffs(h, out_h), axis=0)
+        img = pil_resample(img, pil_coeffs(h, out_h, "bicubic"), axis=0)
     left, top = (out_w - size) // 2, (out_h - size) // 2
     x = img[top:top + size, left:left + size].float() / 255.0
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)

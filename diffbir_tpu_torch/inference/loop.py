@@ -161,7 +161,8 @@ class InferenceLoop:
 
     def load_captioner(self) -> None:
         self.captioner = build_captioner(getattr(self.args, "captioner", "none"),
-                                         llava_bit=str(getattr(self.args, "llava_bit", "4")))
+                                         llava_bit=str(getattr(self.args, "llava_bit", "4")),
+                                         device=self.device)
 
     def _tokenizer(self):
         """The CLIP tokenizer (``models.tokenizer``): a missing merges file

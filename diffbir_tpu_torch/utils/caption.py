@@ -4,7 +4,9 @@ Counterpart of ``diffbir_tpu/utils/caption.py``: ``build_captioner("none")``
 gives the empty caption. "llava" needs the Llama SentencePiece tokenizer to
 turn the port's caption ids (``captioners.llava``) into text, and the
 repository does not hold that file: it raises FileNotFoundError naming it.
-"ram" (RAM++ tags) is not ported.
+"ram" is RAM++'s tags (``captioners.ram.RAMCaptioner``) on the loop's device;
+its checkpoint and tag lists are files, and a missing one raises
+FileNotFoundError naming it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ class EmptyCaptioner(Captioner):
         return ""
 
 
-def build_captioner(name: str, llava_bit: str = "4") -> Captioner:
+def build_captioner(name: str, llava_bit: str = "4", device="cuda") -> Captioner:
     if name == "none":
         return EmptyCaptioner()
     if name == "llava":
@@ -29,5 +31,7 @@ def build_captioner(name: str, llava_bit: str = "4") -> Captioner:
             "(llava-hf/llava-1.5-7b-hf) to turn caption ids into text; the repository does "
             "not hold it")
     if name == "ram":
-        raise NotImplementedError("--captioner ram (RAM++) is not ported yet")
+        from ..captioners.ram import RAMCaptioner
+
+        return RAMCaptioner(device=device)
     raise ValueError(f"unsupported captioner: {name}")

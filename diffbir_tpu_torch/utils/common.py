@@ -8,7 +8,8 @@ weight matrices are built on the host and applied as two products. (This is
 not ``F.interpolate(mode="bicubic")``, which uses a = -0.75 and no
 antialiasing.) ``pil_bicubic_resize`` is Pillow's bicubic resize of a uint8
 image, bit for bit (the blind-SR loop's pre-upscale, the captioner's
-preprocessing). ``ssim``, ``psnr`` and ``rgb2ycbcr_y`` are the JAX
+preprocessing); ``pil_resize`` takes Pillow's bilinear (triangle) and box
+filters too (RAM++'s preprocessing, the training crops). ``ssim``, ``psnr`` and ``rgb2ycbcr_y`` are the JAX
 package's image metrics (the turbo drift readings use them).
 """
 
@@ -120,21 +121,37 @@ def _pil_bicubic(x: float) -> float:
     return 0.0
 
 
-@functools.lru_cache(maxsize=16)
-def pil_bicubic_coeffs(in_size: int, out_size: int) -> np.ndarray:
-    """[out_size, in_size] int64 fixed-point weights of Pillow's bicubic
-    resampler along one axis (``precompute_coeffs`` and
-    ``normalize_coeffs_8bpc`` of Pillow's Resample.c)."""
+def _pil_triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _pil_box(x: float) -> float:
+    return 1.0 if -0.5 < x <= 0.5 else 0.0
+
+
+# Pillow's filters by name: (the filter, its support at scale 1)
+PIL_FILTERS = {"bicubic": (_pil_bicubic, 2.0), "bilinear": (_pil_triangle, 1.0),
+               "box": (_pil_box, 0.5)}
+
+
+@functools.lru_cache(maxsize=32)
+def pil_coeffs(in_size: int, out_size: int, resample: str = "bicubic") -> np.ndarray:
+    """[out_size, in_size] int64 fixed-point weights of Pillow's resampler
+    along one axis with the filter ``resample`` ("bicubic", "bilinear": the
+    triangle, "box"), widened by the downscale factor (``precompute_coeffs``
+    and ``normalize_coeffs_8bpc`` of Pillow's Resample.c)."""
+    fn, base = PIL_FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = base * filterscale
     ss = 1.0 / filterscale
     coeffs = np.zeros((out_size, in_size), np.int64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size)
-        w = [_pil_bicubic((x - center + 0.5) * ss) for x in range(xmin, xmax)]
+        w = [fn((x - center + 0.5) * ss) for x in range(xmin, xmax)]
         total = sum(w)
         for i, wi in enumerate(w):
             k = wi / total if total != 0.0 else wi
@@ -154,17 +171,23 @@ def pil_resample(img: torch.Tensor, coeffs: np.ndarray, axis: int) -> torch.Tens
     return s.clamp(0, 255)
 
 
-def pil_bicubic_resize(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Pillow's ``Image.resize(..., BICUBIC)`` of an [H, W, C] uint8-valued
-    tensor, bit for bit: the horizontal pass, then the vertical one; a
-    uint8 tensor."""
+def pil_resize(img: torch.Tensor, out_hw: Tuple[int, int], resample: str = "bicubic"
+               ) -> torch.Tensor:
+    """Pillow's ``Image.resize(..., BICUBIC | BILINEAR | BOX)`` of an [H, W, C]
+    uint8-valued tensor, bit for bit: the horizontal pass, then the vertical
+    one (each only where that side changes); a uint8 tensor."""
     h, w = img.shape[:2]
     oh, ow = out_hw
     if ow != w:
-        img = pil_resample(img, pil_bicubic_coeffs(w, ow), axis=1)
+        img = pil_resample(img, pil_coeffs(w, ow, resample), axis=1)
     if oh != h:
-        img = pil_resample(img, pil_bicubic_coeffs(h, oh), axis=0)
+        img = pil_resample(img, pil_coeffs(h, oh, resample), axis=0)
     return img.to(torch.uint8)
+
+
+def pil_bicubic_resize(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``pil_resize`` with Pillow's bicubic filter."""
+    return pil_resize(img, out_hw, "bicubic")
 
 
 def rgb2ycbcr_y(x: torch.Tensor) -> torch.Tensor:

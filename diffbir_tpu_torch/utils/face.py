@@ -181,7 +181,7 @@ class FaceRestoreHelper:
             total_face_area = float(inv_mask_erosion.double().sum())
             w_edge = int(total_face_area ** 0.5) // 20
             inv_mask_center = warp.erode(inv_mask_erosion, max(w_edge * 2, 1))
-            soft = warp.gaussian_blur(inv_mask_center, w_edge * 2 + 1)[:, :, None]
+            soft = warp.gaussian_blur(inv_mask_center[None, :, :, None], w_edge * 2 + 1)[0]
             if self.face_parser is not None:
                 soft = self._fuse_parse_mask(face_t, inv, soft, (w_up, h_up))
             out = soft * inv_restored + (1 - soft) * out
@@ -195,8 +195,8 @@ class FaceRestoreHelper:
         classes = torch.as_tensor(self.face_parser.parse(face_512.float() / 255.0),
                                   device=self.device).long()
         parse_mask = self._t(MASK_COLORMAP)[classes]
-        parse_mask = warp.gaussian_blur(parse_mask, 101, 11)
-        parse_mask = warp.gaussian_blur(parse_mask, 101, 11)
+        parse_mask = warp.gaussian_blur(parse_mask[None, :, :, None], 101, 11)
+        parse_mask = warp.gaussian_blur(parse_mask, 101, 11)[0, :, :, 0]
         thres = 10
         parse_mask[:thres, :] = 0
         parse_mask[-thres:, :] = 0

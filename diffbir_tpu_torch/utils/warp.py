@@ -33,9 +33,15 @@ pixels as OpenCV's do.
   edges replicated. Equal sizes copy, as OpenCV does.
 - ``erode``: ``cv2.erode`` with a ones kernel: a min filter anchored at
   k // 2, the border +inf (the image edge does not erode).
-- ``gaussian_blur``: ``cv2.GaussianBlur`` on fp32, separable, border
-  reflect-101; sigma <= 0 takes 0.3 * ((k - 1) / 2 - 1) + 0.8, and for k <=
-  9 OpenCV's fixed small kernels (this OpenCV has one for 9 as well).
+- ``gaussian_blur``: ``cv2.GaussianBlur`` of a batch on fp32, separable,
+  border reflect-101; sigma <= 0 takes 0.3 * ((k - 1) / 2 - 1) + 0.8, and
+  for k <= 9 OpenCV's fixed small kernels (this OpenCV has one for 9 as
+  well).
+
+The training degradations (``dataset/``) take three more on fp32:
+``resize`` (``cv2.resize`` with INTER_AREA, INTER_LINEAR or INTER_CUBIC and
+OpenCV's choices between them) and ``filter2d`` (``cv2.filter2D`` of a batch,
+one kernel an image).
 """
 
 from __future__ import annotations
@@ -250,6 +256,122 @@ def resize_linear(img: torch.Tensor, dsize: Optional[Size] = None, fx: float = N
     return out[..., 0] if squeeze else out
 
 
+def _area_fast(x: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
+    h, w, c = x.shape
+    blocks = x.reshape(h // sy, sy, w // sx, sx, c)
+    return blocks.sum(dim=(1, 3)) * np.float32(1.0 / (sx * sy))
+
+
+def _area_weights(src: int, dst: int, scale: float) -> np.ndarray:
+    """[dst, src] fp32 weights of OpenCV's ``computeResizeAreaTab``: each
+    output averages the source cells it covers, partial cells by their
+    covered fraction."""
+    m = np.zeros((dst, src), np.float32)
+    for dx in range(dst):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, src - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, src - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            m[dx, sx1 - 1] += np.float32((sx1 - fsx1) / cell)
+        for sx in range(sx1, sx2):
+            m[dx, sx] += np.float32(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            m[dx, sx2] += np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    return m
+
+
+def _area_up_weights(src: int, dst: int, inv_scale: float, clamp: bool) -> np.ndarray:
+    """[dst, src] fp32 weights of INTER_AREA where OpenCV does not shrink
+    both sides: bilinear taps at floor(d * scale) with the fraction
+    ``(d + 1) - (s + 1) / scale`` (its ``area_mode``), the bilinear edge
+    rules."""
+    scale = 1.0 / inv_scale
+    m = np.zeros((dst, src), np.float32)
+    for d in range(dst):
+        s = math.floor(d * scale)
+        f = np.float32((d + 1) - (s + 1) * inv_scale)
+        f = np.float32(0) if f <= 0 else np.float32(f - np.floor(f))
+        if clamp and s >= src - 1:
+            s, f = src - 1, np.float32(0)
+        m[d, min(max(s, 0), src - 1)] += np.float32(1) - f
+        m[d, min(max(s + 1, 0), src - 1)] += f
+    return m
+
+
+def _cubic_weights(src: int, dst: int, inv_scale: float) -> np.ndarray:
+    """[dst, src] fp32 weights of OpenCV's bicubic resize (a = -0.75, fp32
+    ``interpolateCubic``), taps past either edge on the edge sample."""
+    a = np.float32(-0.75)
+    x = ((np.arange(dst) + 0.5) * (1.0 / inv_scale) - 0.5).astype(np.float32)
+    s = np.floor(x).astype(np.int64)
+    x = (x - s.astype(np.float32)).astype(np.float32)
+    one = np.float32(1)
+    c0 = ((a * (x + one) - 5 * a) * (x + one) + 8 * a) * (x + one) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + one
+    c2 = ((a + 2) * (one - x) - (a + 3)) * (one - x) * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    m = np.zeros((dst, src), np.float32)
+    for k, c in enumerate((c0, c1, c2, c3)):
+        np.add.at(m, (np.arange(dst), np.clip(s - 1 + k, 0, src - 1)), c.astype(np.float32))
+    return m
+
+
+def _separable(x: torch.Tensor, wy: np.ndarray, wx: np.ndarray) -> torch.Tensor:
+    """Rows by ``wx`` [wo, w], then columns by ``wy`` [ho, h], in fp32."""
+    dev = x.device
+    rows = torch.einsum("pw,hwc->hpc", torch.from_numpy(wx).to(dev), x)
+    return torch.einsum("oh,hpc->opc", torch.from_numpy(wy).to(dev), rows)
+
+
+def resize(img: torch.Tensor, dsize: Size, interpolation: str) -> torch.Tensor:
+    """``cv2.resize(img, dsize, interpolation=INTER_AREA | INTER_LINEAR |
+    INTER_CUBIC)`` of an HWC fp32 tensor ("area", "linear", "cubic"), with
+    OpenCV's choices: equal sizes copy; bilinear at an exact 2x shrink of
+    both sides is the area average; area shrinking both sides averages
+    cells (whole blocks at integer factors), else it takes bilinear taps
+    at its own positions; cubic's edges replicate. Sums in fp32, in another
+    order than OpenCV's (``tests/test_torch_dataset.py`` holds each against
+    cv2)."""
+    x = img.float()
+    h, w = x.shape[:2]
+    wo, ho = int(dsize[0]), int(dsize[1])
+    if (wo, ho) == (w, h):
+        return x.clone()
+    isx, isy = wo / w, ho / h
+    sx, sy = 1.0 / isx, 1.0 / isy
+    if interpolation == "linear":
+        if sx == 2.0 and sy == 2.0:
+            return _area_fast(x, 2, 2)
+        return resize_linear(x, (wo, ho))
+    if interpolation == "cubic":
+        return _separable(x, _cubic_weights(h, ho, isy), _cubic_weights(w, wo, isx))
+    if interpolation != "area":
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    if sx >= 1 and sy >= 1:
+        ix, iy = round(sx), round(sy)
+        if abs(sx - ix) < np.finfo(np.float64).eps and abs(sy - iy) < np.finfo(np.float64).eps:
+            return _area_fast(x, iy, ix)
+        return _separable(x, _area_weights(h, ho, sy), _area_weights(w, wo, sx))
+    return _separable(x, _area_up_weights(h, ho, isy, False),
+                      _area_up_weights(w, wo, isx, True))
+
+
+def filter2d(imgs: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+    """``cv2.filter2D(img, -1, kernel)`` of each fp32 [H, W, C] image of
+    ``imgs`` [B, H, W, C] with its own odd-sized kernel of ``kernels`` [B,
+    k, k]: correlation about the centre, border reflect-101, in fp32 (OpenCV
+    takes a DFT for large kernels: sums in another order)."""
+    b, h, w, c = imgs.shape
+    k = kernels.shape[-1]
+    x = imgs.float().permute(0, 3, 1, 2).reshape(1, b * c, h, w)
+    x = F.pad(x, (k // 2,) * 4, mode="reflect")
+    weight = kernels.float().to(imgs.device).repeat_interleave(c, 0)[:, None]
+    return _conv2d(x, weight, b * c).reshape(b, c, h, w).permute(0, 2, 3, 1)
+
+
 _S45 = 0.70710678118654752440084436210485
 _LANCZOS_CS = ((1, 0), (-_S45, -_S45), (0, 1), (_S45, -_S45), (-1, 0), (_S45, _S45), (0, -1),
                (-_S45, _S45))
@@ -326,20 +448,32 @@ def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
     return (t * (1.0 / t.sum())).astype(np.float32)
 
 
-def _filter_axis(x: torch.Tensor, k: torch.Tensor, dim: int) -> torch.Tensor:
-    """Correlate the HW tensor ``x`` with ``k`` along ``dim``, border
-    reflect-101."""
-    n, r = x.shape[dim], len(k) // 2
-    idx = _border_index(torch.arange(-r, n + r, device=x.device), n, "reflect101")
-    xp = x.index_select(dim, idx)
-    out = torch.zeros_like(x)
-    for j in range(len(k)):
-        out = out + xp.narrow(dim, j, n) * k[j]
-    return out
+def _conv2d(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """``F.conv2d`` summing in fp32 as OpenCV does: on the card with cuDNN's
+    TF32 off for the call (a process's default rounds its operands to 10
+    mantissa bits)."""
+    if not x.is_cuda:
+        return F.conv2d(x, weight, groups=groups)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return F.conv2d(x, weight, groups=groups)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
-def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
-    """``cv2.GaussianBlur(img, (ksize, ksize), sigma)`` on an fp32 HW tensor
-    (rows, then columns; border reflect-101)."""
-    k = torch.from_numpy(gaussian_kernel(ksize, sigma)).to(img.device)
-    return _filter_axis(_filter_axis(img.float(), k, 1), k, 0)
+def gaussian_blur(imgs: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """``cv2.GaussianBlur(img, (ksize, ksize), sigma)`` of each fp32 [H, W,
+    C] image of ``imgs`` [B, H, W, C]: rows, then columns, each a grouped
+    convolution, border reflect-101."""
+    b, h, w, c = imgs.shape
+    k = torch.from_numpy(gaussian_kernel(ksize, sigma)).to(imgs.device)
+    r = ksize // 2
+    x = imgs.float().permute(0, 3, 1, 2).reshape(1, b * c, h, w)
+    x = x.index_select(3, _border_index(torch.arange(-r, w + r, device=x.device), w,
+                                        "reflect101"))
+    x = _conv2d(x, k.view(1, 1, 1, ksize).expand(b * c, 1, 1, ksize), b * c)
+    x = x.index_select(2, _border_index(torch.arange(-r, h + r, device=x.device), h,
+                                        "reflect101"))
+    x = _conv2d(x, k.view(1, 1, ksize, 1).expand(b * c, 1, ksize, 1), b * c)
+    return x.reshape(b, c, h, w).permute(0, 2, 3, 1)

@@ -232,6 +232,28 @@ def load_into(module: torch.nn.Module, sd: Mapping[str, torch.Tensor], prefix: s
     return module
 
 
+@torch.no_grad()
+def load_partial(module: torch.nn.Module, sd: Mapping[str, torch.Tensor],
+                 path: str = "the checkpoint") -> int:
+    """Copy ``sd[key]`` into every entry of the module's state dict, cast to
+    its dtype, by the JAX ``fill_flax_params(strict=False)`` rule: an entry
+    the file lacks becomes zero (RAM++'s checkpoint loads this way). A shape
+    that differs raises, naming the file. Returns the count of entries the
+    file lacked."""
+    missing = 0
+    for key, dst in module.state_dict().items():
+        src = sd.get(key)
+        if src is None:
+            dst.zero_()
+            missing += 1
+            continue
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{path}: {key} has shape {tuple(src.shape)}, the model "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+    return missing
+
+
 def load_stable_diffusion(cldm: torch.nn.Module, sd: Mapping[str, torch.Tensor],
                           path: str = "the checkpoint") -> None:
     """The UNet, VAE and CLIP of ``cldm`` from a full SD2.1 checkpoint."""

@@ -18,6 +18,7 @@ import pytest
 import yaml
 
 from diffbir_tpu_torch import config
+from diffbir_tpu_torch.dataset.codeformer import CodeformerDataset
 from diffbir_tpu_torch.models.scunet import SCUNet
 from diffbir_tpu_torch.models.swinir import SwinIR
 
@@ -88,6 +89,8 @@ def test_resolve_reads_the_jax_targets_as_the_ports():
     assert config.resolve("diffbir_tpu.models.swinir.SwinIR") is SwinIR
     assert config.resolve("diffbir_tpu_torch.models.scunet.SCUNet") is SCUNet
     assert config.resolve("diffbir_tpu.models.scunet.SCUNet") is SCUNet
+    assert config.resolve("diffbir_tpu.dataset.codeformer.CodeformerDataset") is \
+        CodeformerDataset
 
 
 def test_resolve_refuses_other_roots_and_names_unported_modules():
@@ -96,8 +99,8 @@ def test_resolve_refuses_other_roots_and_names_unported_modules():
             config.resolve(target)
     with pytest.raises(KeyError, match="unknown registry name"):
         config.resolve("no_such_name")
-    with pytest.raises(NotImplementedError, match="diffbir_tpu_torch.dataset.codeformer"):
-        config.resolve("diffbir_tpu.dataset.codeformer.CodeformerDataset")
+    with pytest.raises(NotImplementedError, match="diffbir_tpu_torch.parallel.fsdp"):
+        config.resolve("diffbir_tpu.parallel.fsdp.fsdp_shard_params")
 
 
 def test_registered_short_names_stay_short(monkeypatch):

@@ -289,8 +289,8 @@ def test_erode_and_gaussian_blur_match_cv2():
                                       cv2.erode(m, np.ones((k, k), np.uint8)))
     for k, sigma in ((1, 0), (3, 0), (7, 0), (9, 0), (11, 0), (25, 0), (101, 11)):
         img = (rng.random((260, 270)) * 255).astype(np.float32)
-        close(warp.gaussian_blur(torch.from_numpy(img), k, sigma).numpy(),
-              cv2.GaussianBlur(img, (k, k), sigma), 1e-5)
+        got = warp.gaussian_blur(torch.from_numpy(img)[None, :, :, None], k, sigma)
+        close(got[0, :, :, 0].numpy(), cv2.GaussianBlur(img, (k, k), sigma), 1e-5)
         np.testing.assert_allclose(warp.gaussian_kernel(k, sigma),
                                    cv2.getGaussianKernel(k, sigma).ravel(), rtol=1e-6)
 

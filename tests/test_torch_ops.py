@@ -284,7 +284,9 @@ def test_resize_short_edge_and_pad_match_jax():
 def test_port_imports_no_jax():
     """Every module of the port (walked, not listed) and chip_smoke.py import
     nothing of JAX, flax or the JAX package, nor a package the GPU machine
-    lacks (PIL, cv2, yaml, orbax, regex, facexlib, gradio, torchvision)."""
+    lacks (PIL, cv2, yaml, orbax, regex, facexlib, gradio, torchvision,
+    pandas, tensorboardX; the trainer imports tensorboardX only inside a
+    ``try``, where it runs)."""
     code = ("import importlib, pkgutil, sys, diffbir_tpu_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(diffbir_tpu_torch.__path__,\n"
             "                                               'diffbir_tpu_torch.')]\n"
@@ -292,7 +294,7 @@ def test_port_imports_no_jax():
             "    importlib.import_module(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in (\n"
             "    'jax', 'flax', 'diffbir_tpu', 'PIL', 'cv2', 'yaml', 'orbax', 'regex',\n"
-            "    'facexlib', 'gradio', 'torchvision')]\n"
+            "    'facexlib', 'gradio', 'torchvision', 'pandas', 'tensorboardX')]\n"
             "print(len(names), bad); sys.exit(1 if bad or len(names) < 20 else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
