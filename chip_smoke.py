@@ -162,7 +162,8 @@ Phases (any failure exits non-zero before the last line is printed):
      max|ref|; planted fault: per-tile GroupNorm statistics), and the
      sync_gn VAE's peak memory streamed against the gn_cross modules on the
      stacked tiles at 1024^2 and 2048^2 (streamed below stacked); then the CLI
-     on a seeded 256x256 PNG at --upscale 4 (a 1024x1024 condition) in six
+     on a seeded 256x256 PNG at --upscale 4 (a 1024x1024 condition) at
+     --steps TILED_STEPS in six
      variants (TILED_VARIANTS: every tiling, once more bit-identical; 3
      tiles a call; the sync_gn VAE; the diffusion alone tiled; untiled;
      the int8 flags): exact launches (K1_wide 2 where the VAE is untiled),
@@ -215,17 +216,37 @@ Phases (any failure exits non-zero before the last line is printed):
      v2.1 batch transform at batch 8: seconds per batch, gt and lq ranges.
      [train_cli]: ``python -m diffbir_tpu_torch.train_stage2`` in this
      process on a copy of train_stage2_v2.1.yaml (the txt list of the
-     folder, batch 8, queue 16, 4 steps, a log line and launch counts each
-     step, checkpoints every 2, the SD base and SwinIR from random bf16
+     folder, batch 8, queue 16, 2 steps, a log line and launch counts each
+     step, a checkpoint at 2, the SD base and SwinIR from random bf16
      files): K1 39, K1_wide 2, K2a 16 and K2b 16 a step, none on the
      CUDA-core entries; step and data-wait seconds beside [train]'s bare
      step; the checkpoint files; a resume from step 2 whose restored fp32
-     masters and AdamW moments are bit-equal to the saved ones, on to step
-     4; the preview at 4 images (K1 1150, K1_wide 2); then 20 more steps
-     with no checkpoint inside: their waits on the data, the step's own
-     work and the worker's transform seconds. [train_custom]: one
-     --version custom request with the trained controlnet_4.pth (K1 230 +
-     K1_wide 2, the PNG equal to pipeline.run's).
+     masters and AdamW moments are bit-equal to the saved ones, on for two
+     steps and then TRAIN_STEADY_STEPS more with no checkpoint inside (one
+     at the end): their waits on the data, the step's own work and the
+     worker's transform seconds; the preview at 4 images (K1 1150, K1_wide
+     2). [train_custom]: one --version custom request with the trained
+     controlnet_2.pth (K1 230 + K1_wide 2, the PNG equal to pipeline.run's).
+ 12. the other training paths. [train_ddp]: the stage-2 trainer under the
+     multi-process environment (DIFFBIR_COORDINATOR on 127.0.0.1, one
+     process: nccl at world size 1) with train.fsdp off and on, DDP_STEPS
+     steps on [train_cli]'s recorded batches: losses and fp32 masters
+     bit-equal to [train_cli]'s, K1 39, K1_wide 2, K2a 16, K2b 16 a step,
+     the step seconds beside the plain ones, the process group destroyed
+     after; a run with the reduced gradients zeroed must fail that check.
+     [train_native]: the codeformer dataset through the C++ loader (``make
+     -C native`` at first use) where it builds: its centre crops equal to
+     the Python path's, seconds a batch of each; else the reason and the
+     Python path. [train_stage1]:
+     ``python -m diffbir_tpu_torch.train_stage1`` on a copy of
+     train_stage1.yaml at full width, at the first batch of STAGE1_BATCHES
+     that fits (the config's 96 first), on that many synthetic 512x512
+     PNGs: s/step, images/s, the data wait, the step's own work, peak
+     memory, the validation, a checkpoint and a resume bit-equal, 0
+     launches of any kernel of the port. [degrade_batch]: diff_jpeg and the
+     batch noise and filter functions at batch 8, 512x512, on the card
+     against the CPU (a transposed quantisation table must fail), ms a
+     batch. Each phase group's seconds print as "[clock]" lines.
 The second-to-last line is a JSON list of the kernels, every "ms" and
 "library_ms" the median of single host calls timed by CUDA events (K1_wide's
 at [1,16384,1,512], the untiled 1024x1024 VAE's mid-block); K4-K7
@@ -245,7 +266,7 @@ import sys
 import time
 
 STEPS, CFG, SIZE = 50, 4.0, 512
-SEEDS = (1, 2, 3)
+SEEDS = (1, 2)
 # Kernel vs plain version, error limit = TOL * max|ref| (the reference's own
 # size, so small gradients get a small limit). bf16: both sides accumulate in
 # fp32 and round p, ds and the output to bf16; they differ where the fp32 sums
@@ -309,12 +330,50 @@ RAM_LABEL_SCALE, RAM_QUERY_SCALE = 3.0, 512 ** 0.5
 # pool of TRAIN_QUEUE pairs, TRAIN_CLI_STEPS steps, a checkpoint every
 # TRAIN_CKPT_EVERY, the preview at PREVIEW_N images
 TRAIN_ROOT = os.path.join("build", "train_cli")
-TRAIN_IMAGES, TRAIN_QUEUE, TRAIN_CLI_STEPS, TRAIN_CKPT_EVERY, PREVIEW_N = 16, 16, 4, 2, 4
+TRAIN_IMAGES, TRAIN_QUEUE, TRAIN_CLI_STEPS, TRAIN_CKPT_EVERY, PREVIEW_N = 16, 16, 2, 2, 4
 # then TRAIN_STEADY_STEPS more steps with no checkpoint inside, to read the
 # loop's waits on the data in its steady state; [train_data]'s transform
 # seconds, read beside them
-TRAIN_STEADY_STEPS = 20
+TRAIN_STEADY_STEPS = 10
 TRAIN_DATA_S = []
+# [train_ddp]: the stage-2 trainer under the multi-process environment
+# (nccl, one process) for DDP_STEPS steps with fsdp off and on, each step on
+# the batch that [train_cli]'s first run took at that step (recorded there,
+# with its losses), so its masters are held against [train_cli]'s
+# checkpoint DDP_STEPS.pt. The one process's reduction is an identity (a
+# sum over one rank), so losses and masters must be bit-equal to
+# [train_cli]'s (read bit-equal, fsdp off and on, in every run since it was
+# written); a run whose reduced gradients are zeroed (the state left as it
+# was) must fail that check
+DDP_STEPS = TRAIN_CKPT_EVERY
+TRAIN_CLI_BATCHES, TRAIN_CLI_RUN = [], {}
+# [train_stage1]: the stage-1 trainer at full width on STAGE1_ROOT's PNGs,
+# at the first batch of STAGE1_BATCHES (the config's 96 first) whose step
+# runs with a peak below STAGE1_MEMORY_SHARE of the card; STAGE1_WARMUP +
+# STAGE1_TIMED steps, a validation over STAGE1_VAL batches and a checkpoint
+# at the last step, then a resume from it
+STAGE1_ROOT = os.path.join("build", "train_stage1")
+STAGE1_BATCHES = (96, 64, 48, 40, 32, 24, 16, 8)
+STAGE1_MEMORY_SHARE = 0.9
+STAGE1_WARMUP, STAGE1_TIMED, STAGE1_VAL = 2, 4, 2
+# [train_native]: the codeformer dataset at batch NATIVE_BATCH, NATIVE_BATCHES
+# batches through each path
+NATIVE_BATCH, NATIVE_BATCHES = 8, 2
+# [degrade_batch]: diff_jpeg and the batch noise and filter functions at
+# batch DEGRADE_BATCH on SIZE x SIZE fp32 (TF32 off), the card against the
+# CPU within DEGRADE_TOL x max|ref|. Two steps are discontinuous, and fp32
+# summation order can put an element on either side: JPEG's rounding of a
+# DCT coefficient (an 8x8 block moves a whole quantisation step where a
+# coefficient lies within JPEG_AMBIGUOUS steps of a half on the CPU; such
+# blocks are counted and left out: fp32 puts a coefficient within 3.8e-6
+# steps of float64's at these inputs, measured on the CPU, and 1e-4 leaves
+# out ~300 of 3.1 M coefficients), and the unsharp mask's threshold (the
+# card's output is held against the CPU's arithmetic on the card's mask;
+# the elements where the masks differ are counted). The Poisson draws
+# differ on the two devices: each image's noise std within POISSON_STD_TOL
+# of the CPU's.
+DEGRADE_BATCH, DEGRADE_TOL, JPEG_AMBIGUOUS, POISSON_STD_TOL = 8, 1e-5, 1e-4, 0.02
+JPEG_QUALITIES = (30.0, 45.0, 60.0, 75.0, 90.0, 35.0, 50.0, 85.0)
 # The serving modes, per model call at batch 2 (folded CFG) on a 64x64 latent:
 # K6 runs at every ResBlock, 32: the UNet's 8 input, 2 middle and 12 output
 # blocks (whose inputs concatenate the skips, hence Cin up to 2560) and the
@@ -455,17 +514,24 @@ TILED_CALL_SEEDS = (13, 14, 15)
 TILED_CALL_TOL = 4 * BF16_TOL
 # outputs at which the sync_gn VAE's memory is read, streamed and stacked
 SYNC_GN_SIZES = (1024, 2048)
-TILED_CALLS = CLDM_TILES * CLI_STEPS
+# the variants run TILED_STEPS steps of the CLI's sampler (--steps; the
+# CLI's default is CLI_STEPS): one tile a call costs ~0.1 s of host
+# enqueue a tile a step, so the depth is cut to keep the smoke inside its
+# call; every variant and check stays
+TILED_STEPS = 4
+TILED_CALLS = CLDM_TILES * TILED_STEPS
 INT8_FLAGS = ["--quant_dense", "--fused_resblock", "--quant_conv"]
+STEPS_FLAG = ["--steps", str(TILED_STEPS)]
 TILED_VARIANTS = {
-    "a": (TILED_ALL, {"K1": TILED_CALLS * K1_SITES_PER_STEP}),
-    "b": (TILED_ALL + ["--cldm_tiles_per_batch", "3"],
+    "a": (TILED_ALL + STEPS_FLAG, {"K1": TILED_CALLS * K1_SITES_PER_STEP}),
+    "b": (TILED_ALL + ["--cldm_tiles_per_batch", "3"] + STEPS_FLAG,
           {"K1": TILED_CALLS // 3 * K1_SITES_PER_STEP}),
-    "c": (TILED_ALL + ["--vae_tile_mode", "sync_gn"], {"K1": TILED_CALLS * K1_SITES_PER_STEP}),
-    "d": (["--cldm_tiled"], {"K1": TILED_CALLS * K1_SITES_PER_STEP,
-                             "K1_wide": K1_WIDE_PER_REQUEST}),
-    "e": ([], {"K1": CLI_STEPS * K1_SITES_PER_STEP, "K1_wide": K1_WIDE_PER_REQUEST}),
-    "f": (TILED_ALL + ["--cldm_tiles_per_batch", "3"] + INT8_FLAGS,
+    "c": (TILED_ALL + ["--vae_tile_mode", "sync_gn"] + STEPS_FLAG,
+          {"K1": TILED_CALLS * K1_SITES_PER_STEP}),
+    "d": (["--cldm_tiled"] + STEPS_FLAG, {"K1": TILED_CALLS * K1_SITES_PER_STEP,
+                                          "K1_wide": K1_WIDE_PER_REQUEST}),
+    "e": (STEPS_FLAG, {"K1": TILED_STEPS * K1_SITES_PER_STEP, "K1_wide": K1_WIDE_PER_REQUEST}),
+    "f": (TILED_ALL + ["--cldm_tiles_per_batch", "3"] + INT8_FLAGS + STEPS_FLAG,
           {"K3": TILED_CALLS // 3 * K3_PER_CALL, "K6": TILED_CALLS // 3 * K6_PER_CALL,
            "K4": TILED_CALLS // 3 * K4_TILE_PER_CALL,
            "K4_gemv": TILED_CALLS // 3 * K4_GEMV_PER_CALL}),
@@ -2694,7 +2760,8 @@ def phase_sync_gn_memory(cldm):
 def phase_tiled_request():
     """[tiled_request]: the CLI in process on a seeded 256x256 PNG at
     --upscale 4 (a 1024x1024 condition), random full-width weights, the
-    CLI's defaults, in the variants of TILED_VARIANTS: (a) every tiling
+    CLI's defaults but TILED_STEPS steps, in the variants of TILED_VARIANTS:
+    (a) every tiling
     (run twice: the rerun must be bit-identical), (b) a with 3 latent tiles
     a model call, (c) a with the sync_gn VAE, (d) the diffusion tiled alone,
     (e) untiled, (f) b with the int8 flags. Per variant: exact launches,
@@ -2732,7 +2799,7 @@ def phase_tiled_request():
             n = {k: v for k, v in paths[path].items() if v}
             peaks[name] = torch.cuda.max_memory_allocated() / 2**30
             out = outs[name] = read_png(os.path.join(out_dir, "lq.png"))
-            print(f"[tiled_request] {name}: {' '.join(flags) or '(untiled)'}: {dt:.3f} s "
+            print(f"[tiled_request] {name}: {' '.join(flags)}: {dt:.3f} s "
                   f"({stages(loop.timings)} s); launches "
                   + ", ".join(f"{k} {v}" for k, v in n.items())
                   + f"; peak device memory {peaks[name]:.3f} GiB; PNG "
@@ -3132,7 +3199,7 @@ UNALIGNED = {"K1": (UNALIGNED_FACES + 1) * K1_SITES_PER_STEP * CLI_STEPS,
 # [http_serve]: the v2.1 sr pipeline behind serve.BatchingServer at --upscale 4
 # on 128x128 PNGs (512x512 conditions, 10 steps of the default sampler): a
 # batch of any size is one pipeline call, K1 230 + K1_wide 2.
-SERVE_BATCH, SERVE_LATENCY_ROUNDS = 4, 5
+SERVE_BATCH, SERVE_LATENCY_ROUNDS = 4, 3
 
 
 def card() -> str:
@@ -3941,10 +4008,10 @@ def phase_cli_ram_caption(model) -> dict:
     return launches
 
 
-def write_train_folder() -> str:
-    """TRAIN_IMAGES synthetic 512x512 PNGs under TRAIN_ROOT/images (seeded
-    smooth colour fields with noise) and a txt list with a prompt a line;
-    returns the list's path."""
+def write_train_folder(root: str = TRAIN_ROOT, n: int = TRAIN_IMAGES) -> str:
+    """``n`` synthetic 512x512 PNGs under ``root``/images (seeded smooth
+    colour fields with noise) and a txt list with a prompt a line; returns
+    the list's path."""
     import shutil
 
     import numpy as np
@@ -3953,12 +4020,12 @@ def write_train_folder() -> str:
 
     from diffbir_tpu_torch.utils.image_io import write_png
 
-    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
-    folder = os.path.join(TRAIN_ROOT, "images")
+    shutil.rmtree(root, ignore_errors=True)
+    folder = os.path.join(root, "images")
     os.makedirs(folder)
     gen = torch.Generator().manual_seed(12)
     lines = []
-    for i in range(TRAIN_IMAGES):
+    for i in range(n):
         base = torch.rand(1, 3, 34, 34, generator=gen)
         img = F.interpolate(base, size=(512, 512), mode="bicubic", align_corners=False)[0]
         img = img + 0.03 * torch.randn(img.shape, generator=gen)
@@ -3966,7 +4033,7 @@ def write_train_folder() -> str:
         path = os.path.join(folder, f"{i:03d}.png")
         write_png(path, np.ascontiguousarray(u8))
         lines.append(f"{path}\ta synthetic photo number {i}")
-    flist = os.path.join(TRAIN_ROOT, "train.txt")
+    flist = os.path.join(root, "train.txt")
     with open(flist, "w") as f:
         f.write("\n".join(lines) + "\n")
     return flist
@@ -4016,16 +4083,28 @@ def phase_train_data(flist: str) -> dict:
     return {"load": load_s, "transform": transform_s}
 
 
-def edit_config(src: str, dst: str, changes: dict) -> None:
+def edit_config(src: str, dst: str, changes: dict, label: str = "train_cli",
+                repeated=(), added=None) -> None:
     """``src``'s YAML text with each key's value replaced (the key's one
-    line, found once) written to ``dst``; each change printed."""
+    line, found once; every line of a key in ``repeated``) and the keys of
+    ``added`` appended to its last block, which must be ``train:``, written
+    to ``dst``; each change printed."""
     with open(src) as f:
         text = f.read()
     for key, value in changes.items():
         pattern = re.compile(rf"^(\s*(?:- )?{re.escape(key)}:)[^\n]*$", re.M)
-        check(len(pattern.findall(text)) == 1, f"{src}: {key} is not on one line")
+        found = len(pattern.findall(text))
+        check(found == 1 or (key in repeated and found > 1),
+              f"{src}: {key} is on {found} lines")
         text = pattern.sub(lambda m: f"{m.group(1)} {value}", text)
-        print(f"[train_cli] {os.path.basename(dst)}: {key}: {value}")
+        print(f"[{label}] {os.path.basename(dst)}: {key}: {value}")
+    if added:
+        blocks = re.findall(r"^(\w+):", text, re.M)
+        check(blocks[-1] == "train", f"{src}: the last block is {blocks[-1]}, not train")
+        for key, value in added.items():
+            check(not re.search(rf"^\s+{key}:", text, re.M), f"{src}: {key} is there already")
+            text = text.rstrip("\n") + f"\n  {key}: {value}\n"
+            print(f"[{label}] {os.path.basename(dst)}: {key}: {value} (added)")
     with open(dst, "w") as f:
         f.write(text)
 
@@ -4052,19 +4131,27 @@ def timing_transform(seconds: list):
 
 
 @contextlib.contextmanager
-def counting_train_steps(per_step: list):
+def counting_train_steps(per_step: list, record: list = None, replay: list = None):
     """Each train step's launches (``launched_since``) appended to
-    ``per_step`` while the trainer builds its steps in this context."""
+    ``per_step`` while the trainer builds its steps in this context; the
+    first DDP_STEPS steps' batches copied into ``record``, or each step's
+    batch replaced by ``replay``'s at its index."""
     from diffbir_tpu_torch.train import stage2
 
     make = stage2.make_train_step
 
     def counting(*args, **kw):
         step = make(*args, **kw)
+        taken = []
 
-        def counted(*a, **k):
+        def counted(batch, *a, **k):
+            if replay is not None:
+                batch = replay[len(taken)]
+            elif record is not None and len(record) < DDP_STEPS:
+                record.append({key: v.clone() for key, v in batch.items()})
+            taken.append(1)
             before = counts()
-            out = step(*a, **k)
+            out = step(batch, *a, **k)
             per_step.append(launched_since(before))
             return out
 
@@ -4084,10 +4171,10 @@ def phase_train_cli(flist: str) -> dict:
     full-width models: per-step launches, losses, step and data-wait
     seconds beside [train]'s bare step; the checkpoint files; then a
     resume from step 2 (the masters and AdamW moments bit-equal to the
-    saved ones) to step 4; the preview at PREVIEW_N images; then
-    TRAIN_STEADY_STEPS more steps with no checkpoint inside, their waits on
-    the data beside the worker's transform seconds. Returns the launch
-    counts of the trainer's runs."""
+    saved ones) that runs on for two steps and TRAIN_STEADY_STEPS more with
+    no checkpoint inside (one at the end), their waits on the data beside
+    the worker's transform seconds; the preview at PREVIEW_N images.
+    Returns the launch counts of the trainer's runs."""
     import numpy as np
     import torch
 
@@ -4129,9 +4216,12 @@ def phase_train_cli(flist: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        with counting_train_steps(per_step):
+        with counting_train_steps(per_step, record=TRAIN_CLI_BATCHES):
             trainer = train_stage2.main(["--config", cfg_path])
         run_s = time.perf_counter() - t0
+        TRAIN_CLI_RUN.update(losses=trainer.losses[:DDP_STEPS],
+                             step_s=trainer.step_seconds[:DDP_STEPS],
+                             wait_s=trainer.wait_seconds[:DDP_STEPS])
         peak = torch.cuda.max_memory_allocated() / 2**30
         check(trainer.step == TRAIN_CLI_STEPS and len(per_step) == TRAIN_CLI_STEPS,
               f"[train_cli] ran {trainer.step} steps")
@@ -4142,7 +4232,8 @@ def phase_train_cli(flist: str) -> dict:
         check(all(np.isfinite(trainer.losses)), f"[train_cli] losses {trainer.losses}")
         ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
         deploy = sorted(n for n in os.listdir(exp) if n.startswith("controlnet_"))
-        check(ckpts == ["2.pt", "4.pt"] and deploy == ["controlnet_2.pth", "controlnet_4.pth"],
+        check(ckpts == [f"{TRAIN_CKPT_EVERY}.pt"]
+              and deploy == [f"controlnet_{TRAIN_CKPT_EVERY}.pth"],
               f"[train_cli] files {ckpts} {deploy}")
         sizes = {n: os.path.getsize(os.path.join(exp, "checkpoints", n)) / 2**30 for n in ckpts}
         bare = statistics.median(TRAIN_STEP_S) if TRAIN_STEP_S else float("nan")
@@ -4167,11 +4258,15 @@ def phase_train_cli(flist: str) -> dict:
         del trainer
         torch.cuda.empty_cache()
 
-        # resume from step 2: the full state restored bit for bit, then on to 4
+        # resume from step 2: the full state restored bit for bit, then on
+        # through the loop's first two steps and TRAIN_STEADY_STEPS more with
+        # no checkpoint inside (one at the end), the worker's transform timed
         saved = torch.load(os.path.join(exp, "checkpoints", f"{TRAIN_CKPT_EVERY}.pt"),
                            map_location="cpu", weights_only=True)
+        end = TRAIN_CLI_STEPS + 2 + TRAIN_STEADY_STEPS
         before = counts()
-        with counting_train_steps(per_step):
+        transform_s = []
+        with counting_train_steps(per_step), timing_transform(transform_s):
             t0 = time.perf_counter()
             resumed = train_stage2.Stage2Trainer(cfglib.load_yaml(resume_path), "cuda")
             build_s = time.perf_counter() - t0
@@ -4186,19 +4281,41 @@ def phase_train_cli(flist: str) -> dict:
                     check(torch.equal(state[i][key].cpu(), s[key]),
                           f"[train_cli] the restored {key} of tensor {i} differs")
                     moments += key != "step"
+            del saved
+            resumed.tcfg.update(train_steps=end, ckpt_every=end)
             t0 = time.perf_counter()
             resumed.run()
-            resume_s = time.perf_counter() - t0
-        check(resumed.step == TRAIN_CLI_STEPS, f"[train_cli] resumed run ended at {resumed.step}")
+            run_s = time.perf_counter() - t0 - sum(resumed.save_seconds)
+        check(resumed.step == end, f"[train_cli] the resumed run ended at {resumed.step}")
         for n in per_step[TRAIN_CLI_STEPS:]:
             n = {k: v for k, v in n.items() if v}
             check(n == expected, f"[train_cli] resumed step: expected {expected}, got {n}")
+        check(len(per_step) == end, f"[train_cli] {len(per_step)} steps counted, not {end}")
         for k, v in launched_since(before).items():
             launches[k] += v
         print(f"[train_cli] resume: {TRAIN_CKPT_EVERY}: built in {build_s:.3f} s, "
               f"{len(opt.masters)} fp32 masters and {moments} AdamW moments bit-equal to "
-              f"{TRAIN_CKPT_EVERY}.pt, the step {resumed.step - TRAIN_CKPT_EVERY} more steps "
-              f"in {resume_s:.3f} s (losses {', '.join(f'{v:.5f}' for v in resumed.losses)})")
+              f"{TRAIN_CKPT_EVERY}.pt, then steps {TRAIN_CKPT_EVERY + 1}-{end} in {run_s:.3f} s "
+              f"and a checkpoint at {end} in {resumed.save_seconds[-1]:.3f} s (losses "
+              f"{', '.join(f'{v:.5f}' for v in resumed.losses)})")
+        steps = resumed.step_seconds[2:]
+        waits = resumed.wait_seconds[2:]
+        busy = [a - b for a, b in zip(steps, waits)]
+        waited = sum(w > 0.01 for w in waits)
+        first = TRAIN_CKPT_EVERY + 3
+        print(f"[train_cli] {card()} steady window, steps {first}-{end} (after the resumed "
+              f"loop's first two) with no checkpoint inside: "
+              f"{TRAIN_STEADY_STEPS * TRAIN_BATCH / sum(steps):.2f} images/s ({sum(steps):.3f} s "
+              f"of steps; [train]'s bare step {TRAIN_BATCH / bare:.2f}); waiting on next(it): "
+              f"total {sum(waits):.3f} s, median {statistics.median(waits):.3f} s, {waited} of "
+              f"{len(waits)} steps waited over 10 ms; the step's own work median "
+              f"{statistics.median(busy):.3f} s (bare {bare:.3f}); the worker's transform median "
+              f"{statistics.median(transform_s):.3f} s a batch "
+              f"({min(transform_s):.3f}-{max(transform_s):.3f}; alone in [train_data] "
+              f"{TRAIN_DATA_S[0]})")
+        print("[train_cli] steady window per step (wait/rest s): " + ", ".join(
+            f"{w:.3f}/{b:.3f}" for w, b in zip(waits, busy)) + "; transform s: "
+            + ", ".join(f"{t:.3f}" for t in transform_s))
 
         # the preview at PREVIEW_N images of a batch from the pipeline
         it = resumed.data()
@@ -4228,43 +4345,6 @@ def phase_train_cli(flist: str) -> dict:
               f"[{grid.min().item():.4f}, {grid.max().item():.4f}], launches "
               + ", ".join(f"{k} {v}" for k, v in n.items()))
         del batch, lq, tokens, grid
-        torch.cuda.empty_cache()
-
-        # the steady state: TRAIN_STEADY_STEPS more steps with no checkpoint
-        # inside (one after the last), the worker's transform timed
-        end = TRAIN_CLI_STEPS + TRAIN_STEADY_STEPS
-        resumed.tcfg.update(train_steps=end, ckpt_every=end)
-        done = len(resumed.step_seconds)
-        transform_s = []
-        before = counts()
-        with timing_transform(transform_s):
-            t0 = time.perf_counter()
-            resumed.run()
-            window_s = time.perf_counter() - t0 - sum(resumed.save_seconds[-1:])
-        check(resumed.step == end, f"[train_cli] the steady window ended at {resumed.step}")
-        for n in per_step[-TRAIN_STEADY_STEPS:]:
-            n = {k: v for k, v in n.items() if v}
-            check(n == expected, f"[train_cli] steady step: expected {expected}, got {n}")
-        for k, v in launched_since(before).items():
-            launches[k] += v
-        steps = resumed.step_seconds[done:]
-        waits = resumed.wait_seconds[done:]
-        busy = [a - b for a, b in zip(steps, waits)]
-        waited = sum(w > 0.01 for w in waits[2:])
-        print(f"[train_cli] {card()} steady window, steps {TRAIN_CLI_STEPS + 1}-{end} with no "
-              f"checkpoint inside: {TRAIN_STEADY_STEPS * TRAIN_BATCH / sum(steps):.2f} images/s "
-              f"({sum(steps):.3f} s of steps, {window_s:.3f} s with the loop's start; "
-              f"[train]'s bare step {TRAIN_BATCH / bare:.2f}); waiting on next(it): total "
-              f"{sum(waits):.3f} s, median {statistics.median(waits[2:]):.3f} s after the "
-              f"first two, {waited} of {len(waits) - 2} steps after the first two waited "
-              f"over 10 ms; the step's own work median {statistics.median(busy):.3f} s "
-              f"(bare {bare:.3f}); the worker's transform median "
-              f"{statistics.median(transform_s):.3f} s a batch "
-              f"({min(transform_s):.3f}-{max(transform_s):.3f}; alone in [train_data] "
-              f"{TRAIN_DATA_S[0]})")
-        print("[train_cli] steady window per step (wait/rest s): " + ", ".join(
-            f"{w:.3f}/{b:.3f}" for w, b in zip(waits, busy)) + "; transform s: "
-            + ", ".join(f"{t:.3f}" for t in transform_s))
         del resumed
         torch.cuda.empty_cache()
     finally:
@@ -4278,7 +4358,7 @@ def phase_train_cli(flist: str) -> dict:
 
 def phase_train_custom() -> dict:
     """[train_custom]: ``--version custom --train_cfg <the trainer's config>
-    --ckpt controlnet_4.pth`` through phase_cli_request (K1 230, K1_wide 2,
+    --ckpt controlnet_2.pth`` through phase_cli_request (K1 230, K1_wide 2,
     the PNG equal to pipeline.run's); then TRAIN_ROOT is removed."""
     import shutil
 
@@ -4289,6 +4369,482 @@ def phase_train_custom() -> dict:
     launches, _ = phase_cli_request("train_custom", (CLI_DEFAULT, flags))
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# the other training paths: the stage-2 trainer under torch.distributed,
+# the native loader, the stage-1 trainer, the batch degradation ops
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def launch_environment(port: int):
+    """The multi-process launch contract for one process (rank 0 of 1) on
+    127.0.0.1:``port`` while in this context."""
+    env = {"DIFFBIR_COORDINATOR": f"127.0.0.1:{port}", "DIFFBIR_NUM_PROCESSES": "1",
+           "DIFFBIR_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ddp_mismatch(trainer, saved: dict) -> dict:
+    """How ``trainer``'s run differs from [train_cli]'s on the same batches,
+    under the keys "losses" (not == [train_cli]'s) and "masters" (the fp32
+    masters not bit-equal to ``saved``, the checkpoint DDP_STEPS.pt); empty
+    where it does not."""
+    import torch
+
+    out = {}
+    if trainer.losses != TRAIN_CLI_RUN["losses"]:
+        out["losses"] = f"losses {trainer.losses} against {TRAIN_CLI_RUN['losses']}"
+    masters = [m.cpu() for m in trainer.optimizer.full_masters()]
+    differ = [i for i, (m, s) in enumerate(zip(masters, saved["masters"]))
+              if not torch.equal(m, s)]
+    if differ:
+        err = max(float((masters[i] - saved["masters"][i]).abs().max()) for i in differ)
+        out["masters"] = f"{len(differ)} of {len(masters)} fp32 masters differ (at most {err:.3e})"
+    return out
+
+
+def phase_train_ddp() -> dict:
+    """[train_ddp]: ``python -m diffbir_tpu_torch.train_stage2`` (``main``,
+    in this process) under DIFFBIR_COORDINATOR / NUM_PROCESSES 1 /
+    PROCESS_ID 0 (nccl, world size 1) on a copy of [train_cli]'s config,
+    DDP_STEPS steps, with train.fsdp off and on; each step on [train_cli]'s
+    recorded batch of that step: the losses and the fp32 masters bit-equal
+    to [train_cli]'s (its checkpoint DDP_STEPS.pt), the launches per step,
+    the step seconds beside [train_cli]'s, the process group destroyed
+    after. Then a planted fault, one run (fsdp off) with
+    ``DataParallel.reduce``'s gradients zeroed, must fail that check.
+    Returns the launch counts of the two true runs."""
+    import torch
+    import torch.distributed as dist
+
+    from diffbir_tpu_torch import train_stage2
+    from diffbir_tpu_torch.models import tokenizer
+    from diffbir_tpu_torch.parallel import mesh
+
+    check(len(TRAIN_CLI_BATCHES) == DDP_STEPS, "[train_ddp] [train_cli] recorded no batches")
+    saved = torch.load(os.path.join(TRAIN_ROOT, "exp", "checkpoints", f"{DDP_STEPS}.pt"),
+                       map_location="cpu", weights_only=True)
+    base = os.path.join(TRAIN_ROOT, "train_stage2_v2.1.yaml")
+    expected = {"K1": K1_PER_TRAIN_STEP, "K1_wide": K1_WIDE_PER_TRAIN_STEP,
+                "K2a": K2_SITES_PER_TRAIN_STEP, "K2b": K2_SITES_PER_TRAIN_STEP}
+    saved_bpe = os.environ.get("DIFFBIR_TPU_BPE_PATH")
+    os.environ["DIFFBIR_TPU_BPE_PATH"] = os.path.join(TRAIN_ROOT, tokenizer.BPE_NAME)
+    tokenizer.get_tokenizer.cache_clear()
+    launches = {k: 0 for k in KERNELS}
+
+    def run(fsdp: str, label: str):
+        exp = os.path.join(TRAIN_ROOT, f"ddp_{label}")
+        cfg = exp + ".yaml"
+        edit_config(base, cfg, {"train_steps": DDP_STEPS, "ckpt_every": 10 * DDP_STEPS,
+                                "exp_dir": exp}, label="train_ddp", added={"fsdp": fsdp})
+        per_step = []
+        port = free_port()
+        with launch_environment(port), counting_train_steps(per_step,
+                                                            replay=TRAIN_CLI_BATCHES):
+            t0 = time.perf_counter()
+            trainer = train_stage2.main(["--config", cfg])
+            run_s = time.perf_counter() - t0
+        check(not dist.is_initialized(), "[train_ddp] the process group is still up")
+        check(trainer.parallel.active and trainer.n_data == 1,
+              f"[train_ddp] not under a process group: {trainer.n_data}")
+        return trainer, per_step, port, run_s
+
+    try:
+        for fsdp in ("false", "true"):
+            before = counts()
+            trainer, per_step, port, run_s = run(fsdp, f"fsdp_{fsdp}")
+            for k, v in launched_since(before).items():
+                launches[k] += v
+            for i, n in enumerate(per_step):
+                n = {k: v for k, v in n.items() if v}
+                check(n == expected, f"[train_ddp] step {i + 1}: expected {expected}, got {n}")
+            mismatch = ddp_mismatch(trainer, saved)
+            check(not mismatch, f"[train_ddp] fsdp {fsdp}: " + "; ".join(mismatch.values()))
+            print(f"[train_ddp] {card()} train.fsdp {fsdp}, process group nccl at "
+                  f"127.0.0.1:{port}, world size 1 (sharded leaves: "
+                  f"{sum(d is not None for d in trainer.optimizer.dims)}): {run_s:.3f} s for "
+                  f"build, {DDP_STEPS} steps and the last full checkpoint (gathered, rank 0 "
+                  f"writes, a barrier); per step K1 {K1_PER_TRAIN_STEP}, "
+                  f"K1_wide {K1_WIDE_PER_TRAIN_STEP}, K2a and K2b {K2_SITES_PER_TRAIN_STEP} "
+                  "each, no CUDA-core entry; losses "
+                  f"{', '.join(f'{v:.6f}' for v in trainer.losses)} (bit-equal to [train_cli]'s); {len(saved['masters'])} fp32 masters "
+                  f"bit-equal to [train_cli]'s {DDP_STEPS}.pt; step seconds (wait on the data "
+                  "/ the rest) "
+                  + ", ".join(f"{w:.3f}/{t - w:.3f}" for t, w in zip(trainer.step_seconds,
+                                                                 trainer.wait_seconds))
+                  + " ([train_cli]'s plain steps on the same batches " + ", ".join(
+                      f"{w:.3f}/{t - w:.3f}" for t, w in zip(TRAIN_CLI_RUN["step_s"],
+                                                             TRAIN_CLI_RUN["wait_s"]))
+                  + "); the process group destroyed")
+            del trainer
+            torch.cuda.empty_cache()
+        reduce = mesh.DataParallel.reduce
+
+        def zeroed(self, grads, dims):
+            return [torch.zeros_like(g) for g in reduce(self, grads, dims)]
+
+        mesh.DataParallel.reduce = zeroed
+        try:
+            trainer, _, _, _ = run("false", "fault")
+        finally:
+            mesh.DataParallel.reduce = reduce
+        mismatch = ddp_mismatch(trainer, saved)
+        check("masters" in mismatch, "[train_ddp] the run with its reduced gradients "
+              f"zeroed passed the masters' check: {mismatch}")
+        print(f"[train_ddp] {card()} planted fault, the reduced gradients zeroed: "
+              + "; ".join(mismatch.values()) + " (fails, as it must)")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        if saved_bpe is None:
+            os.environ.pop("DIFFBIR_TPU_BPE_PATH", None)
+        else:
+            os.environ["DIFFBIR_TPU_BPE_PATH"] = saved_bpe
+        tokenizer.get_tokenizer.cache_clear()
+    return launches
+
+
+def stage1_dataset(flist: str):
+    """train_stage1.yaml's codeformer dataset on ``flist``."""
+    from diffbir_tpu_torch import config as cfglib
+    from diffbir_tpu_torch import dataset  # noqa: F401  (the registry names)
+
+    cfg = cfglib.load_yaml(os.path.join("configs", "train", "train_stage1.yaml"))
+    params = {**cfg["dataset"]["train"]["params"], "file_list": flist}
+    return cfglib.instantiate({"target": "codeformer_dataset", "params": params})
+
+
+def phase_train_native(flist: str) -> dict:
+    """[train_native]: the codeformer dataset (train_stage1.yaml's) on the
+    PNG folder with ``native=True`` where the C++ loader builds (``make -C
+    native``): its centre crops equal to the Python path's, image for image,
+    and the seconds a batch of each path; else the reason, and that the
+    Python path ran. Returns the launch counts (none)."""
+    import numpy as np
+
+    from diffbir_tpu_torch.dataset.native_loader import (
+        NativeImageLoader,
+        native_available,
+        native_status,
+    )
+
+    before = counts()
+    t0 = time.perf_counter()
+    available = native_available()
+    build_s = time.perf_counter() - t0
+    paths = [line.split("\t")[0] for line in open(flist).read().splitlines() if line]
+    runs = {}
+    for native in ((False, True) if available else (False,)):
+        it = stage1_dataset(flist).as_iterator(NATIVE_BATCH, seed=231, native=native)
+        seconds = []
+        for _ in range(NATIVE_BATCHES):
+            t0 = time.perf_counter()
+            batch = next(it)
+            seconds.append(time.perf_counter() - t0)
+        it.close()
+        check(batch["gt"].shape == batch["lq"].shape == (NATIVE_BATCH, SIZE, SIZE, 3),
+              f"[train_native] native {native}: gt {batch['gt'].shape}")
+        runs[native] = seconds
+    if not available:
+        print(f"[train_native] the native loader is unavailable here ({native_status()}): "
+              f"train.native_loader falls back to the Python path, which ran: "
+              f"{', '.join(f'{v:.3f}' for v in runs[False])} s a batch of {NATIVE_BATCH}")
+    else:
+        ds = stage1_dataset(flist)
+        loader = NativeImageLoader(paths, NATIVE_BATCH, SIZE, crop="center", hflip=False,
+                                   rot90=False, seed=231)
+        imgs, idx = loader.next_with_idx()
+        loader.close()
+        for img, j in zip(imgs, idx):
+            check(np.array_equal(img, ds._load_gt(paths[int(j)])),
+                  f"[train_native] the native crop of {paths[int(j)]} differs from the Python "
+                  "path's")
+        print(f"[train_native] {card()} the native loader ({native_status()}, loaded or built "
+              f"in {build_s:.2f} s): {NATIVE_BATCH} centre crops equal to the Python path's; "
+              f"s a batch of {NATIVE_BATCH} (decode and crop, then the codeformer degradation "
+              f"on the host): native {', '.join(f'{v:.3f}' for v in runs[True])}, Python "
+              f"{', '.join(f'{v:.3f}' for v in runs[False])}")
+    n = launched_since(before)
+    check(not n, f"[train_native] launched {n}")
+    return {k: 0 for k in KERNELS}
+
+
+def stage1_step_peak(bs: int) -> float:
+    """Peak GiB of one full-width stage-1 step at batch ``bs`` (bf16 SwinIR,
+    fp32 masters, random data on the card)."""
+    import torch
+
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.swinir import SwinIR
+    from diffbir_tpu_torch.train import stage1
+
+    model = SwinIR(dtype=torch.bfloat16, device="meta").to_empty(device="cuda")
+    random_init_(model, torch.Generator(device="cuda").manual_seed(0))
+    step = stage1.make_train_step(model, stage1.init_train_state(model, 1e-4))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.rand(bs, SIZE, SIZE, 3, generator=gen, device="cuda")
+             for k in ("gt", "lq")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    float(step(batch)["loss"])
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def stage1_batch() -> tuple:
+    """The first batch of STAGE1_BATCHES whose step fits below
+    STAGE1_MEMORY_SHARE of the card, and what each try read."""
+    import gc
+
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    tried = []
+    for bs in STAGE1_BATCHES:
+        try:
+            peak = stage1_step_peak(bs)
+        except torch.cuda.OutOfMemoryError:
+            peak = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        tried.append(f"{bs}: " + ("out of memory" if peak is None else f"peak {peak:.2f} GiB"))
+        if peak is not None and peak <= STAGE1_MEMORY_SHARE * total:
+            return bs, tried, total
+    check(False, f"[train_stage1] no batch fits: {tried}")
+
+
+def phase_train_stage1() -> dict:
+    """[train_stage1]: ``python -m diffbir_tpu_torch.train_stage1`` (``main``,
+    in this process) on a copy of train_stage1.yaml at full width (SwinIR
+    embed 180, depths 8x6, heads 6, window 8; the codeformer dataset at
+    512^2), at the first batch of STAGE1_BATCHES that fits, on that many
+    synthetic PNGs: STAGE1_WARMUP + STAGE1_TIMED steps, a validation over
+    STAGE1_VAL batches and a checkpoint at the last step, then a resume from
+    it (masters and AdamW moments bit-equal to the saved ones). Prints
+    s/step, images/s, the wait on the data, the step's own work and peak
+    memory; no kernel of the port may launch. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch import train_stage1
+
+    t0 = time.perf_counter()
+    bs, tried, total = stage1_batch()
+    probe_s = time.perf_counter() - t0
+    print(f"[train_stage1] {card()} batch {bs} (one step of the full-width SwinIR at batch "
+          + "; ".join(tried) + f", of {total:.1f} GiB; limit {STAGE1_MEMORY_SHARE:g} of it; "
+          f"probed in {probe_s:.1f} s)")
+    flist = write_train_folder(STAGE1_ROOT, bs)
+    exp = os.path.join(STAGE1_ROOT, "exp")
+    steps = STAGE1_WARMUP + STAGE1_TIMED
+    cfg = os.path.join(STAGE1_ROOT, "train_stage1.yaml")
+    edit_config(os.path.join("configs", "train", "train_stage1.yaml"), cfg,
+                {"file_list": flist, "batch_size": bs, "train_steps": steps, "log_every": 1,
+                 "val_every": steps, "ckpt_every": steps, "exp_dir": exp},
+                label="train_stage1", repeated=("file_list",), added={"val_batches": STAGE1_VAL})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_stage1.main(["--config", cfg])
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = counts()
+    check(all(v == 0 for v in launches.values()), f"[train_stage1] launched {launches}")
+    check(trainer.step == steps and np.isfinite(trainer.losses).all()
+          and len(trainer.val_psnr) == 1 and np.isfinite(trainer.val_psnr[0]),
+          f"[train_stage1] step {trainer.step}, losses {trainer.losses}, val {trainer.val_psnr}")
+    ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    check(ckpts == [f"{steps}.pt"], f"[train_stage1] checkpoints {ckpts}")
+    timed = trainer.step_seconds[STAGE1_WARMUP:]
+    waits = trainer.wait_seconds[STAGE1_WARMUP:]
+    own = [a - b for a, b in zip(timed, waits)]
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[train_stage1] python -m diffbir_tpu_torch.train_stage1 --config {cfg}: "
+          f"{run_s:.3f} s (SwinIR {n_params / 1e6:.2f} M params, bf16 with fp32 masters, AdamW "
+          f"weight decay 1e-4; {steps} steps, the validation, the checkpoint); losses "
+          f"{', '.join(f'{v:.1f}' for v in trainer.losses)}; val psnr "
+          f"{trainer.val_psnr[0]:.3f} dB over {STAGE1_VAL} batches; 0 launches of every "
+          f"kernel of the port (window attention is plain math)")
+    print(f"[train_stage1] {card()} batch {bs} at {SIZE}x{SIZE}: steps "
+          f"{STAGE1_WARMUP + 1}-{steps} {', '.join(f'{v:.3f}' for v in timed)} s (median "
+          f"{statistics.median(timed):.3f} s/step, {bs * len(timed) / sum(timed):.2f} images/s); "
+          f"waiting on the data {', '.join(f'{v:.3f}' for v in waits)} s (median "
+          f"{statistics.median(waits):.3f}); the step's own work "
+          f"{', '.join(f'{v:.3f}' for v in own)} s (median {statistics.median(own):.3f}, "
+          f"{bs / statistics.median(own):.2f} images/s); warm-up steps "
+          f"{', '.join(f'{v:.3f}' for v in trainer.step_seconds[:STAGE1_WARMUP])} s; checkpoint "
+          f"{os.path.getsize(os.path.join(exp, 'checkpoints', ckpts[0])) / 2**20:.1f} MiB in "
+          f"{trainer.save_seconds[0]:.3f} s; peak device memory {peak:.2f} GiB")
+    del trainer
+    torch.cuda.empty_cache()
+
+    saved = torch.load(os.path.join(exp, "checkpoints", ckpts[0]), map_location="cpu",
+                       weights_only=True)
+    resume_cfg = os.path.join(STAGE1_ROOT, "resume.yaml")
+    edit_config(cfg, resume_cfg, {"resume": steps}, label="train_stage1")
+    t0 = time.perf_counter()
+    resumed = train_stage1.Stage1Trainer(train_stage1.cfglib.load_yaml(resume_cfg), "cuda")
+    build_s = time.perf_counter() - t0
+    opt = resumed.optimizer
+    check(resumed.step == steps, f"[train_stage1] resumed at {resumed.step}")
+    check(all(torch.equal(m.cpu(), s) for m, s in zip(opt.masters, saved["masters"])),
+          "[train_stage1] the restored masters differ from the saved ones")
+    moments = 0
+    state = opt.optimizer.state_dict()["state"]
+    for i, s in saved["optimizer"]["state"].items():
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(state[i][key].cpu(), s[key]),
+                  f"[train_stage1] the restored {key} of tensor {i} differs")
+            moments += key != "step"
+    print(f"[train_stage1] resume: {steps}: built in {build_s:.3f} s, {len(opt.masters)} fp32 "
+          f"masters and {moments} AdamW moments bit-equal to {steps}.pt")
+    del resumed, opt, saved
+    torch.cuda.empty_cache()
+    import shutil
+
+    shutil.rmtree(STAGE1_ROOT, ignore_errors=True)
+    return launches
+
+
+def jpeg_ambiguous_pixels(x, quality):
+    """Pixels [B, H, W] of the 8x8 luma blocks (16x16 for chroma) in which a
+    DCT coefficient of ``diff_jpeg``'s arithmetic lies within JPEG_AMBIGUOUS
+    quantisation steps of a rounding half (on ``x``'s device)."""
+    import torch
+
+    from diffbir_tpu_torch.ops import diffjpeg as dj
+
+    b, h, w, _ = x.shape
+    out = torch.zeros((b, h, w), dtype=torch.bool, device=x.device)
+    for (steps, _, (hh, ww)), up in zip(dj.quantised_coefficients(x, quality), (1, 2, 2)):
+        near = ((steps - steps.floor() - 0.5).abs() < JPEG_AMBIGUOUS).flatten(2).any(-1)
+        near = near.reshape(b, hh // 8, ww // 8).repeat_interleave(8 * up, 1)
+        out |= near.repeat_interleave(8 * up, 2)
+    return out
+
+
+def phase_degrade_batch() -> dict:
+    """[degrade_batch]: ``ops/diffjpeg.py``'s diff_jpeg (hard and soft
+    rounding) and ``dataset/degradation.py``'s add_gaussian_noise_batch,
+    add_poisson_noise_batch, filter2d_batch and usm_sharp_batch at batch
+    DEGRADE_BATCH, SIZE x SIZE, fp32 with TF32 off, on the card against the
+    CPU (see DEGRADE_TOL's notes); diff_jpeg with the luma table transposed
+    must fail the limit; ms a batch. Returns the launch counts (none)."""
+    import torch
+
+    from diffbir_tpu_torch.dataset import degradation as deg
+    from diffbir_tpu_torch.ops import diffjpeg
+
+    before = counts()
+    gen = torch.Generator().manual_seed(16)
+    b = DEGRADE_BATCH
+    img = torch.rand(b, SIZE, SIZE, 3, generator=gen)
+    quality = torch.tensor(JPEG_QUALITIES[:b])
+    sigma = torch.linspace(0.01, 0.2, b)
+    gray = torch.arange(b) % 2 == 1
+    draws = {"rgb": torch.randn(img.shape, generator=gen),
+             "gray": torch.randn((b, SIZE, SIZE, 1), generator=gen)}
+    kernels = torch.rand(b, 21, 21, generator=gen)
+    kernels /= kernels.sum(dim=(1, 2), keepdim=True)
+    scale = torch.linspace(0.5, 3.0, b)
+
+    def cuda(*ts):
+        return [t.cuda() for t in ts]
+
+    def limit(ref):
+        return DEGRADE_TOL * float(ref.abs().max())
+
+    rows = []
+    ambiguous = jpeg_ambiguous_pixels(img, quality)
+    for soft in (False, True):
+        ref = diffjpeg.diff_jpeg(img, quality, soft)
+        out = diffjpeg.diff_jpeg(*cuda(img, quality), soft).cpu()
+        err = float(((out - ref).abs().amax(-1))[~ambiguous].max())
+        table = diffjpeg.Y_TABLE
+        diffjpeg.Y_TABLE = table.T.copy()
+        try:
+            faulty = diffjpeg.diff_jpeg(*cuda(img, quality), soft).cpu()
+        finally:
+            diffjpeg.Y_TABLE = table
+        fault = float(((faulty - ref).abs().amax(-1))[~ambiguous].max())
+        check(err <= limit(ref), f"[degrade_batch] diff_jpeg(differentiable={soft}): {err:.3e}")
+        check(fault > limit(ref), f"[degrade_batch] the transposed luma table reads {fault:.3e}")
+        x, q = cuda(img, quality)
+        rows.append((f"diff_jpeg(differentiable={soft})", err / float(ref.abs().max()),
+                     median_ms(lambda: diffjpeg.diff_jpeg(x, q, soft), iters=10),
+                     f"transposed luma table {fault / float(ref.abs().max()):.3e}"))
+    blocks = int(ambiguous[:, ::8, ::8].sum())
+    ref = deg.add_gaussian_noise_batch(img, sigma, gray, draws=draws)
+    args = cuda(img, sigma, gray)
+    dd = {k: v.cuda() for k, v in draws.items()}
+    out = deg.add_gaussian_noise_batch(*args, draws=dd).cpu()
+    err = float((out - ref).abs().max())
+    check(err <= limit(ref), f"[degrade_batch] add_gaussian_noise_batch: {err:.3e}")
+    rows.append(("add_gaussian_noise_batch (the same draws)", err / float(ref.abs().max()),
+                 median_ms(lambda: deg.add_gaussian_noise_batch(*args, draws=dd), iters=10), ""))
+    ref = deg.add_poisson_noise_batch(img, scale, gray, generator=torch.Generator().manual_seed(1))
+    cgen = torch.Generator(device="cuda").manual_seed(1)
+    pargs = cuda(img, scale, gray)
+    out = deg.add_poisson_noise_batch(*pargs, generator=cgen).cpu()
+    ratio = [float((out[i] - img[i]).std() / (ref[i] - img[i]).std()) for i in range(b)]
+    check(all(abs(r - 1) <= POISSON_STD_TOL for r in ratio) and 0 <= float(out.min())
+          and float(out.max()) <= 1, f"[degrade_batch] add_poisson_noise_batch std ratios {ratio}")
+    rows.append(("add_poisson_noise_batch (the card's draws)", float("nan"),
+                 median_ms(lambda: deg.add_poisson_noise_batch(*pargs, generator=cgen), iters=10),
+                 f"noise std / the CPU's {min(ratio):.4f}-{max(ratio):.4f}"))
+    ref = deg.filter2d_batch(img, kernels)
+    fargs = cuda(img, kernels)
+    out = deg.filter2d_batch(*fargs).cpu()
+    err = float((out - ref).abs().max())
+    check(err <= limit(ref), f"[degrade_batch] filter2d_batch: {err:.3e}")
+    rows.append(("filter2d_batch (21x21)", err / float(ref.abs().max()),
+                 median_ms(lambda: deg.filter2d_batch(*fargs), iters=10), ""))
+    (x,) = cuda(img)
+    out = deg.usm_sharp_batch(x).cpu()
+    ref = deg.usm_sharp_batch(img)
+    # the CPU's arithmetic on the card's mask: where |residual| x 255 ties
+    # the threshold, summation order decides the mask
+    kern = deg.usm_kernel().expand(b, -1, -1)
+    res_cpu = img - deg.filter2d_batch(img, kern)
+    res_card = (x - deg.filter2d_batch(x, deg.usm_kernel(device=x.device).expand(b, -1, -1))
+                ).cpu()
+    mask_card = (res_card.abs() * 255.0 > 10.0).float()
+    flips = int((mask_card != (res_cpu.abs() * 255.0 > 10.0).float()).sum())
+    soft_mask = deg.filter2d_batch(mask_card, kern)
+    on_mask = soft_mask * torch.clamp(img + 0.5 * res_cpu, 0, 1) + (1 - soft_mask) * img
+    err = float((out - on_mask).abs().max())
+    check(err <= limit(ref), f"[degrade_batch] usm_sharp_batch: {err:.3e}")
+    rows.append(("usm_sharp_batch (51 taps)", err / float(ref.abs().max()),
+                 median_ms(lambda: deg.usm_sharp_batch(x), iters=10),
+                 f"{flips} mask elements of {mask_card.numel()} on the other side of the "
+                 f"threshold on the CPU"))
+    n = launched_since(before)
+    check(not n, f"[degrade_batch] launched {n}")
+    print(f"[degrade_batch] {card()} batch {b} at {SIZE}x{SIZE} fp32, TF32 off, the card "
+          f"against the CPU (limit {DEGRADE_TOL:g} x max|ref|; diff_jpeg without the {blocks} "
+          f"luma blocks where a coefficient of the CPU's lies within {JPEG_AMBIGUOUS:g} steps "
+          f"of a rounding half); 0 launches of the port's kernels:")
+    for name, rel, ms, note in rows:
+        print(f"[degrade_batch]   {name}: {rel:.3e} x max|ref|, {ms:.3f} ms a batch"
+              + (f"; {note}" if note else ""))
+    return {k: 0 for k in KERNELS}
+
 
 def main() -> int:
     # one card: the first that the caller shows, or the first of the machine
@@ -4320,69 +4876,126 @@ def main() -> int:
                    K5_gemv=qm.KERNEL_INT4_GEMV, K5_cc=qm.KERNEL_INT4, K6=fr.KERNEL_TC,
                    K6_cc=fr.KERNEL, K7=ff.KERNEL_TC, K7_cc=ff.KERNEL)
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name: str) -> None:
+        """The seconds of the phases since the last lap, and since the start."""
+        now = time.perf_counter()
+        print(f"[clock] {name}: {now - laps[-1]:.1f} s ({now - t_start:.1f} s since the start)",
+              flush=True)
+        laps.append(now)
+
     try:
         check(torch.cuda.device_count() == 1,
               f"expected one visible card, got {torch.cuda.device_count()}")
         phase_device()
+        lap("device")
         phase_build()
+        lap("build")
         numbers, wide_err = phase_kernel(fa)
+        lap("kernel")
         wide = phase_k1_wide(fa)
+        lap("k1_wide")
         numbers["K1_wide"] = {**wide, "max_abs_err": max(wide["max_abs_err"], wide_err)}
         k2 = phase_backward_kernels(fa)
-        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_d512_backward(fa), **phase_k3(fa),
-                       **phase_k4(qm),
-                       **phase_k5(qm), **phase_k6(fr), **phase_k7(ff))
+        lap("backward_kernels")
+        numbers.update(K2a=k2["dq"], K2b=k2["dkv"], **phase_d512_backward(fa))
+        lap("d512_backward")
+        for name, phase, lib in (("k3", phase_k3, fa), ("k4", phase_k4, qm), ("k5", phase_k5, qm),
+                                 ("k6", phase_k6, fr), ("k7", phase_k7, ff)):
+            numbers.update(phase(lib))
+            lap(name)
         torch.cuda.empty_cache()
         cldm, swinir = build_models()
+        lap("build_models")
         phase_model_call(cldm)
+        lap("model_call")
         phase_hoist("default", cldm, {"K1": K1_SITES_PER_STEP}, {})
+        lap("hoist")
         paths = {"serve": phase_slice("serve", cldm, swinir, SEEDS)}
+        lap("slice")
         paths.update(phase_modes(cldm, swinir))
+        lap("modes")
         cldm.set_mode("default")
         phase_samplers(cldm)
+        lap("samplers")
         phase_turbo_model(cldm)
+        lap("turbo_model")
         phase_fast_gelu(cldm)
+        lap("fast_gelu")
         phase_tiled_model_call(cldm)
+        lap("tiled_model_call")
         phase_sync_gn_decode(cldm)
+        lap("sync_gn_decode")
         phase_sync_gn_memory(cldm)
+        lap("sync_gn_memory")
         paths.update(phase_llava(qm, cldm, swinir))
+        lap("llava")
         del cldm, swinir
         torch.cuda.empty_cache()
         cli_runs, records = {}, {}
         for path in CLI_PATHS:
             with recording_vae() as records[path]:
                 paths[path], cli_runs[path] = phase_cli_request(path)
+        lap("cli_paths")
         phase_cleaner_bsrnet()
+        lap("cleaner_bsrnet")
         paths.update(phase_guidance(records["cli_request"]))
+        lap("guidance")
         paths.update(phase_turbo_cli(cli_runs))
+        lap("turbo_cli")
         for path, spec in FAST_GELU_PATHS.items():
             paths[path], _ = phase_cli_request(path, spec)
+        lap("fast_gelu_cli")
         paths.update(phase_tiled_request())
+        lap("tiled_request")
         det, parse = random_face_models(20)
         phase_face_detect(det)
+        lap("face_detect")
         phase_face_parse(parse)
+        lap("face_parse")
         phase_face_blur()
+        lap("face_blur")
         paths["cli_unaligned_face"] = phase_cli_unaligned_face(det, parse)
+        lap("cli_unaligned_face")
         del det, parse
         paths["http_serve"] = phase_http_serve()
+        lap("http_serve")
         paths["demo_http"] = phase_demo_http()
+        lap("demo_http")
         paths["train"] = phase_train(fa)
+        lap("train")
         ram_model = build_ram()
         phase_ram(ram_model)
+        lap("ram")
         paths["cli_ram_caption"] = phase_cli_ram_caption(ram_model)
+        lap("cli_ram_caption")
         del ram_model
         torch.cuda.empty_cache()
         flist = write_train_folder()
         phase_train_data(flist)
+        lap("train_data")
         paths["train_cli"] = phase_train_cli(flist)
+        lap("train_cli")
+        paths["train_ddp"] = phase_train_ddp()
+        lap("train_ddp")
+        paths["train_native"] = phase_train_native(flist)
+        lap("train_native")
         paths["train_custom"] = phase_train_custom()
+        lap("train_custom")
+        paths["train_stage1"] = phase_train_stage1()
+        lap("train_stage1")
+        paths["degrade_batch"] = phase_degrade_batch()
+        lap("degrade_batch")
         cli = {path: expected for path, (expected, _) in {
             **CLI_PATHS, **GUIDANCE_PATHS, **TURBO_PATHS, **FAST_GELU_PATHS}.items()}
         tiled = {f"tiled_{name}": expected for name, (_, expected) in TILED_VARIANTS.items()}
         served = {"cli_unaligned_face": UNALIGNED, "http_serve": CLI_DEFAULT,
                   "demo_http": CLI_DEFAULT, "cli_ram_caption": CLI_DEFAULT,
                   "train_custom": CLI_DEFAULT,
-                  "train_cli": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1}}
+                  "train_cli": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1},
+                  "train_ddp": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1},
+                  "train_native": {}, "train_stage1": {}, "degrade_batch": {}}
         for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled,
                                **served}.items():
             # no other kernel

@@ -9,7 +9,8 @@ draws are JAX's, in JAX's order (``default_rng(seed)`` for the shuffle,
 + 2``). OpenCV's calls are ``utils.warp``'s torch counterparts:
 ``cv2.filter2D`` (correlation, border reflect-101) and ``cv2.resize``
 INTER_LINEAR on fp32; the JPEG round trip is ``dataset/jpeg.py``'s. Images
-are PNG (``realesrgan.load_cropped``).
+are PNG (``realesrgan.load_cropped``), or any format OpenCV decodes through
+the C++ loader (``as_iterator(..., native=True)``).
 """
 
 from __future__ import annotations
@@ -80,9 +81,15 @@ class CodeformerDataset:
             prompt = ""
         return {**self._degrade(img_gt), "prompt": prompt}
 
-    def as_iterator(self, batch_size: int, shuffle: bool = True, seed: int = 0):
+    def as_iterator(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                    native: bool = False, num_threads: int = 4):
         """Batches of ``batch_size`` forever (drop-last epochs), the draws
-        seeded from ``seed`` as ``RealESRGANDataset.as_iterator``'s."""
+        seeded from ``seed`` as ``RealESRGANDataset.as_iterator``'s.
+        ``native=True`` moves decode and crop into the C++ worker pool
+        (``native_iterator``); the degradation stays here."""
+        if native:
+            yield from self.native_iterator(batch_size, seed, num_threads, shuffle)
+            return
         if len(self) < batch_size:
             # the drop-last epoch loop below would otherwise spin forever
             # yielding nothing
@@ -104,6 +111,36 @@ class CodeformerDataset:
                     "lq": np.stack([it["lq"] for it in items]),
                     "prompt": [it["prompt"] for it in items],
                 }
+
+    def native_iterator(self, batch_size: int, seed: int = 0, num_threads: int = 4,
+                        shuffle: bool = True):
+        """JAX's ``_as_native_iterator``: local files only, center or random
+        (zoom) crop, no augmentation; the loader's order and crops, then the
+        degradation and prompt drawn per image. Unlike JAX's, the draws are
+        reseeded from ``seed`` as the Python path's are."""
+        from .native_loader import NativeImageLoader
+
+        if self.crop_type == "none":
+            raise ValueError("native loader needs center/random crop_type")
+        loader = NativeImageLoader(
+            [m["image_path"] for m in self.image_files], batch_size, self.out_size,
+            crop="center" if self.crop_type == "center" else "random_zoom",
+            hflip=False, rot90=False, num_threads=num_threads, seed=seed, shuffle=shuffle)
+        self._rng = np.random.default_rng(seed + 1)
+        random.seed(seed + 2)
+        try:
+            while True:
+                imgs, idx = loader.next_with_idx()
+                items = [self._degrade(img) for img in imgs]
+                prompts = ["" if self._rng.uniform() < self.p_empty_prompt
+                           else self.image_files[int(j)].get("prompt", "") for j in idx]
+                yield {
+                    "gt": np.stack([it["gt"] for it in items]),
+                    "lq": np.stack([it["lq"] for it in items]),
+                    "prompt": prompts,
+                }
+        finally:
+            loader.close()
 
     def _degrade(self, img_gt: np.ndarray) -> Dict[str, np.ndarray]:
         """Two-stage synthetic degradation on one decoded uint8 RGB image."""

@@ -8,18 +8,20 @@ Gaussian noise draws from the caller's numpy generator as JAX's does; the
 JPEG round trip (``jpeg_compress_np``) is ``dataset/jpeg.py``'s
 codec-free one in place of cv2's, equal to it bit for bit.
 
-The JAX module's device-side batch functions (``add_gaussian_noise_batch``,
+Its device-side batch functions (``add_gaussian_noise_batch``,
 ``add_poisson_noise_batch``, ``filter2d_batch``, ``usm_sharp_batch``) are
-not ported: no path of the JAX package calls them.
+torch ops here, on whatever device their batch is, each drawing from an
+explicit ``torch.Generator``. No path calls them, in JAX as in the port.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.warp import filter2d
 from .jpeg import jpeg_round_trip
 
 
@@ -164,3 +166,80 @@ def jpeg_compress_np(img: np.ndarray, quality: int) -> np.ndarray:
     u8 = torch.from_numpy(np.clip(np.round(np.asarray(img, np.float32) * 255.0), 0, 255)
                           .astype(np.uint8))
     return jpeg_round_trip(u8, int(quality)).numpy().astype(np.float32) / 255.0
+
+
+# --------------------------------------------------------------------------- #
+# batched noise and filters, NHWC in [0, 1] on any device
+# --------------------------------------------------------------------------- #
+def _per_image(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, 1, 1, 1)
+
+
+def add_gaussian_noise_batch(img: torch.Tensor, sigma: torch.Tensor, gray_mask: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             draws: Optional[Mapping[str, torch.Tensor]] = None
+                             ) -> torch.Tensor:
+    """img [B, H, W, C] in [0, 1]; sigma [B] in [0, 1] units; gray_mask [B]
+    bool (one [B, H, W, 1] draw for the channels). The standard normals are
+    ``draws`` ({"rgb": [B, H, W, C], "gray": [B, H, W, 1]}) when given, else
+    drawn from ``generator`` in that order."""
+    b, h, w, c = img.shape
+    if draws is None:
+        draws = {"rgb": torch.randn(img.shape, generator=generator, device=img.device),
+                 "gray": torch.randn((b, h, w, 1), generator=generator, device=img.device)}
+    sig = _per_image(sigma.to(img.device, img.dtype))
+    noise = torch.where(_per_image(gray_mask.to(img.device)), draws["gray"].to(img) * sig,
+                        draws["rgb"].to(img) * sig)
+    return torch.clamp(img + noise, 0.0, 1.0)
+
+
+def add_poisson_noise_batch(img: torch.Tensor, scale: torch.Tensor, gray_mask: torch.Tensor,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Poisson shot noise per image at ``scale`` [B]: the counts drawn at
+    2^ceil(log2(levels)) times the image rounded to 255 levels, where levels
+    is the image's count of distinct levels (at least 2); gray_mask [B]
+    bool: one draw on the channel mean for all channels."""
+    b = img.shape[0]
+    gray = img.mean(-1, keepdim=True)
+    is_gray = _per_image(gray_mask.to(img.device))
+    src = torch.where(is_gray, gray, img)
+    levels = torch.round(src * 255.0)
+    present = torch.zeros((b, 256), device=img.device)
+    present.scatter_(1, levels.reshape(b, -1).long().clamp(0, 255), 1.0)
+    vals = _per_image(2.0 ** torch.ceil(torch.log2(present.sum(1).clamp(min=2.0))))
+    rounded = levels / 255.0
+    noise_rgb = torch.poisson(rounded * vals, generator=generator) / vals - rounded
+    rounded_g = torch.round(gray * 255.0) / 255.0
+    noise_g = torch.poisson(rounded_g * vals, generator=generator) / vals - rounded_g
+    noise = torch.where(is_gray, noise_g.expand_as(img), noise_rgb)
+    return torch.clamp(img + noise * _per_image(scale.to(img.device, img.dtype)), 0.0, 1.0)
+
+
+def filter2d_batch(img: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+    """Each image of ``img`` [B, H, W, C] correlated with its own kernel of
+    ``kernels`` [B, k, k], border reflect (``utils.warp.filter2d``)."""
+    return filter2d(img, kernels)
+
+
+def usm_kernel(radius: int = 50, device=None) -> torch.Tensor:
+    """The unsharp mask's 2-D Gaussian of ``radius`` taps (made odd) with
+    cv2.getGaussianKernel's default sigma, fp32 on ``device``."""
+    if radius % 2 == 0:
+        radius += 1
+    sigma = 0.3 * ((radius - 1) * 0.5 - 1) + 0.8
+    ax = torch.arange(radius, device=device, dtype=torch.float32) - radius // 2
+    g = torch.exp(-(ax ** 2) / (2 * sigma ** 2))
+    g = g / g.sum()
+    return torch.outer(g, g)
+
+
+def usm_sharp_batch(img: torch.Tensor, weight: float = 0.5, radius: int = 50,
+                    threshold: float = 10.0) -> torch.Tensor:
+    """Unsharp masking of [B, H, W, C] in [0, 1] with ``usm_kernel``."""
+    kernel = usm_kernel(radius, img.device)
+    kernels = kernel.expand(img.shape[0], *kernel.shape)
+    residual = img - filter2d_batch(img, kernels)
+    mask = (residual.abs() * 255.0 > threshold).to(img.dtype)
+    soft_mask = filter2d_batch(mask, kernels)
+    sharp = torch.clamp(img + weight * residual, 0.0, 1.0)
+    return soft_mask * sharp + (1 - soft_mask) * img

@@ -12,8 +12,9 @@ JAX dataset.
 
 Images are PNG, read without an image library (``load_image``; any other
 format raises ValueError naming it). File lists are text (``.parquet``
-lists raise ValueError naming the reader they need). The JAX iterator's
-``native=True`` (the C++ loader) is not ported.
+lists raise ValueError naming the reader they need). ``as_iterator(...,
+native=True)`` reads through the C++ loader (``native_loader.py``), which
+decodes any format OpenCV does.
 """
 
 from __future__ import annotations
@@ -197,9 +198,15 @@ class RealESRGANDataset:
             "txt": prompt,
         }
 
-    def as_iterator(self, batch_size: int, shuffle: bool = True, seed: int = 0):
+    def as_iterator(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                    native: bool = False, num_threads: int = 4):
         """Batches of ``batch_size`` forever (drop-last epochs, reshuffled
-        each epoch when ``shuffle``), the draws seeded from ``seed``."""
+        each epoch when ``shuffle``), the draws seeded from ``seed``.
+        ``native=True`` moves decode, crop and hflip/rot into the C++ worker
+        pool (``native_iterator``); the kernels stay in numpy."""
+        if native:
+            yield from self.native_iterator(batch_size, seed, num_threads, shuffle)
+            return
         if len(self) < batch_size:
             # the drop-last epoch loop below would otherwise spin forever
             # yielding nothing
@@ -223,6 +230,36 @@ class RealESRGANDataset:
                     "sinc_kernel": np.stack([it["sinc_kernel"] for it in items]),
                     "txt": [it["txt"] for it in items],
                 }
+
+    def native_iterator(self, batch_size: int, seed: int = 0, num_threads: int = 4,
+                        shuffle: bool = True):
+        """JAX's ``_as_native_iterator``: local files only, center or random
+        (zoom) crop; the loader's order and crops, then the kernels and
+        prompts drawn per image. Unlike JAX's, the draws are reseeded from
+        ``seed`` as the Python path's are, so a native stream repeats."""
+        from .native_loader import NativeImageLoader
+
+        if self.crop_type == "none":
+            raise ValueError("native loader needs center/random crop_type")
+        loader = NativeImageLoader(
+            [m["image_path"] for m in self.image_files], batch_size, self.out_size,
+            crop="center" if self.crop_type == "center" else "random_zoom",
+            hflip=self.use_hflip, rot90=self.use_rot,
+            num_threads=num_threads, seed=seed, shuffle=shuffle)
+        self._rng = np.random.default_rng(seed + 1)
+        random.seed(seed + 2)
+        try:
+            while True:
+                imgs, idx = loader.next_with_idx()
+                yield {
+                    "hq": imgs.astype(np.float32) / 255.0,
+                    "kernel1": np.stack([self._sample_kernel(1) for _ in idx]),
+                    "kernel2": np.stack([self._sample_kernel(2) for _ in idx]),
+                    "sinc_kernel": np.stack([self._sample_sinc() for _ in idx]),
+                    "txt": [self._prompt_for(self.image_files[int(j)]) for j in idx],
+                }
+        finally:
+            loader.close()
 
     def _prompt_for(self, meta) -> str:
         if "short_prompt" in meta:

@@ -168,7 +168,8 @@ class SwinIR(nn.Module):
                  mlp_ratio: float = 2.0, dtype=torch.float32, device=None,
                  img_size: int = 64, drop_path_rate: float = 0.0, **head):
         """``img_size`` is unused (shapes come from the input), as in JAX;
-        ``drop_path_rate`` acts in training only."""
+        ``drop_path_rate`` is accepted and unused: JAX's trainers apply
+        SwinIR with ``deterministic=True``, so no stochastic depth acts."""
         super().__init__()
         for name, value in head.items():
             if name not in self.HEAD:

@@ -1,4 +1,4 @@
-"""Stage-2 trainer core: the IRControlNet train step on one device.
+"""Stage-2 trainer core: the IRControlNet train step.
 
 Counterpart of ``diffbir_tpu/train/stage2.py`` (``make_optimizer``,
 ``init_train_state``, ``make_train_step``): the SD2.1 UNet, VAE and CLIP and
@@ -13,14 +13,10 @@ the cleaner are frozen; only the ControlNet is trained, by AdamW. One step:
   step (taken every ``accum_steps`` micro-batches, on their mean gradient, as
   ``optax.MultiSteps`` does).
 
-Mixed precision: the modules keep their weights in the compute dtype (bf16
-on the card), as serving does, and the optimizer keeps fp32 master copies of
-the ControlNet's parameters. Gradients of the bf16 weights are taken to fp32,
-the master is updated in fp32 and rounded back into the module after each
-update. That is the JAX package's arithmetic (fp32 parameters cast to bf16 at
-every use) without adding casts to the serving path, and it keeps updates
-that bf16 would lose: at lr 1e-5 an AdamW update is far below bf16's 2^-7
-spacing near 1.0.
+Mixed precision and processes: ``train/optim.py``'s ``MasterAdamW`` (fp32
+masters of the ControlNet, bf16 weights on the card; with a
+``parallel.DataParallel`` the gradients and the loss averaged over the
+processes, as the loss is a batch mean).
 """
 
 from __future__ import annotations
@@ -30,70 +26,30 @@ from typing import Callable, Dict, Iterable, Mapping, Optional
 import torch
 
 from ..models.cldm import ControlLDM
+from ..parallel.mesh import DataParallel
 from ..schedule import Schedule
+from .optim import MasterAdamW
 
 Cleaner = Callable[[torch.Tensor], torch.Tensor]
 
 
-class MasterAdamW:
-    """AdamW over fp32 master copies of ``params`` (betas 0.9/0.999, eps
-    1e-8 and weight decay 0, as the JAX trainer calls optax.adamw; torch's
-    own default decay is 0.01), with gradient accumulation over
-    ``accum_steps`` micro-batches by a running mean (optax.MultiSteps)."""
-
-    def __init__(self, params: Iterable[torch.nn.Parameter], learning_rate: float,
-                 accum_steps: int = 1):
-        if accum_steps < 1:
-            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-        self.params = list(params)
-        self.masters = [p.detach().to(torch.float32, copy=True) for p in self.params]
-        self.optimizer = torch.optim.AdamW(self.masters, lr=learning_rate, betas=(0.9, 0.999),
-                                           eps=1e-8, weight_decay=0.0)
-        self.accum_steps = accum_steps
-        self.micro_step = 0  # micro-batches accumulated since the last update
-        self.updates = 0     # AdamW updates taken
-
-    @torch.no_grad()
-    def step(self) -> bool:
-        """Fold this micro-batch's ``.grad`` (None counts as zero) into the
-        masters' mean gradient and clear it; on the last micro-batch of an
-        accumulation, update the masters and copy them into the module.
-        Returns whether the module's parameters changed."""
-        n = self.micro_step
-        for p, m in zip(self.params, self.masters):
-            g = torch.zeros_like(m) if p.grad is None else p.grad.to(torch.float32)
-            if n == 0:
-                m.grad = g
-            else:
-                m.grad += (g - m.grad) / (n + 1)
-            p.grad = None
-        self.micro_step += 1
-        if self.micro_step < self.accum_steps:
-            return False
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.micro_step = 0
-        self.updates += 1
-        for p, m in zip(self.params, self.masters):
-            p.copy_(m)
-        return True
-
-
 def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float = 1e-4,
-                   accum_steps: int = 1) -> MasterAdamW:
-    """AdamW on fp32 masters; ``accum_steps > 1`` averages that many
-    micro-batch gradients into one update."""
-    return MasterAdamW(params, learning_rate, accum_steps)
+                   accum_steps: int = 1, parallel: Optional[DataParallel] = None) -> MasterAdamW:
+    """AdamW on fp32 masters with no weight decay (the JAX trainer passes
+    0.0; torch's own default is 0.01); ``accum_steps > 1`` averages that
+    many micro-batch gradients into one update. ``parallel`` (reduce
+    "mean": the loss is a batch mean) spreads it over processes."""
+    return MasterAdamW(params, learning_rate, accum_steps, weight_decay=0.0, parallel=parallel)
 
 
-def init_train_state(cldm: ControlLDM, learning_rate: float = 1e-4,
-                     accum_steps: int = 1) -> MasterAdamW:
+def init_train_state(cldm: ControlLDM, learning_rate: float = 1e-4, accum_steps: int = 1,
+                     parallel: Optional[DataParallel] = None) -> MasterAdamW:
     """Freeze the UNet, VAE and CLIP, make the ControlNet trainable, and
     return the optimizer over the ControlNet's parameters only."""
     for frozen in (cldm.unet, cldm.vae, cldm.clip):
         frozen.requires_grad_(False)
     cldm.controlnet.requires_grad_(True)
-    return make_optimizer(cldm.controlnet.parameters(), learning_rate, accum_steps)
+    return make_optimizer(cldm.controlnet.parameters(), learning_rate, accum_steps, parallel)
 
 
 def make_loss_fn(cldm: ControlLDM, schedule: Schedule, cleaner: Optional[Cleaner] = None,
@@ -144,12 +100,6 @@ def make_loss_fn(cldm: ControlLDM, schedule: Schedule, cleaner: Optional[Cleaner
     return loss_fn
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32 (optax.global_norm)."""
-    norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]
-    return torch.linalg.vector_norm(torch.stack(norms))
-
-
 def make_train_step(cldm: ControlLDM, schedule: Schedule, optimizer: MasterAdamW,
                     cleaner: Optional[Cleaner] = None, noise_aug_timestep: int = 0):
     """Returns train_step(batch, generator=None, draws=None) -> {"loss",
@@ -162,8 +112,9 @@ def make_train_step(cldm: ControlLDM, schedule: Schedule, optimizer: MasterAdamW
                    draws: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         loss = loss_fn(batch, generator, draws)
         loss.backward()
-        gnorm = global_norm(p.grad for p in optimizer.params if p.grad is not None)
-        optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        grads = optimizer.gradients()
+        gnorm = optimizer.grad_norm(grads)
+        optimizer.step(grads)
+        return {"loss": optimizer.reduce_metric(loss.detach()), "grad_norm": gnorm}
 
     return train_step

@@ -1,4 +1,4 @@
-"""The stage-2 IRControlNet trainer, on one card:
+"""The stage-2 IRControlNet trainer:
 
     python -m diffbir_tpu_torch.train_stage2 --config <train yaml> [--device cuda|cpu]
 
@@ -23,28 +23,30 @@ Counterpart of the JAX repository's ``train_stage2.py``:
   package imports, as in JAX, and then every ``image_every`` steps the
   preview (``preview``: 50 spaced steps at CFG 1.0 on the batch's first four
   conditions, decoded).
-- Checkpoints: every ``ckpt_every`` steps the full training state
-  (``exp_dir/checkpoints/<step>.pt``: the ControlNet's fp32 masters, the
-  AdamW moments, the accumulation state, the step; the three newest kept,
-  as orbax's ``max_to_keep=3``) and the deployable
-  ``exp_dir/controlnet_<step>.pth``, the ControlNet's ``state_dict`` (fp32,
-  DiffBIR's keys) that ``--version custom --ckpt`` reads. ``train.resume:
-  <step>`` restores the full state; a loop that ends between checkpoints
-  saves a last full state.
+- Checkpoints (``train/loop.py``): every ``ckpt_every`` steps the full
+  training state (``exp_dir/checkpoints/<step>.pt``: the ControlNet's fp32
+  masters, the AdamW moments, the accumulation state, the step; the three
+  newest kept) and the deployable ``exp_dir/controlnet_<step>.pth``, the
+  ControlNet's ``state_dict`` (fp32, DiffBIR's keys) that ``--version
+  custom --ckpt`` reads. A truthy ``train.resume: <step>`` restores the
+  full state; a loop that ends between checkpoints saves a last full
+  state.
 - Precision: bf16 weights on the card, fp32 on the CPU (the tests' tiny
   runs).
-
-Not ported yet, each refused with ValueError naming the slice that ports
-it: ``train.fsdp: true`` and a multi-process environment
-(``DIFFBIR_COORDINATOR`` and the rest; ``parallel/``), and
-``train.native_loader: true`` (the native loader's binding).
+- Processes (``train/loop.py``, ``parallel/``): one a card under the
+  DIFFBIR_* (or torchrun's) environment, each with ``batch_size //
+  processes`` rows and its data and the step's draws from
+  ``process_seed(seed)``; the ControlNet's gradients and the loss averaged
+  (the loss is a batch mean); ``train.fsdp: true`` shards the masters and
+  AdamW moments; rank 0 writes the files. The preview runs in a single
+  process only, as in JAX. ``train.native_loader: true`` reads through the
+  C++ loader where it builds.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import re
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -58,31 +60,12 @@ from .pipeline import model_function
 from .sampler.spaced import SpacedSampler
 from .schedule import Schedule
 from .train import stage2
+from .parallel.distributed import process_seed
+from .train.loop import DEFAULT_SEED, TrainerBase, run_trainer, tensorboard
 from .weights.convert import load_into, load_stable_diffusion, load_torch_state_dict
 
 PREVIEW_STEPS = 50
 PREVIEW_IMAGES = 4
-KEEP_CHECKPOINTS = 3
-DISTRIBUTED_ENV = ("DIFFBIR_COORDINATOR", "DIFFBIR_NUM_PROCESSES", "DIFFBIR_PROCESS_ID",
-                   "DIFFBIR_AUTO_DISTRIBUTED")
-
-
-def check_supported(tcfg: Dict) -> None:
-    """Refuse, naming it, what this slice does not port."""
-    if tcfg.get("fsdp"):
-        raise ValueError("train.fsdp: true: sharded training state (parallel/) is not ported "
-                         "yet; the next slice ports parallel/ (DDP). Train on one card "
-                         "without it")
-    if tcfg.get("native_loader"):
-        raise ValueError("train.native_loader: true: the native C++ loader's binding is not "
-                         "ported yet (a later slice); the Python data pipeline runs without it")
-    set_env = [k for k in DISTRIBUTED_ENV if os.environ.get(k)]
-    if set_env:
-        raise ValueError(f"{', '.join(set_env)} set: multi-process training (parallel/) is not "
-                         "ported yet; the next slice ports parallel/ (DDP). This trainer runs "
-                         "one process on one card")
-
-
 @torch.no_grad()
 def preview(cldm: ControlLDM, schedule: Schedule, clean: torch.Tensor, tokens: torch.Tensor,
             generator: torch.Generator, steps: int = PREVIEW_STEPS) -> torch.Tensor:
@@ -96,45 +79,25 @@ def preview(cldm: ControlLDM, schedule: Schedule, clean: torch.Tensor, tokens: t
     return ((cldm.vae_decode(z).float() + 1) / 2).clamp(0.0, 1.0)
 
 
-def _tensorboard(exp_dir: str):
-    try:
-        from tensorboardX import SummaryWriter
-    except ImportError:
-        return None
-    return SummaryWriter(os.path.join(exp_dir, "tb"))
-
-
-class Stage2Trainer:
+class Stage2Trainer(TrainerBase):
     """The trainer's state and loop; ``main`` builds one and runs it.
     ``cldm_factory`` builds the ControlLDM (``ControlLDM.sd21``; the
     tests pass the tiny config)."""
 
+    REDUCE = "mean"
+
     def __init__(self, cfg: Dict, device="cuda",
                  cldm_factory: Callable[..., ControlLDM] = ControlLDM.sd21):
-        self.cfg, self.tcfg = cfg, cfg["train"]
-        check_supported(self.tcfg)
-        self.device = torch.device(device)
-        self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        self.exp_dir = self.tcfg["exp_dir"]
-        self.ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        super().__init__(cfg, device)
         self._build_models(cldm_factory)
+        self.replicate_(self.cldm.controlnet)
         self.optimizer = stage2.init_train_state(self.cldm, float(self.tcfg["learning_rate"]),
-                                                 int(self.tcfg.get("accum_steps", 1)))
+                                                 int(self.tcfg.get("accum_steps", 1)),
+                                                 self.parallel)
         self.train_step = stage2.make_train_step(
             self.cldm, self.schedule, self.optimizer, self.cleaner,
             noise_aug_timestep=int(self.tcfg.get("noise_aug_timestep", 0)))
-        self.step = 0
-        if self.tcfg.get("resume") is not None:
-            self.restore(int(self.tcfg["resume"]))
-            print(f"resumed @ {self.step}", flush=True)
-        # host seconds per step: waiting on the data, the whole step without
-        # its checkpoint (it ends in a device sync where the step logs: the
-        # loss is read), and the checkpoints' saves
-        self.wait_seconds: List[float] = []
-        self.step_seconds: List[float] = []
-        self.save_seconds: List[float] = []
-        self.losses: List[float] = []
+        self.maybe_resume()
 
     def _build_models(self, cldm_factory) -> None:
         mcfg, tcfg = self.cfg["model"], self.tcfg
@@ -163,68 +126,27 @@ class Stage2Trainer:
         return self.swinir(lq).clamp(0.0, 1.0)
 
     # ------------------------------------------------------------------ #
-    def checkpoint_path(self, step: int) -> str:
-        return os.path.join(self.ckpt_dir, f"{step}.pt")
-
-    def saved_steps(self) -> List[int]:
-        return sorted(int(m.group(1)) for m in
-                      (re.fullmatch(r"(\d+)\.pt", n) for n in os.listdir(self.ckpt_dir)) if m)
-
-    def state(self) -> Dict:
-        """The full training state, on the host."""
-        opt = self.optimizer
-        return {"step": self.step,
-                "masters": [m.detach().cpu() for m in opt.masters],
-                "optimizer": opt.optimizer.state_dict(),
-                "micro_step": opt.micro_step, "updates": opt.updates,
-                "accum": [None if m.grad is None else m.grad.detach().cpu()
-                          for m in opt.masters]}
-
-    def save(self) -> None:
-        """The full state under ``checkpoints/`` (three newest kept)."""
-        path = self.checkpoint_path(self.step)
-        torch.save(self.state(), path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in self.saved_steps()[:-KEEP_CHECKPOINTS]:
-            os.remove(self.checkpoint_path(old))
-
     def save_deployable(self) -> str:
         """``controlnet_<step>.pth``: the ControlNet's state_dict with its
-        parameters from the fp32 masters."""
-        sd = {k: v.detach().cpu() for k, v in self.cldm.controlnet.state_dict().items()}
-        for (name, _), m in zip(self.cldm.controlnet.named_parameters(), self.optimizer.masters):
-            sd[name] = m.detach().cpu()
+        parameters from the fp32 masters (every process gathers, rank 0
+        writes)."""
+        masters = self.optimizer.full_masters()
         path = os.path.join(self.exp_dir, f"controlnet_{self.step}.pth")
-        torch.save(sd, path)
+        if self.main:
+            sd = {k: v.detach().cpu() for k, v in self.cldm.controlnet.state_dict().items()}
+            for (name, _), m in zip(self.cldm.controlnet.named_parameters(), masters):
+                sd[name] = m.detach().cpu()
+            torch.save(sd, path)
         return path
-
-    @torch.no_grad()
-    def restore(self, step: int) -> None:
-        path = self.checkpoint_path(step)
-        if not os.path.isfile(path):
-            raise FileNotFoundError(f"train.resume: {step}: no checkpoint {path} (saved: "
-                                    f"{self.saved_steps() or 'none'})")
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        opt = self.optimizer
-        for m, p, saved in zip(opt.masters, opt.params, state["masters"]):
-            m.copy_(saved)
-            p.copy_(m)
-        for m, g in zip(opt.masters, state["accum"]):
-            m.grad = None if g is None else g.to(m.device)
-        opt.optimizer.load_state_dict(state["optimizer"])
-        opt.micro_step, opt.updates = state["micro_step"], state["updates"]
-        self.step = int(state["step"])
 
     # ------------------------------------------------------------------ #
     def data(self):
         """The prefetching iterator of transformed batches on the device."""
         from . import dataset  # noqa: F401  (the registry names)
-        from .dataset.prefetch import PrefetchIterator, to_device
 
         ds = cfglib.instantiate(self.cfg["dataset"]["train"])
         bt = cfglib.instantiate(self.cfg["batch_transform"])
-        src = ds.as_iterator(int(self.tcfg["batch_size"]), seed=int(self.tcfg.get("seed", 231)))
-        return PrefetchIterator(src, transform=bt, device_put=to_device(self.device))
+        return self.batches(ds, transform=bt)
 
     def tokens(self, batch) -> torch.Tensor:
         from .models.tokenizer import get_tokenizer
@@ -234,16 +156,18 @@ class Stage2Trainer:
 
     def run(self) -> "Stage2Trainer":
         tcfg = self.tcfg
-        bs, log_every = int(tcfg["batch_size"]), int(tcfg["log_every"])
-        writer = _tensorboard(self.exp_dir)
-        gen = torch.Generator(device=self.device).manual_seed(int(tcfg.get("seed", 231)))
+        bs, log_every = self.batch_size, int(tcfg["log_every"])
+        writer = tensorboard(self.exp_dir) if self.main else None
+        # the step's draws (posterior, t, noise) for this process's rows:
+        # per process, as its data, so the processes' rows differ
+        gen = torch.Generator(device=self.device).manual_seed(
+            process_seed(int(tcfg.get("seed", DEFAULT_SEED))))
         it = self.data()
         try:
             t0 = time.perf_counter()
             while self.step < int(tcfg["train_steps"]):
                 t_step = time.perf_counter()
-                batch = next(it)
-                self.wait_seconds.append(time.perf_counter() - t_step)
+                batch = self.next_batch(it)
                 dev_batch = {"gt": batch["gt"], "lq": batch["lq"], "tokens": self.tokens(batch)}
                 metrics = self.train_step(dev_batch, gen)
                 self.step += 1
@@ -252,12 +176,12 @@ class Stage2Trainer:
                     self.losses.append(loss)
                     ips = log_every * bs / (time.perf_counter() - t0)
                     t0 = time.perf_counter()
-                    print(f"step {self.step}: loss={loss:.4f} "
-                          f"grad={float(metrics['grad_norm']):.3f} images/s={ips:.1f}",
-                          flush=True)
+                    self.log(f"step {self.step}: loss={loss:.4f} "
+                             f"grad={float(metrics['grad_norm']):.3f} images/s={ips:.1f}")
                     if writer:
                         writer.add_scalar("train/loss", loss, self.step)
-                if writer and self.step % int(tcfg.get("image_every", 1000)) == 0:
+                if (writer and self.n_data == 1
+                        and self.step % int(tcfg.get("image_every", 1000)) == 0):
                     n = min(PREVIEW_IMAGES, bs)
                     lq = dev_batch["lq"][:n]
                     grid = preview(self.cldm, self.schedule, self.cleaner(lq),
@@ -272,18 +196,17 @@ class Stage2Trainer:
                     self.save()
                     self.save_deployable()
                     self.save_seconds.append(time.perf_counter() - t_save)
-                    print(f"saved checkpoints @ {self.step}", flush=True)
+                    self.log(f"saved checkpoints @ {self.step}")
         finally:
             it.close()
             if writer:
                 writer.close()
-        if self.step not in self.saved_steps():
-            self.save()
+        self.save_last()
         return self
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="Stage-2 IRControlNet training (one card)")
+    p = argparse.ArgumentParser(description="Stage-2 IRControlNet training")
     p.add_argument("--config", required=True, help="a stage-2 train config (YAML)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)
@@ -292,11 +215,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None,
          cldm_factory: Callable[..., ControlLDM] = ControlLDM.sd21) -> Stage2Trainer:
     args = parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to "
-                           "train on the CPU)")
     cfg = cfglib.load_yaml(args.config)
-    return Stage2Trainer(cfg, args.device, cldm_factory).run()
+    return run_trainer(lambda: Stage2Trainer(cfg, args.device, cldm_factory), args.device)
 
 
 if __name__ == "__main__":

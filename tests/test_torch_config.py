@@ -99,8 +99,9 @@ def test_resolve_refuses_other_roots_and_names_unported_modules():
             config.resolve(target)
     with pytest.raises(KeyError, match="unknown registry name"):
         config.resolve("no_such_name")
-    with pytest.raises(NotImplementedError, match="diffbir_tpu_torch.parallel.fsdp"):
-        config.resolve("diffbir_tpu.parallel.fsdp.fsdp_shard_params")
+    # parallel/tp.py is one of the JAX package's modules the port lacks
+    with pytest.raises(NotImplementedError, match="diffbir_tpu_torch.parallel.tp"):
+        config.resolve("diffbir_tpu.parallel.tp.tp_shard_params")
 
 
 def test_registered_short_names_stay_short(monkeypatch):

@@ -11,9 +11,11 @@ the ``log_every`` lines, the checkpoint files and the three newest kept;
 bit, then training on; ``controlnet_<step>.pth`` loading with
 ``load_state_dict(strict=True)`` into the custom loop's ControlNet and
 holding the masters; the ControlNet initialised from the UNet (other
-tensors zero), the frozen models unchanged; the preview; and the refusals
-(``fsdp``, ``native_loader``, a multi-process environment, a ``.parquet``
-list, a missing checkpoint to resume).
+tensors zero), the frozen models unchanged; the preview; ``resume: 0``
+training from step 0, as JAX's truthy test does; ``fsdp`` and
+``native_loader``, once refused, now training; and the refusals (an
+incomplete multi-process environment, a ``.parquet`` list, a missing
+checkpoint to resume). Several processes: ``test_torch_parallel.py``.
 """
 
 import os
@@ -245,17 +247,56 @@ def test_preview(trained):
     assert 0 <= float(out.min()) and float(out.max()) <= 1
 
 
+def crop_center(cfg_path):
+    with open(cfg_path) as f:
+        text = f.read()
+    with open(cfg_path, "w") as f:
+        f.write(text.replace("crop_type: none", "crop_type: center"))
+    return cfg_path
+
+
 @pytest.mark.parametrize("extra,match", [("  fsdp: true\n", "train.fsdp"),
                                          ("  native_loader: true\n", "native_loader")])
-def test_unported_options_raise(files, tmp_path, env, extra, match):
-    with pytest.raises(ValueError, match=match):
-        run(write_config(files, tmp_path / "exp", extra=extra))
+def test_unported_options_raise(files, tmp_path, env, extra, match, capsys):
+    """The two options this trainer once refused now train. ``train.fsdp``
+    in one process: fsdp_spec's rule replicates every leaf, so the
+    optimiser state is the plain one. ``train.native_loader``: the PNGs through
+    the C++ loader where it builds (center crop: JAX's native path refuses
+    crop_type none), else JAX's fallback line and the Python path."""
+    cfg = write_config(files, tmp_path / "exp", extra=extra)
+    if match == "native_loader":
+        crop_center(cfg)
+    trainer = run(cfg)
+    assert trainer.step == 4 and all(np.isfinite(trainer.losses))
+    if match == "train.fsdp":
+        assert trainer.parallel.fsdp and all(d is None for d in trainer.optimizer.dims)
+    else:
+        assert "native C++ data loader: " in capsys.readouterr().out
+
+
+def test_native_loader_needs_a_crop(files, tmp_path, env):
+    from diffbir_tpu_torch.dataset.native_loader import native_available
+
+    if not native_available():
+        pytest.skip("the native loader does not build here")
+    with pytest.raises(ValueError, match="crop_type"):
+        run(write_config(files, tmp_path / "exp", extra="  native_loader: true\n"))
 
 
 def test_multi_process_environment_raises(files, tmp_path, env, monkeypatch):
+    """An incomplete launch environment (the coordinator without the count
+    and the rank) raises, naming it."""
     monkeypatch.setenv("DIFFBIR_COORDINATOR", "localhost:1234")
     with pytest.raises(ValueError, match="DIFFBIR_COORDINATOR"):
         run(write_config(files, tmp_path / "exp"))
+
+
+def test_resume_zero_trains_from_step_zero(files, tmp_path, env):
+    """``resume: 0`` is falsy: JAX's ``if tcfg.get("resume")`` starts fresh
+    (the port once looked for ``0.pt`` and raised)."""
+    trainer = run(write_config(files, tmp_path / "exp", steps=2, resume=0))
+    assert trainer.step == 2 and len(trainer.losses) == 2
+    assert sorted(os.listdir(tmp_path / "exp" / "checkpoints")) == ["1.pt", "2.pt"]
 
 
 def test_parquet_list_and_missing_resume_raise(files, tmp_path, env):
