@@ -246,7 +246,32 @@ Phases (any failure exits non-zero before the last line is printed):
      launches of any kernel of the port. [degrade_batch]: diff_jpeg and the
      batch noise and filter functions at batch 8, 512x512, on the card
      against the CPU (a transposed quantisation table must fail), ms a
-     batch. Each phase group's seconds print as "[clock]" lines.
+     batch.
+ 13. multi-process inference (``parallel/inference.py``, ``parallel/tp.py``)
+     on the full-width SD2.1 ControlLDM in bf16, random from seed 0.
+     [parallel_inference]: two processes on this card (gloo: nccl refuses
+     two ranks on one device; the DIFFBIR_* launch contract), rank 1 built
+     from seed 1 until the broadcast of (d) gives it rank 0's weights; the
+     parent computes one process's run of each case on the same weights and
+     inputs, and its spread: (a) the spatial-parallel denoiser on a 128x128
+     latent (the 1024x1024 request's; the condition ramped along H), one
+     64-row band a process, against the unsharded forward; (b) the
+     tensor-parallel denoiser (tp_shard_, hoisted tables made after it) at
+     batch 2 on 64x64 against the plain hoisted forward; (c)
+     make_tile_sharded_fn over the tiled 1024x1024 request's 9 diffusion
+     tiles (pipeline.tile_model_function, 5 a process, one padded) against
+     make_tiled_fn; (d) batch_parallel on two CLI-size requests (128x128
+     LQs pre-upscaled to 512x512, 10 steps of edm_dpm++_3m_sde, CFG 6.0),
+     one a process, against one process on both rows. Each within PAR_TOL x
+     max|ref| (each limit above its spread); three planted faults (SP with
+     zeroed halos, SP with GroupNorm statistics kept local, TP without the
+     row layers' all-reduce) must fail them; exact launches per process and
+     K1's shapes (under SP at Sq != Skv), none on another entry; per-process
+     seconds and peak memory, marked as two processes sharing one card.
+     [parallel_nccl]: the same four APIs at world size 1 on nccl in this
+     process, bit-equal to the plain runs where the code path is the same
+     (TP, both tile APIs, the request) and (a) within its limit.
+Each phase group's seconds print as "[clock]" lines.
 The second-to-last line is a JSON list of the kernels, every "ms" and
 "library_ms" the median of single host calls timed by CUDA events (K1_wide's
 at [1,16384,1,512], the untiled 1024x1024 VAE's mid-block); K4-K7
@@ -334,7 +359,7 @@ TRAIN_IMAGES, TRAIN_QUEUE, TRAIN_CLI_STEPS, TRAIN_CKPT_EVERY, PREVIEW_N = 16, 16
 # then TRAIN_STEADY_STEPS more steps with no checkpoint inside, to read the
 # loop's waits on the data in its steady state; [train_data]'s transform
 # seconds, read beside them
-TRAIN_STEADY_STEPS = 10
+TRAIN_STEADY_STEPS = 5
 TRAIN_DATA_S = []
 # [train_ddp]: the stage-2 trainer under the multi-process environment
 # (nccl, one process) for DDP_STEPS steps with fsdp off and on, each step on
@@ -355,7 +380,7 @@ TRAIN_CLI_BATCHES, TRAIN_CLI_RUN = [], {}
 STAGE1_ROOT = os.path.join("build", "train_stage1")
 STAGE1_BATCHES = (96, 64, 48, 40, 32, 24, 16, 8)
 STAGE1_MEMORY_SHARE = 0.9
-STAGE1_WARMUP, STAGE1_TIMED, STAGE1_VAL = 2, 4, 2
+STAGE1_WARMUP, STAGE1_TIMED, STAGE1_VAL = 2, 2, 2
 # [train_native]: the codeformer dataset at batch NATIVE_BATCH, NATIVE_BATCHES
 # batches through each path
 NATIVE_BATCH, NATIVE_BATCHES = 8, 2
@@ -741,6 +766,21 @@ def phase_device():
 # name -> CudaKernel of every kernel the port has, filled by main() once the
 # port is imported
 KERNELS = {}
+
+
+def fill_kernels() -> None:
+    from diffbir_tpu_torch.ops import flash_attention as fa
+    from diffbir_tpu_torch.ops import fused_ffn as ff
+    from diffbir_tpu_torch.ops import fused_resblock as fr
+    from diffbir_tpu_torch.ops import quant_matmul as qm
+
+    KERNELS.update(K1=fa.KERNEL_TC, K1_wide=fa.KERNEL_WIDE_TC, K1_cc=fa.KERNEL,
+                   K2a=fa.KERNEL_DQ_TC,
+                   K2b=fa.KERNEL_DKV_TC, K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV,
+                   K3=fa.KERNEL_PRESCALED_TC, K3_cc=fa.KERNEL_PRESCALED, K4=qm.KERNEL_TC,
+                   K4_gemv=qm.KERNEL_GEMV, K4_cc=qm.KERNEL, K5=qm.KERNEL_INT4_TC,
+                   K5_gemv=qm.KERNEL_INT4_GEMV, K5_cc=qm.KERNEL_INT4, K6=fr.KERNEL_TC,
+                   K6_cc=fr.KERNEL, K7=ff.KERNEL_TC, K7_cc=ff.KERNEL)
 
 
 def phase_build():
@@ -1311,7 +1351,7 @@ def d512_kernels(fa, q, k, v, g, library_ms: float, iters: int) -> dict:
     return out
 
 
-def build_models():
+def build_models(seed: int = 0):
     import torch
 
     from diffbir_tpu_torch.models.cldm import ControlLDM
@@ -1319,7 +1359,7 @@ def build_models():
     from diffbir_tpu_torch.models.swinir import SwinIR
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     cldm = ControlLDM.sd21(dtype=torch.bfloat16, device="meta").to_empty(device="cuda")
     random_init_(cldm, gen).eval()
     swinir = SwinIR(dtype=torch.bfloat16, device="meta").to_empty(device="cuda")
@@ -1328,7 +1368,7 @@ def build_models():
     n = sum(p.numel() for p in cldm.parameters())
     ns = sum(p.numel() for p in swinir.parameters())
     print(f"[models] sd21 ControlLDM {n / 1e6:.1f} M params, SwinIR {ns / 1e6:.2f} M, "
-          f"bf16, random from seed 0, built in "
+          f"bf16, random from seed {seed}, built in "
           f"{time.perf_counter() - t0:.2f} s")
     return cldm, swinir
 
@@ -4846,6 +4886,496 @@ def phase_degrade_batch() -> dict:
     return {k: 0 for k in KERNELS}
 
 
+# --------------------------------------------------------------------------- #
+# [parallel_inference], [parallel_nccl]: parallel/inference.py and tp.py
+# --------------------------------------------------------------------------- #
+# PAR_WORLD processes on this card over gloo (nccl refuses two ranks on one
+# device; gloo stages CUDA tensors through the host), the DIFFBIR_* launch
+# contract, each done within PAR_TIMEOUT s. Inputs and outputs pass through
+# PAR_ROOT. (a) SP: the denoiser on PAR_SP_HW^2 (the 1024x1024 request's
+# latent), one band a process; (b) TP: the hoisted denoiser at batch 2 on
+# PAR_TP_HW^2 (the 512x512 request's, cond and uncond rows); (c) the tiled
+# 1024x1024 request's 9 diffusion tiles (PAR_TILE at PAR_STRIDE), 5 a
+# process, one of them padded; (d) two CLI-size requests (128x128 LQs
+# pre-upscaled x4 to 512x512, CLI_STEPS of edm_dpm++_3m_sde at PAR_CFG, the
+# default prompts through the stand-in tokenizer), one a process.
+PAR_WORLD, PAR_TIMEOUT = 2, 300
+PAR_ROOT = os.path.join("build", "parallel_inference")
+PAR_SP_HW, PAR_TP_HW = TILED_SIZE // 8, SIZE // 8
+PAR_TILE, PAR_STRIDE = 64, 32
+PAR_CFG, PAR_T, PAR_SEED = 6.0, 500.0, 17
+# (a)'s condition latent ramps from +PAR_RAMP at the top row to -PAR_RAMP at
+# the bottom one, as a photo's sky and ground differ: with i.i.d. inputs the
+# two bands' GroupNorm statistics agree to ~1 % and a band that kept its own
+# would hide in bf16's rounding
+PAR_RAMP = 2.0
+# Limits x max|ref|, each set from the port's own bf16 rounding-order spread
+# on the same weights and inputs in one process (printed beside every
+# reading): (a) the forward as row 1 of a batch of 2, (b) its rows swapped,
+# (c) the tiles 3 a call instead of 1, (d) the two requests with their rows
+# swapped. cuDNN's bf16 convolutions round a row by its batch position and
+# batch size, and the processes sum band statistics, partial products and
+# canvases in another order. Measured on an H100 80GB HBM3 at 700 W: the
+# spreads 1.15e-2-1.33e-2 for (a)-(c) and 5.1e-2 for (d) (13 of 255); the
+# two processes 1.3e-2-1.5e-2 and 4.7e-2; (a) at one process on nccl 2.8e-2.
+# The limits are ~5x the spreads; the planted faults read 2.3-8.8x them.
+PAR_TOL = {"sp": 4 * BF16_TOL, "tp": 4 * BF16_TOL, "tiles": 4 * BF16_TOL, "batch": 0.25}
+
+
+def par_k1_shapes(kind: str) -> dict:
+    """(q shape, k shape) -> launches of K1 in one process's model call of
+    ``kind``: "sp" (the bands of PAR_SP_HW^2 against every band's k/v),
+    "tp" (batch 2 at PAR_TP_HW^2, a level's heads split where they
+    divide), "tiles" (5 tiles of PAR_TILE^2)."""
+    from collections import Counter
+
+    out = Counter()
+    for tokens, width, sites in LEVELS:
+        heads = width // 64
+        if kind == "sp":
+            s = tokens * (PAR_SP_HW // 64) ** 2
+            out[((1, s // PAR_WORLD, heads, 64), (1, s, heads, 64))] += sites
+        elif kind == "tp":
+            h = heads // PAR_WORLD if heads % PAR_WORLD == 0 else heads
+            s = tokens * (PAR_TP_HW // 64) ** 2
+            out[((2, s, h, 64), (2, s, h, 64))] += sites
+        else:
+            per = -(-CLDM_TILES // PAR_WORLD)
+            s = tokens * (PAR_TILE // 64) ** 2
+            out[((per, s, heads, 64), (per, s, heads, 64))] += sites
+    return dict(out)
+
+
+def par_request(pipe, rows):
+    """The CLI-size request of [parallel_inference] (d) on ``rows``."""
+    from diffbir_tpu_torch.profile_step import NEG_PROMPT, POS_PROMPT
+
+    return pipe.run(rows["lq"], steps=CLI_STEPS, cfg_scale=PAR_CFG,
+                    sampler_type="edm_dpm++_3m_sde", pos_prompt=POS_PROMPT,
+                    neg_prompt=NEG_PROMPT, x_T=rows["x_T"], noise_table=rows["noise"])
+
+
+def par_swapped(tree: dict, axes: dict = None) -> dict:
+    """The two rows of every entry of ``tree`` swapped (along ``axes``)."""
+    axes = axes or {}
+    return {k: v[:, [1, 0]] if axes.get(k) == 1 else v[[1, 0]] for k, v in tree.items()}
+
+
+def par_cuda(tree: dict) -> dict:
+    return {k: v.cuda() if hasattr(v, "cuda") else v for k, v in tree.items()}
+
+
+def par_sp_call(cldm, sp: dict):
+    """(a): the spatial-parallel denoiser on this process's bands of the
+    inputs, gathered."""
+    from diffbir_tpu_torch.parallel import inference
+
+    fn = inference.spatial_parallel(cldm)
+    cond = {"c_txt": sp["c_txt"], "c_img": inference.spatial_shard(sp["c_img"])}
+    return inference.gather(fn(inference.spatial_shard(sp["x"]), sp["t"], cond)).float()
+
+
+def par_tiles_call(cldm, sp: dict, sharded: bool, per: int = 1):
+    """(c): the 9 tiles of the tiled request's diffusion model call over
+    the SP inputs, tile-sharded or (``sharded`` False) by make_tiled_fn at
+    ``per`` tiles a call."""
+    from diffbir_tpu_torch import pipeline, tiling
+    from diffbir_tpu_torch.parallel import inference
+
+    fn = pipeline.tile_model_function(cldm, 1.0, PAR_TILE)
+    tiled = (inference.make_tile_sharded_fn(fn, PAR_TILE, PAR_STRIDE, channel=4) if sharded
+             else tiling.make_tiled_fn(fn, PAR_TILE, PAR_STRIDE, channel=4, tiles_per_batch=per))
+    return tiled(sp["x"], PAR_T, {"c_txt": sp["c_txt"], "c_img": sp["c_img"]})
+
+
+def par_tp_call(cldm, d: dict, tables=None):
+    """(b): the denoiser through its hoisted tables (made now unless given)."""
+    from diffbir_tpu_torch.pipeline import model_function
+
+    if tables is None:
+        tables = cldm.make_hoist_tables(d["c_txt"], d["grid"])
+    return model_function(cldm, 1.0, tables)(
+        d["x"], d["t"], {"c_txt": d["c_txt"], "c_img": d["c_img"]}).float()
+
+
+def par_zero_halos(x, group, below):
+    zero = x.new_zeros(x[:, :, :1].shape)
+    return zero, zero if below else None
+
+
+def par_local_moments(xf, group):
+    axes = tuple(range(2, xf.dim()))
+    mean = xf.mean(dim=axes, keepdim=True)
+    return mean, ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+
+
+@contextlib.contextmanager
+def par_planted(module, name: str, fault):
+    """``module.name`` replaced by ``fault`` while in this context."""
+    real = getattr(module, name)
+    setattr(module, name, fault)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def parallel_worker(rank: int, port: int) -> None:
+    """One process of [parallel_inference]: the DIFFBIR_* launch contract on
+    127.0.0.1:``port``, gloo on this card; the four runs on the inputs of
+    PAR_ROOT/inputs.pt, each with its launches, K1's shapes, seconds and
+    peak memory, then the planted faults; the results to
+    PAR_ROOT/rank<rank>.pt. Rank 1 builds its models from another seed:
+    (d)'s broadcast makes them rank 0's, which the later runs use."""
+    from collections import Counter
+
+    import torch
+
+    from diffbir_tpu_torch.ops import flash_attention as fa
+    from diffbir_tpu_torch.parallel import distributed, inference, tp
+    from diffbir_tpu_torch.pipeline import SwinIRPipeline
+    from diffbir_tpu_torch.profile_step import stand_in_tokenizer
+    from diffbir_tpu_torch.schedule import Schedule
+
+    os.environ.update(DIFFBIR_COORDINATOR=f"127.0.0.1:{port}",
+                      DIFFBIR_NUM_PROCESSES=str(PAR_WORLD), DIFFBIR_PROCESS_ID=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fill_kernels()
+    check(distributed.maybe_initialize_distributed("cuda", backend="gloo"),
+          "[parallel_inference] no process group from the launch environment")
+    shapes = Counter()
+    launch_fwd = fa.launch_fwd
+
+    def recording_launch(kernel, q, k, v, with_lse=False):
+        shapes.update([(tuple(q.shape), tuple(k.shape))])
+        return launch_fwd(kernel, q, k, v, with_lse)
+
+    fa.launch_fwd = recording_launch
+    out = {}
+
+    def run(name: str, fn):
+        reset_counts()
+        shapes.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0,
+                     "peak": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": {k: n for k, n in counts().items() if n},
+                     "shapes": dict(shapes)}
+        return res
+
+    try:
+        inp = torch.load(os.path.join(PAR_ROOT, "inputs.pt"), weights_only=False)
+        sp, tpd = par_cuda(inp["sp"]), par_cuda(inp["tp"])
+        cldm, swinir = build_models(seed=rank)
+        both = torch.nn.ModuleList([cldm, swinir])
+        rows = run("broadcast", lambda: inference.shard_for_batch_parallel(
+            both, par_cuda(inp["batch"]), batch_axes={"noise": 1})[1])
+        pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), torch.device("cuda"),
+                              tokenizer=stand_in_tokenizer())
+        out["batch_out"] = run("batch", lambda: inference.batch_parallel(
+            lambda r: par_request(pipe, r))(rows))
+        with torch.no_grad():
+            out["sp_out"] = run("sp", lambda: par_sp_call(cldm, sp)).cpu()
+            with par_planted(inference, "_halo_rows", par_zero_halos):
+                out["sp_zero_halos"] = par_sp_call(cldm, sp).cpu()
+            with par_planted(inference, "_band_moments", par_local_moments):
+                out["sp_local_gn"] = par_sp_call(cldm, sp).cpu()
+            out["tiles_out"] = run("tiles", lambda: par_tiles_call(cldm, sp, True)).cpu()
+            run("tp_shard", lambda: tp.tp_shard_(cldm))
+            out["tp_out"] = run("tp", lambda: par_tp_call(cldm, tpd)).cpu()
+            with par_planted(tp, "_reduce_partial", lambda t, group: t):
+                out["tp_no_reduce"] = par_tp_call(cldm, tpd).cpu()
+        out["tp_weights"] = sum(p.numel() for p in cldm.parameters())
+        torch.save(out, os.path.join(PAR_ROOT, f"rank{rank}.pt"))
+    finally:
+        fa.launch_fwd = launch_fwd
+        distributed.shutdown_distributed()
+
+
+def par_spawn() -> None:
+    """PAR_WORLD parallel_worker processes; each must exit 0 within
+    PAR_TIMEOUT s, else every one is killed and the phase fails."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=parallel_worker, args=(r, port)) for r in range(PAR_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    check(not alive, f"[parallel_inference] {len(alive)} of {PAR_WORLD} processes not done "
+                     f"in {PAR_TIMEOUT} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * PAR_WORLD, f"[parallel_inference] the processes exited {codes}")
+
+
+def spread(label: str, out, ref) -> float:
+    """max |out - ref| / max |ref|: the rounding-order spread of one
+    process's run, printed."""
+    rel = (out.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+    print(f"[parallel_inference] spread of {label}: {rel:.3e} x max|ref|")
+    return rel
+
+
+def par_k1_bands() -> None:
+    """K1 at the SP bands' shapes (q one band, k and v every band's): one
+    launch of K1 each, o against the plain version (BF16_TOL x max|ref|),
+    median ms of K1, the plain version and SDPA beside the bound."""
+    import torch
+
+    from diffbir_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    for ((b, sq, h, d), (_, skv, _, _)), sites in par_k1_shapes("sp").items():
+        q, k, v = qkv_case(gen, (b, sq, skv, h, d), torch.bfloat16)
+        before = counts()
+        o = fa.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        n = launched_since(before)
+        check(n == {"K1": 1}, f"[parallel_inference] K1 at a band shape launched {n}")
+        label = f"[parallel_inference] K1 {b}x{sq}x{h}x{d} vs {skv} kv rows bf16"
+        err = hold(label, o, fa.flash_attention_ref(q, k, v), BF16_TOL)
+        ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v), 10)
+        plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v), 5)
+        lib_ms = median_ms(lambda: sdpa_fwd(q, k, v), 10)
+        bms, by = bound_ms(2, b, h, sq, skv, d, torch.bfloat16, nbytes(q, k, v, o))
+        print(f"{label} (the SP band, {sites} sites a call): max_abs_err {err:.3e}; "
+              f"{card()} K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+
+
+def parallel_references() -> dict:
+    """The parent's models (seed 0), the inputs of the four runs (saved to
+    PAR_ROOT/inputs.pt), one process's results on them and their spreads."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.pipeline import SwinIRPipeline, build_sampler
+    from diffbir_tpu_torch.profile_step import NEG_PROMPT, POS_PROMPT, stand_in_tokenizer
+    from diffbir_tpu_torch.schedule import Schedule
+    from diffbir_tpu_torch.utils.common import pil_bicubic_resize
+
+    t0 = time.perf_counter()
+    cldm, swinir = build_models()
+    pipe = SwinIRPipeline(swinir, cldm, Schedule.v21(), torch.device("cuda"),
+                          tokenizer=stand_in_tokenizer())
+    gen = torch.Generator().manual_seed(PAR_SEED)
+    with torch.no_grad():
+        c_txt = torch.cat([cldm.encode_text(pipe.tokenize(p, 1))
+                           for p in (POS_PROMPT, NEG_PROMPT)]).cpu()
+    hw, thw = PAR_SP_HW, PAR_TP_HW
+    ramp = torch.linspace(PAR_RAMP, -PAR_RAMP, hw)[None, :, None, None]
+    sp = {"x": torch.randn(1, hw, hw, 4, generator=gen),
+          "c_img": torch.randn(1, hw, hw, 4, generator=gen) + ramp,
+          "c_txt": c_txt[:1], "t": torch.tensor([PAR_T])}
+    grid = build_sampler("edm_dpm++_3m_sde", Schedule.v21(), False).model_ts(CLI_STEPS)
+    tpd = {"x": torch.randn(2, thw, thw, 4, generator=gen),
+           "c_img": torch.randn(2, thw, thw, 4, generator=gen), "c_txt": c_txt,
+           "t": float(grid[CLI_STEPS // 2]), "grid": grid}
+    lq = np.random.default_rng(PAR_SEED).integers(0, 256, (2, CLI_LQ, CLI_LQ, 3), dtype=np.uint8)
+    lat = CLI_LQ * CLI_UPSCALE // 8
+    batch = {"lq": np.stack([pil_bicubic_resize(torch.from_numpy(im), (SIZE, SIZE)).numpy()
+                            for im in lq]),
+             "x_T": torch.randn(2, lat, lat, 4, generator=gen),
+             "noise": torch.randn(CLI_STEPS, 2, lat, lat, 4, generator=gen)}
+    os.makedirs(PAR_ROOT, exist_ok=True)
+    for r in range(PAR_WORLD):  # no result of an earlier run is read
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(PAR_ROOT, f"rank{r}.pt"))
+    torch.save({"sp": sp, "tp": tpd, "batch": batch}, os.path.join(PAR_ROOT, "inputs.pt"))
+    st = {"cldm": cldm, "swinir": swinir, "pipe": pipe, "sp": par_cuda(sp),
+          "tp": par_cuda(tpd), "batch": par_cuda(batch)}
+    spd, tp_ = st["sp"], st["tp"]
+    with torch.no_grad():
+        st["sp_ref"] = par_sp_call(cldm, spd)  # no process group: the plain forward
+        two = {"x": spd["x"].repeat(2, 1, 1, 1), "t": spd["t"].repeat(2),
+               "c_txt": spd["c_txt"].repeat(2, 1, 1), "c_img": spd["c_img"].repeat(2, 1, 1, 1)}
+        st["sp_spread"] = spread("(a), the forward as row 1 of 2",
+                                 par_sp_call(cldm, two)[1:], st["sp_ref"])
+        st["tp_ref"] = par_tp_call(cldm, tp_)
+        swapped = {**tp_, **par_swapped({k: tp_[k] for k in ("x", "c_img", "c_txt")})}
+        st["tp_spread"] = spread("(b), the rows swapped",
+                                 par_tp_call(cldm, swapped)[[1, 0]], st["tp_ref"])
+        st["tiles_ref"] = par_tiles_call(cldm, spd, False)
+        st["tiles_spread"] = spread("(c), 3 tiles a call",
+                                    par_tiles_call(cldm, spd, False, per=3), st["tiles_ref"])
+    st["batch_ref"] = torch.from_numpy(par_request(pipe, st["batch"]))
+    st["batch_spread"] = spread("(d), the rows swapped", torch.from_numpy(par_request(
+        pipe, par_swapped(st["batch"], {"noise": 1})))[[1, 0]], st["batch_ref"])
+    par_k1_bands()
+    print(f"[parallel_inference] {card()} one process's references and spreads in "
+          f"{time.perf_counter() - t0:.1f} s (models built, inputs written to {PAR_ROOT})")
+    return st
+
+
+def phase_parallel_inference(st: dict) -> dict:
+    """[parallel_inference]: (a)-(d) in PAR_WORLD processes on this card
+    against one process (``parallel_references``), within PAR_TOL x
+    max|ref|, each limit above its spread; three planted faults that must
+    fail; exact launches and K1's shapes per process (K1 at Sq != Skv under
+    SP), none on any other entry. Returns the launches of the runs, summed
+    over the processes."""
+    import torch
+
+    t0 = time.perf_counter()
+    par_spawn()
+    ranks = [torch.load(os.path.join(PAR_ROOT, f"rank{r}.pt"), weights_only=False)
+             for r in range(PAR_WORLD)]
+    print(f"[parallel_inference] {PAR_WORLD} processes on this card over gloo done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    step = K1_SITES_PER_STEP
+    expected = {"broadcast": {}, "batch": CLI_DEFAULT, "sp": {"K1": step},
+                "tiles": {"K1": step}, "tp_shard": {}, "tp": {"K1": step}}
+    total = {k: 0 for k in KERNELS}
+    for name in ("sp", "tp", "tiles", "batch"):
+        check(st[f"{name}_spread"] <= PAR_TOL[name],
+              f"[parallel_inference] ({name}) the spread {st[f'{name}_spread']} is above the "
+              f"limit {PAR_TOL[name]}")
+    for rank, r in enumerate(ranks):
+        for name, want in expected.items():
+            got = r[name]["launches"]
+            check(got == want, f"[parallel_inference] rank {rank} {name}: launches {got}, "
+                               f"expected {want}")
+            for k, n in got.items():
+                total[k] += n
+        for name in ("sp", "tp", "tiles"):
+            want = {str(k): n for k, n in par_k1_shapes(name).items()}
+            got = {str(k): n for k, n in r[name]["shapes"].items()}
+            check(got == want, f"[parallel_inference] rank {rank} {name}: K1 shapes {got}, "
+                               f"expected {want}")
+        errs = {}
+        for name, ref in (("sp", st["sp_ref"]), ("tp", st["tp_ref"]), ("tiles", st["tiles_ref"]),
+                          ("batch", st["batch_ref"])):
+            out = r[f"{name}_out"]
+            out = torch.from_numpy(out) if not isinstance(out, torch.Tensor) else out
+            check(tuple(out.shape) == tuple(ref.shape) and bool(torch.isfinite(out.float()).all()),
+                  f"[parallel_inference] rank {rank} {name}: output {tuple(out.shape)}")
+            err, limit = err_limit(out, ref.cpu(), PAR_TOL[name])
+            errs[name] = err / ref.float().abs().max().item()
+            check(err <= limit, f"[parallel_inference] rank {rank} ({name}) against one "
+                                f"process: {err} > {limit}")
+        print(f"[parallel_inference] rank {rank} against one process, x max|ref| (limit; "
+              f"one process's spread): " + "; ".join(
+                  f"({n}) {errs[n]:.3e} ({PAR_TOL[n]:.3g}; {st[f'{n}_spread']:.3e})"
+                  for n in ("sp", "tp", "tiles", "batch")))
+        print(f"[parallel_inference] {card()} rank {rank}, two processes sharing one card "
+              f"(these times measure no speed of the method): " + "; ".join(
+                  f"{name} {r[name]['s']:.3f} s, peak {r[name]['peak']:.2f} GiB"
+                  for name in expected))
+        print(f"[parallel_inference] rank {rank} K1 shapes (q, k): SP "
+              + ", ".join(f"{q}x{k[1]} {n}" for (q, k), n in r["sp"]["shapes"].items())
+              + "; TP " + ", ".join(f"{q} {n}" for (q, k), n in r["tp"]["shapes"].items()))
+    check(torch.equal(torch.as_tensor(ranks[0]["batch_out"]),
+                      torch.as_tensor(ranks[1]["batch_out"])),
+          "[parallel_inference] the processes hold different gathered batches")
+    for label, key, ref in (("SP with zeroed halos", "sp_zero_halos", st["sp_ref"]),
+                            ("SP with GroupNorm statistics kept local", "sp_local_gn",
+                             st["sp_ref"]),
+                            ("TP without the row layers' all-reduce", "tp_no_reduce",
+                             st["tp_ref"])):
+        tol = PAR_TOL["sp" if key.startswith("sp") else "tp"]
+        planted(f"parallel_inference {label}", ranks[0][key], ref.cpu(), tol)
+    print(f"[parallel_inference] the TP processes hold {ranks[0]['tp_weights'] / 1e6:.1f} M "
+          f"weights each")
+    return total
+
+
+def phase_parallel_nccl(st: dict) -> dict:
+    """[parallel_nccl]: the same four APIs at world size 1 on nccl, in this
+    process, against the plain runs of ``parallel_references``: bit-equal
+    where the code path is the same (tensor parallelism, which shards
+    nothing at one process, as JAX's tensor axis of 1; the tiles, one call
+    of all 9 against make_tiled_fn at 9 a call; tile_parallel_model_fn; the
+    request), and (a) within PAR_TOL["sp"]: its 3x3 convolutions read the
+    zero halo rows as input rows (another input shape, so cuDNN may round
+    otherwise) and its GroupNorm divides all-reduced sums where the module
+    takes a mean."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from diffbir_tpu_torch import pipeline, tiling
+    from diffbir_tpu_torch.parallel import distributed, inference, tp
+
+    cldm, sp, tp_ = st["cldm"], st["sp"], st["tp"]
+    total = {k: 0 for k in KERNELS}
+
+    def run(name: str, fn, want: dict):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        n = launched_since(before)
+        check(n == want, f"[parallel_nccl] {name}: launches {n}, expected {want}")
+        for k, v in n.items():
+            total[k] += v
+        print(f"[parallel_nccl] {card()} {name}: {time.perf_counter() - t0:.3f} s, "
+              f"launches {n}")
+        return res
+
+    step = {"K1": K1_SITES_PER_STEP}
+    with launch_environment(free_port()):
+        check(distributed.maybe_initialize_distributed("cuda"),
+              "[parallel_nccl] no process group from the launch environment")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"[parallel_nccl] {dist.get_backend()} at {dist.get_world_size()}")
+        with torch.no_grad():
+            out = run("spatial_parallel", lambda: par_sp_call(cldm, sp), step)
+            err, limit = err_limit(out, st["sp_ref"], PAR_TOL["sp"])
+            print(f"[parallel_nccl] (a) spatial_parallel at one process against the plain "
+                  f"forward: {err:.3e} (limit {limit:.3e}, {PAR_TOL['sp']:g} x max|ref|; "
+                  f"bit-equal: {torch.equal(out, st['sp_ref'])})")
+            check(err <= limit, f"[parallel_nccl] (a) {err} > {limit}")
+            fn = pipeline.tile_model_function(cldm, 1.0, PAR_TILE)
+            args = (sp["x"], PAR_T, {"c_txt": sp["c_txt"], "c_img": sp["c_img"]})
+            sharded = run("make_tile_sharded_fn", lambda: inference.make_tile_sharded_fn(
+                fn, PAR_TILE, PAR_STRIDE, channel=4)(*args), step)
+            plain = tiling.make_tiled_fn(fn, PAR_TILE, PAR_STRIDE, channel=4,
+                                         tiles_per_batch=CLDM_TILES)(*args)
+            check(torch.equal(sharded, plain), "[parallel_nccl] make_tile_sharded_fn is not "
+                                               "bit-equal to make_tiled_fn")
+            par = run("tile_parallel_model_fn", lambda: tiling.make_tiled_fn(
+                inference.tile_parallel_model_fn(fn), PAR_TILE, PAR_STRIDE, channel=4,
+                tiles_per_batch=3)(*args), {"K1": 3 * K1_SITES_PER_STEP})
+            plain = tiling.make_tiled_fn(fn, PAR_TILE, PAR_STRIDE, channel=4,
+                                         tiles_per_batch=3)(*args)
+            check(torch.equal(par, plain), "[parallel_nccl] tile_parallel_model_fn is not "
+                                           "bit-equal to the plain function")
+            before = {k: v.data_ptr() for k, v in cldm.state_dict().items()}
+            tp.tp_shard_(cldm)
+            check(before == {k: v.data_ptr() for k, v in cldm.state_dict().items()},
+                  "[parallel_nccl] tp_shard_ at one process changed the weights")
+            out = run("tp_shard_", lambda: par_tp_call(cldm, tp_), step)
+            check(torch.equal(out, st["tp_ref"]), "[parallel_nccl] (b) is not bit-equal")
+        both = torch.nn.ModuleList([cldm, st["swinir"]])
+        _, rows = inference.shard_for_batch_parallel(both, st["batch"], batch_axes={"noise": 1})
+        imgs = run("batch_parallel", lambda: inference.batch_parallel(
+            lambda r: par_request(st["pipe"], r))(rows), CLI_DEFAULT)
+        check(np.array_equal(imgs, st["batch_ref"].numpy()),
+              "[parallel_nccl] (d) is not bit-equal")
+        print("[parallel_nccl] nccl at world size 1: tp_shard_, make_tile_sharded_fn, "
+              "tile_parallel_model_fn and batch_parallel bit-equal to the plain runs")
+    finally:
+        distributed.shutdown_distributed()
+    check(not dist.is_initialized(), "[parallel_nccl] the process group is still up")
+    return total
+
+
 def main() -> int:
     # one card: the first that the caller shows, or the first of the machine
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -4868,13 +5398,7 @@ def main() -> int:
         print(f"chip_smoke: FAIL: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
         return 1
-    KERNELS.update(K1=fa.KERNEL_TC, K1_wide=fa.KERNEL_WIDE_TC, K1_cc=fa.KERNEL,
-                   K2a=fa.KERNEL_DQ_TC,
-                   K2b=fa.KERNEL_DKV_TC, K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV,
-                   K3=fa.KERNEL_PRESCALED_TC, K3_cc=fa.KERNEL_PRESCALED, K4=qm.KERNEL_TC,
-                   K4_gemv=qm.KERNEL_GEMV, K4_cc=qm.KERNEL, K5=qm.KERNEL_INT4_TC,
-                   K5_gemv=qm.KERNEL_INT4_GEMV, K5_cc=qm.KERNEL_INT4, K6=fr.KERNEL_TC,
-                   K6_cc=fr.KERNEL, K7=ff.KERNEL_TC, K7_cc=ff.KERNEL)
+    fill_kernels()
     t_start = time.perf_counter()
     laps = [t_start]
 
@@ -4987,6 +5511,14 @@ def main() -> int:
         lap("train_stage1")
         paths["degrade_batch"] = phase_degrade_batch()
         lap("degrade_batch")
+        torch.cuda.empty_cache()
+        st = parallel_references()
+        lap("parallel_references")
+        paths["parallel_inference"] = phase_parallel_inference(st)
+        lap("parallel_inference")
+        paths["parallel_nccl"] = phase_parallel_nccl(st)
+        lap("parallel_nccl")
+        del st
         cli = {path: expected for path, (expected, _) in {
             **CLI_PATHS, **GUIDANCE_PATHS, **TURBO_PATHS, **FAST_GELU_PATHS}.items()}
         tiled = {f"tiled_{name}": expected for name, (_, expected) in TILED_VARIANTS.items()}
@@ -4995,7 +5527,8 @@ def main() -> int:
                   "train_custom": CLI_DEFAULT,
                   "train_cli": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1},
                   "train_ddp": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1},
-                  "train_native": {}, "train_stage1": {}, "degrade_batch": {}}
+                  "train_native": {}, "train_stage1": {}, "degrade_batch": {},
+                  "parallel_inference": CLI_DEFAULT, "parallel_nccl": CLI_DEFAULT}
         for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled,
                                **served}.items():
             # no other kernel

@@ -5,8 +5,9 @@ k, v [B, Skv, H, D]; returns [B, Sq, H, D]. Logits and softmax are fp32
 whatever the input dtype, and the probabilities are cast to the input dtype
 before the PV product.
 
-Dispatch: every self-attention call (Skv == Sq) without mask or bias and with
-d in {64, 128, 256} goes to ``flash_attention`` (the CUDA kernels for a CUDA
+Dispatch: every self-attention call (Skv == Sq, or a spatially sharded one
+whose caller says ``kv_gathered``) without mask or bias and with d in {64,
+128, 256} goes to ``flash_attention`` (the CUDA kernels for a CUDA
 tensor, their plain version for a CPU tensor). The wide single-head sites
 (d > 256: the VAE's d = 512 mid-block attention) go to flash from
 ``FLASH_MIN_WIDE`` = 4096 tokens (a 512x512 image), and to plain math below
@@ -101,12 +102,18 @@ def attention(
     bias: Optional[torch.Tensor] = None,
     impl: str = "auto",
     layout: str = "folded",
+    kv_gathered: bool = False,
 ) -> torch.Tensor:
     """Dispatching attention used by all models. ``impl``: "auto" (flash
     where the call qualifies; d > 256 from ``FLASH_MIN_WIDE`` tokens, or
     from ``FLASH_MIN_WIDE_GRAD`` where autograd records a gradient of q, k
     or v) or "plain" (always the plain math).
-    ``layout``: "folded" (K1) or "packed" (K3 where it applies, see above)."""
+    ``layout``: "folded" (K1) or "packed" (K3 where it applies, see above).
+    ``kv_gathered``: k and v are a self-attention's keys gathered over the
+    bands of a spatially sharded image, whose queries q are one band
+    (``parallel/inference.py``): the call takes the self-attention rule
+    although Skv != Sq. Cross-attention (Skv != Sq, not gathered) keeps
+    the plain math."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if layout not in FLASH_LAYOUTS:
@@ -115,7 +122,7 @@ def attention(
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     flash = (
         impl == "auto" and mask is None and bias is None
-        and k.shape[1] == sq and d in FLASH_HEAD_DIMS
+        and (k.shape[1] == sq or kv_gathered) and d in FLASH_HEAD_DIMS
         and (d <= 256 or sq >= (FLASH_MIN_WIDE_GRAD if grad else FLASH_MIN_WIDE))
     )
     if not flash:

@@ -23,7 +23,7 @@ rank 0 at start, gradients all-reduced (or reduce-scattered under
 from __future__ import annotations
 
 import os
-from typing import Union
+from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -46,15 +46,19 @@ def local_device(device: Union[str, torch.device]) -> torch.device:
     return local
 
 
-def maybe_initialize_distributed(device: Union[str, torch.device] = "cuda") -> bool:
+def maybe_initialize_distributed(device: Union[str, torch.device] = "cuda",
+                                 backend: Optional[str] = None) -> bool:
     """Start the process group from the launch environment; returns whether
     one was started (False without the environment, or when one is already
-    up, which its starter owns). nccl on a cuda ``device``, gloo otherwise.
-    An incomplete DIFFBIR_* environment raises ValueError naming what is
-    missing."""
+    up, which its starter owns). ``backend``: nccl on a cuda ``device``,
+    gloo otherwise, by default; gloo on cuda runs several processes on one
+    card (nccl refuses two ranks on one device), staging CUDA tensors
+    through the host. An incomplete DIFFBIR_* environment raises ValueError
+    naming what is missing."""
     if dist.is_initialized():
         return False
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     coord = os.environ.get(ENV[0])
     if coord:
         missing = [k for k in ENV[1:] if not os.environ.get(k)]

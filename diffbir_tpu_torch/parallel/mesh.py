@@ -56,12 +56,14 @@ def data_size(n_data: Optional[int], batch_size: int) -> int:
 
 
 @torch.no_grad()
-def broadcast_(tensors: Iterable[torch.Tensor]) -> None:
-    """Overwrite ``tensors`` (a module's parameters and buffers) with rank
-    0's, in place."""
+def broadcast_(tensors: Iterable[torch.Tensor], group=None) -> None:
+    """Overwrite ``tensors`` (a module's parameters and buffers) with the
+    first process's of ``group`` (default: rank 0 of the whole group), in
+    place."""
     if dist.is_initialized():
+        src = 0 if group is None else dist.get_global_rank(group, 0)
         for t in tensors:
-            dist.broadcast(t, src=0)
+            dist.broadcast(t, src=src, group=group)
 
 
 class DataParallel:

@@ -1,0 +1,309 @@
+"""Tensor parallelism of the diffusion stack over processes, one card each.
+
+Counterpart of ``diffbir_tpu/parallel/tp.py``. ``tp_dim`` is ``tp_spec``'s
+rule on torch state-dict names and layouts: column-parallel (output
+features, dim 0 of a Linear [out, in] or a Conv [out, in, kh, kw]) for
+q/k/v, the FF in-projections and ``emb_layers.1``/``in_layers.2``;
+row-parallel (input features, dim 1) for the out-projections, ``net.2``
+and ``out_layers.3``; a leaf whose dimension does not divide by the process
+count, and every other leaf, replicated.
+
+Under JAX the rule is all there is: GSPMD places each leaf and inserts the
+collectives. Here ``tp_shard_`` slices this process's part of each weight
+in place and runs the collectives itself, so a forward after it computes
+what it did before (inference only). An explicit forward needs rules that
+GSPMD made unnecessary; each changes where a weight lives, never a number
+(``tp_plan`` gives every leaf's placement and the reason):
+
+- **pairs**: a column layer and its row partner are sharded together or
+  not at all (``to_q``/``to_k``/``to_v`` with ``to_out.0``; ``net.0.proj``
+  with ``net.2``; ``in_layers.2`` and ``emb_layers.1`` with
+  ``out_layers.3``; the CLIP tower's ``mlp.c_fc`` with ``mlp.c_proj``).
+  JAX's per-leaf divisibility may shard one side and replicate the other,
+  and it row-shards the CLIP tower's ``attn.out_proj``, whose q/k/v
+  projection (``in_proj_weight``) it leaves whole: both stay replicated;
+- **whole heads**: attention is sharded by whole heads only (SD2.1 has 5
+  heads at its first level, so at 2 processes that level's attention stays
+  replicated); GSPMD may split a head;
+- **whole GroupNorm groups**: ``out_layers.0`` normalises the
+  channel-sharded activations, so a ResBlock shards only where each
+  process holds whole groups (32 % n == 0);
+- **GEGLU's interleave**: the projection's output is ``[x | gate]``, so a
+  process takes matching slices of both halves, not one half;
+- **one reduce per row layer**: a row layer's partial sums are all-reduced
+  once (in fp32), then its bias is added once.
+
+The hoisted tables (``ControlLDM.make_hoist_tables``) made after
+``tp_shard_`` hold this process's heads and channels: their cross-attention
+k/v and ``emb_layers`` rows come from the sharded weights. The default
+serving mode only: the fused (K6/K7) and int8 (K4) modes run their kernels
+on whole weights, and ``tp_shard_`` raises ValueError naming the mode.
+Without a process group, or with one process (JAX: a tensor axis of 1), it
+changes nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from ..models.layers import Conv2d, GroupNorm32, QuantConv, QuantLinear
+from ..models.unet import CrossAttention, FeedForward, ResBlock
+
+# column-parallel (shard dim 0 = output features); JAX's _COL_SUFFIXES
+_COL_SUFFIXES = ("to_q", "to_k", "to_v", "net.0.proj", "in_layers.2", "qkv",
+                 "mlp.c_fc", "mlp.fc1", "emb_layers.1")
+# row-parallel (shard dim 1 = input features); JAX's _ROW_SUFFIXES
+_ROW_SUFFIXES = ("to_out.0", "net.2", "out_layers.3", "proj", "mlp.c_proj",
+                 "mlp.fc2")
+# tp_plan's reasons for a placement
+REASONS = ("col", "row", "geglu", "replicated", "heads", "groups", "pair")
+
+
+def tp_dim(name: str, weight: torch.Tensor, n: int) -> Optional[int]:
+    """The dimension JAX's ``tp_spec`` shards the torch leaf ``name``
+    (``.``-separated state-dict name, torch layout) along over ``n``
+    processes, or None where it replicates it."""
+    if not name.endswith(".weight") or weight.dim() < 2:
+        return None
+    base = name[: -len(".weight")]
+    col = any(base.endswith(s) for s in _COL_SUFFIXES)
+    row = any(base.endswith(s) for s in _ROW_SUFFIXES) and not col
+    if col and weight.shape[0] % n == 0:
+        return 0
+    if row and weight.shape[1] % n == 0:
+        return 1
+    return None
+
+
+def serving_mode(module: nn.Module) -> str:
+    """"int8", "fused" or "default": the serving mode that ``module``'s
+    layers are in (``ControlLDM.set_mode``)."""
+    mods = list(module.modules())
+    if any(isinstance(m, (QuantLinear, QuantConv)) for m in mods):
+        return "int8"
+    if any(isinstance(m, (ResBlock, FeedForward)) and m.fused for m in mods) or any(
+            isinstance(m, CrossAttention) and m.flash_layout == "packed" for m in mods):
+        return "fused"
+    return "default"
+
+
+def check_default_mode(module: nn.Module, what: str) -> None:
+    """ValueError unless ``module`` is in the default serving mode."""
+    mode = serving_mode(module)
+    if mode != "default":
+        raise ValueError(f"{what} runs the default serving mode only; this model is in the "
+                         f"{mode!r} mode, whose kernels (K6/K7/K4, packed K3) read whole "
+                         f"weights and activations: set_mode('default') first")
+
+
+# --------------------------------------------------------------------------- #
+# the units: a column layer (or two) and its row partner
+# --------------------------------------------------------------------------- #
+def _units(module: nn.Module) -> Iterator[Tuple[str, str, nn.Module]]:
+    """(kind, prefix, module) of every shardable unit under ``module``:
+    "attn" (CrossAttention), "ff" (FeedForward), "res" (ResBlock), "mlp"
+    (the CLIP tower's MLP)."""
+    for prefix, m in module.named_modules():
+        if isinstance(m, CrossAttention):
+            yield "attn", prefix, m
+        elif isinstance(m, FeedForward):
+            yield "ff", prefix, m
+        elif isinstance(m, ResBlock):
+            yield "res", prefix, m
+        elif isinstance(m, nn.ModuleDict) and set(m.keys()) == {"c_fc", "c_proj"}:
+            yield "mlp", prefix, m
+
+
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+# (column, row) weight names of each kind of unit, relative to it
+_UNIT_LEAVES = {
+    "attn": (("to_q.weight", "to_k.weight", "to_v.weight"), ("to_out.0.weight",)),
+    "ff": (("net.0.proj.weight",), ("net.2.weight",)),
+    "res": (("in_layers.2.weight", "emb_layers.1.weight"), ("out_layers.3.weight",)),
+    "mlp": (("c_fc.weight",), ("c_proj.weight",)),
+}
+
+
+def _unit_blocker(kind: str, m: nn.Module, n: int) -> Optional[str]:
+    """Why a unit stays replicated at ``n`` processes ("heads", "groups",
+    "pair"), or None where it shards."""
+    if kind == "attn":
+        return None if m.heads % n == 0 else "heads"
+    if kind == "ff":
+        return None if (m.net[0].proj.out_features // 2) % n == 0 else "pair"
+    if kind == "res":
+        if not isinstance(m.in_layers[2], Conv2d) or m.in_layers[2].out_channels % n:
+            return "pair"
+        return None if GroupNorm32.num_groups % n == 0 else "groups"
+    return None if m["c_fc"].out_features % n == 0 else "pair"
+
+
+def tp_plan(module: nn.Module, n: int) -> Dict[str, Tuple[Optional[int], str]]:
+    """Every parameter of ``module``: (the dimension ``tp_shard_`` shards it
+    along over ``n`` processes or None, the reason: one of ``REASONS``).
+    Where the dimension differs from ``tp_dim``'s, the reason says why:
+    "heads", "groups" or "pair"; "geglu" marks the interleaved column
+    slices of a GEGLU projection."""
+    plan = {}
+    for name, p in module.named_parameters():
+        d = tp_dim(name, p, n)
+        plan[name] = (None, "replicated") if d is None else (None, "pair")
+    for kind, prefix, m in _units(module):
+        cols, rows = _UNIT_LEAVES[kind]
+        blocker = _unit_blocker(kind, m, n)
+        for leaf, dim in [(c, 0) for c in cols] + [(r, 1) for r in rows]:
+            name = _join(prefix, leaf)
+            if blocker is not None:
+                if tp_dim(name, module.get_parameter(name), n) is not None:
+                    plan[name] = (None, blocker)
+                continue
+            reason = "geglu" if kind == "ff" and dim == 0 else ("col" if dim == 0 else "row")
+            plan[name] = (dim, reason)
+            if dim == 0:  # a column layer's bias goes with its rows
+                bias = _join(prefix, leaf[: -len("weight")] + "bias")
+                if bias in plan:
+                    plan[bias] = (0, reason)
+        if blocker is None and kind == "res":
+            for leaf in ("out_layers.0.weight", "out_layers.0.bias"):
+                plan[_join(prefix, leaf)] = (0, "groups")
+    return plan
+
+
+# --------------------------------------------------------------------------- #
+# the sharded layers
+# --------------------------------------------------------------------------- #
+def _reduce_partial(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the processes of a row layer's partial sums (fp32)."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _inference_only(x: torch.Tensor, weight: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        raise RuntimeError("tensor-parallel layers run inference only (their all_reduce "
+                           "has no backward): call them under torch.no_grad()")
+
+
+class RowParallelLinear(nn.Module):
+    """A Linear whose ``weight`` holds this process's input features: the
+    partial product, one all-reduce of it in fp32, the whole bias once."""
+
+    def __init__(self, lin: nn.Linear, part: slice, group):
+        super().__init__()
+        self.weight = nn.Parameter(lin.weight.detach()[:, part].contiguous(),
+                                   requires_grad=False)
+        self.bias = lin.bias
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _inference_only(x, self.weight)
+        y = _reduce_partial(F.linear(x.to(self.weight.dtype), self.weight).float(), self.group)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.weight.dtype)
+
+
+class RowParallelConv2d(nn.Module):
+    """A Conv2d whose ``weight`` holds this process's input channels, as
+    ``RowParallelLinear``."""
+
+    def __init__(self, conv: nn.Conv2d, part: slice, group):
+        super().__init__()
+        self.weight = nn.Parameter(conv.weight.detach()[:, part].contiguous(),
+                                   requires_grad=False)
+        self.bias = conv.bias
+        self.stride, self.padding = conv.stride, conv.padding
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _inference_only(x, self.weight)
+        y = F.conv2d(x.to(self.weight.dtype), self.weight, None, self.stride, self.padding)
+        y = _reduce_partial(y.float(), self.group)
+        if self.bias is not None:
+            y = y + self.bias.float()[:, None, None]
+        return y.to(self.weight.dtype)
+
+
+def _rows_(layer: nn.Module, idx: torch.Tensor) -> None:
+    """Keep the output features ``idx`` of a Linear or Conv2d in place."""
+    with torch.no_grad():
+        layer.weight = nn.Parameter(layer.weight.detach()[idx].contiguous(),
+                                    requires_grad=False)
+        if layer.bias is not None:
+            layer.bias = nn.Parameter(layer.bias.detach()[idx].contiguous(),
+                                      requires_grad=False)
+    if isinstance(layer, nn.Linear):
+        layer.out_features = len(idx)
+    else:
+        layer.out_channels = len(idx)
+
+
+def _part(size: int, rank: int, n: int) -> torch.Tensor:
+    """This process's contiguous slice of ``size`` features, as indices."""
+    per = size // n
+    return torch.arange(rank * per, (rank + 1) * per)
+
+
+def _span(idx: torch.Tensor) -> slice:
+    return slice(int(idx[0]), int(idx[-1]) + 1)
+
+
+def _shard_unit_(kind: str, m: nn.Module, rank: int, n: int, group) -> None:
+    if kind == "attn":
+        inner = m.to_q.out_features
+        idx = _part(inner, rank, n)
+        for lin in (m.to_q, m.to_k, m.to_v):
+            _rows_(lin, idx)
+        m.to_out[0] = RowParallelLinear(m.to_out[0], _span(idx), group)
+        m.heads //= n
+    elif kind == "ff":
+        proj = m.net[0].proj
+        inner = proj.out_features // 2
+        idx = _part(inner, rank, n)
+        _rows_(proj, torch.cat([idx, idx + inner]))  # matching x and gate slices
+        m.net[2] = RowParallelLinear(m.net[2], _span(idx), group)
+    elif kind == "res":
+        c = m.in_layers[2].out_channels
+        idx = _part(c, rank, n)
+        _rows_(m.in_layers[2], idx)
+        _rows_(m.emb_layers[1], idx)
+        gn = m.out_layers[0]
+        with torch.no_grad():
+            gn.weight = nn.Parameter(gn.weight.detach()[idx].contiguous(), requires_grad=False)
+            gn.bias = nn.Parameter(gn.bias.detach()[idx].contiguous(), requires_grad=False)
+        gn.num_groups = GroupNorm32.num_groups // n  # whole groups on each process
+        m.out_layers[3] = RowParallelConv2d(m.out_layers[3], _span(idx), group)
+        m._tap_major.clear()
+    else:
+        idx = _part(m["c_fc"].out_features, rank, n)
+        _rows_(m["c_fc"], idx)
+        m["c_proj"] = RowParallelLinear(m["c_proj"], _span(idx), group)
+
+
+@torch.no_grad()
+def tp_shard_(module: nn.Module, group=None) -> nn.Module:
+    """Shard ``module`` (a ControlLDM, or any module holding its UNet,
+    ControlNet or CLIP blocks) over the processes of ``group`` (default:
+    the whole process group) in place, by ``tp_plan``: this process keeps
+    its slices, and the row layers all-reduce. Returns ``module``. Without
+    a process group, or at one process, nothing changes. ValueError in the
+    fused and int8 serving modes."""
+    if not dist.is_initialized():
+        return module
+    n = dist.get_world_size(group)
+    if n == 1:
+        return module
+    check_default_mode(module, "tensor parallelism (tp_shard_)")
+    rank = dist.get_rank(group)
+    for kind, _, m in list(_units(module)):
+        if _unit_blocker(kind, m, n) is None:
+            _shard_unit_(kind, m, rank, n, group)
+    return module

@@ -99,9 +99,10 @@ def test_resolve_refuses_other_roots_and_names_unported_modules():
             config.resolve(target)
     with pytest.raises(KeyError, match="unknown registry name"):
         config.resolve("no_such_name")
-    # parallel/tp.py is one of the JAX package's modules the port lacks
-    with pytest.raises(NotImplementedError, match="diffbir_tpu_torch.parallel.tp"):
-        config.resolve("diffbir_tpu.parallel.tp.tp_shard_params")
+    # utils/jax_cache.py is one of the JAX package's TPU-only modules the
+    # port leaves out (every other module is ported)
+    with pytest.raises(NotImplementedError, match="diffbir_tpu_torch.utils.jax_cache"):
+        config.resolve("diffbir_tpu.utils.jax_cache.enable_persistent_cache")
 
 
 def test_registered_short_names_stay_short(monkeypatch):

@@ -196,6 +196,27 @@ def test_attention_dispatch_sends_only_plain_self_attention_to_flash(monkeypatch
         attention(x, x, x, impl="xla")
 
 
+def test_gathered_band_self_attention_goes_to_flash(monkeypatch):
+    """A spatially sharded self-attention (q one band of the tokens, k and v
+    gathered over every band: Sq != Skv) reaches flash through
+    ``kv_gathered``; the same shapes without it, and the 77-token
+    cross-attention, keep the plain math."""
+    calls = []
+    monkeypatch.setattr(port_flash, "flash_attention",
+                        lambda q, k, v: calls.append((q.shape, k.shape))
+                        or port_flash.flash_attention_ref(q, k, v))
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 8, 2, 64, generator=gen)
+    kv = torch.randn(1, 16, 2, 64, generator=gen)
+    ctx = torch.randn(1, 77, 2, 64, generator=gen)
+    out = attention(q, kv, kv, kv_gathered=True)
+    plain = attention(q, kv, kv)
+    attention(q, ctx, ctx)
+    attention(q, kv, kv, kv_gathered=True, impl="plain")
+    assert calls == [((1, 8, 2, 64), (1, 16, 2, 64))]
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("tokens,flash", [(16, False), (FLASH_MIN_WIDE - 1, False),
                                           (FLASH_MIN_WIDE, True), (8191, True), (8192, True),
                                           (8200, True)])
