@@ -318,7 +318,7 @@ K1_WIDE_PER_REQUEST = 2
 K2_SITES_PER_TRAIN_STEP = 7 + 9
 K1_PER_TRAIN_STEP = K1_SITES_PER_STEP + K2_SITES_PER_TRAIN_STEP
 K1_WIDE_PER_TRAIN_STEP = 2
-TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 8, 2, 5
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 8, 2, 3
 # kernel vs plain attention, one step's ControlNet gradient at batch 2 in
 # bf16: both paths round every activation and gradient to bf16 and differ
 # only where attention rounds (one bf16 ulp of an element, see BF16_TOL).
@@ -359,7 +359,7 @@ TRAIN_IMAGES, TRAIN_QUEUE, TRAIN_CLI_STEPS, TRAIN_CKPT_EVERY, PREVIEW_N = 16, 16
 # then TRAIN_STEADY_STEPS more steps with no checkpoint inside, to read the
 # loop's waits on the data in its steady state; [train_data]'s transform
 # seconds, read beside them
-TRAIN_STEADY_STEPS = 5
+TRAIN_STEADY_STEPS = 2
 TRAIN_DATA_S = []
 # [train_ddp]: the stage-2 trainer under the multi-process environment
 # (nccl, one process) for DDP_STEPS steps with fsdp off and on, each step on
@@ -380,7 +380,7 @@ TRAIN_CLI_BATCHES, TRAIN_CLI_RUN = [], {}
 STAGE1_ROOT = os.path.join("build", "train_stage1")
 STAGE1_BATCHES = (96, 64, 48, 40, 32, 24, 16, 8)
 STAGE1_MEMORY_SHARE = 0.9
-STAGE1_WARMUP, STAGE1_TIMED, STAGE1_VAL = 2, 2, 2
+STAGE1_WARMUP, STAGE1_TIMED, STAGE1_VAL = 1, 1, 1
 # [train_native]: the codeformer dataset at batch NATIVE_BATCH, NATIVE_BATCHES
 # batches through each path
 NATIVE_BATCH, NATIVE_BATCHES = 8, 2
@@ -543,7 +543,7 @@ SYNC_GN_SIZES = (1024, 2048)
 # CLI's default is CLI_STEPS): one tile a call costs ~0.1 s of host
 # enqueue a tile a step, so the depth is cut to keep the smoke inside its
 # call; every variant and check stays
-TILED_STEPS = 4
+TILED_STEPS = 2
 TILED_CALLS = CLDM_TILES * TILED_STEPS
 INT8_FLAGS = ["--quant_dense", "--fused_resblock", "--quant_conv"]
 STEPS_FLAG = ["--steps", str(TILED_STEPS)]
@@ -619,8 +619,8 @@ VAE_MID_SHAPES = ((1, TILED_SIZE ** 2 // 64, 1, 512), (1, 8192, 1, 512))
 # request and an untiled 1024x1024 one
 D512_GRAD_SHAPES = ((1, 4096, 1, 512), (1, 16384, 1, 512))
 # the other samplers of the CLI, one 256x256 request each, twice
-SAMPLER_SIZE, SAMPLER_STEPS = 256, 4
-MODE_SEEDS = (1, 2)
+SAMPLER_SIZE, SAMPLER_STEPS = 256, 2
+MODE_SEEDS = (1,)
 # The LLaVA-1.5-7B captioner: 35 prompt ids before the image (BOS first), its
 # 576 patch embeddings, 13 ids after (the 624 prefill rows of
 # scripts/bench_llava.py), 60 new tokens; the EOS id never matches, so every
@@ -802,26 +802,26 @@ def phase_build():
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {kernel.source.name}:", line.strip())
-    tensor_core_sass(_cuda, "K1", ("flash_fwd_tc_kernel", "flash_fwd_wide_kernel"))
-    tensor_core_sass(_cuda, "K2a", ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"))
-    tensor_core_sass(_cuda, "K4", ("quant_matmul_tc_kernel",))
-    tensor_core_sass(_cuda, "K5", ("int4_tc_kernel",))
-    tensor_core_sass(_cuda, "K6", ("conv_tc_kernel",))
-    tensor_core_sass(_cuda, "K7", ("geglu_tc_kernel", "down_tc_kernel"))
-
-
-def tensor_core_sass(_cuda, key: str, names) -> None:
-    """HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel function of
-    the library of KERNELS[key], from cuobjdump -sass; the tensor-core
-    kernels ``names`` must have some."""
-    nvcc = _cuda.find_nvcc()
-    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    specs = (("K1", ("flash_fwd_tc_kernel", "flash_fwd_wide_kernel")),
+             ("K2a", ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")),
+             ("K4", ("quant_matmul_tc_kernel",)), ("K5", ("int4_tc_kernel",)),
+             ("K6", ("conv_tc_kernel",)), ("K7", ("geglu_tc_kernel", "down_tc_kernel")))
+    tool = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
         print("[build] cuobjdump not in the toolkit: SASS not counted")
         return
-    lib = _cuda.build(KERNELS[key].source)[0]
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=120).stdout
+    # one cuobjdump per library, all started together
+    libs = [_cuda.build(KERNELS[key].source)[0] for key, _ in specs]
+    procs = [subprocess.Popen([tool, "-sass", str(lib)], stdout=subprocess.PIPE,
+                              stderr=subprocess.DEVNULL, text=True) for lib in libs]
+    for (_, names), lib, proc in zip(specs, libs, procs):
+        tensor_core_sass(lib, proc.communicate(timeout=120)[0], names)
+
+
+def tensor_core_sass(lib, sass: str, names) -> None:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel function of
+    the library ``lib``, from its ``cuobjdump -sass`` output; the
+    tensor-core kernels ``names`` must have some."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -3239,7 +3239,7 @@ UNALIGNED = {"K1": (UNALIGNED_FACES + 1) * K1_SITES_PER_STEP * CLI_STEPS,
 # [http_serve]: the v2.1 sr pipeline behind serve.BatchingServer at --upscale 4
 # on 128x128 PNGs (512x512 conditions, 10 steps of the default sampler): a
 # batch of any size is one pipeline call, K1 230 + K1_wide 2.
-SERVE_BATCH, SERVE_LATENCY_ROUNDS = 4, 3
+SERVE_BATCH, SERVE_LATENCY_ROUNDS = 4, 2
 
 
 def card() -> str:
@@ -5097,17 +5097,22 @@ def parallel_worker(rank: int, port: int) -> None:
         distributed.shutdown_distributed()
 
 
-def par_spawn() -> None:
-    """PAR_WORLD parallel_worker processes; each must exit 0 within
-    PAR_TIMEOUT s, else every one is killed and the phase fails."""
+def start_workers(target, world: int) -> list:
+    """``target(rank, port)`` started in ``world`` fresh processes."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
-    procs = [ctx.Process(target=parallel_worker, args=(r, port)) for r in range(PAR_WORLD)]
+    procs = [ctx.Process(target=target, args=(r, port)) for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + PAR_TIMEOUT
+    return procs
+
+
+def join_workers(procs: list, timeout: float, label: str) -> None:
+    """Each of ``procs`` must exit 0 within ``timeout`` s, else every one is
+    killed and the phase fails."""
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
@@ -5116,10 +5121,15 @@ def par_spawn() -> None:
         for p in alive:
             p.kill()
             p.join()
-    check(not alive, f"[parallel_inference] {len(alive)} of {PAR_WORLD} processes not done "
-                     f"in {PAR_TIMEOUT} s")
+    check(not alive, f"{label} {len(alive)} of {len(procs)} processes not done in {timeout} s")
     codes = [p.exitcode for p in procs]
-    check(codes == [0] * PAR_WORLD, f"[parallel_inference] the processes exited {codes}")
+    check(codes == [0] * len(procs), f"{label} the processes exited {codes}")
+
+
+def par_spawn() -> None:
+    """PAR_WORLD parallel_worker processes, each to exit 0 within
+    PAR_TIMEOUT s."""
+    join_workers(start_workers(parallel_worker, PAR_WORLD), PAR_TIMEOUT, "[parallel_inference]")
 
 
 def spread(label: str, out, ref) -> float:
@@ -5376,6 +5386,592 @@ def phase_parallel_nccl(st: dict) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------- #
+# [parallel_train]: tensor and spatial parallelism under autograd, the grid
+# --------------------------------------------------------------------------- #
+# PTR_WORLD processes on this card over gloo, laid out by make_mesh(2, 2),
+# inputs through PTR_ROOT, the models full-width SD2.1 + IRControlNet with
+# gradient checkpointing, random bf16 weights from seed 0. On each tensor
+# group (two processes): (a) TP, the stage-2 loss of a batch of 2 at
+# PTR_SIZE^2 (no cleaner, empty prompts, noise augmentation at NOISE_AUG)
+# and its ControlNet gradient; (b) SP, the denoiser's forward and backward
+# on the bands of a PTR_SP_HW^2 latent (the 512^2 request's, its condition
+# ramped along H as [parallel_inference]'s), gradients with respect to x,
+# c_img and the ControlNet. On the grid: (c) two stage-2 steps at
+# PTR_SIZE^2, one row a data group, the ControlNet tensor-sharded and
+# data-sharded (fsdp), each data group's draws from
+# process_seed(PTR_SEED, grid). Each against one process on the same
+# inputs and draws (the concatenated batch for (c)).
+PTR_WORLD, PTR_TIMEOUT = 4, 300
+PTR_ROOT = os.path.join("build", "parallel_train")
+PTR_SIZE, PTR_SP_HW, PTR_SEED, PTR_LR = 256, SIZE // 8, 23, 1e-5
+# the ControlNet's gradients, masters and moments (363 M elements) are held
+# at every PTR_STRIDE-th element of each tensor as it lies on the process
+# (a tensor slice, a data shard), 6 M of them
+PTR_STRIDE = 61
+# Limits, each set from the port's own bf16 rounding-order spread on the
+# same weights and inputs in one process (printed beside every reading):
+# the batch doubled, every row twice ((b): the call as row 1 of a batch of
+# 2); the rows swapped read up to ~10x less than the processes' reordered
+# sums. Errors are max|got - ref| / max|ref| over each compared tensor (the
+# ControlNet's sampled gradient and first moment as one); (c)'s masters
+# read the share of sampled elements whose two updates land more than
+# PTR_LR from one process's (an update moves a master by ~PTR_LR whatever
+# its gradient, so where a gradient is rounding noise its sign, and its
+# step, can flip). Measured on an H100 80GB HBM3 at 700 W: the spreads
+# 4.05e-3 (a), 1.82e-2 (b), 4.44e-3 (c) and 3.28e-3 of the masters; the
+# processes 8.10e-3, 2.05e-2, 1.31e-2-1.59e-2 and 5.06e-3-5.15e-3. The
+# limits are ~5x the spreads; the planted faults read 2.3-23x them.
+PTR_TOL = {"tp": 2e-2, "sp": 9e-2, "grid": 2.5e-2, "masters": 1.6e-2}
+
+
+def ptr_model():
+    """Full-width SD2.1 + IRControlNet with gradient checkpointing, frozen,
+    random weights from seed 0 drawn in place as random_init_ draws them
+    (N(0, 1/fan_in) for weights of rank >= 2, ones for the other weights,
+    zeros for biases), one launch a parameter: four processes build it at
+    once on the card, where random_init_'s three launches and fp32 copy a
+    parameter took ~12 s."""
+    import torch
+
+    from diffbir_tpu_torch.models.cldm import ControlLDM
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cldm = ControlLDM.sd21(dtype=torch.bfloat16, use_checkpoint=True,
+                           device="meta").to_empty(device="cuda")
+    with torch.no_grad():
+        for name, p in cldm.named_parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+            else:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+    return cldm.requires_grad_(False)
+
+
+def ptr_draws(gen, bs: int) -> dict:
+    """One step's draws at PTR_SIZE^2 from ``gen``, in make_loss_fn's order."""
+    import torch
+
+    shape = (bs, PTR_SIZE // 8, PTR_SIZE // 8, 4)
+    return {"posterior": torch.randn(shape, generator=gen, device="cuda"),
+            "aug": torch.randn(shape, generator=gen, device="cuda"),
+            "t": torch.randint(0, 1000, (bs,), generator=gen, device="cuda"),
+            "noise": torch.randn(shape, generator=gen, device="cuda")}
+
+
+def ptr_sample(tensors) -> "torch.Tensor":
+    """Every PTR_STRIDE-th element of each tensor, fp32, concatenated."""
+    import torch
+
+    return torch.cat([t.detach().flatten()[::PTR_STRIDE].float() for t in tensors])
+
+
+def ptr_sp_grads(cldm, sp: dict, group=None) -> dict:
+    """(b) on this process's band (the whole call without a process group):
+    the whole gradients of x and c_img of sum(out * cot), the ControlNet's
+    sampled and summed over the bands."""
+    import torch.distributed as dist
+
+    from diffbir_tpu_torch.parallel import inference
+
+    cldm.controlnet.requires_grad_(True)
+    x = inference.spatial_shard(sp["x"], group).clone().requires_grad_()
+    c_img = inference.spatial_shard(sp["c_img"], group).clone().requires_grad_()
+    fn = inference.spatial_parallel(cldm, group)
+    with fn:
+        out = fn(x, sp["t"], {"c_txt": sp["c_txt"], "c_img": c_img})
+        (out.float() * inference.spatial_shard(sp["cot"], group)).sum().backward()
+    cn = ptr_sample(p.grad for p in cldm.controlnet.parameters())
+    if dist.is_initialized():
+        dist.all_reduce(cn, group=group)
+    cldm.controlnet.zero_grad(set_to_none=True)
+    return {"x": inference.gather(x.grad, group).float(),
+            "c_img": inference.gather(c_img.grad, group).float(), "controlnet": cn}
+
+
+def ptr_loss_grads(cldm, tpd: dict) -> tuple:
+    """(a): the stage-2 loss of ``tpd``'s batch and draws, and the
+    ControlNet's gradients as they lie on this process."""
+    from diffbir_tpu_torch.profile_step import NOISE_AUG
+    from diffbir_tpu_torch.schedule import Schedule
+    from diffbir_tpu_torch.train import stage2
+
+    cldm.controlnet.requires_grad_(True)
+    loss = stage2.make_loss_fn(cldm, Schedule.v21(), None, NOISE_AUG)(
+        tpd["batch"], draws=tpd["draws"])
+    loss.backward()
+    grads = [p.grad.detach().clone() for p in cldm.controlnet.parameters()]
+    cldm.controlnet.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def ptr_grid_steps(inp: dict, grid=None, cldm=None, steps: int = 2) -> dict:
+    """(c): ``steps`` stage-2 steps of ``cldm`` (a fresh ``ptr_model()``
+    unless given) on the grid (this process's data row, its draws from
+    process_seed(PTR_SEED, grid)) or, without a grid, one process on both
+    rows and both data indices' draws; the losses, grad norms, and the
+    ControlNet's masters and first moments (as they lie on the process;
+    one process's after the first step too, "after_1")."""
+    import torch
+
+    from diffbir_tpu_torch.parallel import distributed
+    from diffbir_tpu_torch.parallel.mesh import DataParallel
+    from diffbir_tpu_torch.profile_step import NOISE_AUG
+    from diffbir_tpu_torch.schedule import Schedule
+    from diffbir_tpu_torch.train import stage2
+
+    cldm = ptr_model() if cldm is None else cldm
+    parallel = None if grid is None else DataParallel("mean", fsdp=True, grid=grid)
+    opt = stage2.init_train_state(cldm, PTR_LR, parallel=parallel)
+    step = stage2.make_train_step(cldm, Schedule.v21(), opt, None, NOISE_AUG)
+    if grid is None:
+        batch, gens = par_cuda(inp["batch"]), [torch.Generator(device="cuda").manual_seed(
+            PTR_SEED + d * 1_000_003) for d in range(2)]
+    else:
+        d = grid.data_index
+        batch = par_cuda({k: v[d:d + 1] for k, v in inp["batch"].items()})
+        gens = [torch.Generator(device="cuda").manual_seed(
+            distributed.process_seed(PTR_SEED, grid))]
+    out = {"losses": [], "norms": []}
+    for i in range(steps):
+        parts = [ptr_draws(gen, 1) for gen in gens]
+        parts += parts if inp.get("doubled") else []
+        draws = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        m = step(batch, draws=draws)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+        if grid is None and i == 0:
+            out["after_1"] = {"masters": [m.clone() for m in opt.masters],
+                              "exp_avg": [opt.optimizer.state[m]["exp_avg"].clone()
+                                          for m in opt.masters]}
+    out["layout"] = list(zip(opt.tp, opt.dims))
+    out["masters"] = list(opt.masters)
+    out["exp_avg"] = [opt.optimizer.state[m]["exp_avg"] for m in opt.masters]
+    if grid is not None:
+        out["index"] = (grid.data_index, grid.tensor_index)
+        out["masters"], out["exp_avg"] = ptr_sample(out["masters"]), ptr_sample(out["exp_avg"])
+    return out
+
+
+def ptr_local(whole, tp, dim, index) -> "torch.Tensor":
+    """The part of a whole tensor that process ``index`` (data, tensor)
+    holds: its tensor slice (``tp``: (dim, splits), or None), its data shard
+    along ``dim`` (or None) of that."""
+    from diffbir_tpu_torch.parallel.tp import tp_local
+
+    d, t = index
+    if tp is not None:
+        whole = tp_local(whole, tp[0], tp[1], t, 2)
+    return whole if dim is None else whole.chunk(2, dim)[d]
+
+
+def rel(got, ref) -> float:
+    """max |got - ref| / max |ref|."""
+    return (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+
+
+def flipped(got, ref) -> float:
+    """The share of masters whose two updates land more than PTR_LR from
+    one process's."""
+    return ((got - ref).abs() > PTR_LR).float().mean().item()
+
+
+def parallel_train_worker(rank: int, port: int) -> None:
+    """One process of [parallel_train]: the DIFFBIR_* launch contract on
+    127.0.0.1:``port``, gloo on this card, make_mesh(2, 2); (b), (a) on its
+    tensor group and (c) on the grid, each with its launches and the shapes
+    of K1 and K2, then the planted faults; the results to
+    PTR_ROOT/rank<rank>.pt."""
+    from collections import Counter
+
+    import torch
+
+    from diffbir_tpu_torch.ops import flash_attention as fa
+    from diffbir_tpu_torch.parallel import collectives, distributed, tp
+    from diffbir_tpu_torch.parallel.mesh import make_mesh
+
+    # when this process got past each step of its start (wall clock)
+    stamps = [("imports", time.time())]
+
+    def stamp(what: str) -> None:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        stamps.append((what, time.time()))
+
+    os.environ.update(DIFFBIR_COORDINATOR=f"127.0.0.1:{port}",
+                      DIFFBIR_NUM_PROCESSES=str(PTR_WORLD), DIFFBIR_PROCESS_ID=str(rank))
+    # grow the caching allocator's segments in place: four processes that
+    # each allocate a model's ~1700 tensors at once on one card wait on one
+    # another's cudaMalloc calls
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.set_num_threads(2)  # the eight cores are shared by five processes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fill_kernels()
+    check(distributed.maybe_initialize_distributed("cuda", backend="gloo"),
+          "[parallel_train] no process group from the launch environment")
+    stamp("the process group")
+    shapes = Counter()
+    launch_fwd, launch_dq = fa.launch_fwd, fa.launch_dq
+
+    def recording_fwd(kernel, q, k, v, with_lse=False):
+        shapes.update([("K1", tuple(q.shape), tuple(k.shape))])
+        return launch_fwd(kernel, q, k, v, with_lse)
+
+    def recording_dq(kernel, q, k, v, o, lse, g):
+        shapes.update([("K2", tuple(q.shape), tuple(k.shape))])
+        return launch_dq(kernel, q, k, v, o, lse, g)
+
+    fa.launch_fwd, fa.launch_dq = recording_fwd, recording_dq
+    out = {"ready": stamps}
+
+    def run(name: str, fn):
+        reset_counts()
+        shapes.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0,
+                     "peak": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": {k: n for k, n in counts().items() if n},
+                     "shapes": dict(shapes)}
+        return res
+
+    def identity_backward(ctx, g):
+        return g, None
+
+    def dropped_halo_backward(ctx, g):
+        return g.new_zeros(ctx.shape), None, None
+
+    def seeded_by_process(seed, grid=None):
+        return seed + distributed.process_index() * 1_000_003
+
+    try:
+        inp = torch.load(os.path.join(PTR_ROOT, "inputs.pt"), weights_only=False)
+        sp, tpd = par_cuda(inp["sp"]), {"batch": par_cuda(inp["tp"]["batch"]),
+                                        "draws": par_cuda(inp["tp"]["draws"])}
+        stamp("the card (its context, the inputs)")
+        grid = make_mesh(2, 2)
+        pair = grid.tensor_group
+        stamp("the grid")
+        cldm = ptr_model()
+        stamp("the model")
+        if grid.data_index == 0:  # the first tensor group: (b), (a) and f's fault
+            out["sp_out"] = run("sp", lambda: ptr_sp_grads(cldm, sp, pair))
+            tp.tp_shard_(cldm, pair)
+            out["tp_layout"] = [(p.tp_dim, p.tp_splits) if hasattr(p, "tp_dim") else None
+                                for p in cldm.controlnet.parameters()]
+            loss, grads = run("tp", lambda: ptr_loss_grads(cldm, tpd))
+            out["tp_out"] = {"loss": loss, "controlnet": ptr_sample(grads).cpu()}
+            with par_planted(collectives.CopyToTensorParallel, "backward",
+                             staticmethod(identity_backward)):
+                loss, grads = ptr_loss_grads(cldm, tpd)
+            out["tp_no_f"] = {"loss": loss, "controlnet": ptr_sample(grads).cpu()}
+            del grads
+        else:  # the second: (b)'s two faults
+            with par_planted(collectives.AllReduceSum, "backward",
+                             staticmethod(identity_backward)):
+                out["sp_local_gn"] = ptr_sp_grads(cldm, sp, pair)
+            with par_planted(collectives.HaloRows, "backward",
+                             staticmethod(dropped_halo_backward)):
+                out["sp_dropped_halos"] = ptr_sp_grads(cldm, sp, pair)
+        # (c) on the same model, its weights as built ((a) and (b) changed
+        # none), tensor-sharded as init_train_state shards it (then a no-op
+        # there); the fault's run starts again from them
+        tp.tp_shard_(cldm, pair)
+        start = [p.detach().clone() for p in cldm.controlnet.parameters()]
+        out["grid_out"] = run("grid", lambda: ptr_grid_steps(inp["grid"], grid, cldm))
+        with torch.no_grad():
+            for p, w in zip(cldm.controlnet.parameters(), start):
+                p.copy_(w)
+        with par_planted(distributed, "process_seed", seeded_by_process):
+            out["grid_seeds_apart"] = ptr_grid_steps(inp["grid"], grid, cldm, steps=1)
+        del cldm, start
+        out = {k: ({n: t.cpu() if isinstance(t, torch.Tensor) else t for n, t in v.items()}
+                   if isinstance(v, dict) else v) for k, v in out.items()}
+        out["index"] = (grid.data_index, grid.tensor_index)
+        torch.save(out, os.path.join(PTR_ROOT, f"rank{rank}.pt"))
+    finally:
+        fa.launch_fwd, fa.launch_dq = launch_fwd, launch_dq
+        distributed.shutdown_distributed()
+
+
+def ptr_inputs() -> dict:
+    """The inputs of (a)-(c), saved to PTR_ROOT/inputs.pt."""
+    import torch
+
+    gen = torch.Generator().manual_seed(PTR_SEED)
+    hw = PTR_SP_HW
+    ramp = torch.linspace(PAR_RAMP, -PAR_RAMP, hw)[None, :, None, None]
+    tokens = empty_tokens(2).cpu()
+    sp = {"x": torch.randn(1, hw, hw, 4, generator=gen),
+          "c_img": torch.randn(1, hw, hw, 4, generator=gen) + ramp,
+          "c_txt": torch.randn(1, 77, 1024, generator=gen),
+          "t": torch.tensor([PAR_T]), "cot": torch.randn(1, hw, hw, 4, generator=gen)}
+
+    def batch():
+        return {"gt": torch.rand(2, PTR_SIZE, PTR_SIZE, 3, generator=gen) * 2 - 1,
+                "lq": torch.rand(2, PTR_SIZE, PTR_SIZE, 3, generator=gen), "tokens": tokens}
+
+    tp_draws = ptr_draws(torch.Generator(device="cuda").manual_seed(PTR_SEED), 2)
+    inp = {"sp": sp, "tp": {"batch": batch(), "draws": {k: v.cpu() for k, v in tp_draws.items()}},
+           "grid": {"batch": batch()}}
+    os.makedirs(PTR_ROOT, exist_ok=True)
+    for r in range(PTR_WORLD):  # no result of an earlier run is read
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(PTR_ROOT, f"rank{r}.pt"))
+    torch.save(inp, os.path.join(PTR_ROOT, "inputs.pt"))
+    return inp
+
+
+def ptr_references(inp: dict) -> dict:
+    """One process's (a)-(c) on the inputs, and its spreads: the whole
+    gradients, loss and state, on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    sp = par_cuda(inp["sp"])
+    tpd = {"batch": par_cuda(inp["tp"]["batch"]), "draws": par_cuda(inp["tp"]["draws"])}
+    st = {}
+    cldm = ptr_model()
+    st["sp"] = ptr_sp_grads(cldm, sp)
+    two = {k: v.repeat(2, *([1] * (v.dim() - 1))) for k, v in sp.items()}
+    two["cot"] = torch.cat([torch.zeros_like(sp["cot"]), sp["cot"]])
+    row1 = ptr_sp_grads(cldm, two)
+    st["sp_spread"] = max(rel(row1[k][1:], st["sp"][k]) for k in ("x", "c_img"))
+    st["sp_spread"] = max(st["sp_spread"], rel(row1["controlnet"], st["sp"]["controlnet"]))
+    st["tp_loss"], st["tp_grads"] = ptr_loss_grads(cldm, tpd)
+    doubled = {part: {k: torch.cat([v, v]) for k, v in tpd[part].items()}
+               for part in ("batch", "draws")}
+    loss, grads = ptr_loss_grads(cldm, doubled)
+    st["tp_spread"] = max(abs(loss - st["tp_loss"]) / abs(st["tp_loss"]),
+                          rel(ptr_sample(grads), ptr_sample(st["tp_grads"])))
+    del cldm, grads
+    st["grid"] = ptr_grid_steps(inp["grid"])
+    spread = ptr_grid_steps({"batch": {k: torch.cat([v, v])
+                                       for k, v in inp["grid"]["batch"].items()},
+                             "doubled": True})
+    ref = st["grid"]
+    st["grid_spread"] = max(max(abs(a - b) / abs(b) for a, b in zip(spread["losses"],
+                                                                      ref["losses"])),
+                            rel(ptr_sample(spread["exp_avg"]), ptr_sample(ref["exp_avg"])))
+    st["masters_spread"] = flipped(ptr_sample(spread["masters"]), ptr_sample(ref["masters"]))
+    del spread
+    torch.cuda.empty_cache()
+    print(f"[parallel_train] {card()} one process's references and spreads in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return st
+
+
+def ptr_kernel_timing() -> dict:
+    """K1 with lse, K2a and K2b at (b)'s first banded shape and (a)'s
+    head-sharded one: one launch each against its plain version (BF16_TOL x
+    max|ref|), device ms (back to back) beside the plain versions, SDPA's
+    forward and backward and the bound."""
+    import torch
+
+    from diffbir_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(PTR_SEED)
+    out = {}
+    for label, (b, sq, skv, h, d) in (("banded", (1, PTR_SP_HW ** 2 // 2, PTR_SP_HW ** 2, 5, 64)),
+                                      ("head-sharded", (2, (PTR_SIZE // 16) ** 2,
+                                                        (PTR_SIZE // 16) ** 2, 5, 64))):
+        q, g = (torch.randn(b, sq, h, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        k, v = (torch.randn(b, skv, h, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        before = counts()
+        o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
+        torch.cuda.synchronize()
+        n = launched_since(before)
+        check(n == {"K1": 1, "K2a": 1, "K2b": 1},
+              f"[parallel_train] K1 and K2 at {label} launched {n}")
+        shape = f"{b}x{sq}x{h}x{d} vs {skv} kv rows"
+        errs = [hold(f"[parallel_train] {label} {name} {shape}", got, ref,
+                     FP32_TOL if name == "lse" else BF16_TOL)
+                for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
+                                          (*fa.flash_attention_lse_ref(q, k, v),
+                                           *fa.flash_attention_bwd_ref(q, k, v, o, lse, g)))]
+        t = {"K1+lse": device_ms(lambda i: fa.flash_attention_fwd(q, k, v, with_lse=True)),
+             "plain K1+lse": device_ms(lambda i: fa.flash_attention_lse_ref(q, k, v), 5),
+             "SDPA fwd": device_ms(lambda i: sdpa_fwd(q, k, v)),
+             "K2a": device_ms(lambda i: fa.flash_attention_bwd_dq(q, k, v, o, lse, g)),
+             "K2b": device_ms(lambda i: fa.flash_attention_bwd_dkv(q, k, v, o, lse, g)),
+             "plain K2a": device_ms(lambda i: fa.flash_attention_bwd_dq_ref(q, k, v, o, lse, g),
+                                    5),
+             "plain K2b": device_ms(lambda i: fa.flash_attention_bwd_dkv_ref(q, k, v, o, lse, g),
+                                    5)}
+        qt, kt, vt = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        out_lib = sdpa_fwd(qt, kt, vt)
+        t["SDPA bwd"] = device_ms(lambda i: torch.autograd.grad(
+            out_lib, (qt, kt, vt), g.transpose(1, 2), retain_graph=True))
+        in_bytes = nbytes(q, k, v, o, g, lse)
+        b_fwd = bound_ms(2, b, h, sq, skv, d, torch.bfloat16, nbytes(q, k, v, o, lse))
+        b_dq = bound_ms(3, b, h, sq, skv, d, torch.bfloat16, in_bytes + nbytes(grads[0]))
+        b_dkv = bound_ms(4, b, h, sq, skv, d, torch.bfloat16, in_bytes + nbytes(*grads[1:]))
+        print(f"[parallel_train] {card()} K1+lse, K2 at the {label} shape {shape} bf16: max "
+              f"err o/lse/dq/dk/dv " + "/".join(f"{e:.3e}" for e in errs) + "; device ms "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in t.items())
+              + f"; bound K1+lse {b_fwd[0]:.4f} ({b_fwd[1]}), K2a {b_dq[0]:.4f} ({b_dq[1]}), "
+              f"K2b {b_dkv[0]:.4f} ({b_dkv[1]})")
+        out[label] = {**t, "bound K1": b_fwd[0], "bound K2a": b_dq[0], "bound K2b": b_dkv[0]}
+    return out
+
+
+def ptr_k_shapes(kind: str) -> dict:
+    """(kernel, q shape, k shape) -> launches a process of ``kind``: "sp"
+    (the bands of PTR_SP_HW^2, every site with a gradient and recomputed),
+    "tp" (batch 2 at PTR_SIZE^2, a level's heads split where they divide;
+    gradients at the ControlNet's 7 sites and the UNet's 9 output sites,
+    those recomputed), "grid" (two steps at batch 1, as "tp")."""
+    from collections import Counter
+
+    out = Counter()
+    for level, (tokens, width, sites) in enumerate(LEVELS):
+        heads = width // 64
+        mid = level == len(LEVELS) - 1
+        if kind == "sp":
+            s = tokens * (PTR_SP_HW // 64) ** 2
+            q, k, grad_sites = (1, s // 2, heads, 64), (1, s, heads, 64), sites
+        else:
+            h = heads // 2 if heads % 2 == 0 else heads
+            s = tokens * (PTR_SIZE // 8) ** 2 // 64 ** 2
+            b = 2 if kind == "tp" else 1
+            q = k = (b, s, h, 64)
+            grad_sites = 1 if mid else 5  # the ControlNet's and the UNet's outputs
+        steps = 2 if kind == "grid" else 1
+        out[("K1", q, k)] += steps * (sites + grad_sites)
+        out[("K2", q, k)] += steps * grad_sites
+    return dict(out)
+
+
+def phase_parallel_train() -> dict:
+    """[parallel_train]: (a)-(c) in PTR_WORLD processes on this card against
+    one process (``ptr_references``, computed while they run), within
+    PTR_TOL, each limit above its spread; four planted faults that must fail
+    them; exact launches and K1/K2 shapes per process and run, none on any
+    other entry; K2a/K2b at a banded and a head-sharded shape. The first
+    tensor group runs (a), (b) and f's fault, the second (b)'s two faults,
+    then all four (c) and its fault. Returns the launches of the runs (not
+    the faults), summed over the processes."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    inp = ptr_inputs()
+    spawned_at = time.time()
+    procs = start_workers(parallel_train_worker, PTR_WORLD)
+    try:
+        st = ptr_references(inp)
+    finally:
+        join_workers(procs, PTR_TIMEOUT, "[parallel_train]")
+    ranks = [torch.load(os.path.join(PTR_ROOT, f"rank{r}.pt"), weights_only=False)
+             for r in range(PTR_WORLD)]
+    print(f"[parallel_train] {PTR_WORLD} processes on this card over gloo done in "
+          f"{time.perf_counter() - t0:.1f} s (the references beside them)")
+    for name, spread in (("tp", st["tp_spread"]), ("sp", st["sp_spread"]),
+                         ("grid", st["grid_spread"]), ("masters", st["masters_spread"])):
+        check(spread <= PTR_TOL[name], f"[parallel_train] ({name}) the spread {spread} is above "
+                                       f"the limit {PTR_TOL[name]}")
+    expected = {
+        kind: {"K1": sum(n for (kn, _, _), n in ptr_k_shapes(kind).items() if kn == "K1"),
+               "K2a": sum(n for (kn, _, _), n in ptr_k_shapes(kind).items() if kn == "K2"),
+               "K2b": sum(n for (kn, _, _), n in ptr_k_shapes(kind).items() if kn == "K2")}
+        for kind in ("sp", "tp", "grid")}
+    total = {k: 0 for k in KERNELS}
+    grid = st["grid"]
+    spreads = {"tp": st["tp_spread"], "sp": st["sp_spread"], "grid": st["grid_spread"],
+               "masters": st["masters_spread"]}
+    for rank, r in enumerate(ranks):
+        d, t = r["index"]
+        check(r["index"] == divmod(rank, 2), f"[parallel_train] rank {rank} at {r['index']}")
+        # the first tensor group ran (a) and (b), the second (b)'s faults
+        runs = [name for name in expected if name in r]
+        check(runs == (["sp", "tp", "grid"] if d == 0 else ["grid"]),
+              f"[parallel_train] rank {rank} ran {runs}")
+        errs, faults = {}, {}
+        for name in runs:
+            want = expected[name]
+            got = r[name]["launches"]
+            check(got == want, f"[parallel_train] rank {rank} {name}: launches {got}, "
+                               f"expected {want}")
+            for k, n in got.items():
+                total[k] += n
+            want_shapes = {str(k): n for k, n in ptr_k_shapes(name).items()}
+            got_shapes = {str(k): n for k, n in r[name]["shapes"].items()}
+            check(got_shapes == want_shapes, f"[parallel_train] rank {rank} {name}: shapes "
+                                             f"{got_shapes}, expected {want_shapes}")
+        if d == 0:
+            # (a): the loss, and this process's slices of the gradient
+            local = ptr_sample([ptr_local(g, lay, None, (0, t))
+                                for g, lay in zip(st["tp_grads"], r["tp_layout"])]).cpu()
+            errs["tp"] = max(abs(r["tp_out"]["loss"] - st["tp_loss"]) / abs(st["tp_loss"]),
+                             rel(r["tp_out"]["controlnet"], local))
+            faults["TP with f's backward an identity"] = (
+                "tp", rel(r["tp_no_f"]["controlnet"], local))
+            errs["sp"] = max(rel(r["sp_out"][k], st["sp"][k].cpu())
+                             for k in ("x", "c_img", "controlnet"))
+        else:
+            for label, key in (("SP with the GroupNorm sums' backward local", "sp_local_gn"),
+                               ("SP with the halo gradients dropped", "sp_dropped_halos")):
+                faults[label] = ("sp", max(rel(r[key][k], st["sp"][k].cpu())
+                                           for k in ("x", "c_img", "controlnet")))
+        # (c): the loss, this process's shards of the first moments and masters
+        lay = r["grid_out"]["layout"]
+        ref_m = ptr_sample([ptr_local(m, tp_, dim, (d, t))
+                            for m, (tp_, dim) in zip(grid["masters"], lay)]).cpu()
+        ref_e = ptr_sample([ptr_local(e, tp_, dim, (d, t))
+                            for e, (tp_, dim) in zip(grid["exp_avg"], lay)]).cpu()
+        g_out = r["grid_out"]
+        check(all(np.isfinite(g_out["losses"])), f"[parallel_train] rank {rank}: a non-finite "
+                                                 f"loss {g_out['losses']}")
+        errs["grid"] = max(max(abs(a - b) / abs(b) for a, b in zip(g_out["losses"],
+                                                                     grid["losses"])),
+                           rel(g_out["exp_avg"], ref_e))
+        errs["masters"] = flipped(g_out["masters"], ref_m)
+        # the fault's one step against one process's first
+        bad, first = r["grid_seeds_apart"], grid["after_1"]
+        faults["the grid with the tensor ranks seeded apart, one step"] = (
+            "grid", max(abs(bad["losses"][0] - grid["losses"][0]) / abs(grid["losses"][0]),
+                        rel(bad["exp_avg"], ptr_sample(
+                            [ptr_local(e, tp_, dim, (d, t))
+                             for e, (tp_, dim) in zip(first["exp_avg"], lay)]).cpu())))
+        faults["the grid's masters, the tensor ranks seeded apart, one step"] = (
+            "masters", flipped(bad["masters"], ptr_sample(
+                [ptr_local(m, tp_, dim, (d, t))
+                 for m, (tp_, dim) in zip(first["masters"], lay)]).cpu()))
+        for name, err in errs.items():
+            check(err <= PTR_TOL[name], f"[parallel_train] rank {rank} ({name}) against one "
+                                        f"process: {err} > {PTR_TOL[name]}")
+        print(f"[parallel_train] rank {rank} (data {d}, tensor {t}) against one process "
+              f"(limit; one process's spread): " + "; ".join(
+                  f"({n}) {e:.3e} ({PTR_TOL[n]:.3g}; {spreads[n]:.3e})" for n, e in errs.items()))
+        print(f"[parallel_train] rank {rank} planted faults (limit): " + "; ".join(
+            f"{label} {err:.3e} ({PTR_TOL[n]:.3g})" for label, (n, err) in faults.items()))
+        for label, (n, err) in faults.items():
+            check(err > PTR_TOL[n], f"[parallel_train] rank {rank}: {label} passes the limit "
+                                    f"{PTR_TOL[n]}: {err}")
+        print(f"[parallel_train] {card()} rank {rank}, four processes sharing one card "
+              f"(these times measure no speed of the method): s after the spawn: " + ", ".join(
+                  f"{what} {at - spawned_at:.1f}" for what, at in r["ready"]) + "; " + "; ".join(
+                  f"{name} {r[name]['s']:.3f} s, peak {r[name]['peak']:.2f} GiB" for name in runs))
+        print(f"[parallel_train] rank {rank} launches: " + "; ".join(
+            f"{name} {r[name]['launches']}" for name in runs))
+    losses = [r["grid_out"]["losses"] for r in ranks]
+    check(all(x == losses[0] for x in losses), f"[parallel_train] the processes report "
+                                               f"different losses {losses}")
+    print(f"[parallel_train] (c) losses {losses[0]} (one process {grid['losses']}), grad norms "
+          f"{ranks[0]['grid_out']['norms']} (one process {grid['norms']})")
+    del st
+    torch.cuda.empty_cache()
+    ptr_kernel_timing()  # the card alone
+    return total
+
+
 def main() -> int:
     # one card: the first that the caller shows, or the first of the machine
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -5519,6 +6115,9 @@ def main() -> int:
         paths["parallel_nccl"] = phase_parallel_nccl(st)
         lap("parallel_nccl")
         del st
+        torch.cuda.empty_cache()
+        paths["parallel_train"] = phase_parallel_train()
+        lap("parallel_train")
         cli = {path: expected for path, (expected, _) in {
             **CLI_PATHS, **GUIDANCE_PATHS, **TURBO_PATHS, **FAST_GELU_PATHS}.items()}
         tiled = {f"tiled_{name}": expected for name, (_, expected) in TILED_VARIANTS.items()}
@@ -5528,7 +6127,8 @@ def main() -> int:
                   "train_cli": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1},
                   "train_ddp": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1},
                   "train_native": {}, "train_stage1": {}, "degrade_batch": {},
-                  "parallel_inference": CLI_DEFAULT, "parallel_nccl": CLI_DEFAULT}
+                  "parallel_inference": CLI_DEFAULT, "parallel_nccl": CLI_DEFAULT,
+                  "parallel_train": {"K1": 1, "K2a": 1, "K2b": 1}}
         for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled,
                                **served}.items():
             # no other kernel

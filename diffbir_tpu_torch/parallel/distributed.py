@@ -94,9 +94,15 @@ def is_main_process() -> bool:
     return process_index() == 0
 
 
-def process_seed(seed: int) -> int:
-    """Per-process data seed (accelerate's set_seed(device_specific=True))."""
-    return seed + process_index() * 1_000_003
+def process_seed(seed: int, grid=None) -> int:
+    """The data seed of this process's rows (accelerate's
+    set_seed(device_specific=True)), from its data index in ``grid``
+    (``mesh.make_mesh``; default: the process index, every process a data
+    index). The processes of one tensor group share a data index, so they
+    draw the same rows and the same t, noise and augmentation: each sums
+    its partials of the same inputs."""
+    index = process_index() if grid is None else grid.data_index
+    return seed + index * 1_000_003
 
 
 def sync_processes(tag: str = "barrier") -> None:

@@ -26,9 +26,17 @@ process group every function is the plain run.
    the sums run in another order, so the result is equal within rounding
    (GSPMD's bit-equality does not carry over to reordered sums).
 
+   Under autograd (guidance, training: a gradient with respect to ``x``,
+   the condition or the weights) the band-aware layers differentiate
+   through ``parallel/collectives.py``: the halo rows' gradients go back
+   to their senders, the GroupNorm sums are all-reduced backward too, the
+   gathered k and v are reduce-scattered. The gradients are a band's, as
+   the output is; the parameters' gradients are each process's part, to
+   be summed over the processes.
+
 The collectives are ``all_reduce``, ``broadcast`` and ``all_gather``,
 which gloo (CPU tensors; on one card, CUDA tensors staged through the host)
-and nccl take. Inference only: nothing here has a backward.
+and nccl take.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from ..models.layers import Conv2d, GroupNorm32, gn_fold_moments
 from ..models.unet import CrossAttention, Downsample
 from ..ops.attention import attention
 from ..tiling import gaussian_weights, sliding_windows
+from . import collectives
 from .mesh import broadcast_
 from .tp import check_default_mode
 
@@ -57,16 +66,6 @@ def _world(group=None) -> tuple:
     if not dist.is_initialized():
         return 1, 0
     return dist.get_world_size(group), dist.get_rank(group)
-
-
-def _all_gather(t: torch.Tensor, group) -> list:
-    """Every process's ``t`` (equal shapes), in rank order."""
-    t = t.contiguous()
-    if dist.get_backend(group) == "nccl" and not t.is_cuda:
-        return [p.cpu() for p in _all_gather(t.cuda(), group)]
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return parts
 
 
 # --------------------------------------------------------------------------- #
@@ -105,7 +104,7 @@ def _gather_rows(out, group):
     ``Pipeline.run``'s images) along axis 0, in rank order."""
     if isinstance(out, np.ndarray):
         return _gather_rows(torch.from_numpy(np.ascontiguousarray(out)), group).numpy()
-    return torch.cat(_all_gather(out, group), dim=0)
+    return torch.cat(collectives.all_gather(out, group), dim=0)
 
 
 def batch_parallel(fn: Callable, group=None) -> Callable:
@@ -150,7 +149,7 @@ def tile_parallel_model_fn(model_fn: Callable, group=None) -> Callable:
                            **kwargs)
         else:
             out = model_fn(local, *args, **kwargs)
-        return torch.cat(_all_gather(out, group), dim=0)[: k * b]
+        return torch.cat(collectives.all_gather(out, group), dim=0)[: k * b]
 
     return wrapped
 
@@ -238,21 +237,17 @@ def gather(x: torch.Tensor, group=None) -> torch.Tensor:
     (``spatial_shard``'s inverse)."""
     if not dist.is_initialized():
         return x
-    return torch.cat(_all_gather(x, group), dim=1)
+    return torch.cat(collectives.all_gather(x, group), dim=1)
 
 
 def _halo_rows(x: torch.Tensor, group, below: bool):
     """The row above this band and (with ``below``) the row below it, from
     the neighbouring processes' bands of NCHW ``x``; zeros past the image's
     edges (a 3x3 convolution's zero padding). One all-gather of each band's
-    boundary rows."""
-    n, rank = _world(group)
-    edges = torch.cat([x[:, :, :1], x[:, :, -1:]], dim=2) if below else x[:, :, -1:]
-    parts = _all_gather(edges, group)
-    zero = torch.zeros_like(x[:, :, :1])
-    top = parts[rank - 1][:, :, -1:] if rank > 0 else zero
-    bottom = (parts[rank + 1][:, :, :1] if rank < n - 1 else zero) if below else None
-    return top, bottom
+    boundary rows (``collectives.HaloRows``: the backward returns the
+    rows' gradients to their senders)."""
+    rows = collectives.HaloRows.apply(x, group, below)
+    return rows[:, :, :1], (rows[:, :, 1:] if below else None)
 
 
 def _band_conv(m: Conv2d, group, x: torch.Tensor) -> torch.Tensor:
@@ -269,16 +264,14 @@ def _band_conv(m: Conv2d, group, x: torch.Tensor) -> torch.Tensor:
 def _band_moments(xf: torch.Tensor, group):
     """Per-channel fp32 mean and two-pass variance of NC... ``xf`` over
     every band: one all-reduce of the sums, then one of the centred
-    squares (the bands are of equal size)."""
+    squares (the bands are of equal size), each all-reduced backward too
+    (``collectives.AllReduceSum``)."""
     axes = tuple(range(2, xf.dim()))
     count = dist.get_world_size(group) * math.prod(xf.shape[2:])
-    s1 = xf.sum(dim=axes, keepdim=True)
-    dist.all_reduce(s1, op=dist.ReduceOp.SUM, group=group)
-    mean = s1 / count
+    total = collectives.AllReduceSum.apply
+    mean = total(xf.sum(dim=axes, keepdim=True), group) / count
     d = xf - mean
-    s2 = (d * d).sum(dim=axes, keepdim=True)
-    dist.all_reduce(s2, op=dist.ReduceOp.SUM, group=group)
-    return mean, s2 / count
+    return mean, total((d * d).sum(dim=axes, keepdim=True), group) / count
 
 
 def _band_group_norm(m: GroupNorm32, group, x: torch.Tensor) -> torch.Tensor:
@@ -295,13 +288,14 @@ def _band_attention(m: CrossAttention, group, x: torch.Tensor,
                     kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention of this band's tokens (a contiguous range of the
     row-major token order) to every band's: k and v all-gathered in rank
-    order, one gather of both. Cross-attention to the context is local."""
+    order, one gather of both (``collectives.GatherBands``: reduce-scattered
+    backward). Cross-attention to the context is local."""
     if context is not None or kv is not None:
         return CrossAttention.forward(m, x, context, kv)
     b, sq, _ = x.shape
     q = m.to_q(x)
-    k, v = torch.cat(_all_gather(torch.cat([m.to_k(x), m.to_v(x)], dim=-1), group),
-                     dim=1).chunk(2, dim=-1)
+    k, v = collectives.GatherBands.apply(torch.cat([m.to_k(x), m.to_v(x)], dim=-1),
+                                         group, 1).chunk(2, dim=-1)
     skv = k.shape[1]
     q = q.reshape(b, sq, m.heads, m.dim_head)
     k = k.reshape(b, skv, m.heads, m.dim_head)
@@ -343,34 +337,79 @@ def _banded(roots, group):
             del m.forward
 
 
-def spatial_parallel(cldm, group=None) -> Callable:
-    """The ControlLDM denoiser (``cldm(x, t, cond, control_scales,
-    hoisted)``: IRControlNet -> scaled residuals -> UNet) on this process's
-    H band of ``x`` and ``cond["c_img"]`` (NHWC, ``spatial_shard``); ``t``,
-    ``cond["c_txt"]`` and the hoisted rows are replicated. Returns this
-    band's output; ``gather`` makes the whole. The latent H must divide by
-    2^d * n (d the UNet's downsamples: 8 n for SD2.1), so that every band
-    keeps whole rows at every level. The default serving mode only."""
-    if not dist.is_initialized():
-        return cldm
-    for root in (cldm.unet, cldm.controlnet):
-        check_default_mode(root, "spatial parallelism (spatial_parallel)")
-    factor = 2 ** sum(isinstance(m, Downsample) for m in cldm.unet.modules())
+class SpatialParallel:
+    """The ControlLDM denoiser on this process's H band; see
+    ``spatial_parallel``."""
 
-    def forward(x, t, cond, control_scales=1.0, hoisted=None):
-        if torch.is_grad_enabled() and any(p.requires_grad for p in cldm.parameters()):
-            raise RuntimeError("spatial parallelism runs inference only (its collectives "
-                               "have no backward): call it under torch.no_grad()")
-        n, _ = _world(group)
+    def __init__(self, cldm, group):
+        self.cldm, self.group = cldm, group
+        self.factor = 2 ** sum(isinstance(m, Downsample) for m in cldm.unet.modules())
+        self._context = None
+
+    def __enter__(self) -> "SpatialParallel":
+        if self._context is not None:
+            raise RuntimeError("spatial_parallel: the banded forwards are installed already")
+        roots = (self.cldm.unet, self.cldm.controlnet) if dist.is_initialized() else ()
+        self._context = _banded(roots, self.group)
+        self._context.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        context, self._context = self._context, None
+        context.__exit__(*exc)
+
+    def _recomputes(self, x, cond) -> bool:
+        """Whether autograd records a graph whose backward recomputes a
+        checkpointed block."""
+        if not torch.is_grad_enabled():
+            return False
+        inputs = [x, *(v for v in cond.values() if isinstance(v, torch.Tensor))]
+        grad = any(t.requires_grad for t in inputs) or any(
+            p.requires_grad for p in self.cldm.parameters())
+        return grad and any(getattr(m, "use_checkpoint", False) for m in self.cldm.modules())
+
+    def __call__(self, x, t, cond, control_scales=1.0, hoisted=None):
+        cldm = self.cldm
+        if not dist.is_initialized():
+            return cldm(x, t, cond, control_scales, hoisted)
+        n, _ = _world(self.group)
         band = x.shape[1]
-        if band % factor:
+        if band % self.factor:
             raise ValueError(f"spatial parallelism: the latent H {band * n} must divide by "
-                             f"{factor} x {n} processes = {factor * n}, so that each band "
-                             f"keeps whole rows at every level")
+                             f"{self.factor} x {n} processes = {self.factor * n}, so that each "
+                             f"band keeps whole rows at every level")
         if cond["c_img"].shape[1] != band:
             raise ValueError(f"the condition's band has {cond['c_img'].shape[1]} rows, x's "
                              f"{band}: shard both with spatial_shard")
-        with _banded((cldm.unet, cldm.controlnet), group):
+        if self._context is not None:
+            return cldm(x, t, cond, control_scales, hoisted)
+        if self._recomputes(x, cond):
+            raise RuntimeError("spatial parallelism under autograd with gradient "
+                               "checkpointing: the backward recomputes the banded layers, so "
+                               "run the forward and the backward inside `with fn:` (fn = "
+                               "spatial_parallel(cldm))")
+        with _banded((cldm.unet, cldm.controlnet), self.group):
             return cldm(x, t, cond, control_scales, hoisted)
 
-    return forward
+
+def spatial_parallel(cldm, group=None) -> SpatialParallel:
+    """The ControlLDM denoiser (``fn(x, t, cond, control_scales,
+    hoisted)``: IRControlNet -> scaled residuals -> UNet) on this process's
+    H band of ``x`` and ``cond["c_img"]`` (NHWC, ``spatial_shard``); ``t``,
+    ``cond["c_txt"]`` and the hoisted rows are replicated. Returns this
+    band's output; ``gather`` makes the whole (it has no backward: take a
+    band's loss on the band). The latent H must divide by 2^d * n (d the
+    UNet's downsamples: 8 n for SD2.1), so that every band keeps whole rows
+    at every level. The default serving mode only.
+
+    Each call installs the band-aware forwards for its own span. Under
+    autograd with gradient checkpointing (``use_checkpoint``), the
+    backward recomputes the checkpointed blocks, which must run banded too:
+    the caller then holds them installed over the forward and the backward
+    with ``with fn: loss_of(fn(...)).backward()``; such a call outside the
+    context raises RuntimeError. Without a process group, ``fn`` is the
+    plain denoiser."""
+    if dist.is_initialized():
+        for root in (cldm.unet, cldm.controlnet):
+            check_default_mode(root, "spatial parallelism (spatial_parallel)")
+    return SpatialParallel(cldm, group)

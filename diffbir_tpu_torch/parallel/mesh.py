@@ -1,4 +1,4 @@
-"""The data-parallel layout of training: processes, batch split, collectives.
+"""The parallel layout of training: processes, batch split, collectives.
 
 Counterpart of ``diffbir_tpu/parallel/mesh.py``. The reference's
 distributed surface is four collectives: allreduce(grad), allgather
@@ -6,14 +6,23 @@ distributed surface is four collectives: allreduce(grad), allgather
 and XLA inserts them; here each process drives one card and ``DataParallel``
 runs them itself:
 
+- ``make_mesh(n_data, n_tensor)`` lays the processes out as JAX's
+  ``np.array(devices).reshape(n_data, n_tensor)`` does: global rank = data
+  index x n_tensor + tensor index; a data group for each tensor index (the
+  processes that split the batch) and a tensor group for each data index
+  (the processes that split the weights, ``parallel/tp.py``). n_tensor = 1
+  is the data-parallel layout over the whole process group;
 - ``data_size`` holds ``train.n_data`` and the batch to the process count,
   raising the JAX package's errors;
 - ``broadcast_`` copies rank 0's parameters to every process at start
   (JAX's ``replicate``);
 - ``DataParallel.reduce`` reduces the fp32 gradients of the trained
-  parameters before the optimiser's update: an all-reduce over buckets of
-  whole leaves, or, for the leaves ``train.fsdp`` shards
-  (``parallel/fsdp.py``), a reduce-scatter to each process's shard.
+  parameters over the data group before the optimiser's update: an
+  all-reduce over buckets of whole leaves, or, for the leaves
+  ``train.fsdp`` shards (``parallel/fsdp.py``), a reduce-scatter over
+  buckets of them to each process's shards. The tensor group needs no
+  reduction: its processes compute the same loss, and a sharded weight's
+  gradient is whole on the process that holds the slice.
 
 The reduction is a **sum** or a **mean**, as the loss is. Stage 1's loss is
 a sum over the global batch (JAX differentiates ``jnp.sum`` over the batch
@@ -28,16 +37,59 @@ without one every method is the identity.
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Iterable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from . import fsdp
-from .distributed import world_size
+from .distributed import process_index, world_size
 
 REDUCTIONS = ("sum", "mean")
-BUCKET_BYTES = 64 << 20
+
+
+@dataclass(frozen=True)
+class ProcessGrid:
+    """The processes as an n_data x n_tensor grid (``make_mesh``): this
+    process's indices and its two groups (None: the whole process group)."""
+
+    n_data: int
+    n_tensor: int
+    data_index: int
+    tensor_index: int
+    data_group: Any = None
+    tensor_group: Any = None
+
+
+def make_mesh(n_data: Optional[int] = None, n_tensor: int = 1) -> ProcessGrid:
+    """The grid of the process group (JAX's ``make_mesh(n_data, n_tensor)``):
+    n_data defaults to the process count over n_tensor, and n_data x
+    n_tensor must be the process count, else ValueError with JAX's text.
+    Every process calls it together: it makes every group, in one order.
+    A group of every process is the whole process group; without a process
+    group the grid is 1 x 1."""
+    n = world_size()
+    if n_data is None:
+        n_data = n // n_tensor
+    if n_data * n_tensor != n:
+        raise ValueError(f"make_mesh: need n_data*n_tensor == len(devices) but got "
+                         f"{n_data}x{n_tensor} != {n} (one process per card: the processes "
+                         f"of the group)")
+    d, t = divmod(process_index(), n_tensor)
+
+    def group(ranks):
+        return None if len(ranks) == n else dist.new_group(ranks)
+
+    data = tensor = None
+    if dist.is_initialized():
+        for j in range(n_tensor):
+            g = group([i * n_tensor + j for i in range(n_data)])
+            data = g if j == t else data
+        for i in range(n_data):
+            g = group([i * n_tensor + j for j in range(n_tensor)])
+            tensor = g if i == d else tensor
+    return ProcessGrid(n_data, n_tensor, d, t, data, tensor)
 
 
 def data_size(n_data: Optional[int], batch_size: int) -> int:
@@ -67,23 +119,35 @@ def broadcast_(tensors: Iterable[torch.Tensor], group=None) -> None:
 
 
 class DataParallel:
-    """The gradient (and metric) reduction of one training loop: ``reduce``
-    in ``REDUCTIONS``; ``fsdp`` shards the leaves ``fsdp_dim`` names."""
+    """The gradient (and metric) reduction of one training loop over the
+    data group of ``grid`` (default: every process is a data index):
+    ``reduce`` in ``REDUCTIONS``; ``fsdp`` shards the leaves ``fsdp_dim``
+    names. A grid with n_tensor > 1 also tensor-shards the model
+    (``train/stage2.py``'s ``init_train_state``)."""
 
-    def __init__(self, reduce: str, fsdp: bool = False):
+    def __init__(self, reduce: str, fsdp: bool = False, grid: Optional[ProcessGrid] = None):
         if reduce not in REDUCTIONS:
             raise ValueError(f"reduce {reduce!r}: one of {REDUCTIONS}")
         self.mean = reduce == "mean"
         self.fsdp = fsdp
         self.active = dist.is_initialized()
-        self.world = world_size()
+        self.grid = grid or ProcessGrid(world_size(), 1, process_index(), 0)
+        self.group = self.grid.data_group
+        self.world = self.grid.n_data
 
-    def shard_dim(self, shape: Sequence[int]) -> Optional[int]:
-        """The dimension a leaf of ``shape`` is sharded along, or None."""
-        return fsdp.fsdp_dim(shape, self.world) if self.fsdp and self.active else None
+    def shard_dim(self, shape: Sequence[int], tp_dim: Optional[int] = None) -> Optional[int]:
+        """The dimension a leaf of this process's ``shape`` is sharded along
+        over the data group, or None; ``tp_dim``: the dimension it is a
+        tensor slice along (the rule reads the whole shape)."""
+        if not (self.fsdp and self.active):
+            return None
+        whole = list(shape)
+        if tp_dim is not None:
+            whole[tp_dim] *= self.grid.n_tensor
+        return fsdp.fsdp_dim(whole, self.world, taken=tp_dim)
 
     def _all_reduce(self, flat: torch.Tensor, mean: bool) -> None:
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
         if mean:
             flat /= self.world
 
@@ -92,35 +156,28 @@ class DataParallel:
                ) -> List[torch.Tensor]:
         """Each process's whole gradients -> their sum or mean over the
         processes: whole where ``dims`` is None (bucketed all-reduce), this
-        process's shard along ``dims[i]`` otherwise (reduce-scatter)."""
+        process's shard along ``dims[i]`` otherwise (bucketed
+        reduce-scatter)."""
         if not self.active:
             return list(grads)
         out = list(grads)
-        bucket: List[int] = []
-        size = 0
-
-        def flush():
-            nonlocal bucket, size
-            if not bucket:
-                return
-            flat = torch.cat([out[i].reshape(-1) for i in bucket])
+        whole = [i for i, d in enumerate(dims) if d is None]
+        for bucket in fsdp.buckets([grads[i] for i in whole]):
+            idx = [whole[j] for j in bucket]
+            flat = torch.cat([out[i].reshape(-1) for i in idx])
             self._all_reduce(flat, self.mean)
             off = 0
-            for i in bucket:
+            for i in idx:
                 n = out[i].numel()
                 out[i] = flat[off:off + n].view_as(out[i])
                 off += n
-            bucket, size = [], 0
-
-        for i, (g, d) in enumerate(zip(grads, dims)):
-            if d is not None:
-                out[i] = fsdp.reduce_scatter(g, d, self.mean)
-                continue
-            bucket.append(i)
-            size += g.numel() * g.element_size()
-            if size >= BUCKET_BYTES:
-                flush()
-        flush()
+        sharded = [i for i, d in enumerate(dims) if d is not None]
+        for bucket in fsdp.buckets([grads[i] for i in sharded]):
+            idx = [sharded[j] for j in bucket]
+            parts = fsdp.reduce_scatter([grads[i] for i in idx], [dims[i] for i in idx],
+                                        self.mean, self.group)
+            for i, part in zip(idx, parts):
+                out[i] = part
         return out
 
     @torch.no_grad()

@@ -9,10 +9,16 @@ and ``out_layers.3``; a leaf whose dimension does not divide by the process
 count, and every other leaf, replicated.
 
 Under JAX the rule is all there is: GSPMD places each leaf and inserts the
-collectives. Here ``tp_shard_`` slices this process's part of each weight
-in place and runs the collectives itself, so a forward after it computes
-what it did before (inference only). An explicit forward needs rules that
-GSPMD made unnecessary; each changes where a weight lives, never a number
+collectives, and ``jax.grad`` differentiates through them. Here
+``tp_shard_`` slices this process's part of each weight in place and runs
+the collectives itself (``parallel/collectives.py``), so a forward after it
+computes what it did before, and a backward the same gradients, the
+sharded weights' as this process's slices of them. Megatron's convention:
+a column layer takes its replicated input through *f* (identity forward,
+the input gradient all-reduced backward), a row layer reduces its partial
+sums through *g* (all-reduce forward, identity backward). A unit left
+replicated runs neither. An explicit forward needs rules that GSPMD made
+unnecessary; each changes where a weight lives, never a number
 (``tp_plan`` gives every leaf's placement and the reason):
 
 - **pairs**: a column layer and its row partner are sharded together or
@@ -31,15 +37,25 @@ GSPMD made unnecessary; each changes where a weight lives, never a number
 - **GEGLU's interleave**: the projection's output is ``[x | gate]``, so a
   process takes matching slices of both halves, not one half;
 - **one reduce per row layer**: a row layer's partial sums are all-reduced
-  once (in fp32), then its bias is added once.
+  once (in fp32), then its bias is added once;
+- **one *f* per unit input**: an attention unit takes x (and its context)
+  through *f* once for q, k and v, a feed-forward unit once for its GEGLU
+  projection; a ResBlock's ``in_layers.2`` and ``emb_layers.1`` each take
+  theirs, since the block's input also feeds its skip connection.
+
+A sharded parameter keeps its ``requires_grad`` and carries its placement:
+``tp_dim`` (the dimension) and ``tp_splits`` (2 for GEGLU's projection,
+whose slices of the x and gate halves are laid side by side; else 1), which
+``tp_whole`` and ``tp_local`` read to gather the whole tensor or take this
+process's slice of one (``train/optim.py``: masters, moments, checkpoints).
 
 The hoisted tables (``ControlLDM.make_hoist_tables``) made after
 ``tp_shard_`` hold this process's heads and channels: their cross-attention
-k/v and ``emb_layers`` rows come from the sharded weights. The default
-serving mode only: the fused (K6/K7) and int8 (K4) modes run their kernels
-on whole weights, and ``tp_shard_`` raises ValueError naming the mode.
-Without a process group, or with one process (JAX: a tensor axis of 1), it
-changes nothing.
+k/v and ``emb_layers`` rows come from the sharded weights. The training
+step makes none. The default serving mode only: the fused (K6/K7) and int8
+(K4) modes run their kernels on whole weights, and ``tp_shard_`` raises
+ValueError naming the mode. Without a process group, or with one process
+(JAX: a tensor axis of 1), it changes nothing.
 """
 
 from __future__ import annotations
@@ -51,8 +67,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import Conv2d, GroupNorm32, QuantConv, QuantLinear
+from ..models.layers import Conv2d, GroupNorm32, Linear, QuantConv, QuantLinear
 from ..models.unet import CrossAttention, FeedForward, ResBlock
+from .collectives import CopyToTensorParallel, ReduceFromTensorParallel, all_gather
 
 # column-parallel (shard dim 0 = output features); JAX's _COL_SUFFIXES
 _COL_SUFFIXES = ("to_q", "to_k", "to_v", "net.0.proj", "in_layers.2", "qkv",
@@ -181,30 +198,68 @@ def tp_plan(module: nn.Module, n: int) -> Dict[str, Tuple[Optional[int], str]]:
 # the sharded layers
 # --------------------------------------------------------------------------- #
 def _reduce_partial(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum over the processes of a row layer's partial sums (fp32)."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    return t
+    """The sum over the processes of a row layer's partial sums (fp32): *g*."""
+    return ReduceFromTensorParallel.apply(t, group)
 
 
-def _inference_only(x: torch.Tensor, weight: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        raise RuntimeError("tensor-parallel layers run inference only (their all_reduce "
-                           "has no backward): call them under torch.no_grad()")
+class _ColumnLinear(Linear):
+    """A column layer's Linear (``emb_layers.1``, the CLIP tower's
+    ``mlp.c_fc``): its input through *f*."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(CopyToTensorParallel.apply(x, self.tp_group))
+
+
+class _ColumnConv2d(Conv2d):
+    """``in_layers.2``: its input through *f*."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(CopyToTensorParallel.apply(x, self.tp_group))
+
+
+class _ColumnAttention(CrossAttention):
+    """An attention unit of this process's heads: x through *f* once for q,
+    k and v, the context once for k and v."""
+
+    def forward(self, x, context=None, kv=None):
+        return super().forward(CopyToTensorParallel.apply(x, self.tp_group), context, kv)
+
+    def context_kv(self, context: torch.Tensor) -> torch.Tensor:
+        return super().context_kv(CopyToTensorParallel.apply(context, self.tp_group))
+
+
+class _ColumnFeedForward(FeedForward):
+    """A feed-forward unit of this process's GEGLU columns: x through *f*."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(CopyToTensorParallel.apply(x, self.tp_group))
+
+
+def _column_(module: nn.Module, cls: type, group) -> None:
+    """``module`` (of ``cls``'s base class) in place as ``cls``, on ``group``."""
+    module.__class__ = cls
+    module.tp_group = group
+
+
+def _placed(p: nn.Parameter, dim: int, splits: int = 1) -> nn.Parameter:
+    """``p``, marked as this process's tensor slice along ``dim``."""
+    p.tp_dim, p.tp_splits = dim, splits
+    return p
 
 
 class RowParallelLinear(nn.Module):
     """A Linear whose ``weight`` holds this process's input features: the
-    partial product, one all-reduce of it in fp32, the whole bias once."""
+    partial product, one all-reduce of it in fp32 (*g*), the whole bias
+    once."""
 
     def __init__(self, lin: nn.Linear, part: slice, group):
         super().__init__()
-        self.weight = nn.Parameter(lin.weight.detach()[:, part].contiguous(),
-                                   requires_grad=False)
+        self.weight = _placed(nn.Parameter(lin.weight.detach()[:, part].contiguous(),
+                                           requires_grad=lin.weight.requires_grad), 1)
         self.bias = lin.bias
         self.group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _inference_only(x, self.weight)
         y = _reduce_partial(F.linear(x.to(self.weight.dtype), self.weight).float(), self.group)
         if self.bias is not None:
             y = y + self.bias.float()
@@ -217,14 +272,13 @@ class RowParallelConv2d(nn.Module):
 
     def __init__(self, conv: nn.Conv2d, part: slice, group):
         super().__init__()
-        self.weight = nn.Parameter(conv.weight.detach()[:, part].contiguous(),
-                                   requires_grad=False)
+        self.weight = _placed(nn.Parameter(conv.weight.detach()[:, part].contiguous(),
+                                           requires_grad=conv.weight.requires_grad), 1)
         self.bias = conv.bias
         self.stride, self.padding = conv.stride, conv.padding
         self.group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _inference_only(x, self.weight)
         y = F.conv2d(x.to(self.weight.dtype), self.weight, None, self.stride, self.padding)
         y = _reduce_partial(y.float(), self.group)
         if self.bias is not None:
@@ -232,14 +286,17 @@ class RowParallelConv2d(nn.Module):
         return y.to(self.weight.dtype)
 
 
-def _rows_(layer: nn.Module, idx: torch.Tensor) -> None:
+def _keep_(p: nn.Parameter, idx: torch.Tensor, splits: int = 1) -> nn.Parameter:
+    """The rows ``idx`` of ``p`` as a new parameter, placed along dim 0."""
+    return _placed(nn.Parameter(p.detach()[idx].contiguous(), requires_grad=p.requires_grad),
+                   0, splits)
+
+
+def _rows_(layer: nn.Module, idx: torch.Tensor, splits: int = 1) -> None:
     """Keep the output features ``idx`` of a Linear or Conv2d in place."""
-    with torch.no_grad():
-        layer.weight = nn.Parameter(layer.weight.detach()[idx].contiguous(),
-                                    requires_grad=False)
-        if layer.bias is not None:
-            layer.bias = nn.Parameter(layer.bias.detach()[idx].contiguous(),
-                                      requires_grad=False)
+    layer.weight = _keep_(layer.weight, idx, splits)
+    if layer.bias is not None:
+        layer.bias = _keep_(layer.bias, idx, splits)
     if isinstance(layer, nn.Linear):
         layer.out_features = len(idx)
     else:
@@ -264,28 +321,36 @@ def _shard_unit_(kind: str, m: nn.Module, rank: int, n: int, group) -> None:
             _rows_(lin, idx)
         m.to_out[0] = RowParallelLinear(m.to_out[0], _span(idx), group)
         m.heads //= n
+        _column_(m, _ColumnAttention, group)
     elif kind == "ff":
         proj = m.net[0].proj
         inner = proj.out_features // 2
         idx = _part(inner, rank, n)
-        _rows_(proj, torch.cat([idx, idx + inner]))  # matching x and gate slices
+        _rows_(proj, torch.cat([idx, idx + inner]), splits=2)  # matching x and gate slices
         m.net[2] = RowParallelLinear(m.net[2], _span(idx), group)
+        _column_(m, _ColumnFeedForward, group)
     elif kind == "res":
         c = m.in_layers[2].out_channels
         idx = _part(c, rank, n)
         _rows_(m.in_layers[2], idx)
         _rows_(m.emb_layers[1], idx)
+        _column_(m.in_layers[2], _ColumnConv2d, group)
+        _column_(m.emb_layers[1], _ColumnLinear, group)
         gn = m.out_layers[0]
-        with torch.no_grad():
-            gn.weight = nn.Parameter(gn.weight.detach()[idx].contiguous(), requires_grad=False)
-            gn.bias = nn.Parameter(gn.bias.detach()[idx].contiguous(), requires_grad=False)
+        gn.weight, gn.bias = _keep_(gn.weight, idx), _keep_(gn.bias, idx)
         gn.num_groups = GroupNorm32.num_groups // n  # whole groups on each process
         m.out_layers[3] = RowParallelConv2d(m.out_layers[3], _span(idx), group)
         m._tap_major.clear()
     else:
         idx = _part(m["c_fc"].out_features, rank, n)
         _rows_(m["c_fc"], idx)
+        _column_(m["c_fc"], _ColumnLinear, group)
         m["c_proj"] = RowParallelLinear(m["c_proj"], _span(idx), group)
+
+
+# each kind of unit's column layer, which ``_column_`` marks with its group
+_COLUMN_OF = {"attn": lambda m: m, "ff": lambda m: m, "res": lambda m: m.in_layers[2],
+              "mlp": lambda m: m["c_fc"]}
 
 
 @torch.no_grad()
@@ -293,8 +358,10 @@ def tp_shard_(module: nn.Module, group=None) -> nn.Module:
     """Shard ``module`` (a ControlLDM, or any module holding its UNet,
     ControlNet or CLIP blocks) over the processes of ``group`` (default:
     the whole process group) in place, by ``tp_plan``: this process keeps
-    its slices, and the row layers all-reduce. Returns ``module``. Without
-    a process group, or at one process, nothing changes. ValueError in the
+    its slices (each parameter its ``requires_grad``), the column layers
+    take their input through *f* and the row layers reduce through *g*.
+    A unit sharded already is left as it is. Returns ``module``. Without a
+    process group, or at one process, nothing changes. ValueError in the
     fused and int8 serving modes."""
     if not dist.is_initialized():
         return module
@@ -304,6 +371,24 @@ def tp_shard_(module: nn.Module, group=None) -> nn.Module:
     check_default_mode(module, "tensor parallelism (tp_shard_)")
     rank = dist.get_rank(group)
     for kind, _, m in list(_units(module)):
-        if _unit_blocker(kind, m, n) is None:
+        if not hasattr(_COLUMN_OF[kind](m), "tp_group") and _unit_blocker(kind, m, n) is None:
             _shard_unit_(kind, m, rank, n, group)
     return module
+
+
+# --------------------------------------------------------------------------- #
+# whole tensors from the slices, and back
+# --------------------------------------------------------------------------- #
+def tp_local(full: torch.Tensor, dim: int, splits: int, rank: int, n: int) -> torch.Tensor:
+    """This process's slice of the whole ``full`` by a parameter's placement
+    (``tp_dim``, ``tp_splits``): of each of the ``splits`` parts along
+    ``dim``, the ``rank``-th of ``n`` equal slices, side by side."""
+    return torch.cat([part.chunk(n, dim)[rank] for part in full.chunk(splits, dim)],
+                     dim).contiguous()
+
+
+def tp_whole(local: torch.Tensor, dim: int, splits: int, group) -> torch.Tensor:
+    """The whole tensor from every process's ``tp_local`` slice (one
+    all-gather over ``group``; no backward)."""
+    parts = [p.chunk(splits, dim) for p in all_gather(local, group)]
+    return torch.cat([p[i] for i in range(splits) for p in parts], dim).contiguous()

@@ -8,10 +8,16 @@ arithmetic (fp32 parameters cast at every use) without casts on the
 forward path, and updates that bf16 would lose are kept.
 
 Across processes (``parallel.DataParallel``) the fp32 gradients are reduced
-before the update, and under ``train.fsdp`` each process keeps the masters
-and moments of its shard of the leaves ``fsdp_dim`` shards, updates that,
-and all-gathers the rounded weights. ``state_dict`` is always the whole
-state, so a checkpoint resumes with any process count.
+over the data group before the update, and under ``train.fsdp`` each
+process keeps the masters and moments of its shard of the leaves
+``fsdp_dim`` shards, updates that, and all-gathers the rounded weights over
+the data group. Under tensor parallelism (a grid with n_tensor > 1) a
+parameter is this process's tensor slice (``parallel/tp.py``: ``tp_dim``,
+``tp_splits``), and its master the slice's, data-sharded on top (JAX's
+``fsdp_spec`` on its ``tp_spec``). ``grad_norm`` is the whole tree's;
+``full_masters`` and ``state_dict`` are always the whole state, gathered
+over both groups, so a checkpoint resumes with any process count and
+layout.
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ from __future__ import annotations
 from typing import Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..parallel import fsdp
 from ..parallel.mesh import DataParallel
+from ..parallel.tp import tp_local, tp_whole
 
 MOMENTS = ("exp_avg", "exp_avg_sq")  # torch AdamW's per-parameter state shaped as it
 
@@ -46,7 +54,11 @@ class MasterAdamW:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.params = list(params)
         self.parallel = parallel
-        self.dims = [parallel.shard_dim(p.shape) if parallel else None for p in self.params]
+        # each parameter's tensor slice: (dim, splits), or None where whole
+        self.tp = [(p.tp_dim, p.tp_splits) if hasattr(p, "tp_dim") else None
+                   for p in self.params]
+        self.dims = [parallel.shard_dim(p.shape, None if t is None else t[0]) if parallel
+                     else None for p, t in zip(self.params, self.tp)]
         self.masters = [self._shard(p.detach().to(torch.float32, copy=True), d)
                         for p, d in zip(self.params, self.dims)]
         self.optimizer = torch.optim.AdamW(self.masters, lr=learning_rate, betas=(0.9, 0.999),
@@ -55,13 +67,31 @@ class MasterAdamW:
         self.micro_step = 0  # micro-batches accumulated since the last update
         self.updates = 0     # AdamW updates taken
 
-    @staticmethod
-    def _shard(full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        return full if dim is None else fsdp.shard(full, dim)
+    @property
+    def _group(self):
+        return self.parallel.group if self.parallel else None
 
-    @staticmethod
-    def _gather(part: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        return part if dim is None else fsdp.all_gather(part, dim)
+    def _shard(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This process's data shard of its tensor slice ``full``."""
+        return full if dim is None else fsdp.shard(full, dim, self._group)
+
+    def _gather(self, part: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This process's tensor slice from the data shards ``part``."""
+        return part if dim is None else fsdp.all_gather([part], [dim], self._group)[0]
+
+    def _whole(self, part: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf ``i``'s whole tensor from this process's shard ``part``."""
+        part = self._gather(part, self.dims[i])
+        if self.tp[i] is None:
+            return part
+        return tp_whole(part, *self.tp[i], self.parallel.grid.tensor_group)
+
+    def _local(self, full: torch.Tensor, i: int) -> torch.Tensor:
+        """This process's shard of leaf ``i``'s whole tensor ``full``."""
+        if self.tp[i] is not None:
+            grid = self.parallel.grid
+            full = tp_local(full, *self.tp[i], grid.tensor_index, grid.n_tensor)
+        return self._shard(full, self.dims[i])
 
     @torch.no_grad()
     def gradients(self) -> List[torch.Tensor]:
@@ -82,13 +112,25 @@ class MasterAdamW:
 
     @torch.no_grad()
     def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The global norm of ``gradients()``'s result, shards included."""
-        if not any(d is not None for d in self.dims):
+        """The global norm of ``gradients()``'s result over the whole tree
+        (``optax.global_norm``): the squares of the data-sharded leaves
+        summed over the data group, of the tensor slices over the tensor
+        group; a replicated leaf counts once."""
+        if all(d is None and t is None for d, t in zip(self.dims, self.tp)):
             return global_norm(grads)
-        sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads]
-        sharded = sum((s for s, d in zip(sq, self.dims) if d is not None), torch.zeros_like(sq[0]))
-        whole = sum((s for s, d in zip(sq, self.dims) if d is None), torch.zeros_like(sq[0]))
-        return torch.sqrt(self.parallel.reduce_metric(sharded, mean=False) + whole)
+        sq = torch.zeros(4, dtype=torch.float32, device=grads[0].device)
+        for g, d, t in zip(grads, self.dims, self.tp):
+            sq[(d is not None) + 2 * (t is not None)] += torch.linalg.vector_norm(
+                g, dtype=torch.float32) ** 2
+        grid = self.parallel.grid
+        # [whole, data-sharded, tensor-sliced, both]
+        for idx, group, n in (([1, 3], grid.data_group, grid.n_data),
+                              ([2, 3], grid.tensor_group, grid.n_tensor)):
+            if n > 1:
+                part = sq[idx]
+                dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+                sq[idx] = part
+        return torch.sqrt(sq.sum())
 
     @torch.no_grad()
     def step(self, grads: Optional[List[torch.Tensor]] = None) -> bool:
@@ -111,16 +153,25 @@ class MasterAdamW:
         self.optimizer.zero_grad(set_to_none=True)
         self.micro_step = 0
         self.updates += 1
+        sharded = [i for i, d in enumerate(self.dims) if d is not None]
         for p, m, d in zip(self.params, self.masters, self.dims):
-            p.copy_(self._gather(m.to(p.dtype), d))
+            if d is None:
+                p.copy_(m.to(p.dtype))
+        cast = [self.masters[i].to(self.params[i].dtype) for i in sharded]
+        for bucket in fsdp.buckets(cast):  # the rounded weights, gathered bucket by bucket
+            idx = [sharded[j] for j in bucket]
+            wholes = fsdp.all_gather([cast[j] for j in bucket], [self.dims[i] for i in idx],
+                                     self._group)
+            for i, w in zip(idx, wholes):
+                self.params[i].copy_(w)
         return True
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def full_masters(self) -> List[torch.Tensor]:
-        """The whole fp32 masters (shards all-gathered: every process
-        calls this together)."""
-        return [self._gather(m, d) for m, d in zip(self.masters, self.dims)]
+        """The whole fp32 masters (shards and tensor slices all-gathered:
+        every process calls this together)."""
+        return [self._whole(m, i) for i, m in enumerate(self.masters)]
 
     @torch.no_grad()
     def state_dict(self) -> Dict:
@@ -128,27 +179,26 @@ class MasterAdamW:
         together): the fp32 masters, torch's AdamW state dict with whole
         moments, the accumulation state."""
         opt = self.optimizer.state_dict()
-        state = {i: {k: self._gather(v, self.dims[i] if k in MOMENTS else None).detach().cpu()
+        state = {i: {k: (self._whole(v, i) if k in MOMENTS else v).detach().cpu()
                      for k, v in st.items()} for i, st in opt["state"].items()}
-        return {"masters": [self._gather(m, d).detach().cpu()
-                            for m, d in zip(self.masters, self.dims)],
+        return {"masters": [m.detach().cpu() for m in self.full_masters()],
                 "optimizer": {"state": state, "param_groups": opt["param_groups"]},
                 "micro_step": self.micro_step, "updates": self.updates,
-                "accum": [None if m.grad is None else self._gather(m.grad, d).detach().cpu()
-                          for m, d in zip(self.masters, self.dims)]}
+                "accum": [None if m.grad is None else self._whole(m.grad, i).detach().cpu()
+                          for i, m in enumerate(self.masters)]}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
-        """Restore ``state_dict()``'s result (of any process count): the
-        masters, this process's shards of them and of the moments, the
-        module's parameters from the masters."""
-        for p, m, d, saved in zip(self.params, self.masters, self.dims, state["masters"]):
-            m.copy_(self._shard(saved.to(m.device), d))
-            p.copy_(self._gather(m.to(p.dtype), d))
-        for m, d, g in zip(self.masters, self.dims, state["accum"]):
-            m.grad = None if g is None else self._shard(g.to(m.device), d)
+        """Restore ``state_dict()``'s result (of any process count and
+        layout): the masters, this process's shards of them and of the
+        moments, the module's parameters from the masters."""
+        for i, (p, m, saved) in enumerate(zip(self.params, self.masters, state["masters"])):
+            m.copy_(self._local(saved.to(m.device), i))
+            p.copy_(self._gather(m.to(p.dtype), self.dims[i]))
+        for i, (m, g) in enumerate(zip(self.masters, state["accum"])):
+            m.grad = None if g is None else self._local(g.to(m.device), i)
         opt = state["optimizer"]
-        local = {i: {k: self._shard(v, self.dims[i]) if k in MOMENTS else v
+        local = {i: {k: self._local(v.to(self.masters[i].device), i) if k in MOMENTS else v
                      for k, v in st.items()} for i, st in opt["state"].items()}
         self.optimizer.load_state_dict({"state": local, "param_groups": opt["param_groups"]})
         self.micro_step, self.updates = state["micro_step"], state["updates"]

@@ -15,8 +15,20 @@ the cleaner are frozen; only the ControlNet is trained, by AdamW. One step:
 
 Mixed precision and processes: ``train/optim.py``'s ``MasterAdamW`` (fp32
 masters of the ControlNet, bf16 weights on the card; with a
-``parallel.DataParallel`` the gradients and the loss averaged over the
-processes, as the loss is a batch mean).
+``parallel.DataParallel`` the gradients and the loss averaged over the data
+group, as the loss is a batch mean).
+
+The two-axis step of the JAX package's ``dryrun_multichip``: a
+``DataParallel`` over ``parallel.make_mesh(n_data, n_tensor)``'s grid
+(``DataParallel("mean", fsdp=True, grid=grid)``). ``init_train_state``
+then tensor-shards the frozen UNet and CLIP and the trained ControlNet by
+the same ``tp_plan`` over the grid's tensor group (the VAE has no sharded
+unit: JAX's ``tp_spec`` replicates it too), and the optimiser keeps the
+ControlNet's masters and moments as tensor slices, data-sharded on top.
+Every process of a tensor group takes the same rows and draws (seed them
+with ``parallel.process_seed(seed, grid)``) and computes the same loss;
+the data group averages it. The frozen VAE encode and CLIP run their
+tensor-parallel forwards under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import torch
 
 from ..models.cldm import ControlLDM
 from ..parallel.mesh import DataParallel
+from ..parallel.tp import tp_shard_
 from ..schedule import Schedule
 from .optim import MasterAdamW
 
@@ -44,11 +57,15 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float = 
 
 def init_train_state(cldm: ControlLDM, learning_rate: float = 1e-4, accum_steps: int = 1,
                      parallel: Optional[DataParallel] = None) -> MasterAdamW:
-    """Freeze the UNet, VAE and CLIP, make the ControlNet trainable, and
-    return the optimizer over the ControlNet's parameters only."""
+    """Freeze the UNet, VAE and CLIP, make the ControlNet trainable,
+    tensor-shard the model over ``parallel``'s grid (n_tensor > 1; every
+    process calls this together), and return the optimizer over the
+    ControlNet's parameters only."""
     for frozen in (cldm.unet, cldm.vae, cldm.clip):
         frozen.requires_grad_(False)
     cldm.controlnet.requires_grad_(True)
+    if parallel is not None and parallel.grid.n_tensor > 1:
+        tp_shard_(cldm, parallel.grid.tensor_group)
     return make_optimizer(cldm.controlnet.parameters(), learning_rate, accum_steps, parallel)
 
 

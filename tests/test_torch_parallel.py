@@ -82,22 +82,32 @@ def free_port() -> int:
     return port
 
 
-def spawn(fn, *args, timeout=SPAWN_TIMEOUT):
-    """``fn(rank, *args)`` in WORLD fresh processes; fails the test if one
-    raises or they are not done within ``timeout`` seconds."""
-    ctx = mp.spawn(fn, args=args, nprocs=WORLD, join=False)
+def launch(fn, *args, nprocs=WORLD):
+    """``fn(rank, *args)`` started in ``nprocs`` fresh processes."""
+    return mp.spawn(fn, args=args, nprocs=nprocs, join=False)
+
+
+def join(ctx, name: str, timeout=SPAWN_TIMEOUT):
+    """Wait for ``launch``'s processes; fails the test if one raises or they
+    are not done within ``timeout`` seconds."""
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.kill()
-            pytest.fail(f"{fn.__name__}: {WORLD} processes not done in {timeout} s")
+            pytest.fail(f"{name}: {len(ctx.processes)} processes not done in {timeout} s")
 
 
-def start_group(rank: int, port: int) -> None:
+def spawn(fn, *args, timeout=SPAWN_TIMEOUT, nprocs=WORLD):
+    """``fn(rank, *args)`` in ``nprocs`` fresh processes; fails the test if
+    one raises or they are not done within ``timeout`` seconds."""
+    join(launch(fn, *args, nprocs=nprocs), fn.__name__, timeout)
+
+
+def start_group(rank: int, port: int, world: int = WORLD) -> None:
     torch.set_num_threads(1)
     os.environ.update(DIFFBIR_COORDINATOR=f"127.0.0.1:{port}",
-                      DIFFBIR_NUM_PROCESSES=str(WORLD), DIFFBIR_PROCESS_ID=str(rank))
+                      DIFFBIR_NUM_PROCESSES=str(world), DIFFBIR_PROCESS_ID=str(rank))
     assert distributed.maybe_initialize_distributed("cpu")
 
 

@@ -242,7 +242,8 @@ def worker(rank, port, path, out_dir):
         cldm = tp.tp_shard_(tiny_cldm(d["cldm"]["sd"]))
         out["tp_cldm"] = tp_runs(cldm, d["tp"])
         out["tp_clip"] = cldm.encode_text(_t(d["tp"]["tokens"]))
-        out["geglu"] = cldm.unet.input_blocks[1][1].transformer_blocks[0].ff.net[0].proj.weight
+        proj = cldm.unet.input_blocks[1][1].transformer_blocks[0].ff.net[0].proj
+        out["geglu"] = proj.weight.detach()
         out["tp_shapes"] = {k: tuple(v.shape) for k, v in cldm.state_dict().items()}
         real = tp._reduce_partial
         tp._reduce_partial = lambda t, group: t
