@@ -262,12 +262,23 @@ Phases (any failure exits non-zero before the last line is printed):
      tiles (pipeline.tile_model_function, 5 a process, one padded) against
      make_tiled_fn; (d) batch_parallel on two CLI-size requests (128x128
      LQs pre-upscaled to 512x512, 10 steps of edm_dpm++_3m_sde, CFG 6.0),
-     one a process, against one process on both rows. Each within PAR_TOL x
-     max|ref| (each limit above its spread); three planted faults (SP with
-     zeroed halos, SP with GroupNorm statistics kept local, TP without the
-     row layers' all-reduce) must fail them; exact launches per process and
-     K1's shapes (under SP at Sq != Skv), none on another entry; per-process
-     seconds and peak memory, marked as two processes sharing one card.
+     one a process, against one process on both rows; (e)-(i), every model
+     of the restoration path banded: (e) SwinIR on the 1024x1024 request's
+     pre-upscaled input, (f) the VAE at 1024x1024 (the moments, a posterior
+     sample on the whole latent's noise, the decode; K1_wide at
+     [1,8192,1,512] x 16384 kv rows, once a process each), (g) SCUNet at
+     512x512 and BSRNet on a 256x256 LQ, (h) SwinIR tensor-parallel at
+     512x512, (i) the whole 1024x1024 sr request banded
+     (spatial_parallel_request, 2 steps) against SwinIRPipeline.run. Each
+     within PAR_TOL x max|ref| (each limit above its spread); six planted
+     faults (SP with zeroed halos, SP with GroupNorm statistics kept local,
+     TP without the row layers' all-reduce, SwinIR's roll without its wrap,
+     every band masked as the last, the Downsample's halo row from above)
+     must fail them; exact launches per process and K1's shapes (under SP
+     at Sq != Skv), none on another entry; per-process seconds and peak
+     memory, marked as two processes sharing one card. The workers build
+     their models while this process computes the references; K1 and
+     K1_wide are timed at the band shapes once they are done.
      [parallel_nccl]: the same four APIs at world size 1 on nccl in this
      process, bit-equal to the plain runs where the code path is the same
      (TP, both tile APIs, the request) and (a) within its limit.
@@ -4920,21 +4931,47 @@ PAR_RAMP = 2.0
 # two processes 1.3e-2-1.5e-2 and 4.7e-2; (a) at one process on nccl 2.8e-2.
 # The limits are ~5x the spreads; the planted faults read 2.3-8.8x them.
 PAR_TOL = {"sp": 4 * BF16_TOL, "tp": 4 * BF16_TOL, "tiles": 4 * BF16_TOL, "batch": 0.25}
+# (e)-(i): every model of the restoration path banded. (e) SwinIR
+# (v2.1 widths) on the 1024x1024 request's pre-upscaled input (a seeded
+# TILED_LQ^2 LQ, bicubic x4): two bands of 512 rows; (f) the VAE at
+# TILED_SIZE^2: the moments ("encode"), a posterior sample whose eps is
+# drawn for the whole latent ("sample") and the decode of a 128x128 latent,
+# K1_wide once a process each at PAR_WIDE; (g) SCUNet on a SIZE^2 input,
+# BSRNet on a CLEANER_LQ^2 LQ (x4: 1024^2 out); (h) SwinIR tensor-parallel
+# at SIZE^2 (3 heads a process); (i) the whole 1024x1024 sr request banded
+# from end to end (spatial_parallel_request): SwinIR, encode,
+# PAR_REQ_STEPS steps of edm_dpm++_3m_sde at PAR_CFG (the CLI's default is
+# CLI_STEPS), decode, gather, colour fix, against SwinIRPipeline.run on the
+# same x_T and noise table. One process's spread: the larger of the run as
+# row 1 of a batch of 2 and the run on its input in the other memory layout
+# (see par_model_references); the request's, as row 1 of 2. Measured on an
+# H100 80GB HBM3 at 700 W: the spreads 6.4e-3-2.6e-2 for (e)-(h) and 0.102
+# for (i) (26 of 255: 2 steps of random weights); the two processes
+# 6.4e-3-2.6e-2 and 9.8e-2. The limits are 2.4-10x the spreads (4 x BF16_TOL,
+# as above; (i) ~5x); the planted faults read 3.0-8.0x them.
+PAR_REQ_STEPS = 2
+PAR_MODELS = ("swinir", "encode", "sample", "decode", "scunet", "bsrnet", "tp_swinir")
+PAR_WIDE = ((1, TILED_SIZE ** 2 // 64 // PAR_WORLD, 1, 512), (1, TILED_SIZE ** 2 // 64, 1, 512))
+PAR_TOL.update({name: 4 * BF16_TOL for name in PAR_MODELS}, request=0.5)
 
 
 def par_k1_shapes(kind: str) -> dict:
     """(q shape, k shape) -> launches of K1 in one process's model call of
     ``kind``: "sp" (the bands of PAR_SP_HW^2 against every band's k/v),
+    "request" ((i): the same at batch 2 for each step, and K1_wide's two),
     "tp" (batch 2 at PAR_TP_HW^2, a level's heads split where they
     divide), "tiles" (5 tiles of PAR_TILE^2)."""
     from collections import Counter
 
     out = Counter()
+    if kind == "request":  # (i): the bands at batch 2 (CFG), PAR_REQ_STEPS steps
+        out[PAR_WIDE] = 2
     for tokens, width, sites in LEVELS:
         heads = width // 64
-        if kind == "sp":
+        if kind in ("sp", "request"):
             s = tokens * (PAR_SP_HW // 64) ** 2
-            out[((1, s // PAR_WORLD, heads, 64), (1, s, heads, 64))] += sites
+            b, n = (1, sites) if kind == "sp" else (2, sites * PAR_REQ_STEPS)
+            out[((b, s // PAR_WORLD, heads, 64), (b, s, heads, 64))] += n
         elif kind == "tp":
             h = heads // PAR_WORLD if heads % PAR_WORLD == 0 else heads
             s = tokens * (PAR_TP_HW // 64) ** 2
@@ -5009,6 +5046,90 @@ def par_local_moments(xf, group):
     return mean, ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
 
 
+def par_cleaners(seed: int = 0) -> dict:
+    """Full-width SCUNet and BSRNet (RRDBNet x4), bf16, random from ``seed``."""
+    import torch
+
+    from diffbir_tpu_torch.models.bsrnet import RRDBNet
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.scunet import SCUNet
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: random_init_(cls(dtype=torch.bfloat16, device="meta").to_empty(
+        device="cuda"), gen).eval() for name, cls in (("scunet", SCUNet), ("bsrnet", RRDBNet))}
+
+
+def par_model_call(name: str, models: dict, d: dict):
+    """(e)-(h): ``name``'s model on this process's band of its input (the
+    whole input for "tp_swinir"), gathered, fp32 NHWC; without a process
+    group the plain model."""
+    import torch
+
+    from diffbir_tpu_torch.parallel import inference
+
+    shard, gather = inference.spatial_shard, inference.gather
+    cldm = models["cldm"]
+    if name == "tp_swinir":
+        return models["swinir"](d["tp_swinir"]).float()
+    if name in ("swinir", "scunet", "bsrnet"):
+        return gather(inference.spatial_parallel(models[name])(shard(d[name]))).float()
+    if name == "encode":
+        band = shard(d["image"]).permute(0, 3, 1, 2)
+        moments = inference.spatial_parallel(cldm.vae).encode_moments(band)
+        return gather(torch.cat(moments, dim=1).permute(0, 2, 3, 1)).float()
+    fn = inference.spatial_parallel(cldm)
+    if name == "sample":
+        return gather(fn.vae_encode(shard(d["image"]), eps=d["eps"])).float()
+    return gather(fn.vae_decode(shard(d["z"]))).float()
+
+
+def par_big_request(pipe, d: dict, group_run: bool):
+    """(i): the 1024x1024 request, banded (``group_run``) or by
+    ``pipe.run``."""
+    from diffbir_tpu_torch.parallel import inference
+    from diffbir_tpu_torch.profile_step import NEG_PROMPT, POS_PROMPT
+
+    kw = dict(steps=PAR_REQ_STEPS, cfg_scale=PAR_CFG, sampler_type="edm_dpm++_3m_sde",
+              pos_prompt=POS_PROMPT, neg_prompt=NEG_PROMPT, x_T=d["x_T"],
+              noise_table=d["noise"])
+    if group_run:
+        return inference.spatial_parallel_request(pipe, d["lq"], **kw)
+    return pipe.run(d["lq"], **kw)
+
+
+def par_open_roll(real):
+    """The cyclic exchange without its wrap: zeros where the rows of the
+    image's other end should enter."""
+    def roll(y, group, shift):
+        import torch
+        import torch.distributed as dist
+
+        out, s = real(y, group, shift), abs(shift)
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        if shift < 0 and rank == n - 1:
+            return torch.cat([out[:, :-s], out[:, -s:] * 0], dim=1)
+        if shift > 0 and rank == 0:
+            return torch.cat([out[:, :s] * 0, out[:, s:]], dim=1)
+        return out
+
+    return roll
+
+
+def par_last_band(real):
+    """Every band's window rows of the mask taken as the last band's."""
+    import torch.distributed as dist
+
+    return lambda h, group: real(h, group)._replace(row0=(dist.get_world_size(group) - 1) * h)
+
+
+def par_row_above(x, group):
+    """The VAE Downsample's halo row from the band above (zeros over the
+    first) in place of the row below."""
+    from diffbir_tpu_torch.parallel import inference
+
+    return inference._halo_rows(x, group, below=False)[0]
+
+
 @contextlib.contextmanager
 def par_planted(module, name: str, fault):
     """``module.name`` replaced by ``fault`` while in this context."""
@@ -5022,9 +5143,11 @@ def par_planted(module, name: str, fault):
 
 def parallel_worker(rank: int, port: int) -> None:
     """One process of [parallel_inference]: the DIFFBIR_* launch contract on
-    127.0.0.1:``port``, gloo on this card; the four runs on the inputs of
-    PAR_ROOT/inputs.pt, each with its launches, K1's shapes, seconds and
-    peak memory, then the planted faults; the results to
+    127.0.0.1:``port``, gloo on this card; its models built while the main
+    process writes PAR_ROOT/inputs.pt and computes the references; the runs
+    on those inputs, each with its launches, K1's shapes, seconds and
+    peak memory, then the planted faults; (e)-(i) before TP shards the
+    models; the results to
     PAR_ROOT/rank<rank>.pt. Rank 1 builds its models from another seed:
     (d)'s broadcast makes them rank 0's, which the later runs use."""
     from collections import Counter
@@ -5069,9 +5192,9 @@ def parallel_worker(rank: int, port: int) -> None:
         return res
 
     try:
-        inp = torch.load(os.path.join(PAR_ROOT, "inputs.pt"), weights_only=False)
-        sp, tpd = par_cuda(inp["sp"]), par_cuda(inp["tp"])
         cldm, swinir = build_models(seed=rank)
+        inp = par_inputs()
+        sp, tpd = par_cuda(inp["sp"]), par_cuda(inp["tp"])
         both = torch.nn.ModuleList([cldm, swinir])
         rows = run("broadcast", lambda: inference.shard_for_batch_parallel(
             both, par_cuda(inp["batch"]), batch_axes={"noise": 1})[1])
@@ -5086,15 +5209,51 @@ def parallel_worker(rank: int, port: int) -> None:
             with par_planted(inference, "_band_moments", par_local_moments):
                 out["sp_local_gn"] = par_sp_call(cldm, sp).cpu()
             out["tiles_out"] = run("tiles", lambda: par_tiles_call(cldm, sp, True)).cpu()
+            models = {"cldm": cldm, "swinir": swinir, **par_cleaners()}
+            big = par_cuda(inp["models"])
+            for name in PAR_MODELS[:-1]:
+                out[f"{name}_out"] = run(name, lambda: par_model_call(name, models, big)).cpu()
+            for key, attr, fault, name in (
+                    ("swinir_open_roll", "_roll_rows", par_open_roll, "swinir"),
+                    ("swinir_last_band", "_band", par_last_band, "swinir"),
+                    ("encode_row_above", "_row_below", lambda real: par_row_above, "encode")):
+                with par_planted(inference, attr, fault(getattr(inference, attr))):
+                    out[key] = par_model_call(name, models, big).cpu()
+            out["request_out"] = run("request", lambda: par_big_request(pipe, par_cuda(
+                inp["request"]), True))
             run("tp_shard", lambda: tp.tp_shard_(cldm))
             out["tp_out"] = run("tp", lambda: par_tp_call(cldm, tpd)).cpu()
             with par_planted(tp, "_reduce_partial", lambda t, group: t):
                 out["tp_no_reduce"] = par_tp_call(cldm, tpd).cpu()
+            run("tp_swinir_shard", lambda: tp.tp_shard_(swinir))
+            out["tp_swinir_out"] = run("tp_swinir", lambda: par_model_call(
+                "tp_swinir", models, big)).cpu()
         out["tp_weights"] = sum(p.numel() for p in cldm.parameters())
+        out["tp_swinir_weights"] = sum(p.numel() for p in swinir.parameters())
         torch.save(out, os.path.join(PAR_ROOT, f"rank{rank}.pt"))
     finally:
         fa.launch_fwd = launch_fwd
         distributed.shutdown_distributed()
+
+
+def par_inputs() -> dict:
+    """PAR_ROOT/inputs.pt once the main process has written it (within
+    PAR_TIMEOUT s)."""
+    import torch
+
+    path = os.path.join(PAR_ROOT, "inputs.pt")
+    deadline = time.monotonic() + PAR_TIMEOUT
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, f"[parallel_inference] no {path} in {PAR_TIMEOUT} s")
+        time.sleep(0.2)
+    return torch.load(path, weights_only=False)
+
+
+def kill_workers(procs: list) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
 
 
 def start_workers(target, world: int) -> list:
@@ -5124,12 +5283,6 @@ def join_workers(procs: list, timeout: float, label: str) -> None:
     check(not alive, f"{label} {len(alive)} of {len(procs)} processes not done in {timeout} s")
     codes = [p.exitcode for p in procs]
     check(codes == [0] * len(procs), f"{label} the processes exited {codes}")
-
-
-def par_spawn() -> None:
-    """PAR_WORLD parallel_worker processes, each to exit 0 within
-    PAR_TIMEOUT s."""
-    join_workers(start_workers(parallel_worker, PAR_WORLD), PAR_TIMEOUT, "[parallel_inference]")
 
 
 def spread(label: str, out, ref) -> float:
@@ -5167,9 +5320,112 @@ def par_k1_bands() -> None:
               f"bound {bms:.4f} ms ({by})")
 
 
+def par_k1_wide_band() -> None:
+    """K1_wide at the VAE's banded shape (PAR_WIDE: a band's queries against
+    the gathered kv rows): one launch of K1_wide, o against the plain
+    version (BF16_TOL x max|ref|), median ms of K1_wide, the plain version
+    and SDPA (its backend named) beside the bound."""
+    import torch
+
+    from diffbir_tpu_torch.ops import flash_attention as fa
+
+    (b, sq, h, d), (_, skv, _, _) = PAR_WIDE
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    q, k, v = qkv_case(gen, (b, sq, skv, h, d), torch.bfloat16)
+    before = counts()
+    o = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    n = launched_since(before)
+    check(n == {"K1_wide": 1}, f"[parallel_inference] K1_wide at the band launched {n}")
+    label = f"[kernel] K1_wide {b}x{sq}x{h}x{d} vs {skv} kv rows bf16"
+    err = hold(label, o, fa.flash_attention_ref(q, k, v), BF16_TOL)
+    ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v), 10, 2)
+    plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v), 3, 1)
+    lib = sdpa_fwd(q, k, v)
+    backends = sdpa_backends(q, k, v, lib)
+    lib_ms = median_ms(lambda: sdpa_fwd(q, k, v), 10, 2)
+    bms, by = bound_ms(2, b, h, sq, skv, d, torch.bfloat16, nbytes(q, k, v, o))
+    print(f"{label} (a band of the 1024x1024 VAE's mid-block, (f) and (i)): max_abs_err "
+          f"{err:.3e} ({BF16_TOL:g} x max|ref|); {card()} {ms:.4f} ms "
+          f"({4.0 * b * h * sq * skv * d / 1e9 / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"library (SDPA, backend {'/'.join(backends) or 'not identified'}) {lib_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}; {bms / ms:.1%} of it)")
+    del q, k, v, o, lib
+    torch.cuda.empty_cache()
+
+
+def par_model_inputs(gen) -> tuple:
+    """The inputs of (e)-(h) and of (i) (CPU tensors; (i)'s LQ uint8)."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.utils.common import pil_bicubic_resize
+
+    lq = np.random.default_rng(PAR_SEED + 1).integers(0, 256, (TILED_LQ, TILED_LQ, 3),
+                                                      dtype=np.uint8)
+    big = pil_bicubic_resize(torch.from_numpy(lq), (TILED_SIZE, TILED_SIZE))[None]
+    lat = TILED_SIZE // 8
+    models = {"swinir": big.float() / 255.0, "image": big.float() / 127.5 - 1.0,
+              "eps": torch.randn(1, lat, lat, 4, generator=gen),
+              "z": torch.randn(1, lat, lat, 4, generator=gen),
+              "scunet": torch.rand(1, SIZE, SIZE, 3, generator=gen),
+              "bsrnet": torch.rand(1, CLEANER_LQ, CLEANER_LQ, 3, generator=gen),
+              "tp_swinir": torch.rand(1, SIZE, SIZE, 3, generator=gen)}
+    request = {"lq": big.numpy(), "x_T": torch.randn(1, lat, lat, 4, generator=gen),
+               "noise": torch.randn(PAR_REQ_STEPS, 1, lat, lat, 4, generator=gen)}
+    return models, request
+
+
+def par_model_references(st: dict, models: dict, big: dict, request: dict) -> None:
+    """(e)-(i) in one process: the results, their spreads and the peak
+    memory, into ``st``. A model's spread is the larger of two: the run as
+    row 1 of a batch of 2, and the run on its input in the other memory
+    layout (NCHW where the model permutes NHWC, so cuDNN takes other
+    kernels; the VAE's encoder rounds a row alike at batch 1 and 2)."""
+    import torch
+
+    two = {k: v.repeat(2, *[1] * (v.dim() - 1)) for k, v in big.items()}
+    other = {k: v.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1) for k, v in big.items()}
+    for name in PAR_MODELS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ref = st[f"{name}_ref"] = par_model_call(name, models, big)
+            st[f"{name}_peak"] = torch.cuda.max_memory_allocated() / 2**30
+            st[f"{name}_spread"] = max(
+                spread(f"({name}), the run as row 1 of 2",
+                       par_model_call(name, models, two)[1:], ref),
+                spread(f"({name}), the input in the other memory layout",
+                       par_model_call(name, models, other), ref))
+    pipe = st["pipe"]
+    st["request_ref"] = torch.from_numpy(par_big_request(pipe, request, False))
+    rows = {"lq": request["lq"].repeat(2, 0), "x_T": request["x_T"].repeat(2, 1, 1, 1),
+            "noise": request["noise"].repeat(1, 2, 1, 1, 1)}
+    st["request_spread"] = spread("(request), the request as row 1 of 2", torch.from_numpy(
+        par_big_request(pipe, rows, False))[1:], st["request_ref"])
+
+
 def parallel_references() -> dict:
-    """The parent's models (seed 0), the inputs of the four runs (saved to
-    PAR_ROOT/inputs.pt), one process's results on them and their spreads."""
+    """PAR_WORLD parallel_worker processes started (``st["procs"]``, joined
+    by ``phase_parallel_inference``), and beside them: the parent's models
+    (seed 0), the inputs of the runs (written to PAR_ROOT/inputs.pt, which
+    the workers wait for), one process's results on them and their
+    spreads."""
+    os.makedirs(PAR_ROOT, exist_ok=True)
+    for name in [f"rank{r}.pt" for r in range(PAR_WORLD)] + ["inputs.pt"]:
+        with contextlib.suppress(FileNotFoundError):  # nothing of an earlier run is read
+            os.remove(os.path.join(PAR_ROOT, name))
+    procs = start_workers(parallel_worker, PAR_WORLD)
+    try:
+        st = par_references()
+    except BaseException:
+        kill_workers(procs)
+        raise
+    st["procs"] = procs
+    return st
+
+
+def par_references() -> dict:
     import numpy as np
     import torch
 
@@ -5201,11 +5457,11 @@ def parallel_references() -> dict:
                             for im in lq]),
              "x_T": torch.randn(2, lat, lat, 4, generator=gen),
              "noise": torch.randn(CLI_STEPS, 2, lat, lat, 4, generator=gen)}
-    os.makedirs(PAR_ROOT, exist_ok=True)
-    for r in range(PAR_WORLD):  # no result of an earlier run is read
-        with contextlib.suppress(FileNotFoundError):
-            os.remove(os.path.join(PAR_ROOT, f"rank{r}.pt"))
-    torch.save({"sp": sp, "tp": tpd, "batch": batch}, os.path.join(PAR_ROOT, "inputs.pt"))
+    big, request = par_model_inputs(gen)
+    path = os.path.join(PAR_ROOT, "inputs.pt")
+    torch.save({"sp": sp, "tp": tpd, "batch": batch, "models": big, "request": request},
+               path + ".part")
+    os.replace(path + ".part", path)
     st = {"cldm": cldm, "swinir": swinir, "pipe": pipe, "sp": par_cuda(sp),
           "tp": par_cuda(tpd), "batch": par_cuda(batch)}
     spd, tp_ = st["sp"], st["tp"]
@@ -5225,32 +5481,45 @@ def parallel_references() -> dict:
     st["batch_ref"] = torch.from_numpy(par_request(pipe, st["batch"]))
     st["batch_spread"] = spread("(d), the rows swapped", torch.from_numpy(par_request(
         pipe, par_swapped(st["batch"], {"noise": 1})))[[1, 0]], st["batch_ref"])
-    par_k1_bands()
+    models = {"cldm": cldm, "swinir": swinir, **par_cleaners()}
+    par_model_references(st, models, par_cuda(big), par_cuda(request))
+    st["tp_swinir_weights"] = sum(p.numel() for p in swinir.parameters())
+    del models
     print(f"[parallel_inference] {card()} one process's references and spreads in "
-          f"{time.perf_counter() - t0:.1f} s (models built, inputs written to {PAR_ROOT})")
+          f"{time.perf_counter() - t0:.1f} s beside the workers (models built, inputs written "
+          f"to {PAR_ROOT})")
     return st
 
 
 def phase_parallel_inference(st: dict) -> dict:
-    """[parallel_inference]: (a)-(d) in PAR_WORLD processes on this card
-    against one process (``parallel_references``), within PAR_TOL x
-    max|ref|, each limit above its spread; three planted faults that must
-    fail; exact launches and K1's shapes per process (K1 at Sq != Skv under
-    SP), none on any other entry. Returns the launches of the runs, summed
-    over the processes."""
+    """[parallel_inference]: (a)-(i) in the PAR_WORLD processes that
+    ``parallel_references`` started, joined here, against one process,
+    within PAR_TOL x max|ref|, each limit above its spread; six planted
+    faults that must fail; exact launches and K1's and K1_wide's shapes per
+    process (Sq != Skv under SP), none on any other entry; then K1 and
+    K1_wide timed at the band shapes. Returns the launches of the runs,
+    summed over the processes."""
     import torch
 
     t0 = time.perf_counter()
-    par_spawn()
+    join_workers(st.pop("procs"), PAR_TIMEOUT, "[parallel_inference]")
     ranks = [torch.load(os.path.join(PAR_ROOT, f"rank{r}.pt"), weights_only=False)
              for r in range(PAR_WORLD)]
-    print(f"[parallel_inference] {PAR_WORLD} processes on this card over gloo done in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[parallel_inference] {PAR_WORLD} processes on this card over gloo done "
+          f"{time.perf_counter() - t0:.1f} s after the references")
     step = K1_SITES_PER_STEP
+    wide = {"K1_wide": 1}
     expected = {"broadcast": {}, "batch": CLI_DEFAULT, "sp": {"K1": step},
-                "tiles": {"K1": step}, "tp_shard": {}, "tp": {"K1": step}}
+                "tiles": {"K1": step}, "swinir": {}, "encode": wide, "sample": wide,
+                "decode": wide, "scunet": {}, "bsrnet": {},
+                "request": {"K1": step * PAR_REQ_STEPS, "K1_wide": 2}, "tp_shard": {},
+                "tp": {"K1": step}, "tp_swinir_shard": {}, "tp_swinir": {}}
+    shapes = {"sp": par_k1_shapes("sp"), "tp": par_k1_shapes("tp"),
+              "tiles": par_k1_shapes("tiles"), "request": par_k1_shapes("request"),
+              **{name: {PAR_WIDE: 1} for name in ("encode", "sample", "decode")}}
+    outs = ("sp", "tp", "tiles", "batch") + PAR_MODELS + ("request",)
     total = {k: 0 for k in KERNELS}
-    for name in ("sp", "tp", "tiles", "batch"):
+    for name in outs:
         check(st[f"{name}_spread"] <= PAR_TOL[name],
               f"[parallel_inference] ({name}) the spread {st[f'{name}_spread']} is above the "
               f"limit {PAR_TOL[name]}")
@@ -5261,14 +5530,14 @@ def phase_parallel_inference(st: dict) -> dict:
                                f"expected {want}")
             for k, n in got.items():
                 total[k] += n
-        for name in ("sp", "tp", "tiles"):
-            want = {str(k): n for k, n in par_k1_shapes(name).items()}
+        for name, kind in shapes.items():
+            want = {str(k): n for k, n in kind.items()}
             got = {str(k): n for k, n in r[name]["shapes"].items()}
             check(got == want, f"[parallel_inference] rank {rank} {name}: K1 shapes {got}, "
                                f"expected {want}")
         errs = {}
-        for name, ref in (("sp", st["sp_ref"]), ("tp", st["tp_ref"]), ("tiles", st["tiles_ref"]),
-                          ("batch", st["batch_ref"])):
+        for name in outs:
+            ref = st[f"{name}_ref"]
             out = r[f"{name}_out"]
             out = torch.from_numpy(out) if not isinstance(out, torch.Tensor) else out
             check(tuple(out.shape) == tuple(ref.shape) and bool(torch.isfinite(out.float()).all()),
@@ -5280,26 +5549,41 @@ def phase_parallel_inference(st: dict) -> dict:
         print(f"[parallel_inference] rank {rank} against one process, x max|ref| (limit; "
               f"one process's spread): " + "; ".join(
                   f"({n}) {errs[n]:.3e} ({PAR_TOL[n]:.3g}; {st[f'{n}_spread']:.3e})"
-                  for n in ("sp", "tp", "tiles", "batch")))
+                  for n in outs))
         print(f"[parallel_inference] {card()} rank {rank}, two processes sharing one card "
               f"(these times measure no speed of the method): " + "; ".join(
                   f"{name} {r[name]['s']:.3f} s, peak {r[name]['peak']:.2f} GiB"
                   for name in expected))
         print(f"[parallel_inference] rank {rank} K1 shapes (q, k): SP "
               + ", ".join(f"{q}x{k[1]} {n}" for (q, k), n in r["sp"]["shapes"].items())
-              + "; TP " + ", ".join(f"{q} {n}" for (q, k), n in r["tp"]["shapes"].items()))
-    check(torch.equal(torch.as_tensor(ranks[0]["batch_out"]),
-                      torch.as_tensor(ranks[1]["batch_out"])),
-          "[parallel_inference] the processes hold different gathered batches")
+              + "; TP " + ", ".join(f"{q} {n}" for (q, k), n in r["tp"]["shapes"].items())
+              + "; (i) " + ", ".join(f"{q}x{k[1]} {n}"
+                                     for (q, k), n in r["request"]["shapes"].items()))
+        print(f"[parallel_inference] {card()} rank {rank} (f) peak memory a process against "
+              f"one process's: " + "; ".join(
+                  f"{name} {r[name]['peak']:.2f} GiB ({st[f'{name}_peak']:.2f})"
+                  for name in ("encode", "sample", "decode")))
+    for key in ("batch_out", "request_out"):
+        check(torch.equal(torch.as_tensor(ranks[0][key]), torch.as_tensor(ranks[1][key])),
+              f"[parallel_inference] the processes hold different gathered {key}")
     for label, key, ref in (("SP with zeroed halos", "sp_zero_halos", st["sp_ref"]),
                             ("SP with GroupNorm statistics kept local", "sp_local_gn",
                              st["sp_ref"]),
                             ("TP without the row layers' all-reduce", "tp_no_reduce",
-                             st["tp_ref"])):
-        tol = PAR_TOL["sp" if key.startswith("sp") else "tp"]
+                             st["tp_ref"]),
+                            ("(e) SwinIR's shift without its wrap", "swinir_open_roll",
+                             st["swinir_ref"]),
+                            ("(e) every band masked as the last", "swinir_last_band",
+                             st["swinir_ref"]),
+                            ("(f) the Downsample's halo row from above", "encode_row_above",
+                             st["encode_ref"])):
+        tol = PAR_TOL[key.split("_")[0]]
         planted(f"parallel_inference {label}", ranks[0][key], ref.cpu(), tol)
     print(f"[parallel_inference] the TP processes hold {ranks[0]['tp_weights'] / 1e6:.1f} M "
-          f"weights each")
+          f"weights each; TP SwinIR {ranks[0]['tp_swinir_weights'] / 1e6:.2f} M of "
+          f"{st['tp_swinir_weights'] / 1e6:.2f} M")
+    par_k1_bands()  # timed once the workers are done: the card is this process's
+    par_k1_wide_band()
     return total
 
 

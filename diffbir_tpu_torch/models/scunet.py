@@ -20,7 +20,7 @@ Attribute names are the KAIR checkpoint's keys
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,7 +29,7 @@ from torch import nn
 
 from ..ops.attention import plain_attention
 from .layers import Conv2d, ConvTranspose2d, LayerNormFp32, conv, dense
-from .swinir import shift_attn_mask, window_partition, window_reverse
+from .swinir import Band, roll_hw, window_mask, window_partition, window_reverse
 
 
 @functools.lru_cache(maxsize=16)
@@ -52,23 +52,24 @@ class WMSA(nn.Module):
         self.embedding_layer = dense(dim, 3 * dim, dtype=dtype, device=device)
         self.linear = dense(dim, dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, C) -> (B, H, W, C)."""
+    def forward(self, x: torch.Tensor, band: Optional[Band] = None) -> torch.Tensor:
+        """x: (B, H, W, C) -> (B, H, W, C); H is ``band``'s rows where one
+        is given (``models.swinir.Band``)."""
         b, h, w, c = x.shape
         p, heads = self.window, self.heads
         if self.shifted:
-            x = torch.roll(x, (-(p // 2), -(p // 2)), dims=(1, 2))
+            x = roll_hw(x, -(p // 2), band)
         q, k, v = (t.reshape(-1, p * p, heads, self.head_dim)
                    for t in self.embedding_layer(window_partition(x, p)).chunk(3, dim=-1))
         rel = torch.as_tensor(relative_indices(p), device=x.device)
         bias = self.relative_position_params[:, rel[..., 0], rel[..., 1]][None]
         if self.shifted:
-            m = torch.as_tensor(shift_attn_mask(h, w, p, p // 2), device=x.device)
+            m = torch.as_tensor(window_mask(h, w, p, p // 2, band), device=x.device)
             bias = bias + m.repeat(q.shape[0] // m.shape[0], 1, 1)[:, None]
         out = plain_attention(q, k, v, bias=bias).reshape(-1, p * p, c)
         out = window_reverse(self.linear(out), p, h, w)
         if self.shifted:
-            out = torch.roll(out, (p // 2, p // 2), dims=(1, 2))
+            out = roll_hw(out, p // 2, band)
         return out
 
 

@@ -7,12 +7,17 @@ pre-upscaled input. The image enters and leaves NHWC in [0, 1]; convolutions
 run NCHW, the transformer on [B, H, W, C] tokens. Window attention (relative
 position bias plus the shifted-window mask) is plain torch math, as it is XLA
 in JAX. ``conv_last`` runs in fp32.
+
+A ``Band`` runs a shifted-window block on one H band of a spatially
+sharded image (``parallel/inference.py``): the mask is the band's window
+rows of the whole image's, and the H roll is the band's rows of the whole
+image's roll (a cyclic exchange of rows across the bands).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +58,35 @@ def shift_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+class Band(NamedTuple):
+    """This process's H band of a spatially sharded image, in the rows of
+    the tensor at hand: the whole image's height, the band's first row,
+    and ``roll(y, shift)``, ``torch.roll`` of NHWC ``y`` by ``shift`` rows
+    over the whole image, on this band."""
+
+    image_h: int
+    row0: int
+    roll: Callable[[torch.Tensor, int], torch.Tensor]
+
+
+def roll_hw(y: torch.Tensor, shift: int, band: Optional[Band] = None) -> torch.Tensor:
+    """``torch.roll`` of NHWC ``y`` by ``shift`` along H and W (H across
+    the bands of ``band``)."""
+    y = torch.roll(y, shift, dims=2)
+    return torch.roll(y, shift, dims=1) if band is None else band.roll(y, shift)
+
+
+def window_mask(h: int, w: int, window: int, shift: int,
+                band: Optional[Band] = None) -> np.ndarray:
+    """``shift_attn_mask`` of an h x w map, or of ``band``'s window rows of
+    the whole image's."""
+    if band is None:
+        return shift_attn_mask(h, w, window, shift)
+    per_row = w // window
+    mask = shift_attn_mask(band.image_h, w, window, shift)
+    return mask[band.row0 // window * per_row: (band.row0 + h) // window * per_row]
+
+
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
     """(B, H, W, C) -> (B*nW, window*window, C)."""
     b, h, w, c = x.shape
@@ -80,14 +114,14 @@ class WindowAttention(nn.Module):
         """x: (B*nW, N, C) with N = window^2; mask: host (nW, N, N) or None."""
         bnw, n, c = x.shape
         heads = self.num_heads
-        q, k, v = (t.reshape(bnw, n, heads, c // heads) for t in self.qkv(x).chunk(3, dim=-1))
+        q, k, v = (t.reshape(bnw, n, heads, -1) for t in self.qkv(x).chunk(3, dim=-1))
         idx = torch.as_tensor(relative_position_index(window).reshape(-1), device=x.device)
         bias = self.relative_position_bias_table[idx].reshape(n, n, heads).permute(2, 0, 1)[None]
         if mask is not None:
             m = torch.as_tensor(mask, device=x.device)[:, None]  # (nW, 1, N, N)
             bias = bias + m.repeat(bnw // mask.shape[0], 1, 1, 1)
         out = plain_attention(q, k, v, bias=bias)
-        return self.proj(out.reshape(bnw, n, c))
+        return self.proj(out.reshape(bnw, n, -1))
 
 
 class SwinBlock(nn.Module):
@@ -104,22 +138,25 @@ class SwinBlock(nn.Module):
             "fc2": dense(hid, dim, dtype=dtype, device=device),
         })
 
-    def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_size: Tuple[int, int],
+                band: Optional[Band] = None) -> torch.Tensor:
+        """x: (B, h*w, C) tokens of an h x w map, or of ``band``."""
         h, w = x_size
         b, l, c = x.shape
         window, shift = self.window, self.shift
-        if min(h, w) < window:
+        image_h = h if band is None else band.image_h
+        if min(image_h, w) < window:
             # the JAX model builds a smaller bias table here; not ported
-            raise NotImplementedError(f"feature map {h}x{w} smaller than window {window}")
-        if min(h, w) == window:
+            raise NotImplementedError(f"feature map {image_h}x{w} smaller than window {window}")
+        if min(image_h, w) == window:
             shift = 0
         y = self.norm1(x).reshape(b, h, w, c)
         if shift > 0:
-            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-        mask = shift_attn_mask(h, w, window, shift) if shift > 0 else None
+            y = roll_hw(y, -shift, band)
+        mask = window_mask(h, w, window, shift, band) if shift > 0 else None
         y = window_reverse(self.attn(window_partition(y, window), window, mask), window, h, w)
         if shift > 0:
-            y = torch.roll(y, (shift, shift), dims=(1, 2))
+            y = roll_hw(y, shift, band)
         x = x + y.reshape(b, l, c)
         y = F.gelu(self.mlp["fc1"](self.norm2(x)))  # exact erf GELU
         return x + self.mlp["fc2"](y)

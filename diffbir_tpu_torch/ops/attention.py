@@ -42,6 +42,12 @@ Everything else is plain math: cross-attention to the 77 text tokens,
 SwinIR window attention (bias and shift mask) and CLIP causal attention.
 The TPU's other dispatch threshold (flash only from 2048 tokens) is not
 carried over; the port sets its own from H100 measurements.
+
+Both d > 256 thresholds count the whole image's tokens: Skv, which under
+``kv_gathered`` is every band's and Sq only this band's. So a band of a
+spatially sharded VAE takes the route that the same image takes in one
+process (the 1024x1024 image's mid-block on two processes: [1,8192,1,512]
+queries against 16384 gathered kv rows, on K1_wide).
 """
 
 from __future__ import annotations
@@ -112,18 +118,19 @@ def attention(
     ``kv_gathered``: k and v are a self-attention's keys gathered over the
     bands of a spatially sharded image, whose queries q are one band
     (``parallel/inference.py``): the call takes the self-attention rule
-    although Skv != Sq. Cross-attention (Skv != Sq, not gathered) keeps
+    although Skv != Sq, and the d > 256 thresholds read Skv, the whole
+    image's tokens. Cross-attention (Skv != Sq, not gathered) keeps
     the plain math."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if layout not in FLASH_LAYOUTS:
         raise ValueError(f"unknown flash layout {layout!r}")
-    d, sq = q.shape[-1], q.shape[1]
+    d, sq, skv = q.shape[-1], q.shape[1], k.shape[1]
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     flash = (
         impl == "auto" and mask is None and bias is None
-        and (k.shape[1] == sq or kv_gathered) and d in FLASH_HEAD_DIMS
-        and (d <= 256 or sq >= (FLASH_MIN_WIDE_GRAD if grad else FLASH_MIN_WIDE))
+        and (skv == sq or kv_gathered) and d in FLASH_HEAD_DIMS
+        and (d <= 256 or skv >= (FLASH_MIN_WIDE_GRAD if grad else FLASH_MIN_WIDE))
     )
     if not flash:
         return plain_attention(q, k, v, mask=mask, bias=bias)

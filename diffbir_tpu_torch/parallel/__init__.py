@@ -4,7 +4,7 @@ Training (``distributed.py``: the launch; ``mesh.py``: the data x tensor
 grid, the batch split and the gradient reduction; ``fsdp.py``: sharded
 optimiser state) and inference (``inference.py``: batch-, tile- and
 spatial-parallel restoration), both on ``tp.py`` (the tensor-parallel
-UNet, ControlNet and CLIP tower) and, under autograd, on
+UNet, ControlNet, CLIP tower and SwinIR) and, under autograd, on
 ``collectives.py`` (the collectives with their backward, which GSPMD
 inserts and differentiates for the JAX package). The counterparts of the
 JAX package's ``parallel/`` modules of the same names; ``collectives.py``
@@ -25,6 +25,7 @@ from .inference import (
     make_tile_sharded_fn,
     shard_for_batch_parallel,
     spatial_parallel,
+    spatial_parallel_request,
     spatial_shard,
     tile_parallel_model_fn,
 )
@@ -35,5 +36,5 @@ __all__ = ["maybe_initialize_distributed", "shutdown_distributed", "is_main_proc
            "process_seed", "sync_processes", "fsdp_dim", "DataParallel", "ProcessGrid",
            "make_mesh", "broadcast_", "data_size", "shard_for_batch_parallel", "batch_parallel",
            "make_tile_sharded_fn", "tile_parallel_model_fn", "spatial_shard",
-           "spatial_parallel", "gather", "tp_dim", "tp_plan", "tp_shard_", "tp_local",
+           "spatial_parallel", "spatial_parallel_request", "gather", "tp_dim", "tp_plan", "tp_shard_", "tp_local",
            "tp_whole"]

@@ -19,6 +19,16 @@ so the gradient is exact. Here each collective is explicit, on an explicit
   neighbouring processes; the backward sends each halo row's gradient back
   to the process that sent the row, where it adds to its boundary row.
   GSPMD: the halo exchange of a convolution over a sharded spatial axis.
+- ``RowBelow``: the first row of the band below (zeros under the last
+  band), as a stride-2 convolution after a bottom pad reads it (the VAE's
+  ``Downsample``); the backward returns the row's gradient to its sender.
+- ``CyclicRows``: ``torch.roll`` of the whole image by ``shift`` rows, on
+  this band: the rows that leave one band enter its neighbour, and the
+  image's last band and its first are neighbours (the shifted windows of
+  SwinIR and SCUNet). Band r takes the first ``shift`` rows of band
+  (r + 1) mod n for a roll up, the last rows of band (r - 1) mod n for a
+  roll down; the backward is the opposite roll. GSPMD: the collective
+  permute of a roll over a sharded axis.
 - ``AllReduceSum``: a band's partial statistics summed over the bands.
   The backward all-reduces too: unlike *g*, each band's downstream differs,
   and every band's sum depends on every band's rows. GSPMD: a reduction
@@ -115,6 +125,55 @@ class HaloRows(Function):
         if ctx.below and rank > 0:  # the band above read the first row as its bottom
             gx[:, :, :1] += parts[rank - 1][:, :, 1:2]
         return gx, None, None
+
+
+class RowBelow(Function):
+    """The first row of the band below NCHW ``x``'s band, zeros under the
+    last band. One all-gather of each band's first row forward, one of
+    the rows' gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        ctx.group, ctx.shape = group, x.shape
+        parts = all_gather(x[:, :, :1], group)
+        return parts[rank + 1] if rank < n - 1 else torch.zeros_like(parts[rank])
+
+    @staticmethod
+    def backward(ctx, g):
+        rank = dist.get_rank(ctx.group)
+        parts = all_gather(g, ctx.group)
+        gx = g.new_zeros(ctx.shape)
+        if rank > 0:  # the band above read this band's first row
+            gx[:, :, :1] += parts[rank - 1]
+        return gx, None
+
+
+def cyclic_rows(x: torch.Tensor, group, shift: int, dim: int) -> torch.Tensor:
+    """This band's rows (along ``dim``) of ``torch.roll`` of the whole
+    image by ``shift`` rows. No backward (``CyclicRows`` has one)."""
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    s, size = abs(shift), x.shape[dim]
+    if s > size:
+        raise ValueError(f"a roll of {shift} rows across bands of {size}")
+    if shift < 0:  # up: this band's rows from s on, then the next band's first s
+        parts = all_gather(x.narrow(dim, 0, s), group)
+        return torch.cat([x.narrow(dim, s, size - s), parts[(rank + 1) % n]], dim=dim)
+    parts = all_gather(x.narrow(dim, size - s, s), group)  # down: the band above's last s
+    return torch.cat([parts[(rank - 1) % n], x.narrow(dim, 0, size - s)], dim=dim)
+
+
+class CyclicRows(Function):
+    """``cyclic_rows`` forward, the opposite roll backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift, dim):
+        ctx.group, ctx.shift, ctx.dim = group, shift, dim
+        return cyclic_rows(x, group, shift, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return cyclic_rows(g.contiguous(), ctx.group, -ctx.shift, ctx.dim), None, None, None
 
 
 class AllReduceSum(Function):

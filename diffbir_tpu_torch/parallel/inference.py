@@ -18,13 +18,25 @@ process group every function is the plain run.
    **tile-sharded** (``make_tile_sharded_fn``): each process blends its
    tiles into an fp32 canvas, one all-reduce sums the canvases.
 3. **Spatial-parallel** (``spatial_shard``, ``spatial_parallel``,
-   ``gather``): one image's H axis is split into bands, one a process, and
-   the ControlLDM denoiser (UNet + IRControlNet) runs on the bands through
-   band-aware layers: 3x3 convolutions exchange a halo row with each
-   neighbour, GroupNorm reduces its fp32 two-pass statistics over the
-   bands, self-attention gathers k and v. The math is the single process's;
-   the sums run in another order, so the result is equal within rounding
-   (GSPMD's bit-equality does not carry over to reordered sums).
+   ``gather``, ``spatial_parallel_request``): one image's H axis is split
+   into bands, one a process, and every model of the restoration path runs
+   on the bands through band-aware layers: the ControlLDM denoiser (UNet +
+   IRControlNet), the VAE's encode and decode, and the cleaners SwinIR,
+   SCUNet and BSRNet. 3x3 convolutions exchange a halo row with each
+   neighbour; the VAE's ``Downsample`` (a bottom pad, then a stride-2
+   convolution without padding) takes the row below its band only, zeros
+   under the last band; GroupNorm reduces its fp32 two-pass statistics
+   over the bands; self-attention (the UNet's, the VAE's d = 512 mid-block)
+   gathers k and v; the shifted windows of SwinIR and SCUNet roll their
+   rows cyclically across the bands (``collectives.CyclicRows``, the last
+   band's neighbour below is the first) and take their band's window rows
+   of the whole image's mask. The rest is local to a band: k2s2
+   convolutions and transposed convolutions, nearest x2 upsamples,
+   ``PixelUnshuffle``, 1x1 convolutions, LayerNorm, window attention; each
+   wrapper checks that the band's rows divide at every level. The math is
+   the single process's; the sums run in another order, so the result is
+   equal within rounding (GSPMD's bit-equality does not carry over to
+   reordered sums).
 
    Under autograd (guidance, training: a gradient with respect to ``x``,
    the condition or the weights) the band-aware layers differentiate
@@ -51,10 +63,17 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..models.bsrnet import RRDBNet
 from ..models.layers import Conv2d, GroupNorm32, gn_fold_moments
+from ..models.scunet import SCUNet, WMSA
+from ..models.swinir import SCALE, Band, SwinBlock, SwinIR
 from ..models.unet import CrossAttention, Downsample
+from ..models.vae import AttnBlock, AutoencoderKL
+from ..models.vae import Downsample as VAEDownsample
 from ..ops.attention import attention
+from ..pipeline import CleanerPipeline, build_sampler, model_function
 from ..tiling import gaussian_weights, sliding_windows
+from ..utils.common import wavelet_reconstruction
 from . import collectives
 from .mesh import broadcast_
 from .tp import check_default_mode
@@ -274,6 +293,22 @@ def _band_moments(xf: torch.Tensor, group):
     return mean, total((d * d).sum(dim=axes, keepdim=True), group) / count
 
 
+def _row_below(x: torch.Tensor, group) -> torch.Tensor:
+    """The first row of the band below NCHW ``x``'s, zeros under the last
+    band (``collectives.RowBelow``)."""
+    return collectives.RowBelow.apply(x, group)
+
+
+def _band_downsample(m: VAEDownsample, group, x: torch.Tensor) -> torch.Tensor:
+    """The VAE's ``Downsample`` of this band: the row below it (the bottom
+    pad under the last band), the right pad, then the stride-2 convolution
+    without padding. A band starts on an even row, so its output rows read
+    no row above it."""
+    x = x.to(m.conv.weight.dtype)
+    xp = F.pad(torch.cat([x, _row_below(x, group)], dim=2), (0, 1))
+    return F.conv2d(xp, m.conv.weight, m.conv.bias, m.conv.stride)
+
+
 def _band_group_norm(m: GroupNorm32, group, x: torch.Tensor) -> torch.Tensor:
     """``GroupNorm32`` of this band with the whole image's statistics
     (``_band_moments``), folded and applied as the module does."""
@@ -304,12 +339,50 @@ def _band_attention(m: CrossAttention, group, x: torch.Tensor,
     return m.to_out(out.reshape(b, sq, -1))
 
 
+def _band_vae_attention(m: AttnBlock, group, x: torch.Tensor) -> torch.Tensor:
+    """The VAE's single-head mid-block attention of this band's tokens to
+    every band's: q local, k and v all-gathered in rank order
+    (``collectives.GatherBands``), the call ``kv_gathered`` (K1_wide from
+    the whole image's ``FLASH_MIN_WIDE`` tokens)."""
+    b, c, h, w = x.shape
+    tok = m.norm(x).flatten(2).transpose(1, 2)
+    q = m._tokens_linear(tok, m.q).reshape(b, h * w, 1, c)
+    kv = collectives.GatherBands.apply(
+        torch.cat([m._tokens_linear(tok, m.k), m._tokens_linear(tok, m.v)], dim=-1), group, 1)
+    k, v = (t.reshape(b, kv.shape[1], 1, c) for t in kv.chunk(2, dim=-1))
+    out = attention(q, k, v, impl=m.attn_impl, kv_gathered=True).reshape(b, h * w, c)
+    out = m._tokens_linear(out, m.proj_out)
+    return x + out.transpose(1, 2).reshape(b, c, h, w)
+
+
+def _roll_rows(y: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """``torch.roll`` of the whole NHWC image by ``shift`` rows, on this
+    band (``collectives.CyclicRows``)."""
+    return collectives.CyclicRows.apply(y, group, shift, 1)
+
+
+def _band(h: int, group) -> Band:
+    """This process's ``Band`` of a tensor whose bands have ``h`` rows."""
+    n, rank = _world(group)
+    return Band(h * n, rank * h, lambda y, shift: _roll_rows(y, group, shift))
+
+
 def _band_layers(roots: Iterable[torch.nn.Module], group):
     """(module, its band-aware forward) for every layer of ``roots`` that
-    reads across rows: 3x3 convolutions, GroupNorms, self-attention."""
+    reads across rows: 3x3 convolutions, the VAE's ``Downsample``,
+    GroupNorms, self-attention (the UNet's and the VAE's), shifted windows
+    (SwinIR's ``SwinBlock``, SCUNet's ``WMSA``). A convolution whose
+    kernel equals its stride without padding (SCUNet's k2s2) is local."""
     for root in roots:
+        inner = {id(m.conv) for m in root.modules() if isinstance(m, VAEDownsample)}
         for m in root.modules():
-            if isinstance(m, Conv2d) and m.kernel_size != (1, 1):
+            if id(m) in inner:
+                continue
+            if isinstance(m, VAEDownsample):
+                yield m, (lambda x, m=m: _band_downsample(m, group, x))
+            elif isinstance(m, Conv2d) and m.kernel_size != (1, 1):
+                if m.kernel_size == m.stride and m.padding == (0, 0):
+                    continue
                 if m.kernel_size != (3, 3) or m.padding != (1, 1) or m.stride[0] not in (1, 2):
                     raise ValueError(f"spatial parallelism: no banded form of {m}")
                 yield m, (lambda x, m=m: _band_conv(m, group, x))
@@ -320,6 +393,13 @@ def _band_layers(roots: Iterable[torch.nn.Module], group):
             elif isinstance(m, CrossAttention):
                 yield m, (lambda x, context=None, kv=None, m=m:
                           _band_attention(m, group, x, context, kv))
+            elif isinstance(m, AttnBlock):
+                yield m, (lambda x, m=m: _band_vae_attention(m, group, x))
+            elif isinstance(m, SwinBlock):
+                yield m, (lambda x, x_size, m=m:
+                          SwinBlock.forward(m, x, x_size, _band(x_size[0], group)))
+            elif isinstance(m, WMSA):
+                yield m, (lambda x, m=m: WMSA.forward(m, x, _band(x.shape[1], group)))
 
 
 @contextlib.contextmanager
@@ -337,13 +417,71 @@ def _banded(roots, group):
             del m.forward
 
 
+def _check_rows(what: str, band: int, factor: int, group) -> None:
+    """ValueError unless a band of ``band`` rows keeps whole rows at every
+    level of a model whose rows must divide by ``factor``."""
+    n, _ = _world(group)
+    if band % factor or band == 0:
+        raise ValueError(f"spatial parallelism: the {what} H {band * n} must divide by "
+                         f"{factor} x {n} processes = {factor * n}, so that each band keeps "
+                         f"whole rows at every level")
+
+
+class SpatialParallelVAE:
+    """The VAE's ``encode_moments`` and ``decode`` on this process's H band
+    (NCHW), its bands' results; see ``spatial_parallel``."""
+
+    def __init__(self, vae: AutoencoderKL, group):
+        self.vae, self.group = vae, group
+        self.factor = 2 ** sum(isinstance(m, VAEDownsample) for m in vae.encoder.modules())
+
+    def banded(self, root: torch.nn.Module, rows: int, factor: int, what: str):
+        """The band-aware forwards of ``root`` (the encoder or the decoder)
+        installed for a band of ``rows`` rows; nothing without a process
+        group."""
+        _check_rows(what, rows, factor, self.group)
+        return _banded((root,), self.group) if dist.is_initialized() else contextlib.nullcontext()
+
+    def encode_moments(self, x: torch.Tensor):
+        """This band of the image in [-1, 1] -> its band of (mean, logvar)."""
+        with self.banded(self.vae.encoder, x.shape[2], self.factor, "image"):
+            return self.vae.encode_moments(x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """This band of the latent -> its band of the image."""
+        with self.banded(self.vae.decoder, z.shape[2], 1, "latent"):
+            return self.vae.decode(z)
+
+
+class SpatialParallelCleaner:
+    """A cleaner (SwinIR, SCUNet, BSRNet) on this process's H band (NHWC in
+    [0, 1]), its band of the output; see ``spatial_parallel``."""
+
+    def __init__(self, model: torch.nn.Module, group):
+        self.model, self.group = model, group
+        if isinstance(model, SwinIR):  # x8 pixel unshuffle, then whole windows
+            self.factor = SCALE * model.window_size
+        elif isinstance(model, SCUNet):  # its edge pad's multiple
+            self.factor = 64
+        else:
+            self.factor = 1
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not dist.is_initialized():
+            return self.model(x)
+        _check_rows("image", x.shape[1], self.factor, self.group)
+        with _banded((self.model,), self.group):
+            return self.model(x)
+
+
 class SpatialParallel:
-    """The ControlLDM denoiser on this process's H band; see
-    ``spatial_parallel``."""
+    """The ControlLDM denoiser on this process's H band, and its VAE's
+    encode and decode; see ``spatial_parallel``."""
 
     def __init__(self, cldm, group):
         self.cldm, self.group = cldm, group
         self.factor = 2 ** sum(isinstance(m, Downsample) for m in cldm.unet.modules())
+        self.vae = SpatialParallelVAE(cldm.vae, group)
         self._context = None
 
     def __enter__(self) -> "SpatialParallel":
@@ -372,12 +510,8 @@ class SpatialParallel:
         cldm = self.cldm
         if not dist.is_initialized():
             return cldm(x, t, cond, control_scales, hoisted)
-        n, _ = _world(self.group)
         band = x.shape[1]
-        if band % self.factor:
-            raise ValueError(f"spatial parallelism: the latent H {band * n} must divide by "
-                             f"{self.factor} x {n} processes = {self.factor * n}, so that each "
-                             f"band keeps whole rows at every level")
+        _check_rows("latent", band, self.factor, self.group)
         if cond["c_img"].shape[1] != band:
             raise ValueError(f"the condition's band has {cond['c_img'].shape[1]} rows, x's "
                              f"{band}: shard both with spatial_shard")
@@ -391,25 +525,124 @@ class SpatialParallel:
         with _banded((cldm.unet, cldm.controlnet), self.group):
             return cldm(x, t, cond, control_scales, hoisted)
 
+    def vae_encode(self, image: torch.Tensor, sample: bool = True,
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``ControlLDM.vae_encode`` of this band of ``image`` (NHWC in [-1,
+        1]), banded; a posterior sample takes this band of the whole
+        latent's ``eps``, given or drawn from ``generator`` (so no band's
+        noise depends on the process count)."""
+        cldm, f = self.cldm, self.vae.factor
+        with self.vae.banded(cldm.vae.encoder, image.shape[1], f, "image"):
+            if sample and eps is None:
+                if generator is None:
+                    raise ValueError("sampling the posterior needs a generator or eps")
+                n, _ = _world(self.group)
+                shape = (image.shape[0], image.shape[1] * n // f, image.shape[2] // f,
+                         cldm.vae.quant_conv.out_channels // 2)
+                eps = torch.randn(shape, generator=generator, device=image.device)
+            if eps is not None:
+                eps = spatial_shard(eps, self.group)
+            return cldm.vae_encode(image, sample=sample, eps=eps)
 
-def spatial_parallel(cldm, group=None) -> SpatialParallel:
-    """The ControlLDM denoiser (``fn(x, t, cond, control_scales,
-    hoisted)``: IRControlNet -> scaled residuals -> UNet) on this process's
-    H band of ``x`` and ``cond["c_img"]`` (NHWC, ``spatial_shard``); ``t``,
-    ``cond["c_txt"]`` and the hoisted rows are replicated. Returns this
-    band's output; ``gather`` makes the whole (it has no backward: take a
-    band's loss on the band). The latent H must divide by 2^d * n (d the
-    UNet's downsamples: 8 n for SD2.1), so that every band keeps whole rows
-    at every level. The default serving mode only.
+    def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
+        """``ControlLDM.vae_decode`` of this band of the latent ``z``
+        (NHWC), banded: this band of the image."""
+        with self.vae.banded(self.cldm.vae.decoder, z.shape[1], 1, "latent"):
+            return self.cldm.vae_decode(z)
 
-    Each call installs the band-aware forwards for its own span. Under
-    autograd with gradient checkpointing (``use_checkpoint``), the
+
+def spatial_parallel(model, group=None):
+    """``model`` on this process's H band; ``spatial_shard`` makes a band,
+    ``gather`` the whole from the bands (it has no backward: take a band's
+    loss on the band). The default serving mode only. Without a process
+    group each wrapper is the plain model.
+
+    - A ControlLDM: the denoiser (``fn(x, t, cond, control_scales,
+      hoisted)``: IRControlNet -> scaled residuals -> UNet) on the band of
+      ``x`` and ``cond["c_img"]`` (NHWC); ``t``, ``cond["c_txt"]`` and the
+      hoisted rows are replicated. Returns this band's output. The latent H
+      must divide by 2^d * n (d the UNet's downsamples: 8 n for SD2.1).
+      ``fn.vae_encode`` and ``fn.vae_decode`` are the VAE's, banded, as
+      the ControlLDM's methods.
+    - An ``AutoencoderKL``: ``encode_moments`` and ``decode`` of a band
+      (NCHW); the image H must divide by 2^d * n (d its downsamples: 8 n
+      for SD2.1), the latent's by n.
+    - ``SwinIR``, ``SCUNet``, ``RRDBNet`` (BSRNet): the forward of a band
+      (NHWC in [0, 1]); the image H must divide by 64 n for SwinIR (its x8
+      pixel unshuffle, then windows of 8) and SCUNet (its edge pad's
+      multiple), by n for BSRNet. W is padded on each band as on the whole.
+
+    Each wrapper raises ValueError, naming the factor, for an H that does
+    not split into bands of whole rows at every level.
+
+    The denoiser installs the band-aware forwards for each call's span.
+    Under autograd with gradient checkpointing (``use_checkpoint``), the
     backward recomputes the checkpointed blocks, which must run banded too:
     the caller then holds them installed over the forward and the backward
     with ``with fn: loss_of(fn(...)).backward()``; such a call outside the
-    context raises RuntimeError. Without a process group, ``fn`` is the
-    plain denoiser."""
+    context raises RuntimeError."""
+    what = "spatial parallelism (spatial_parallel)"
+    if isinstance(model, AutoencoderKL):
+        wrapper, roots = SpatialParallelVAE(model, group), (model,)
+    elif isinstance(model, (SwinIR, SCUNet, RRDBNet)):
+        wrapper, roots = SpatialParallelCleaner(model, group), (model,)
+    else:
+        wrapper, roots = SpatialParallel(model, group), (model.unet, model.controlnet,
+                                                         model.vae)
     if dist.is_initialized():
-        for root in (cldm.unet, cldm.controlnet):
-            check_default_mode(root, "spatial parallelism (spatial_parallel)")
-    return SpatialParallel(cldm, group)
+        for root in roots:
+            check_default_mode(root, what)
+    return wrapper
+
+
+@torch.no_grad()
+def spatial_parallel_request(pipe: CleanerPipeline, lq: np.ndarray, x_T: torch.Tensor,
+                             steps: int, strength: float = 1.0, pos_prompt: str = "",
+                             neg_prompt: str = "", cfg_scale: float = 4.0,
+                             sampler_type: str = "spaced",
+                             noise_table: Optional[torch.Tensor] = None,
+                             group=None) -> np.ndarray:
+    """One restoration request banded over the processes from end to end:
+    the cleaner, the VAE encode, the denoiser at every step, the decode on
+    this process's H band, then the gathered image's colour fix; every
+    process returns the whole uint8 image, as ``pipe.run`` would (the
+    output at the input's size: no resize).
+
+    ``lq``: uint8 [1, H, W, 3], the cleaner's input at the output size (a
+    SwinIR or SCUNet pipeline: an x1 cleaner), H a multiple of 64 n, W of
+    64, both at least ``pipe.min_cond_size``. The noise is the whole
+    request's, each process taking its band: ``x_T`` [1, H/8, W/8, 4] and,
+    for a sampler that draws, ``noise_table`` (the sampler's layout, H on
+    its third axis from the end)."""
+    n, rank = _world(group)
+    cldm, device = pipe.cldm, pipe.device
+    if not isinstance(pipe.cleaner, (SwinIR, SCUNet)):
+        raise ValueError("spatial_parallel_request runs an x1 cleaner: a SwinIR or SCUNet "
+                         "pipeline")
+    lq_t = torch.as_tensor(np.asarray(lq), device=device).float().div(255.0).clamp(0, 1)
+    b, h, w, _ = lq_t.shape
+    if b != 1 or h % (64 * n) or w % 64 or min(h, w) < pipe.min_cond_size:
+        raise ValueError(f"spatial_parallel_request: one image with H a multiple of 64 x {n} "
+                         f"processes, W of 64, both at least {pipe.min_cond_size}; got "
+                         f"{tuple(lq_t.shape)}")
+    cond_img = spatial_parallel(pipe.cleaner, group)(spatial_shard(lq_t, group)).clamp(0, 1)
+    fn = spatial_parallel(cldm, group)
+    c_img = fn.vae_encode(cond_img * 2 - 1, sample=False)
+    cond = {"c_txt": cldm.encode_text(pipe.tokenize(pos_prompt, 1)), "c_img": c_img}
+    uncond = None
+    if cfg_scale != 1.0:
+        uncond = {"c_txt": cldm.encode_text(pipe.tokenize(neg_prompt, 1)), "c_img": c_img}
+    sampler = build_sampler(sampler_type, pipe.schedule, False)
+    tables = None
+    if pipe.hoist:
+        ctx = cond["c_txt"] if uncond is None else torch.cat([cond["c_txt"], uncond["c_txt"]])
+        tables = cldm.make_hoist_tables(ctx, sampler.model_ts(steps))
+    if noise_table is not None:
+        noise_table = noise_table.to(device).chunk(n, dim=noise_table.dim() - 3)[rank]
+    start = spatial_shard(x_T.to(device, torch.float32), group)
+    z = sampler.sample(model_function(fn, strength, tables), start, cond, uncond, cfg_scale,
+                       steps, generator=None, noise_table=noise_table)
+    sample = gather(fn.vae_decode(z), group)
+    sample = wavelet_reconstruction((sample + 1) / 2, gather(cond_img, group))
+    return (sample * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()

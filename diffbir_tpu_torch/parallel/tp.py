@@ -24,18 +24,23 @@ unnecessary; each changes where a weight lives, never a number
 - **pairs**: a column layer and its row partner are sharded together or
   not at all (``to_q``/``to_k``/``to_v`` with ``to_out.0``; ``net.0.proj``
   with ``net.2``; ``in_layers.2`` and ``emb_layers.1`` with
-  ``out_layers.3``; the CLIP tower's ``mlp.c_fc`` with ``mlp.c_proj``).
+  ``out_layers.3``; the CLIP tower's ``mlp.c_fc`` with ``mlp.c_proj``;
+  SwinIR's ``attn.qkv`` with ``attn.proj`` and ``mlp.fc1`` with
+  ``mlp.fc2``).
   JAX's per-leaf divisibility may shard one side and replicate the other,
   and it row-shards the CLIP tower's ``attn.out_proj``, whose q/k/v
   projection (``in_proj_weight``) it leaves whole: both stay replicated;
 - **whole heads**: attention is sharded by whole heads only (SD2.1 has 5
   heads at its first level, so at 2 processes that level's attention stays
-  replicated); GSPMD may split a head;
+  replicated; SwinIR's 6 heads shard over 2 and 3 processes, not 4);
+  GSPMD may split a head. SwinIR's window attention also takes its heads'
+  columns of the relative-position bias table (replicated under JAX);
 - **whole GroupNorm groups**: ``out_layers.0`` normalises the
   channel-sharded activations, so a ResBlock shards only where each
   process holds whole groups (32 % n == 0);
 - **GEGLU's interleave**: the projection's output is ``[x | gate]``, so a
-  process takes matching slices of both halves, not one half;
+  process takes matching slices of both halves, not one half; SwinIR's
+  ``qkv`` likewise takes matching slices of its q, k and v thirds;
 - **one reduce per row layer**: a row layer's partial sums are all-reduced
   once (in fp32), then its bias is added once;
 - **one *f* per unit input**: an attention unit takes x (and its context)
@@ -45,7 +50,8 @@ unnecessary; each changes where a weight lives, never a number
 
 A sharded parameter keeps its ``requires_grad`` and carries its placement:
 ``tp_dim`` (the dimension) and ``tp_splits`` (2 for GEGLU's projection,
-whose slices of the x and gate halves are laid side by side; else 1), which
+whose slices of the x and gate halves are laid side by side, 3 for
+SwinIR's ``qkv``; else 1), which
 ``tp_whole`` and ``tp_local`` read to gather the whole tensor or take this
 process's slice of one (``train/optim.py``: masters, moments, checkpoints).
 
@@ -68,6 +74,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import Conv2d, GroupNorm32, Linear, QuantConv, QuantLinear
+from ..models.swinir import WindowAttention
 from ..models.unet import CrossAttention, FeedForward, ResBlock
 from .collectives import CopyToTensorParallel, ReduceFromTensorParallel, all_gather
 
@@ -78,7 +85,7 @@ _COL_SUFFIXES = ("to_q", "to_k", "to_v", "net.0.proj", "in_layers.2", "qkv",
 _ROW_SUFFIXES = ("to_out.0", "net.2", "out_layers.3", "proj", "mlp.c_proj",
                  "mlp.fc2")
 # tp_plan's reasons for a placement
-REASONS = ("col", "row", "geglu", "replicated", "heads", "groups", "pair")
+REASONS = ("col", "row", "geglu", "qkv", "replicated", "heads", "groups", "pair")
 
 
 def tp_dim(name: str, weight: torch.Tensor, n: int) -> Optional[int]:
@@ -121,10 +128,15 @@ def check_default_mode(module: nn.Module, what: str) -> None:
 # --------------------------------------------------------------------------- #
 # the units: a column layer (or two) and its row partner
 # --------------------------------------------------------------------------- #
+# the (column, row) layers of each kind of two-layer MLP, a ModuleDict
+_MLP_KEYS = {"mlp": ("c_fc", "c_proj"), "swin_mlp": ("fc1", "fc2")}
+
+
 def _units(module: nn.Module) -> Iterator[Tuple[str, str, nn.Module]]:
     """(kind, prefix, module) of every shardable unit under ``module``:
     "attn" (CrossAttention), "ff" (FeedForward), "res" (ResBlock), "mlp"
-    (the CLIP tower's MLP)."""
+    (the CLIP tower's MLP), "win" (SwinIR's WindowAttention), "swin_mlp"
+    (SwinIR's MLP)."""
     for prefix, m in module.named_modules():
         if isinstance(m, CrossAttention):
             yield "attn", prefix, m
@@ -132,8 +144,12 @@ def _units(module: nn.Module) -> Iterator[Tuple[str, str, nn.Module]]:
             yield "ff", prefix, m
         elif isinstance(m, ResBlock):
             yield "res", prefix, m
-        elif isinstance(m, nn.ModuleDict) and set(m.keys()) == {"c_fc", "c_proj"}:
-            yield "mlp", prefix, m
+        elif isinstance(m, WindowAttention):
+            yield "win", prefix, m
+        elif isinstance(m, nn.ModuleDict):
+            for kind, keys in _MLP_KEYS.items():
+                if set(m.keys()) == set(keys):
+                    yield kind, prefix, m
 
 
 def _join(prefix: str, name: str) -> str:
@@ -146,6 +162,8 @@ _UNIT_LEAVES = {
     "ff": (("net.0.proj.weight",), ("net.2.weight",)),
     "res": (("in_layers.2.weight", "emb_layers.1.weight"), ("out_layers.3.weight",)),
     "mlp": (("c_fc.weight",), ("c_proj.weight",)),
+    "win": (("qkv.weight",), ("proj.weight",)),
+    "swin_mlp": (("fc1.weight",), ("fc2.weight",)),
 }
 
 
@@ -154,21 +172,23 @@ def _unit_blocker(kind: str, m: nn.Module, n: int) -> Optional[str]:
     "pair"), or None where it shards."""
     if kind == "attn":
         return None if m.heads % n == 0 else "heads"
+    if kind == "win":
+        return None if m.num_heads % n == 0 else "heads"
     if kind == "ff":
         return None if (m.net[0].proj.out_features // 2) % n == 0 else "pair"
     if kind == "res":
         if not isinstance(m.in_layers[2], Conv2d) or m.in_layers[2].out_channels % n:
             return "pair"
         return None if GroupNorm32.num_groups % n == 0 else "groups"
-    return None if m["c_fc"].out_features % n == 0 else "pair"
+    return None if m[_MLP_KEYS[kind][0]].out_features % n == 0 else "pair"
 
 
 def tp_plan(module: nn.Module, n: int) -> Dict[str, Tuple[Optional[int], str]]:
     """Every parameter of ``module``: (the dimension ``tp_shard_`` shards it
     along over ``n`` processes or None, the reason: one of ``REASONS``).
     Where the dimension differs from ``tp_dim``'s, the reason says why:
-    "heads", "groups" or "pair"; "geglu" marks the interleaved column
-    slices of a GEGLU projection."""
+    "heads", "groups" or "pair"; "geglu" and "qkv" mark the interleaved
+    column slices of a GEGLU projection and of SwinIR's qkv projection."""
     plan = {}
     for name, p in module.named_parameters():
         d = tp_dim(name, p, n)
@@ -182,7 +202,7 @@ def tp_plan(module: nn.Module, n: int) -> Dict[str, Tuple[Optional[int], str]]:
                 if tp_dim(name, module.get_parameter(name), n) is not None:
                     plan[name] = (None, blocker)
                 continue
-            reason = "geglu" if kind == "ff" and dim == 0 else ("col" if dim == 0 else "row")
+            reason = "row" if dim else {"ff": "geglu", "win": "qkv"}.get(kind, "col")
             plan[name] = (dim, reason)
             if dim == 0:  # a column layer's bias goes with its rows
                 bias = _join(prefix, leaf[: -len("weight")] + "bias")
@@ -191,6 +211,8 @@ def tp_plan(module: nn.Module, n: int) -> Dict[str, Tuple[Optional[int], str]]:
         if blocker is None and kind == "res":
             for leaf in ("out_layers.0.weight", "out_layers.0.bias"):
                 plan[_join(prefix, leaf)] = (0, "groups")
+        if blocker is None and kind == "win":
+            plan[_join(prefix, "relative_position_bias_table")] = (1, "heads")
     return plan
 
 
@@ -233,6 +255,14 @@ class _ColumnFeedForward(FeedForward):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(CopyToTensorParallel.apply(x, self.tp_group))
+
+
+class _ColumnWindowAttention(WindowAttention):
+    """SwinIR's window attention of this process's heads: x through *f*
+    once for q, k and v."""
+
+    def forward(self, x, window, mask):
+        return super().forward(CopyToTensorParallel.apply(x, self.tp_group), window, mask)
 
 
 def _column_(module: nn.Module, cls: type, group) -> None:
@@ -341,22 +371,34 @@ def _shard_unit_(kind: str, m: nn.Module, rank: int, n: int, group) -> None:
         gn.num_groups = GroupNorm32.num_groups // n  # whole groups on each process
         m.out_layers[3] = RowParallelConv2d(m.out_layers[3], _span(idx), group)
         m._tap_major.clear()
+    elif kind == "win":
+        dim = m.proj.in_features
+        idx = _part(dim, rank, n)  # whole heads: num_heads % n == 0
+        _rows_(m.qkv, torch.cat([idx, idx + dim, idx + 2 * dim]), splits=3)
+        m.proj = RowParallelLinear(m.proj, _span(idx), group)
+        table = m.relative_position_bias_table
+        heads = _part(m.num_heads, rank, n)
+        m.relative_position_bias_table = _placed(nn.Parameter(
+            table.detach()[:, heads].contiguous(), requires_grad=table.requires_grad), 1)
+        m.num_heads //= n
+        _column_(m, _ColumnWindowAttention, group)
     else:
-        idx = _part(m["c_fc"].out_features, rank, n)
-        _rows_(m["c_fc"], idx)
-        _column_(m["c_fc"], _ColumnLinear, group)
-        m["c_proj"] = RowParallelLinear(m["c_proj"], _span(idx), group)
+        fc, proj = _MLP_KEYS[kind]
+        idx = _part(m[fc].out_features, rank, n)
+        _rows_(m[fc], idx)
+        _column_(m[fc], _ColumnLinear, group)
+        m[proj] = RowParallelLinear(m[proj], _span(idx), group)
 
 
 # each kind of unit's column layer, which ``_column_`` marks with its group
 _COLUMN_OF = {"attn": lambda m: m, "ff": lambda m: m, "res": lambda m: m.in_layers[2],
-              "mlp": lambda m: m["c_fc"]}
+              "mlp": lambda m: m["c_fc"], "win": lambda m: m, "swin_mlp": lambda m: m["fc1"]}
 
 
 @torch.no_grad()
 def tp_shard_(module: nn.Module, group=None) -> nn.Module:
     """Shard ``module`` (a ControlLDM, or any module holding its UNet,
-    ControlNet or CLIP blocks) over the processes of ``group`` (default:
+    ControlNet or CLIP blocks, or a SwinIR) over the processes of ``group`` (default:
     the whole process group) in place, by ``tp_plan``: this process keeps
     its slices (each parameter its ``requires_grad``), the column layers
     take their input through *f* and the row layers reduce through *g*.
