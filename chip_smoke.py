@@ -11,8 +11,9 @@ Phases (any failure exits non-zero before the last line is printed):
      bf16 at d = 64 and 128, the wide tensor-core K1_wide for bf16 at d =
      512, the CUDA-core entries K1_cc/K3_cc for fp32, d = 256 and K3 at d =
      512), K2a/K2b (flash backward: the tensor-core entries for bf16
-     at d = 64 and 128, the CUDA-core entries K2a_cc/K2b_cc for fp32 and d =
-     256/512), K4 (int8 matmul: the tensor-core tile form, the GEMV form
+     at d = 64 and 128, the wide tensor-core K2a_wide/K2b_wide with their
+     delta pre-pass K2_delta for bf16 at d = 512, the CUDA-core entries
+     K2a_cc/K2b_cc for fp32 and d = 256), K4 (int8 matmul: the tensor-core tile form, the GEMV form
      K4_gemv, the CUDA-core entry K4_cc), K5 (packed-int4 matmul: the same
      three, K5, K5_gemv, K5_cc), K6 (fused ResBlock: the tensor-core entry
      for bf16, the CUDA-core entry K6_cc for fp32), K7 (fused GEGLU FFN: the
@@ -46,12 +47,17 @@ Phases (any failure exits non-zero before the last line is printed):
      its backward through autograd), beside the bound; at [8,4096,5,64] the
      tensor-core entries beside the CUDA-core ones, with TFLOP/s.
      [d512_backward]: the VAE's d = 512 mid-block attention under a gradient
-     (RGB guidance's) at [1,4096,1,512] and [1,16384,1,512] bf16, forward plus
-     backward three ways: K1_wide + K2a_cc + K2b_cc, the plain version under
-     autograd, SDPA; beside the bound and plain's peak memory; K2a_cc and
-     K2b_cc at the first shape against their plain versions, timed alone,
-     with a skipped kv tile failing the limits; the dispatch's threshold
-     under a gradient (FLASH_MIN_WIDE_GRAD) printed and held to the reading.
+     (RGB guidance's), bf16, at [1,4096,1,512], [1,8192,1,512], the band
+     [1,8192,1,512] x 16384 kv rows, [1,16384,1,512] and [1,65536,1,512]:
+     the wide backward (K2_delta, K2a_wide, K2b_wide) one launch each,
+     bit-identical on a rerun, against the plain versions (over q-row
+     chunks past 16384^2), a skipped kv tile failing the limits; each entry
+     timed alone beside its plain version, SDPA's backward and the bound;
+     forward plus backward three ways (K1_wide + the wide backward, the
+     plain version under autograd with its peak memory, SDPA) at 4096, 8192
+     and 16384 tokens; the dispatch's threshold under a gradient
+     (FLASH_MIN_WIDE_GRAD) held to the reading; K2a_cc and K2b_cc at
+     [1,4096,1,512] against their plain versions and timed alone.
   4. the serving modes' and the captioner's kernels at their paths' shapes,
      each against its plain version, each with a planted fault that must
      fail the limits, and with median times of kernel, plain version and a
@@ -142,11 +148,18 @@ Phases (any failure exits non-zero before the last line is printed):
      untiled: shape, finiteness, seconds, peak memory.
      [guidance]: the same request at --guidance --g_scale 0.5 with latent
      mse, RGB w_mse, and RGB w_mse at --g_repeat 2 --g_start 600 --g_stop
-     200 (GUIDANCE_PATHS): exact launches (those of the default request),
-     the PNG equal to pipeline.run's, a rerun bit-identical, and the final
-     latent (or decoded image) closer to the guidance target than the
-     unguided request's; w_mse on the latent and guidance with dpm++_m2 raise
-     ValueError. [turbo]: the request at --control_interval 2 and 3, each
+     200 (GUIDANCE_PATHS): exact launches (those of the default request, and
+     for RGB one K1_wide with lse, K2_delta, K2a_wide and K2b_wide a guided
+     decode), the PNG equal to pipeline.run's, a rerun bit-identical, and
+     the final latent (or decoded image) closer to the guidance target than
+     the unguided request's; w_mse on the latent and guidance with dpm++_m2
+     raise ValueError. [guidance_1024]: RGB guidance on a 256x256 PNG at
+     --upscale 4, untiled, --steps 2 (16384 tokens in the decoder's
+     mid-block): the same checks against the unguided request on that PNG,
+     one guidance step through the full-width decoder on the flash and the
+     plain route (the step and the attention's dq, dk, dv agreeing, a
+     skipped kv tile failing), peak memory beside the request with the
+     plain route forced. [turbo]: the request at --control_interval 2 and 3, each
      with and without --turbo_encoder, and with the int8 flags at 2
      (TURBO_PATHS): exact launches from the site tables (K1 195, 188, 160,
      146; int8: K3 195, K6 270, K4 2005), PSNR/SSIM against interval 1 and
@@ -520,7 +533,9 @@ CLI_PATHS = {
         "--version", "custom", "--train_cfg", os.path.join(CUSTOM_ROOT, "train.yaml"),
         "--ckpt", os.path.join(CUSTOM_ROOT, "controlnet.pt")]),
 }
-CLI_LQ_SIZE = {"cli_face": 512}  # the PNG's side where it is not CLI_LQ
+# the PNG's side where it is not CLI_LQ
+CLI_LQ_SIZE = {"cli_face": 512, "cli_guidance_rgb_1024": 256, "cli_unguided_1024": 256,
+               "cli_guidance_rgb_1024_plain": 256}
 # [cleaner_bsrnet]: the full-width BSRNet x4 cleaner alone, tiled at the
 # CLI's --cleaner_tile_size 128 --cleaner_tile_stride 64 on a 256x256 LQ
 CLEANER_LQ, CLEANER_TILE, CLEANER_STRIDE = 256, 128, 64
@@ -574,16 +589,39 @@ TILED_VARIANTS = {
 }
 # [guidance]: the CLI request guided at --g_scale 0.5, toward the cleaned
 # condition image's latent (mse) or the image itself through the decoder
-# (RGB, w_mse). RGB guidance's decoder attention at 4096 tokens under the
-# gradient takes plain math (FLASH_MIN_WIDE_GRAD), so every guided request
-# launches what the default one does. w_mse on the latent fails, as in JAX.
+# (RGB, w_mse). Each RGB guidance step decodes its x0 under a gradient: the
+# decoder's mid-block attention at 4096 tokens (FLASH_MIN_WIDE_GRAD) takes
+# K1_wide with lse, then the delta pre-pass, K2a_wide and K2b_wide, once per
+# decode: every step of the 10 (guided_launches), and with --g_repeat 2
+# twice at each of the 4 steps whose model t lies in [200, 600] (599, 499,
+# 399, 299). w_mse on the latent fails, as in JAX.
 GUIDANCE = ["--guidance", "--g_scale", "0.5"]
+
+
+def guided_launches(base: dict, decodes: int) -> dict:
+    """The launches of a request with ``decodes`` RGB guidance decodes at or
+    above FLASH_MIN_WIDE_GRAD tokens on top of ``base``."""
+    return {**base, "K1_wide": base["K1_wide"] + decodes, "K1_wide_lse": decodes,
+            "K2_delta": decodes, "K2a_wide": decodes, "K2b_wide": decodes}
+
+
 GUIDANCE_PATHS = {
     "cli_guidance_latent_mse": (CLI_PATHS["cli_request"][0], GUIDANCE + ["--g_loss", "mse"]),
-    "cli_guidance_rgb": (CLI_PATHS["cli_request"][0], GUIDANCE + ["--g_space", "rgb"]),
-    "cli_guidance_rgb_window": (CLI_PATHS["cli_request"][0], GUIDANCE + [
+    "cli_guidance_rgb": (guided_launches(CLI_PATHS["cli_request"][0], CLI_STEPS),
+                         GUIDANCE + ["--g_space", "rgb"]),
+    "cli_guidance_rgb_window": (guided_launches(CLI_PATHS["cli_request"][0], 8), GUIDANCE + [
         "--g_space", "rgb", "--g_repeat", "2", "--g_start", "600", "--g_stop", "200"]),
 }
+# [guidance_1024]: RGB guidance on a 256x256 PNG at --upscale 4, untiled (a
+# 128x128 latent: 16384 tokens in the decoder's mid-block), at the tiled
+# variants' --steps 2: K1 46, K1_wide 2 without lse (the encode and the
+# final decode) and 2 with lse (one guided decode a step), delta, K2a_wide
+# and K2b_wide 2 each; with the plain route forced (FLASH_MIN_WIDE_GRAD past
+# the tokens) the default request's launches
+GUIDED_1024 = "cli_guidance_rgb_1024"
+GUIDED_1024_FLAGS = GUIDANCE + ["--g_space", "rgb"] + STEPS_FLAG
+GUIDED_1024_PLAIN = {"K1": TILED_STEPS * K1_SITES_PER_STEP, "K1_wide": K1_WIDE_PER_REQUEST}
+GUIDED_1024_PATHS = {GUIDED_1024: (guided_launches(GUIDED_1024_PLAIN, 2), GUIDED_1024_FLAGS)}
 # [turbo]: a model call's self-attention sites (each with 10 K4 products in
 # the int8 mode) and ResBlocks, by part: the UNet's encoder (input blocks and
 # middle: 6 + 1 sites, 8 + 2 ResBlocks) and decoder (9, 12), the ControlNet
@@ -626,9 +664,24 @@ FAST_GELU_PATHS = {"cli_fast_gelu": (CLI_PATHS["cli_request"][0], ["--fast_gelu"
 # the VAE's mid-block attention of an untiled request at 1024x1024 and at
 # 1024x512 (8192 latent tokens)
 VAE_MID_SHAPES = ((1, TILED_SIZE ** 2 // 64, 1, 512), (1, 8192, 1, 512))
-# the decoder's mid-block attention under RGB guidance's gradient: a 512x512
-# request and an untiled 1024x1024 one
-D512_GRAD_SHAPES = ((1, 4096, 1, 512), (1, 16384, 1, 512))
+# the decoder's mid-block attention under RGB guidance's gradient, (B, Sq,
+# Skv) at d = 512: a 512x512 request, 1024x512, the band of a 1024x1024
+# decode on two processes (8192 queries against 16384 gathered kv rows), an
+# untiled 1024x1024 request and a 2048x2048 one
+D512_GRAD_SHAPES = ((1, 4096, 4096), (1, 8192, 8192), (1, 8192, 16384), (1, 16384, 16384),
+                    (1, 65536, 65536))
+# the guidance step through the full-width decoder and its mid-block
+# attention's gradients, flash route against the plain route, x max|plain|
+GUIDED_GRAD_TOL = BF16_TOL
+# the token counts whose forward plus backward readings set
+# FLASH_MIN_WIDE_GRAD: the smallest at which flash beats plain under
+# autograd there and at every larger one
+D512_GRAD_THRESHOLDS = (4096, 8192, 16384)
+# Sq x Skv past which plain's [Sq, Skv] fp32 tensors do not fit beside each
+# other: the plain versions are then evaluated over q-row chunks, and plain
+# under autograd is not timed (SDPA is the only yardstick)
+D512_PLAIN_MAX = 16384 * 16384
+D512_REF_ROWS = 2048
 # the other samplers of the CLI, one 256x256 request each, twice
 SAMPLER_SIZE, SAMPLER_STEPS = 256, 2
 MODE_SEEDS = (1,)
@@ -777,6 +830,8 @@ def phase_device():
 # name -> CudaKernel of every kernel the port has, filled by main() once the
 # port is imported
 KERNELS = {}
+# K1_wide's launches with lse (tally_wide_lse)
+WIDE_LSE = {"K1_wide_lse": 0}
 
 
 def fill_kernels() -> None:
@@ -786,8 +841,9 @@ def fill_kernels() -> None:
     from diffbir_tpu_torch.ops import quant_matmul as qm
 
     KERNELS.update(K1=fa.KERNEL_TC, K1_wide=fa.KERNEL_WIDE_TC, K1_cc=fa.KERNEL,
-                   K2a=fa.KERNEL_DQ_TC,
-                   K2b=fa.KERNEL_DKV_TC, K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV,
+                   K2a=fa.KERNEL_DQ_TC, K2b=fa.KERNEL_DKV_TC, K2_delta=fa.KERNEL_DELTA,
+                   K2a_wide=fa.KERNEL_DQ_WIDE_TC, K2b_wide=fa.KERNEL_DKV_WIDE_TC,
+                   K2a_cc=fa.KERNEL_DQ, K2b_cc=fa.KERNEL_DKV,
                    K3=fa.KERNEL_PRESCALED_TC, K3_cc=fa.KERNEL_PRESCALED, K4=qm.KERNEL_TC,
                    K4_gemv=qm.KERNEL_GEMV, K4_cc=qm.KERNEL, K5=qm.KERNEL_INT4_TC,
                    K5_gemv=qm.KERNEL_INT4_GEMV, K5_cc=qm.KERNEL_INT4, K6=fr.KERNEL_TC,
@@ -814,7 +870,8 @@ def phase_build():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {kernel.source.name}:", line.strip())
     specs = (("K1", ("flash_fwd_tc_kernel", "flash_fwd_wide_kernel")),
-             ("K2a", ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")),
+             ("K2a", ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                      "flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel")),
              ("K4", ("quant_matmul_tc_kernel",)), ("K5", ("int4_tc_kernel",)),
              ("K6", ("conv_tc_kernel",)), ("K7", ("geglu_tc_kernel", "down_tc_kernel")))
     tool = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
@@ -1041,7 +1098,8 @@ def phase_k1_wide(fa):
         outs = fa.flash_attention_fwd(q, k, v, with_lse=True)
         torch.cuda.synchronize()
         moved = launched_since(before)
-        check(moved == {"K1_wide": 1}, f"K1 at {label} launched {moved}, expected one K1_wide")
+        check(moved == {"K1_wide": 1, "K1_wide_lse": 1},
+              f"K1 at {label} launched {moved}, expected one K1_wide with lse")
         refs = fa.flash_attention_lse_ref(q, k, v)
         errs = fwd_errors(outs, refs, BF16_TOL)
         for n, (err, limit) in errs.items():
@@ -1139,7 +1197,7 @@ def phase_backward_kernels(fa):
              ((2, 1024, 1024, 8, 128), bf), ((1, 300, 300, 2, 256), bf),
              ((1, 600, 600, 1, 512), bf), ((2, 1024, 1024, 10, 64), f32),
              ((1, 300, 300, 1, 512), f32)]
-    entries = ("K2a", "K2b", "K2a_cc", "K2b_cc")
+    entries = ("K2a", "K2b", "K2_delta", "K2a_wide", "K2b_wide", "K2a_cc", "K2b_cc")
     max_err = {"dq": 0.0, "dkv": 0.0}
     headline = None
     for shape, dtype in cases:
@@ -1165,8 +1223,11 @@ def phase_backward_kernels(fa):
         grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
         moved = {n: KERNELS[n].launches - before[n] for n in entries}
         tensor_cores = dtype == bf and d in fa.TC_HEAD_DIMS
-        want = ({"K2a": 1, "K2b": 1, "K2a_cc": 0, "K2b_cc": 0} if tensor_cores
-                else {"K2a": 0, "K2b": 0, "K2a_cc": 1, "K2b_cc": 1})
+        wide = dtype == bf and d in fa.WIDE_TC_HEAD_DIMS
+        want = dict.fromkeys(entries, 0)
+        want.update({"K2a": 1, "K2b": 1} if tensor_cores else
+                    {"K2_delta": 1, "K2a_wide": 1, "K2b_wide": 1} if wide else
+                    {"K2a_cc": 1, "K2b_cc": 1})
         check(moved == want, f"K2 at {label} launched {moved}, expected {want}")
         again = fa.flash_attention_bwd(q, k, v, o, lse, g)
         torch.cuda.synchronize()
@@ -1210,7 +1271,8 @@ def phase_backward_kernels(fa):
         b_dq = bound_ms(3, b, h, sq, skv, d, dtype, in_bytes + nbytes(grads[0]))
         b_dkv = bound_ms(4, b, h, sq, skv, d, dtype, in_bytes + nbytes(*grads[1:]))
         b_all = bound_ms(5, b, h, sq, skv, d, dtype, in_bytes + nbytes(*grads))
-        entry = "tensor-core entries" if tensor_cores else "CUDA-core entries"
+        entry = ("tensor-core entries" if tensor_cores else
+                 "wide tensor-core entries" if wide else "CUDA-core entries")
         print(f"[bwd] {label} {str(dtype)[6:]} ({entry}, launches "
               + ", ".join(f"{n} {x}" for n, x in moved.items() if x) + "): max err / limit "
               + ", ".join(f"{n} {e:.3e} / {limits[n]:.3e}" for n, e in errs.items()) +
@@ -1248,107 +1310,216 @@ def phase_backward_kernels(fa):
     return headline
 
 
+def wide_refs(fa, q, k, v, o, lse, g):
+    """The plain versions' (dq, dk, dv) of a d = 512 case; past
+    D512_PLAIN_MAX over q-row chunks of D512_REF_ROWS: the same math, dq
+    exact per chunk, dk and dv summed in fp32 over the chunks and rounded
+    once, as the plain einsum over all rows does."""
+    import torch
+
+    if q.shape[1] * k.shape[1] <= D512_PLAIN_MAX:
+        return fa.flash_attention_bwd_ref(q, k, v, o, lse, g)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r0 in range(0, q.shape[1], D512_REF_ROWS):
+        rows = slice(r0, r0 + D512_REF_ROWS)
+        qc, gc = q[:, rows], g[:, rows]
+        p, ds = fa._bwd_probs_ref(qc, k, v, o[:, rows], lse[:, :, rows], gc)
+        dq[:, rows] = fa._dq_from_ds(ds, k, q.dtype)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qc.float())
+        dv += torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), gc.float())
+        del p, ds
+    return dq, dk.to(q.dtype), dv.to(q.dtype)
+
+
+def hold_pair(fa, tag, label, entries, q, k, v, o, lse, g, refs, delta=None) -> dict:
+    """One K2a and one K2b entry (``entries``; the wide ones read ``delta``)
+    on a case: dq, dk and dv within BF16_TOL x max|ref| of the plain
+    versions' ``refs``; the same entries run without the last 64-row kv
+    tile (K2 with the full lse, as a kernel that drops the tile would) must
+    fail each limit. Returns {name: max abs error}."""
+    import torch
+
+    dq_entry, dkv_entry = entries
+    outs = (fa.launch_dq(dq_entry, q, k, v, o, lse, g, delta),
+            *fa.launch_dkv(dkv_entry, q, k, v, o, lse, g, delta))
+    kt, vt = k[:, :-64], v[:, :-64]
+    pad = torch.zeros_like(k[:, -64:])
+    dk_f, dv_f = fa.launch_dkv(dkv_entry, q, kt, vt, o, lse, g, delta)
+    faulty = (fa.launch_dq(dq_entry, q, kt, vt, o, lse, g, delta), torch.cat([dk_f, pad], 1),
+              torch.cat([dv_f, pad], 1))
+    torch.cuda.synchronize()
+    errs, ratios = {}, {}
+    for name, out, bad, ref in zip(("dq", "dk", "dv"), outs, faulty, refs):
+        limit = limit_of(ref, BF16_TOL)
+        errs[name] = (out.float() - ref.float()).abs().max().item()
+        ratios[name] = (bad.float() - ref.float()).abs().max().item() / limit
+        check(errs[name] <= limit, f"{tag}: {name} disagrees with its plain version at {label}: "
+              f"{errs[name]} > {limit}")
+    print(f"[{tag}] {label} bf16: max err / limit " + ", ".join(
+        f"{n} {e:.3e} / {limit_of(r, BF16_TOL):.3e}" for (n, e), r in zip(errs.items(), refs))
+          + f" (limit {BF16_TOL:g} x max|ref|); without the last kv tile: max err / limit "
+          + ", ".join(f"{n} {r:.1f}" for n, r in ratios.items()))
+    check(all(r > 1.0 for r in ratios.values()),
+          f"{tag}: the limits do not catch a skipped kv tile at {label}: {ratios}")
+    return errs
+
+
 def phase_d512_backward(fa):
-    """[d512_backward]: one forward plus backward of the VAE's d = 512
-    mid-block attention under a gradient (RGB guidance differentiates
-    through the decoder) at D512_GRAD_SHAPES, three ways: (a) K1_wide with
-    lse, then K2a_cc and K2b_cc (the CUDA-core backward that ``bwd_entries``
-    names for bf16 at d = 512); (b) the plain version under autograd; (c)
-    SDPA forward and backward, the library yardstick; beside the bound (6
-    products of 2 S^2 d: S and P.V, then dV, dP, dQ and dK with P kept) and
-    plain's peak memory. At the first shape K2a_cc and K2b_cc against their
-    plain versions, each timed alone, and a skipped kv tile failing the
-    limits (``check_power``). Prints the threshold of the dispatch under a
-    gradient (``FLASH_MIN_WIDE_GRAD``) and checks it against the reading:
-    plain math below it wherever plain was faster. Returns the kernel lines'
-    numbers of K2a_cc and K2b_cc at the first shape."""
+    """[d512_backward]: the VAE's d = 512 mid-block attention under a
+    gradient (RGB guidance differentiates through the decoder) at
+    D512_GRAD_SHAPES. At each: the wide backward (the delta pre-pass,
+    K2a_wide, K2b_wide; ``bwd_entries`` names them for bf16 at d = 512) one
+    launch each, bit-identical on a rerun, dq, dk and dv against the plain
+    versions (over q-row chunks past D512_PLAIN_MAX) and delta against its
+    own, a skipped kv tile failing the limits (``hold_pair``); each entry
+    timed alone beside its plain version (up to D512_PLAIN_MAX), SDPA's
+    backward (dq, dk and dv at once) and its bound (3 and 4 products of 2 Sq
+    Skv d; delta the bytes of o, dO and delta). At the square shapes of
+    D512_GRAD_THRESHOLDS, one forward plus backward three ways: K1_wide with
+    lse + the wide backward, the plain version under autograd (with its
+    peak memory), SDPA; FLASH_MIN_WIDE_GRAD
+    must be the smallest of D512_GRAD_THRESHOLDS at which flash is faster
+    there and at every larger one (65536 if none). At 4096 tokens K2a_cc and
+    K2b_cc (``d512_cc``). Returns the kernel lines' numbers: the wide
+    entries at [1,16384,1,512], the CUDA-core ones at [1,4096,1,512]."""
     import torch
 
     from diffbir_tpu_torch.ops.attention import FLASH_MIN_WIDE_GRAD, plain_attention
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    numbers, readings = {}, []
-    for b, s, h, d in D512_GRAD_SHAPES:
-        q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-                      for _ in range(4))
-        label = "x".join(map(str, q.shape))
-        check(fa.bwd_entries(q) == (fa.KERNEL_DQ, fa.KERNEL_DKV),
-              f"bf16 d = 512 backward is not on the CUDA-core entries at {label}")
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-
-        def flash():
-            o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-            return fa.flash_attention_bwd(q, k, v, o, lse, g)
-
-        def plain():
-            return torch.autograd.grad(plain_attention(*leaves), leaves, g)
-
-        def sdpa():
-            return torch.autograd.grad(sdpa_fwd(*leaves), leaves, g.transpose(1, 2))
-
+    bf = torch.bfloat16
+    numbers, readings, worst = {}, {}, {"dq": 0.0, "dkv": 0.0, "delta": 0.0}
+    for b, sq, skv in D512_GRAD_SHAPES:
+        q, g = (torch.randn(b, sq, 1, 512, generator=gen, device="cuda").to(bf)
+                for _ in range(2))
+        k, v = (torch.randn(b, skv, 1, 512, generator=gen, device="cuda").to(bf)
+                for _ in range(2))
+        label = "x".join(map(str, q.shape)) + (f" x {skv} kv rows" if skv != sq else "")
+        check(fa.bwd_entries(q) == fa.WIDE_BWD,
+              f"bf16 d = 512 backward is not on the wide tensor-core entries at {label}")
+        o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
         before = counts()
-        flash()
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
         torch.cuda.synchronize()
         moved = launched_since(before)
-        check(moved == {"K1_wide": 1, "K2a_cc": 1, "K2b_cc": 1},
-              f"(a) at {label} launched {moved}")
-        iters = 3 if s > 4096 else 10
-        t = {"a": median_ms(flash, iters, 1), "b": median_ms(plain, iters, 1),
-             "c": median_ms(sdpa, iters, 1)}
+        check(moved == {"K2_delta": 1, "K2a_wide": 1, "K2b_wide": 1},
+              f"the d = 512 backward at {label} launched {moved}")
+        again = fa.flash_attention_bwd(q, k, v, o, lse, g)
         torch.cuda.synchronize()
-        resident = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        plain()
-        torch.cuda.synchronize()
-        plain_gib = (torch.cuda.max_memory_allocated() - resident) / 2**30
-        bms, by = bound_ms(6, b, h, s, s, d, torch.bfloat16, 2 * nbytes(q, k, v, g))
-        print(f"[d512_backward] {label} bf16 forward + backward: (a) K1_wide + K2a_cc + "
-              f"K2b_cc {t['a']:.4f} ms, (b) plain under autograd {t['b']:.4f} ms (peak "
-              f"{plain_gib:.3f} GiB above its inputs), (c) SDPA {t['c']:.4f} ms; bound "
-              f"{bms:.4f} ms ({by}); (a) / (b) {t['a'] / t['b']:.1f}x, (a) / (c) "
-              f"{t['a'] / t['c']:.1f}x")
-        readings.append((s, t))
-        if not numbers:
-            numbers = d512_kernels(fa, q, k, v, g, t["c"], iters)
-        del q, k, v, g, leaves
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"the wide backward is not bit-deterministic at {label}")
+        refs = wide_refs(fa, q, k, v, o, lse, g)
+        delta = fa.launch_delta(o, g)
+        delta_ref = fa.flash_attention_bwd_delta_ref(o, g)
+        delta_err = (delta - delta_ref).abs().max().item()
+        check(delta_err <= limit_of(delta_ref, FP32_TOL), f"delta disagrees with its plain "
+              f"version at {label}: {delta_err}")
+        errs = hold_pair(fa, "d512_backward", label, fa.WIDE_BWD, q, k, v, o, lse, g, refs,
+                         delta)
+        worst.update(dq=max(worst["dq"], errs["dq"]),
+                     dkv=max(worst["dkv"], errs["dk"], errs["dv"]),
+                     delta=max(worst["delta"], delta_err))
+        big = sq * skv > D512_PLAIN_MAX
+        iters = 2 if big else 10
+        t = {"K2_delta": median_ms(lambda: fa.launch_delta(o, g), iters, 1),
+             "K2a_wide": median_ms(lambda: fa.launch_dq(fa.KERNEL_DQ_WIDE_TC, q, k, v, o, lse, g,
+                                                        delta), iters, 1),
+             "K2b_wide": median_ms(lambda: fa.launch_dkv(fa.KERNEL_DKV_WIDE_TC, q, k, v, o, lse,
+                                                         g, delta), iters, 1)}
+        plain_t = {} if big else {
+            "K2_delta": median_ms(lambda: fa.flash_attention_bwd_delta_ref(o, g), iters, 1),
+            "K2a_wide": median_ms(lambda: fa.flash_attention_bwd_dq_ref(q, k, v, o, lse, g),
+                                  iters, 1),
+            "K2b_wide": median_ms(lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, o, lse, g),
+                                  iters, 1)}
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out_lib = sdpa_fwd(*leaves)
+        lib_ms = median_ms(lambda: torch.autograd.grad(out_lib, leaves, g.transpose(1, 2),
+                                                       retain_graph=True), iters, 1)
+        del out_lib
+        in_bytes = nbytes(q, k, v, delta, lse, g)
+        bounds = {"K2_delta": bound_ms(0, b, 1, sq, skv, 512, bf, nbytes(o, g, delta)),
+                  "K2a_wide": bound_ms(3, b, 1, sq, skv, 512, bf, in_bytes + nbytes(grads[0])),
+                  "K2b_wide": bound_ms(4, b, 1, sq, skv, 512, bf,
+                                       in_bytes + nbytes(*grads[1:]))}
+        print(f"[d512_backward] {label} bf16, each entry alone: " + "; ".join(
+            f"{n} {t[n]:.4f} ms (plain "
+            + (f"{plain_t[n]:.4f}" if n in plain_t else "not timed: its scores do not fit")
+            + f", bound {bounds[n][0]:.4f} {bounds[n][1]}, {bounds[n][0] / t[n]:.1%} of it)"
+            for n in t) + f"; SDPA backward (dq, dk, dv) {lib_ms:.4f} ms; K2a_wide + K2b_wide "
+              f"{(bounds['K2a_wide'][0] + bounds['K2b_wide'][0]) / (t['K2a_wide'] + t['K2b_wide']):.1%}"
+              " of their bounds")
+        if (b, sq, skv) == (1, 16384, 16384):
+            for n in t:
+                numbers[n] = {"ms": t[n], "plain_ms": plain_t[n], "bound_ms": bounds[n][0],
+                              "bound_by": bounds[n][1],
+                              "library_ms": None if n == "K2_delta" else lib_ms,
+                              "shape": label, "library": None if n == "K2_delta"
+                              else "SDPA backward (dq, dk, dv)"}
+        if sq == skv and sq in D512_GRAD_THRESHOLDS:
+
+            def flash():
+                o2, lse2 = fa.flash_attention_fwd(q, k, v, with_lse=True)
+                return fa.flash_attention_bwd(q, k, v, o2, lse2, g)
+
+            def sdpa():
+                return torch.autograd.grad(sdpa_fwd(*leaves), leaves, g.transpose(1, 2))
+
+            f = {"flash": median_ms(flash, iters, 1), "SDPA": median_ms(sdpa, iters, 1),
+                 "plain": median_ms(lambda: torch.autograd.grad(plain_attention(*leaves),
+                                                                leaves, g), iters, 1)}
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            torch.autograd.grad(plain_attention(*leaves), leaves, g)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            readings[sq] = f
+            # S and P.V, then dV, dP, dQ and dK with P kept
+            bms, by = bound_ms(6, b, 1, sq, skv, 512, bf, 2 * nbytes(q, k, v, g))
+            print(f"[d512_backward] {label} bf16 forward + backward: K1_wide + delta + K2a_wide "
+                  f"+ K2b_wide {f['flash']:.4f} ms, plain under autograd {f['plain']:.4f} ms "
+                  f"(its peak {peak:.3f} GiB above its inputs), SDPA {f['SDPA']:.4f} ms; bound "
+                  f"{bms:.4f} ms ({by}, 6 products); flash / plain {f['flash'] / f['plain']:.3f}, "
+                  f"flash / SDPA {f['flash'] / f['SDPA']:.3f}")
+        if (b, sq, skv) == (1, 4096, 4096):
+            numbers.update(d512_cc(fa, label, q, k, v, o, lse, g, refs, lib_ms, iters))
+        del q, k, v, g, o, lse, grads, again, refs, delta, delta_ref, leaves
         torch.cuda.empty_cache()
-    print(f"[d512_backward] d = 512 under a gradient goes to plain math below "
-          f"FLASH_MIN_WIDE_GRAD = {FLASH_MIN_WIDE_GRAD} tokens, to K1_wide + K2a_cc + K2b_cc "
-          f"from there")
-    for s, t in readings:
-        check(s >= FLASH_MIN_WIDE_GRAD or t["b"] <= t["a"],
-              f"plain math under a gradient is slower than flash at {s} tokens "
-              f"({t['b']} > {t['a']} ms), below FLASH_MIN_WIDE_GRAD")
+    numbers["K2a_wide"]["max_abs_err"] = worst["dq"]
+    numbers["K2b_wide"]["max_abs_err"] = worst["dkv"]
+    numbers["K2_delta"]["max_abs_err"] = worst["delta"]
+    wins = [s for s in D512_GRAD_THRESHOLDS
+            if all(readings[x]["flash"] < readings[x]["plain"]
+                   for x in D512_GRAD_THRESHOLDS if x >= s)]
+    reading = min(wins) if wins else 65536
+    print(f"[d512_backward] the reading: flash beats plain under autograd from {reading} tokens "
+          f"(of {D512_GRAD_THRESHOLDS}, there and at every larger one); FLASH_MIN_WIDE_GRAD = "
+          f"{FLASH_MIN_WIDE_GRAD}: d = 512 under a gradient goes to plain math below it, to "
+          "K1_wide + delta + K2a_wide + K2b_wide from there")
+    check(FLASH_MIN_WIDE_GRAD == reading,
+          f"FLASH_MIN_WIDE_GRAD = {FLASH_MIN_WIDE_GRAD} is not the reading {reading}")
     return numbers
 
 
-def d512_kernels(fa, q, k, v, g, library_ms: float, iters: int) -> dict:
-    """K2a_cc and K2b_cc on one d = 512 case: dq, dk and dv (and K1_wide's o
-    and lse) against the plain versions, the limits' power, and each entry's
-    time beside its plain version's and its bound (3 and 4 products);
-    ``library_ms``: SDPA's forward plus backward on the same inputs."""
-    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-    o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v)
-    grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
-    refs = dict(zip(NAMES, (o_ref, lse_ref, *fa.flash_attention_bwd_ref(q, k, v, o, lse, g))))
-    limits = {n: limit_of(r, FP32_TOL if n == "lse" else BF16_TOL) for n, r in refs.items()}
-    errs = {n: (x.float() - refs[n].float()).abs().max().item()
-            for n, x in zip(NAMES, (o, lse, *grads))}
-    label = "x".join(map(str, q.shape))
-    print(f"[d512_backward] K1_wide + K2a_cc + K2b_cc {label} bf16: max err / limit "
-          + ", ".join(f"{n} {e:.3e} / {limits[n]:.3e}" for n, e in errs.items())
-          + f" (limit {BF16_TOL:g} x max|ref|, lse {FP32_TOL:g} x max|ref|)")
-    for n, e in errs.items():
-        check(e <= limits[n], f"{n} disagrees with its plain version at {label}: "
-              f"{e} > {limits[n]}")
-    check_power(fa, q, k, v, g, o, lse, refs, limits)
+def d512_cc(fa, label, q, k, v, o, lse, g, refs, library_ms: float, iters: int) -> dict:
+    """K2a_cc and K2b_cc (the CUDA-core entries, which no path launches) on
+    one d = 512 case: dq, dk and dv against the plain versions ``refs`` and
+    a skipped kv tile failing the limits (``hold_pair``), each entry timed
+    alone beside its plain version and its bound (3 and 4 products);
+    ``library_ms``: SDPA's backward on the same inputs."""
+    errs = hold_pair(fa, "d512_backward", f"{label} on K2a_cc + K2b_cc",
+                     (fa.KERNEL_DQ, fa.KERNEL_DKV), q, k, v, o, lse, g, refs)
     b, s, h, d = q.shape
     in_bytes = nbytes(q, k, v, o, g, lse)
     out = {}
-    for key, launch, ref, products, n_out in (
-            ("K2a_cc", fa.launch_dq, fa.flash_attention_bwd_dq_ref, 3, nbytes(grads[0])),
-            ("K2b_cc", fa.launch_dkv, fa.flash_attention_bwd_dkv_ref, 4, nbytes(*grads[1:]))):
-        kernel = fa.KERNEL_DQ if key == "K2a_cc" else fa.KERNEL_DKV
+    for key, kernel, launch, ref, products, n_out in (
+            ("K2a_cc", fa.KERNEL_DQ, fa.launch_dq, fa.flash_attention_bwd_dq_ref, 3,
+             nbytes(refs[0])),
+            ("K2b_cc", fa.KERNEL_DKV, fa.launch_dkv, fa.flash_attention_bwd_dkv_ref, 4,
+             nbytes(*refs[1:]))):
         ms = median_ms(lambda: launch(kernel, q, k, v, o, lse, g), iters, 1)
         plain_ms = median_ms(lambda: ref(q, k, v, o, lse, g), iters, 1)
         bms, by = bound_ms(products, b, h, s, s, d, q.dtype, in_bytes + n_out)
@@ -1358,7 +1529,7 @@ def d512_kernels(fa, q, k, v, g, library_ms: float, iters: int) -> dict:
               f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; {bms / ms:.2%} of it)")
         out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                     "library_ms": library_ms, "max_abs_err": err, "shape": label,
-                    "library": "SDPA forward + backward"}
+                    "library": "SDPA backward (dq, dk, dv)"}
     return out
 
 
@@ -1424,10 +1595,26 @@ def phase_model_call(cldm):
 def reset_counts():
     for kernel in KERNELS.values():
         kernel.launches = 0
+    WIDE_LSE["K1_wide_lse"] = 0
 
 
 def counts() -> dict:
-    return {name: kernel.launches for name, kernel in KERNELS.items()}
+    """Launches per kernel, and "K1_wide_lse": those of K1_wide's with lse
+    (a forward under a gradient) among K1_wide's."""
+    return {**{name: kernel.launches for name, kernel in KERNELS.items()}, **WIDE_LSE}
+
+
+def tally_wide_lse(fa) -> None:
+    """Counts K1_wide's launches with lse in WIDE_LSE (``fa.launch_fwd``
+    wrapped; the kernel's own count is K1_wide's)."""
+    launch = fa.launch_fwd
+
+    def launch_fwd(kernel, q, k, v, with_lse=False):
+        out = launch(kernel, q, k, v, with_lse)
+        WIDE_LSE["K1_wide_lse"] += kernel is fa.KERNEL_WIDE_TC and with_lse
+        return out
+
+    fa.launch_fwd = launch_fwd
 
 
 def launched_since(before: dict) -> dict:
@@ -2275,7 +2462,7 @@ def cli_refuses(label: str, flags, error, match: str) -> None:
     check(False, f"{label}: {' '.join(flags)} ran; expected {error.__name__}")
 
 
-def phase_cli_request(path: str, spec=None):
+def phase_cli_request(path: str, spec=None, with_loop=None):
     """[cli_request]: ``python -m diffbir_tpu_torch.inference`` run in this
     process (``main``) on a seeded 128x128 PNG with --upscale 4 and the
     CLI's defaults (v2.1, 10 steps of edm_dpm++_3m_sde at CFG 6.0, the
@@ -2285,8 +2472,9 @@ def phase_cli_request(path: str, spec=None):
     exact launches, seconds per stage, the PNG equal to a direct
     ``pipeline.run`` of the request (the loop's pipeline: its guidance, its
     model's serving flags), and a rerun bit-identical. Returns the launch
-    counts of the entry point's run and {"png", "seconds", "stages"} of it
-    and of the rerun of its loop ("rerun_seconds", "rerun_stages")."""
+    counts of the entry point's run and {"png", "seconds", "stages",
+    "peak"} of it and of the rerun of its loop ("rerun_seconds",
+    "rerun_stages"). ``with_loop``: called on the loop after the rerun."""
     import numpy as np
     import torch
 
@@ -2329,7 +2517,9 @@ def phase_cli_request(path: str, spec=None):
         check(launched_since(before) == expected, f"{path}: the rerun launched another count")
         check(np.array_equal(read_png(os.path.join(out_dir, "lq.png")), out),
               f"{path}: the rerun differs")
-    peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if with_loop is not None:
+            with_loop(loop)
     print(f"[{path}] python -m diffbir_tpu_torch.inference {' '.join(argv)}: {dt:.3f} s "
           f"({stages(first)} s); {type(loop).__name__}, cleaner "
           f"{type(loop.cleaner).__name__}, {type(loop.pipeline).__name__}, "
@@ -2339,7 +2529,7 @@ def phase_cli_request(path: str, spec=None):
           f"of the loop: {dt2:.3f} s ({stages(loop.timings)} s), bit-identical; peak device "
           f"memory {peak:.2f} GiB")
     info = {"png": out, "seconds": dt, "stages": first, "rerun_seconds": dt2,
-            "rerun_stages": dict(loop.timings)}
+            "rerun_stages": dict(loop.timings), "peak": peak}
     del loop
     torch.cuda.empty_cache()
     return launches, info
@@ -2451,6 +2641,146 @@ def phase_guidance(baseline: dict) -> dict:
     cli_refuses("guidance", GUIDANCE + ["--g_space", "rgb", "--sampler", "dpm++_m2"],
                 ValueError, "dpm++_m2")
     return paths
+
+
+def cli_once(path: str, flags):
+    """One CLI request (``main``) in this process, without
+    ``phase_cli_request``'s checks: (its launches, {"seconds", "peak",
+    "png"}, its ``recording_vae`` record)."""
+    import torch
+
+    from diffbir_tpu_torch.inference.__main__ import main
+    from diffbir_tpu_torch.utils.image_io import read_png
+
+    root, argv = cli_request_argv(path, flags)
+    with cli_environment(root), recording_vae() as rec:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        loop = main(argv)
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in counts().items() if v}
+        info = {"seconds": dt, "peak": torch.cuda.max_memory_allocated() / 2**30,
+                "png": read_png(os.path.join(root, "out", "lq.png"))}
+        print(f"[guidance_1024] {path}: python -m diffbir_tpu_torch.inference {' '.join(argv)}: "
+              f"{dt:.3f} s ({stages(loop.timings)} s); launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items())
+              + f"; peak device memory {info['peak']:.2f} GiB ({CARD[0]})")
+        del loop
+    torch.cuda.empty_cache()
+    return launches, info, rec
+
+
+def guidance_gradient(fa, loop) -> None:
+    """One RGB guidance step (-grad x scale of the request's w_mse loss)
+    through the request's full-width decoder at 16384 tokens (a seeded
+    128x128 latent x0, a seeded 1024x1024 target), on the flash route
+    (K1_wide with lse, delta, K2a_wide, K2b_wide), with the plain route
+    forced (FLASH_MIN_WIDE_GRAD past the tokens: no kernel), and with the
+    plain route at batch 2 (z twice): its row 1 against batch 1 is the
+    decoder's own bf16 spread (cuDNN picks other algorithms). The step and
+    the mid-block attention's gradients (dq, dk, dv, by hooks) of the flash
+    route must lie within GUIDED_GRAD_TOL of the plain route's (x max|plain|);
+    the flash route with the wide backward skipping the last kv tile must
+    fail the attention's limits."""
+    import torch
+
+    from diffbir_tpu_torch.models import vae as vae_mod
+    from diffbir_tpu_torch.ops import attention as attention_mod
+    from diffbir_tpu_torch.utils.cond_fn import RGBSpaceGuidance
+
+    guide = RGBSpaceGuidance(loop.cond_fn, loop.pipeline.cldm.vae_decode)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    z = torch.randn(1, 128, 128, 4, generator=gen, device="cuda")
+    target = torch.rand(1, TILED_SIZE, TILED_SIZE, 3, generator=gen, device="cuda") * 2 - 1
+    site, runs = {}, {}
+    attend, backward = vae_mod.attention, fa.flash_attention_bwd
+    threshold = attention_mod.FLASH_MIN_WIDE_GRAD
+
+    def recording(q, k, v, **kw):  # the mid-block attention's input gradients, last row
+        for name, t in zip(("dq", "dk", "dv"), (q, k, v)):
+            t.register_hook(lambda grad, name=name: site.__setitem__(name, grad[-1:].float()))
+        return attend(q, k, v, **kw)
+
+    def skipping(q, k, v, o, lse, g):  # the wide backward without the last kv tile
+        dq, dk, dv = backward(q, k[:, :-64], v[:, :-64], o, lse, g)
+        pad = torch.zeros_like(k[:, -64:])
+        return dq, torch.cat([dk, pad], 1), torch.cat([dv, pad], 1)
+
+    vae_mod.attention = recording
+    try:
+        for route, limit, bwd, rows in (("flash", threshold, backward, 1),
+                                        ("plain", 2**31, backward, 1),
+                                        ("plain at batch 2", 2**31, backward, 2),
+                                        ("faulty", threshold, skipping, 1)):
+            attention_mod.FLASH_MIN_WIDE_GRAD, fa.flash_attention_bwd = limit, bwd
+            before = counts()
+            step, _ = guide(target.repeat(rows, 1, 1, 1), z.repeat(rows, 1, 1, 1))
+            torch.cuda.synchronize()
+            runs[route] = ({"step": step[-1:].float(), **site}, launched_since(before))
+    finally:
+        vae_mod.attention, fa.flash_attention_bwd = attend, backward
+        attention_mod.FLASH_MIN_WIDE_GRAD = threshold
+    check(runs["flash"][1] == {"K1_wide": 1, "K1_wide_lse": 1, "K2_delta": 1, "K2a_wide": 1,
+                               "K2b_wide": 1}, f"the flash route launched {runs['flash'][1]}")
+    check(runs["plain"][1] == {}, f"the plain route launched {runs['plain'][1]}")
+    ref = runs["plain"][0]
+    rel = {route: {n: (x - ref[n]).abs().max().item() / ref[n].abs().max().item()
+                   for n, x in runs[route][0].items()}
+           for route in ("flash", "plain at batch 2", "faulty")}
+    print(f"[guidance_1024] one guidance step through the full-width decoder at "
+          f"{z.shape[1] * z.shape[2]} tokens, max err / max|plain route's| of the step and of "
+          "the mid-block attention's dq, dk, dv: " + "; ".join(
+              f"{route} " + ", ".join(f"{n} {e:.3e}" for n, e in r.items())
+              for route, r in rel.items()) + f" (limit {GUIDED_GRAD_TOL:g})")
+    check(all(e <= GUIDED_GRAD_TOL for e in rel["flash"].values()),
+          f"the flash route's guidance gradient disagrees with the plain route's: {rel['flash']}")
+    check(all(rel["faulty"][n] > GUIDED_GRAD_TOL for n in ("dk", "dv")),
+          f"the limit does not catch a skipped kv tile: {rel['faulty']}")
+
+
+def phase_guidance_1024(fa) -> dict:
+    """[guidance_1024]: the CLI request with RGB guidance at 1024x1024
+    (GUIDED_1024_PATHS: a 256x256 PNG at --upscale 4, untiled, --steps 2):
+    exact launches (the wide backward once a guided decode at 16384 tokens),
+    the PNG equal to pipeline.run's, a rerun bit-identical
+    (``phase_cli_request``), the decoded image closer to the condition than
+    the unguided request's on the same PNG and seed, the guidance gradient
+    on both routes (``guidance_gradient``), and the peak memory beside the
+    same request with the plain route forced (its launches: the unguided
+    request's). Returns the guided request's launches."""
+    import numpy as np
+    import torch
+
+    from diffbir_tpu_torch.ops import attention as attention_mod
+
+    launches0, _, rec0 = cli_once("cli_unguided_1024", STEPS_FLAG)
+    check(launches0 == GUIDED_1024_PLAIN, f"cli_unguided_1024 launched {launches0}")
+    with recording_vae() as rec:
+        launches, info = phase_cli_request(
+            GUIDED_1024, GUIDED_1024_PATHS[GUIDED_1024],
+            with_loop=lambda loop: guidance_gradient(fa, loop))
+    d = torch.mean((rec["x"] - rec["image"]) ** 2).item()
+    d0 = torch.mean((rec0["x"] - rec0["image"]) ** 2).item()
+    print(f"[guidance_1024] mean squared distance of the decoded image to the condition image "
+          f"{d:.6f}, the unguided request's {d0:.6f}")
+    check(d < d0, f"{GUIDED_1024}: guidance did not move the image toward its target "
+          f"({d} >= {d0})")
+    threshold = attention_mod.FLASH_MIN_WIDE_GRAD
+    attention_mod.FLASH_MIN_WIDE_GRAD = 2**31
+    try:
+        launches_p, info_p, _ = cli_once(GUIDED_1024 + "_plain", GUIDED_1024_FLAGS)
+    finally:
+        attention_mod.FLASH_MIN_WIDE_GRAD = threshold
+    check(launches_p == GUIDED_1024_PLAIN, f"the plain route launched {launches_p}")
+    diff = np.abs(info_p["png"].astype(int) - info["png"].astype(int))
+    print(f"[guidance_1024] peak device memory: flash route {info['peak']:.3f} GiB, plain route "
+          f"forced {info_p['peak']:.3f} GiB ({CARD[0]}); request {info['seconds']:.3f} s against "
+          f"{info_p['seconds']:.3f} s; the two PNGs (not gated): max {diff.max()} uint8 levels, "
+          f"{float((diff > 4).mean()):.4%} of values more than 4 apart")
+    return {GUIDED_1024: launches}
 
 
 def phase_turbo_model(cldm):
@@ -5902,9 +6232,9 @@ def parallel_train_worker(rank: int, port: int) -> None:
         shapes.update([("K1", tuple(q.shape), tuple(k.shape))])
         return launch_fwd(kernel, q, k, v, with_lse)
 
-    def recording_dq(kernel, q, k, v, o, lse, g):
+    def recording_dq(kernel, q, k, v, o, lse, g, delta=None):
         shapes.update([("K2", tuple(q.shape), tuple(k.shape))])
-        return launch_dq(kernel, q, k, v, o, lse, g)
+        return launch_dq(kernel, q, k, v, o, lse, g, delta)
 
     fa.launch_fwd, fa.launch_dq = recording_fwd, recording_dq
     out = {"ready": stamps}
@@ -6279,6 +6609,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     fill_kernels()
+    tally_wide_lse(fa)
     t_start = time.perf_counter()
     laps = [t_start]
 
@@ -6346,6 +6677,8 @@ def main() -> int:
         lap("cleaner_bsrnet")
         paths.update(phase_guidance(records["cli_request"]))
         lap("guidance")
+        paths.update(phase_guidance_1024(fa))
+        lap("guidance_1024")
         paths.update(phase_turbo_cli(cli_runs))
         lap("turbo_cli")
         for path, spec in FAST_GELU_PATHS.items():
@@ -6403,7 +6736,8 @@ def main() -> int:
         paths["parallel_train"] = phase_parallel_train()
         lap("parallel_train")
         cli = {path: expected for path, (expected, _) in {
-            **CLI_PATHS, **GUIDANCE_PATHS, **TURBO_PATHS, **FAST_GELU_PATHS}.items()}
+            **CLI_PATHS, **GUIDANCE_PATHS, **GUIDED_1024_PATHS, **TURBO_PATHS,
+            **FAST_GELU_PATHS}.items()}
         tiled = {f"tiled_{name}": expected for name, (_, expected) in TILED_VARIANTS.items()}
         served = {"cli_unaligned_face": UNALIGNED, "http_serve": CLI_DEFAULT,
                   "demo_http": CLI_DEFAULT, "cli_ram_caption": CLI_DEFAULT,
@@ -6434,6 +6768,12 @@ def main() -> int:
         ("K1_cc", "flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:81"),
         ("K2a", "flash_attention_bwd_dq_tc", "flash_attention_bwd.cu", "flash_attention.py:371"),
         ("K2b", "flash_attention_bwd_dkv_tc", "flash_attention_bwd.cu",
+         "flash_attention.py:410"),
+        ("K2_delta", "flash_attention_bwd_delta", "flash_attention_bwd.cu",
+         "flash_attention.py:396"),
+        ("K2a_wide", "flash_attention_bwd_dq_wide_tc", "flash_attention_bwd.cu",
+         "flash_attention.py:371"),
+        ("K2b_wide", "flash_attention_bwd_dkv_wide_tc", "flash_attention_bwd.cu",
          "flash_attention.py:410"),
         ("K2a_cc", "flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:371"),
         ("K2b_cc", "flash_attention_bwd_dkv", "flash_attention_bwd.cu",

@@ -12,15 +12,20 @@
 // give p = 0 and q rows past Sq contribute nothing (the TPU pads them to
 // q = dO = 0).
 //
-// Two designs in one source, each with its own entry points:
+// Three designs in one source, each with its own entry points:
 // - on the tensor cores (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel;
 //   entries flash_attention_bwd_dq_tc / _dkv_tc): bf16 at d = 64 and 128,
 //   which is every backward the port's training path runs;
+// - on the tensor cores for one wide head (flash_bwd_dq_wide_kernel,
+//   flash_bwd_dkv_wide_kernel; entries flash_attention_bwd_dq_wide_tc /
+//   _dkv_wide_tc, after the pre-pass flash_attention_bwd_delta): bf16 at
+//   d = 512, the VAE's single-head mid-block attention under RGB guidance's
+//   gradient through the decoder;
 // - on the CUDA cores (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; entries
 //   flash_attention_bwd_dq / _dkv): fp32 at any d, bf16 at d = 256 and 512.
 //   The tensor cores have no fp32 mode that keeps fp32's limit (TF32
-//   rounds), and no path of the port runs a backward at d >= 256 (the VAE is
-//   frozen in training).
+//   rounds), and no path of the port launches these (the VAE is frozen in
+//   training; bf16 d = 512 takes the wide kernels).
 // Both keep the TPU's split by accumulation axis; the TPU's sequential grid
 // axis becomes a loop inside the block, so nothing carries between blocks and
 // no atomics are needed: every output row is written by exactly one block, and
@@ -55,6 +60,47 @@
 //   panel (n = 64), so one descriptor form serves both head dims.
 // - The tiles, copies, descriptors and wgmma wrappers are those of
 //   wgmma_tile.cuh, shared with the forward's tensor-core kernel.
+//
+// Wide tensor-core design (d = 512, bf16). At the guided decoder's shapes
+// ([1,16384,1,512]: B*H = 1) dq does 3 and dk/dv 4 products of
+// 2*Sq*Skv*512 flops against 80 MB of q, k, v, o, dO and the gradients, so
+// both are compute-bound, and the grid's only parallelism is rows. What
+// d = 512 changes against the d <= 128 design:
+// - A 64 x 512 fp32 accumulator is 128 KB, a warpgroup's whole register
+//   file, and the block has 227 KB of shared memory for 64 KB tiles of q
+//   and dO. So kv tiles are 32 rows (wgmma m64n32k16) and no product is
+//   split by columns in a way that would make a warpgroup recompute S:
+//   * dq (K2a_wide): a block owns 64 query rows (q, dO staged once; one k
+//     and one v tile of 32 rows; 208 KB). Warpgroup 0 computes S = Q.K^T,
+//     warpgroup 1 dP = dO.V^T, each over all 512 dims; they swap the two
+//     64 x 32 fp32 accumulators through shared memory (16 KB), each forms
+//     p and ds of the tile in registers, and warpgroup wg adds dS.K to dq's
+//     columns [256 wg, 256 wg + 256) (dS as the A fragment, as above).
+//     That is the bound's 3 products, with no recompute (K1_wide does its
+//     S twice); the swap sits between the products and ds.
+//   * dk/dv (K2b_wide): a block owns 32 kv rows (k, v staged once; one q
+//     and one dO tile of 64 rows; 220 KB) and accumulates the transposed
+//     products dK^T += Q^T.dS and dV^T += dO^T.P (512 x 32 each, 8 M tiles
+//     of 64: 128 registers a thread), A read MN-major from the q or dO tile,
+//     B the bf16 dS^T or P^T tile in shared memory. Warpgroup 0 computes S
+//     and writes P^T for warpgroup 1, warpgroup 1 computes dP and hands it
+//     over (two stages of P^T and of the swap, so one barrier a q tile
+//     orders them), warpgroup 0 forms dS^T. The bound's 4 products, no
+//     recompute.
+// - delta = rowsum(dO * O) comes from a pre-pass (flash_bwd_delta_kernel,
+//   fp32 [B,H,Sq], 32 MB read at 16384 tokens), so neither kernel stages o:
+//   K2b would otherwise read all of o once per 32 kv rows.
+// - Each warpgroup copies the operands of its own product (warpgroup 0 q
+//   and k, warpgroup 1 dO and v) and waits on its own named barrier. In dq
+//   the next v tile loads under the swap and dQ, the next k tile after dQ
+//   (under the next dP); in dk/dv the next q and dO tiles after their last
+//   product, one stage each: their load is exposed once a q tile.
+// - Each block reads all of k and v (dq: 64 KB a kv tile) or q and dO
+//   (dk/dv: 128 KB a q tile) from L2: 8 GB and 16 GB at 16384 tokens, so
+//   the L2 rate, and not the tensor cores, may bind, as in K1_wide.
+//   Thread-block clusters that multicast a tile would cut that (not done).
+// - Parallelism: Sq / 64 blocks of dq (256 at 16384 tokens, 64 at 4096,
+//   against 132 SMs) and Skv / 32 of dk/dv (512, 128).
 //
 // CUDA-core design (the layout of the forward's CUDA-core kernel):
 // - dq: a block owns ROWS query rows of one (batch, head) and loops over kv
@@ -636,6 +682,317 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide tensor-core kernels (bf16, d = 512): the delta pre-pass, K2a_wide
+// and K2b_wide
+// ---------------------------------------------------------------------------
+
+// delta = rowsum(dO * O) in fp32 for one warp's row of one (batch, head):
+// the pre-pass of the wide kernels, which read it from [B, H, Sq].
+__global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(
+    const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __restrict__ delta,
+    int H, int Sq, int D, Strides st) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (NT / 32) + warp;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  if (row >= Sq) return;
+  const bf16* orow = o + b * st.sb[O] + h * st.sh[O] + static_cast<int64_t>(row) * st.ss[O];
+  const bf16* drow =
+      dout + b * st.sb[DO] + h * st.sh[DO] + static_cast<int64_t>(row) * st.ss[DO];
+  float part = 0.f;
+  for (int c = lane; c < D / 8; c += 32)
+    part += dot8(*reinterpret_cast<const uint4*>(drow + 8 * c),
+                 *reinterpret_cast<const uint4*>(orow + 8 * c));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (lane == 0) delta[(static_cast<int64_t>(b) * H + h) * Sq + row] = part;
+}
+
+constexpr int WD = 512;  // the wide kernels' head dim
+
+// K2a_wide: dq for 64 query rows of one (batch, head) at d = 512. Warpgroup 0
+// computes S = Q.K^T and warpgroup 1 dP = dO.V^T of each 32-row kv tile
+// (64 x 32, all 512 dims each); the two swap their accumulators through
+// shared memory, each forms p and ds of the whole tile in registers, and
+// warpgroup wg adds dS.K to dq's columns [256 wg, 256 wg + 256).
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ delta, const float* __restrict__ lse,
+    const bf16* __restrict__ dout, bf16* __restrict__ dq, int H, int Sq, int Skv, Strides st,
+    float scale) {
+  constexpr int BQ = 64, BK = 32, KS = WD / 16, NP = WD / 64 / 2;
+  constexpr uint32_t QT = BQ * WD * 2, KT = BK * WD * 2;  // tile bytes
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u, dos = qs + QT, ks = dos + QT, vs = ks + KT;
+  // the swap: element i of warpgroup g's thread t at xch[(16 g + i) * 128 + t]
+  float* const xch = reinterpret_cast<float*>(smem_raw + (vs + KT - raw));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, wt = tid % 128, lane = tid % 32, wrow = wt / 32 * 16 + lane / 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const int64_t bh = static_cast<int64_t>(b) * H + h;
+  const bf16* qb = q + b * st.sb[Q] + h * st.sh[Q];
+  const bf16* kb = k + b * st.sb[K] + h * st.sh[K];
+  const bf16* vb = v + b * st.sb[V] + h * st.sh[V];
+  const bf16* db = dout + b * st.sb[DO] + h * st.sh[DO];
+
+  // each warpgroup copies the operands of its own product: q and the k
+  // tiles (warpgroup 0), dO and the v tiles (warpgroup 1); dQ's reads of a k
+  // tile follow the block barrier after the products
+  if (wg == 0) {
+    load_tile<BQ, WD, 128>(qs, qb, st.ss[Q], q0, Sq, wt);
+    load_tile<BK, WD, 128>(ks, kb, st.ss[K], 0, Skv, wt);
+  } else {
+    load_tile<BQ, WD, 128>(dos, db, st.ss[DO], q0, Sq, wt);
+    load_tile<BK, WD, 128>(vs, vb, st.ss[V], 0, Skv, wt);
+  }
+  cp_async_commit();
+
+  float lse2[2], dl[2];  // lse in log2 units and delta of this thread's two rows
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wrow + 8 * hr;
+    lse2[hr] = row < Sq ? lse[bh * Sq + row] * LOG2E : 0.f;
+    dl[hr] = row < Sq ? delta[bh * Sq + row] : 0.f;
+  }
+
+  float acc[NP][32], mine[16], other[16];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const uint32_t a_tile = wg == 0 ? qs : dos, b_tile = wg == 0 ? ks : vs;
+  const int nt = (Skv + BK - 1) / BK;
+
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<0>();  // this warpgroup's k (or v) tile t, and on t = 0 q (or dO)
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+
+    // S = Q.K^T (warpgroup 0) or dP = dO.V^T (warpgroup 1)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n32(mine, desc_k<BQ>(a_tile, 0, kk), desc_k<BK>(b_tile, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(mine);
+    if (wg == 1) {  // done with v tile t: the next one loads under the swap and dQ
+      warpgroup_sync(2);
+      if (t + 1 < nt) load_tile<BK, WD, 128>(vs, vb, st.ss[V], (t + 1) * BK, Skv, wt);
+      cp_async_commit();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 16; ++i) xch[(16 * wg + i) * 128 + wt] = mine[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 16; ++i) other[i] = xch[(16 * (1 - wg) + i) * 128 + wt];
+
+    // p = exp(s * d^-1/2 - lse) (0 past Skv), ds = p * (dp - delta) * d^-1/2
+    // rounded to bf16 as the A fragments of dQ += dS.K
+    uint32_t a[2][4];
+    const int col0 = t * BK + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int hr = (i / 2) % 2;
+      const int col = col0 + 8 * (i / 4);
+      const float s0 = wg == 0 ? mine[i] : other[i], s1 = wg == 0 ? mine[i + 1] : other[i + 1];
+      const float d0 = wg == 0 ? other[i] : mine[i], d1 = wg == 0 ? other[i + 1] : mine[i + 1];
+      const float p0 = col < Skv ? exp2f(fmaf(s0, scale2, -lse2[hr])) : 0.f;
+      const float p1 = col + 1 < Skv ? exp2f(fmaf(s1, scale2, -lse2[hr])) : 0.f;
+      a[i / 8][(i % 8) / 2] = pack_bf16(p0 * (d0 - dl[hr]) * scale, p1 * (d1 - dl[hr]) * scale);
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(acc[pn], a[kk], desc_mn<BK>(ks, wg * NP + pn, kk));
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) fence_acc(acc[pn]);
+    __syncthreads();  // both warpgroups are done with k tile t and with the swap
+    if (wg == 0) {
+      if (t + 1 < nt) load_tile<BK, WD, 128>(ks, kb, st.ss[K], (t + 1) * BK, Skv, wt);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wrow + 8 * hr;
+    if (row >= Sq) continue;
+    bf16* out = dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * WD + wg * NP * 64 +
+                2 * (lane % 4);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + pn * 64 + 8 * j) =
+            pack_bf16(acc[pn][4 * j + 2 * hr], acc[pn][4 * j + 2 * hr + 1]);
+  }
+}
+
+// K2b_wide: dk and dv for 32 kv rows of one (batch, head) at d = 512, as the
+// transposed products dK^T += Q^T.dS and dV^T += dO^T.P (512 x 32 each).
+// Per 64-row q tile: warpgroup 0 computes S = Q.K^T and warpgroup 1 dP =
+// dO.V^T (64 x 32); warpgroup 0 forms p and writes P^T (bf16) for
+// warpgroup 1, warpgroup 1 hands dP over through shared memory, warpgroup 0
+// forms dS^T (bf16); then warpgroup 0 accumulates dK^T and warpgroup 1 dV^T,
+// each over all 512 dims (8 M tiles of 64, 128 registers a thread).
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ delta, const float* __restrict__ lse,
+    const bf16* __restrict__ dout, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq,
+    int Skv, Strides st, float scale) {
+  constexpr int BKV = 32, BQ = 64, KS = WD / 16, MT = WD / 64;
+  constexpr uint32_t KT = BKV * WD * 2, QT = BQ * WD * 2, PT = BKV * BQ * 2;  // tile bytes
+  constexpr int SROW = WD + 8;  // the output staging's row, in bf16 (16 bytes of pad)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u, vs = ks + KT, qs = vs + KT, dos = qs + QT;
+  const uint32_t pts = dos + QT;   // stage s: P^T [32 kv][64 q] at pts + PT * s
+  const uint32_t dss = pts + 2 * PT;  // dS^T [32 kv][64 q]
+  // the generic pointer of a shared address
+  auto at = [&](uint32_t addr) { return smem_raw + (addr - raw); };
+  float* const xch = reinterpret_cast<float*>(at(dss + PT));  // [2][16][128]: dP's swap
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, wt = tid % 128, lane = tid % 32, wrow = wt / 32 * 16 + lane / 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int kv0 = blockIdx.x * BKV;
+  const int64_t bh = static_cast<int64_t>(b) * H + h;
+  const bf16* qb = q + b * st.sb[Q] + h * st.sh[Q];
+  const bf16* kb = k + b * st.sb[K] + h * st.sh[K];
+  const bf16* vb = v + b * st.sb[V] + h * st.sh[V];
+  const bf16* db = dout + b * st.sb[DO] + h * st.sh[DO];
+
+  // warpgroup 0 copies k and the q tiles, warpgroup 1 v and the dO tiles
+  if (wg == 0) {
+    load_tile<BKV, WD, 128>(ks, kb, st.ss[K], kv0, Skv, wt);
+    load_tile<BQ, WD, 128>(qs, qb, st.ss[Q], 0, Sq, wt);
+  } else {
+    load_tile<BKV, WD, 128>(vs, vb, st.ss[V], kv0, Skv, wt);
+    load_tile<BQ, WD, 128>(dos, db, st.ss[DO], 0, Sq, wt);
+  }
+  cp_async_commit();
+
+  float acc[MT][16], mine[16];  // dK^T (warpgroup 0) or dV^T (warpgroup 1)
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[m][i] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const uint32_t a_tile = wg == 0 ? qs : dos, b_tile = wg == 0 ? ks : vs;
+  const int nt = (Sq + BQ - 1) / BQ;
+  // the byte of accumulator element i (q row wrow + 8 ((i/2) % 2), kv column
+  // 8 (i/4) + 2 (lane % 4) + i % 2 of the 64 x 32 tile) in a [32 kv][64 q] tile
+  auto transposed = [&](int i) {
+    const int qc = wrow + 8 * ((i / 2) % 2);
+    return chunk_off<BKV>(8 * (i / 4) + 2 * (lane % 4) + i % 2, qc / 8) + (qc % 8) * 2;
+  };
+
+  for (int t = 0; t < nt; ++t) {
+    const int stage = t & 1;
+    const uint32_t pt = pts + PT * stage;
+    float* const x = xch + stage * 16 * 128;
+    float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+    bool valid[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = t * BQ + wrow + 8 * hr;
+      valid[hr] = row < Sq;
+      if (wg == 0 && valid[hr]) {
+        lse2[hr] = lse[bh * Sq + row] * LOG2E;
+        dl[hr] = delta[bh * Sq + row];
+      }
+    }
+    cp_async_wait<0>();  // this warpgroup's q (or dO) tile t, and on t = 0 k (or v)
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+
+    // S = Q.K^T (warpgroup 0) or dP = dO.V^T (warpgroup 1): 64 q x 32 kv
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n32(mine, desc_k<BQ>(a_tile, 0, kk), desc_k<BKV>(b_tile, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(mine);
+
+    if (wg == 0) {  // p = exp(s * d^-1/2 - lse) (0 for q rows past Sq) into P^T
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mine[i] = valid[(i / 2) % 2] ? exp2f(fmaf(mine[i], scale2, -lse2[(i / 2) % 2])) : 0.f;
+        *reinterpret_cast<bf16*>(at(pt + transposed(i))) = __float2bfloat16(mine[i]);
+      }
+      fence_proxy_async();
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) x[i * 128 + wt] = mine[i];
+    }
+    __syncthreads();
+
+    if (wg == 0) {  // ds = p * (dp - delta) * d^-1/2 into dS^T
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<bf16*>(at(dss + transposed(i))) =
+            __float2bfloat16(mine[i] * (x[i * 128 + wt] - dl[(i / 2) % 2]) * scale);
+      fence_proxy_async();
+      warpgroup_sync(1);
+    }
+    // dK^T += Q^T.dS (warpgroup 0) or dV^T += dO^T.P (warpgroup 1): A is the
+    // q (dO) tile read MN-major, B the dS^T (P^T) tile
+    const uint32_t bt = wg == 0 ? dss : pt;
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_ss_n32<1>(acc[m], desc_mn<BQ>(a_tile, m, kk), desc_k<BKV>(bt, 0, kk), 1);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+    warpgroup_sync(1 + wg);  // done with q (dO) tile t and with dS^T
+    if (t + 1 < nt)
+      load_tile<BQ, WD, 128>(a_tile, wg == 0 ? qb : db, st.ss[wg == 0 ? Q : DO], (t + 1) * BQ,
+                             Sq, wt);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // dK^T (dV^T) staged row-major as [32 kv][SROW] bf16 over this warpgroup's
+  // q (dO) tile, then copied out in 16-byte chunks
+  uint8_t* const stg = at(a_tile);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int dim = 64 * m + wrow + 8 * ((i / 2) % 2);
+      const int r = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      *reinterpret_cast<bf16*>(stg + (r * SROW + dim) * 2) = __float2bfloat16(acc[m][i]);
+    }
+  warpgroup_sync(1 + wg);
+  bf16* const out = wg == 0 ? dk : dv;
+#pragma unroll
+  for (int n = 0; n < BKV * (WD / 8) / 128; ++n) {
+    const int idx = wt + n * 128, r = idx / (WD / 8), c = idx % (WD / 8);
+    const int row = kv0 + r;
+    if (row < Skv)
+      *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * Skv + row) * H + h) * WD +
+                                8 * c) =
+          *reinterpret_cast<const uint4*>(stg + (r * SROW + 8 * c) * 2);
+  }
+}
+
 }  // namespace tc
 
 using wgmma_tile::allow_smem;
@@ -757,6 +1114,62 @@ int run_tc(bool dkv, int dtype, int D, const Args& a) {
   return static_cast<int>(err);
 }
 
+// The wide kernels: 256 threads; 64 query rows a block (dq: q, dO, one k
+// and one v tile of 32 rows, the swap) or 32 kv rows (dk/dv: k, v, one q
+// and one dO tile of 64 rows, two stages of P^T, dS^T, two stages of the
+// swap); with 1 KB of slack for the swizzle's alignment. a.o holds delta.
+cudaError_t launch_dq_wide(const Args& a) {
+  constexpr int smem = 1024 + (2 * 64 + 2 * 32) * tc::WD * 2 + 2 * 16 * 128 * 4;
+  auto kernel = tc::flash_bwd_dq_wide_kernel;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + 63) / 64, a.B * a.H);
+  kernel<<<grid, tc::NT, smem, a.stream>>>(
+      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
+      static_cast<const tc::bf16*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.lse), static_cast<const tc::bf16*>(a.dout),
+      static_cast<tc::bf16*>(a.dq), a.H, a.Sq, a.Skv, a.st, a.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_wide(const Args& a) {
+  constexpr int smem =
+      1024 + (2 * 32 + 2 * 64) * tc::WD * 2 + 3 * 32 * 64 * 2 + 2 * 16 * 128 * 4;
+  auto kernel = tc::flash_bwd_dkv_wide_kernel;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Skv + 31) / 32, a.B * a.H);
+  kernel<<<grid, tc::NT, smem, a.stream>>>(
+      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
+      static_cast<const tc::bf16*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.lse), static_cast<const tc::bf16*>(a.dout),
+      static_cast<tc::bf16*>(a.dk), static_cast<tc::bf16*>(a.dv), a.H, a.Sq, a.Skv, a.st,
+      a.scale);
+  return cudaGetLastError();
+}
+
+// every row of the operands that the wide kernels copy (q, k, v, dout)
+// starts on a 16-byte boundary
+bool wide_rows_aligned(const Args& a) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  const int copied[4] = {Q, K, V, DO};
+  for (int t : copied)
+    if (a.st.sb[t] % 8 != 0 || a.st.ss[t] % 8 != 0 || a.st.sh[t] % 8 != 0) return false;
+  return true;
+}
+
+int run_wide(bool dkv, int dtype, int D, const Args& a) {
+  if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Skv <= 0 || dtype != 1 || D != tc::WD ||
+      a.o == nullptr)
+    return cudaErrorInvalidValue;
+  if (!wide_rows_aligned(a)) return cudaErrorMisalignedAddress;
+  return static_cast<int>(dkv ? launch_dkv_wide(a) : launch_dq_wide(a));
+}
+
 int run(bool dkv, int dtype, int D, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Skv <= 0) return cudaErrorInvalidValue;
   cudaError_t err;
@@ -824,6 +1237,51 @@ int flash_attention_bwd_dkv_tc(const void* q, const void* k, const void* v, cons
   const Args a{q, k, v, o, lse, dout, nullptr, dk, dv, B, H, Sq, Skv,
                unpack(strides), scale, static_cast<cudaStream_t>(stream)};
   return run_tc(true, dtype, D, a);
+}
+
+// The wide tensor-core entries (K2a_wide, K2b_wide): the arguments of the
+// entries above with delta (contiguous fp32 [B,H,Sq], from
+// flash_attention_bwd_delta) in o's place; o's strides are not read. bf16
+// (dtype 1) at D = 512 only, with every row of q, k, v and dout 16-byte
+// aligned (else cudaErrorInvalidValue, cudaErrorMisalignedAddress).
+int flash_attention_bwd_dq_wide_tc(const void* q, const void* k, const void* v,
+                                   const void* delta, const void* lse, const void* dout,
+                                   void* dq, int dtype, int B, int H, int Sq, int Skv, int D,
+                                   const long long* strides, float scale, void* stream) {
+  const Args a{q, k, v, delta, lse, dout, dq, nullptr, nullptr, B, H, Sq, Skv,
+               unpack(strides), scale, static_cast<cudaStream_t>(stream)};
+  return run_wide(false, dtype, D, a);
+}
+
+int flash_attention_bwd_dkv_wide_tc(const void* q, const void* k, const void* v,
+                                    const void* delta, const void* lse, const void* dout,
+                                    void* dk, void* dv, int dtype, int B, int H, int Sq, int Skv,
+                                    int D, const long long* strides, float scale, void* stream) {
+  const Args a{q, k, v, delta, lse, dout, nullptr, dk, dv, B, H, Sq, Skv,
+               unpack(strides), scale, static_cast<cudaStream_t>(stream)};
+  return run_wide(true, dtype, D, a);
+}
+
+// The wide kernels' pre-pass: delta = rowsum(dout * o) in fp32 into a
+// contiguous [B,H,Sq]. o, dout: bf16 (dtype 1) [B,Sq,H,D], D a multiple of
+// 8, every row 16-byte aligned; strides: 6 values, (batch, seq, head) in
+// elements for o, then dout.
+int flash_attention_bwd_delta(const void* o, const void* dout, void* delta, int dtype, int B,
+                              int H, int Sq, int D, const long long* strides, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || D <= 0 || D % 8 != 0 || dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Strides st{};
+  st.sb[O] = strides[0], st.ss[O] = strides[1], st.sh[O] = strides[2];
+  st.sb[DO] = strides[3], st.ss[DO] = strides[4], st.sh[DO] = strides[5];
+  if (reinterpret_cast<uintptr_t>(o) % 16 != 0 || reinterpret_cast<uintptr_t>(dout) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  for (int i = 0; i < 6; ++i)
+    if (strides[i] % 8 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  const dim3 grid((Sq + tc::NT / 32 - 1) / (tc::NT / 32), B * H);
+  tc::flash_bwd_delta_kernel<<<grid, tc::NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const tc::bf16*>(o), static_cast<const tc::bf16*>(dout),
+      static_cast<float*>(delta), H, Sq, D, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* cuda_error_string(int code) {

@@ -1,13 +1,14 @@
 // Tensor-core building blocks for Hopper (sm_90a) shared by the flash kernels
 // (csrc/flash_attention_fwd.cu: K1/K3; csrc/flash_attention_bwd.cu: K2a/K2b).
 //
-// wgmma m64n64k16 bf16 with fp32 accumulators in registers. Operands live in
-// shared memory as bf16 tiles in 64-column panels of 128-byte rows with the
-// 128-byte XOR swizzle, loaded with cp.async (rows past the end zero-filled);
-// a tile is read K-major (rows = M or N, columns = K) or MN-major (rows = K,
-// columns = N) through the descriptor's transpose bit, so one layout serves
-// both readings. The accumulator of one product is the A fragment of the next
-// once rounded to bf16 (pack_bf16), so p and ds never leave registers.
+// wgmma m64n64k16 (and m64n32k16, for the wide backward) bf16 with fp32
+// accumulators in registers. Operands live in shared memory as bf16 tiles in
+// 64-column panels of 128-byte rows with the 128-byte XOR swizzle, loaded
+// with cp.async (rows past the end zero-filled); a tile is read K-major (rows
+// = M or N, columns = K) or MN-major (rows = K, columns = M or N) through the
+// descriptor's transpose bit, so one layout serves both readings. The
+// accumulator of one product is the A fragment of the next once rounded to
+// bf16 (pack_bf16), so p and ds never leave registers.
 //
 // The accumulator of a 64x64 wgmma tile: thread (warp w of its warpgroup,
 // lane l) holds element i at row 16w + l/4 + 8*((i/2)%2), column
@@ -94,7 +95,8 @@ template <int R>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
   return desc(tile + (kk >> 2) * (R * 128) + r0 * 128 + (kk & 3) * 32);
 }
-// MN-major B: K rows 16kk..16kk+15 of an [R][D] tile, N columns of panel pn
+// MN-major B (or A): K rows 16kk..16kk+15 of an [R][D] tile, the N (or M)
+// columns of panel pn
 template <int R>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int pn, int kk) {
   return desc(tile + pn * (R * 128) + kk * 16 * 128);
@@ -110,9 +112,14 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 // ties the accumulators to the wait above, so that nothing reads them before
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// the named barrier `id` (1..15) of one warpgroup's 128 threads
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 #define WGMMA_TILE_ACC32(d)                                                                \
@@ -145,6 +152,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WGMMA_TILE_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64x32 fp32) = A.B (+ d if acc): A K-major (or MN-major, read through
+// the transpose bit, if A_MN) and B K-major (32 rows), both in shared memory.
+// The accumulator's layout is that of the 64x64 tile above, columns 0..31.
+template <int A_MN = 0>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, %19, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc), "n"(A_MN));
 }
 
 #undef WGMMA_TILE_ACC32

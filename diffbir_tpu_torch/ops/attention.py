@@ -23,21 +23,25 @@ of the two thresholds considered, 4096 and 8192, at which flash wins there
 and at every larger size measured.
 
 Under a gradient (RGB guidance differentiates through the VAE decoder) the
-backward decides: d = 512 has no tensor-core backward, and the CUDA-core
-K2a/K2b lose to plain math under autograd. On the same card, one forward
-plus backward took 15.70 ms through K1_wide + K2a_cc + K2b_cc against 2.29
-ms for the plain version at [1,4096,1,512], 365.70 against 22.70 ms at
-[1,16384,1,512] (SDPA 7.45 and 69.40 ms; ``chip_smoke.py``'s
-``[d512_backward]``). So such a call goes to plain math below
-``FLASH_MIN_WIDE_GRAD`` = 65536 tokens (a 2048x2048 image, the reference
-demo's largest), where plain's memory ends it: its peak above the inputs
-grew as the square of the tokens, 0.27 GiB at 4096 and 4.09 GiB at 16384,
-so ~65 GiB at 65536, more than the 80 GB card holds beside the decoder's
-own activations under a gradient. The JAX package sends d = 512 below 8192
-tokens to plain math with or without a gradient. ``layout="packed"`` (the
-JAX package's ``DIFFBIR_TPU_FLASH_LAYOUT=packed``) runs the flash calls
-through K3, K1 with q pre-scaled once in bf16, where the JAX packed kernel
-runs: a forward without gradient and Sq <= 1024 or Sq % 1024 == 0.
+backward decides too. In bf16 at d = 512 it runs the wide tensor-core
+K2a/K2b after a delta pre-pass. On the same card, one forward plus backward
+through K1_wide + delta + K2a_wide + K2b_wide took 1.16-1.20 ms against
+1.70-2.13 ms for the plain version under autograd at [1,4096,1,512],
+3.16-3.20 against 5.60-5.64 at [1,8192,1,512] and 12.32-12.44 against
+22.13-22.35 at [1,16384,1,512] (SDPA 6.86-7.15, 19.49-20.00 and
+69.71-72.56 ms; two runs of ``chip_smoke.py``'s ``[d512_backward]``, which
+times all three). So such a call goes to flash from
+``FLASH_MIN_WIDE_GRAD`` = 4096 tokens, the smallest of 4096, 8192 and
+16384 at which flash wins there and at every larger size measured; plain's
+peak above the inputs grows as the square of the tokens (0.27 GiB at 4096,
+4.09 GiB at 16384). The JAX package sends d = 512 to flash from 8192
+tokens with or without a gradient. Before the wide backward, the d = 512
+backward ran on CUDA-core kernels (forward plus backward 15.70 ms at 4096
+tokens, 365.70 ms at 16384), and this threshold was 65536.
+``layout="packed"`` (the JAX package's ``DIFFBIR_TPU_FLASH_LAYOUT=packed``)
+runs the flash calls through K3, K1 with q pre-scaled once in bf16, where
+the JAX packed kernel runs: a forward without gradient and Sq <= 1024 or
+Sq % 1024 == 0.
 Everything else is plain math: cross-attention to the 77 text tokens,
 SwinIR window attention (bias and shift mask) and CLIP causal attention.
 The TPU's other dispatch threshold (flash only from 2048 tokens) is not
@@ -61,7 +65,7 @@ FLASH_LAYOUTS = ("folded", "packed")
 # tokens from which a d > 256 self-attention goes to flash (see above)
 FLASH_MIN_WIDE = 4096
 # the same under a gradient (see above: the backward's reading)
-FLASH_MIN_WIDE_GRAD = 65536
+FLASH_MIN_WIDE_GRAD = 4096
 
 
 def packed_applies(sq: int) -> bool:

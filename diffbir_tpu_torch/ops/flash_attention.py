@@ -34,19 +34,23 @@ training path) all four run on them: wgmma, bf16 tiles loaded with cp.async
 in two stages, p and ds kept in registers as the next product's A operand
 (entries ``flash_attention_fwd_tc`` / ``_fwd_prescaled_tc`` /
 ``_bwd_dq_tc`` / ``_bwd_dkv_tc``, counted on ``KERNEL_TC`` /
-``KERNEL_PRESCALED_TC`` / ``KERNEL_DQ_TC`` / ``KERNEL_DKV_TC``). The K1
-forward in bf16 at d = 512 (the VAE's single-head mid-block attention) has
-a tensor-core design of its own (``flash_attention_fwd_wide_tc``, counted on
-``KERNEL_WIDE_TC``): 64 query rows a block, o's 512 columns split over two
-warpgroups. fp32 at any d, bf16 at d = 256, K3 at d = 512 and the backward
+``KERNEL_PRESCALED_TC`` / ``KERNEL_DQ_TC`` / ``KERNEL_DKV_TC``). In bf16
+at d = 512 (the VAE's single-head mid-block attention) K1 and the backward
+have tensor-core designs of their own: the forward
+``flash_attention_fwd_wide_tc`` (``KERNEL_WIDE_TC``: 64 query rows a block,
+o's 512 columns split over two warpgroups), and under RGB guidance's
+gradient through the decoder the pre-pass ``flash_attention_bwd_delta``
+(``KERNEL_DELTA``: delta = rowsum(dO * O)) then
+``flash_attention_bwd_dq_wide_tc`` and ``_dkv_wide_tc``
+(``KERNEL_DQ_WIDE_TC``, ``KERNEL_DKV_WIDE_TC``: 32-row kv tiles, S and dP
+computed once each by one warpgroup and swapped through shared memory,
+dK and dV accumulated transposed). fp32 at any d, bf16 at d = 256 and K3
 at d = 512 go to the CUDA-core entries (``KERNEL``, ``KERNEL_PRESCALED``,
 ``KERNEL_DQ``, ``KERNEL_DKV``): the tensor cores have no fp32 mode that
-keeps fp32's limit, and no path of the port reaches the others: the VAE
-never takes the packed layout, and RGB guidance's gradient through its
-decoder goes to plain math below ``attention.FLASH_MIN_WIDE_GRAD`` tokens,
-where the CUDA-core backward loses to it. ``fwd_entries`` and
-``bwd_entries`` state the rule; nothing falls back from one entry to
-another, and a tensor-core launch that fails raises.
+keeps fp32's limit, and no path of the port reaches the others (the VAE
+never takes the packed layout). ``fwd_entries`` and ``bwd_entries`` state
+the rule; nothing falls back from one entry to another, and a tensor-core
+launch that fails raises.
 
 Layouts: q, o, dO [B,Sq,H,D]; k, v [B,Skv,H,D]; lse fp32 [B,H,Sq] (not the
 TPU's lane-replicated (BQ, 128) blocks).
@@ -102,9 +106,26 @@ KERNEL_DKV_TC = CudaKernel(
     "flash_attention_bwd_dkv_tc",
     [_ptr] * 8 + [_i32] * 6 + [_ptr, ctypes.c_float, _ptr],
 )
+# the wide backward: the arguments of KERNEL_DQ_TC / KERNEL_DKV_TC with
+# delta in o's place, after the pre-pass KERNEL_DELTA (o, dO, delta, dtype,
+# B, H, Sq, D, 6 strides, stream)
+KERNEL_DQ_WIDE_TC = CudaKernel(
+    "flash_attention_bwd.cu",
+    "flash_attention_bwd_dq_wide_tc",
+    [_ptr] * 7 + [_i32] * 6 + [_ptr, ctypes.c_float, _ptr],
+)
+KERNEL_DKV_WIDE_TC = CudaKernel(
+    "flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv_wide_tc",
+    [_ptr] * 8 + [_i32] * 6 + [_ptr, ctypes.c_float, _ptr],
+)
+KERNEL_DELTA = CudaKernel("flash_attention_bwd.cu", "flash_attention_bwd_delta",
+                          [_ptr] * 3 + [_i32] * 5 + [_ptr, _ptr])
+WIDE_BWD = (KERNEL_DQ_WIDE_TC, KERNEL_DKV_WIDE_TC)
 # head dims of the tensor-core entries (bf16 only): KERNEL_TC and
 # KERNEL_PRESCALED_TC, the backward's KERNEL_DQ_TC and KERNEL_DKV_TC; and of
-# the wide forward KERNEL_WIDE_TC
+# the wide forward KERNEL_WIDE_TC and backward KERNEL_DQ_WIDE_TC,
+# KERNEL_DKV_WIDE_TC
 TC_HEAD_DIMS = (64, 128)
 WIDE_TC_HEAD_DIMS = (512,)
 
@@ -142,6 +163,13 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
     return flash_attention_ref(q, k, v), torch.logsumexp(_logits(q, k), dim=-1)
 
 
+def flash_attention_bwd_delta_ref(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the wide backward's pre-pass: delta = rowsum(dO * O)
+    as [B,H,Sq], in fp32 (or float64)."""
+    acc = _acc_dtype(o)
+    return (g.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)
+
+
 def _bwd_probs_ref(q, k, v, o, lse, g):
     """(p, ds) of the backward, [B,H,Sq,Skv] in fp32 (or float64), step by step
     as ``_dq_kernel``/``_dkv_kernel``."""
@@ -149,8 +177,7 @@ def _bwd_probs_ref(q, k, v, o, lse, g):
     scale = q.shape[-1] ** -0.5
     p = torch.exp(_logits(q, k) - lse.to(acc)[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", g.to(acc), v.to(acc))
-    delta = (g.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)  # [B,H,Sq]
-    ds = p * (dp - delta[..., None]) * scale
+    ds = p * (dp - flash_attention_bwd_delta_ref(o, g)[..., None]) * scale
     return p, ds
 
 
@@ -290,12 +317,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def bwd_entries(q: torch.Tensor) -> Tuple[CudaKernel, CudaKernel]:
     """The (K2a, K2b) entries for q's dtype and head dim: the tensor-core
-    entries for bf16 at d in ``TC_HEAD_DIMS``, the CUDA-core entries for fp32
-    at any d and for bf16 at d = 256 and 512 (a d = 512 backward of the
-    port's paths, RGB guidance's, takes plain math below
-    ``FLASH_MIN_WIDE_GRAD`` tokens)."""
+    entries for bf16 at d in ``TC_HEAD_DIMS``, the wide tensor-core entries
+    (``WIDE_BWD``, after the pre-pass ``KERNEL_DELTA``) for bf16 at d in
+    ``WIDE_TC_HEAD_DIMS``, the CUDA-core entries for fp32 at any d and for
+    bf16 at d = 256."""
     if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS:
         return KERNEL_DQ_TC, KERNEL_DKV_TC
+    if q.dtype == torch.bfloat16 and q.shape[-1] in WIDE_TC_HEAD_DIMS:
+        return WIDE_BWD
     return KERNEL_DQ, KERNEL_DKV
 
 
@@ -326,14 +355,31 @@ def _bwd_inputs(q, k, v, o, lse, g):
                       or not lse.is_contiguous()):
         raise ValueError(f"lse must be contiguous fp32 on {q.device}, got {lse.dtype} "
                          f"on {lse.device}")
-    if on_kernel and bwd_entries(q)[0] is KERNEL_DQ_TC:
+    if on_kernel and bwd_entries(q)[0] in (KERNEL_DQ_TC, KERNEL_DQ_WIDE_TC):
         q, k, v, o, g = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v, o, g))
     return on_kernel, (q, k, v, o, g)
 
 
-def _bwd_launch(kernel: CudaKernel, q, k, v, o, lse, g, *outs: torch.Tensor) -> None:
+def launch_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O), fp32 [B,H,Sq], from the pre-pass entry
+    ``KERNEL_DELTA`` on checked bf16 CUDA inputs with 16-byte aligned rows."""
+    b, sq, h, d = o.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        KERNEL_DELTA.launch(o.data_ptr(), g.data_ptr(), delta.data_ptr(), _DTYPE_CODES[o.dtype],
+                            b, h, sq, d, (_i64 * 6)(*_strides(o, g)),
+                            torch.cuda.current_stream(o.device).cuda_stream)
+    return delta
+
+
+def _bwd_launch(kernel: CudaKernel, q, k, v, o, lse, g, *outs: torch.Tensor,
+                delta=None) -> None:
+    """One backward entry; a wide one reads ``delta`` (from ``launch_delta``
+    when None) in o's place."""
     b, sq, h, d = q.shape
     strides = (_i64 * 15)(*_strides(q, k, v, o, g))
+    if kernel in WIDE_BWD:
+        o = launch_delta(o, g) if delta is None else delta
     with torch.cuda.device(q.device):
         kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                       g.data_ptr(), *(t.data_ptr() for t in outs), _DTYPE_CODES[q.dtype],
@@ -341,20 +387,22 @@ def _bwd_launch(kernel: CudaKernel, q, k, v, o, lse, g, *outs: torch.Tensor) -> 
                       torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def launch_dq(kernel: CudaKernel, q, k, v, o, lse, g) -> torch.Tensor:
-    """dq from one K2a entry (``KERNEL_DQ_TC`` or ``KERNEL_DQ``) on checked
-    CUDA inputs; ``flash_attention_bwd_dq`` picks the entry by
-    ``bwd_entries``."""
+def launch_dq(kernel: CudaKernel, q, k, v, o, lse, g, delta=None) -> torch.Tensor:
+    """dq from one K2a entry (``KERNEL_DQ_TC``, ``KERNEL_DQ_WIDE_TC`` or
+    ``KERNEL_DQ``) on checked CUDA inputs; the wide entry reads ``delta``, or
+    launches the pre-pass for it. ``flash_attention_bwd_dq`` picks the entry
+    by ``bwd_entries``."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch(kernel, q, k, v, o, lse, g, dq)
+    _bwd_launch(kernel, q, k, v, o, lse, g, dq, delta=delta)
     return dq
 
 
-def launch_dkv(kernel: CudaKernel, q, k, v, o, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch_dkv(kernel: CudaKernel, q, k, v, o, lse, g,
+               delta=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from one K2b entry, as ``launch_dq``."""
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    _bwd_launch(kernel, q, k, v, o, lse, g, dk, dv)
+    _bwd_launch(kernel, q, k, v, o, lse, g, dk, dv, delta=delta)
     return dk, dv
 
 
@@ -364,13 +412,15 @@ def flash_attention_bwd(q, k, v, o, lse, g):
     contiguous, in the input dtype; q, k, v, o and dO are read through their
     strides; lse is the forward's fp32 [B,H,Sq]. A CPU tensor goes to the
     plain version; a CUDA tensor launches both kernels (the entries of
-    ``bwd_entries``) or raises."""
+    ``bwd_entries``; the wide ones after one pre-pass for delta) or
+    raises."""
     on_kernel, (q, k, v, o, g) = _bwd_inputs(q, k, v, o, lse, g)
     if not on_kernel:
         return flash_attention_bwd_ref(q, k, v, o, lse, g)
     dq_kernel, dkv_kernel = bwd_entries(q)
-    return (launch_dq(dq_kernel, q, k, v, o, lse, g),
-            *launch_dkv(dkv_kernel, q, k, v, o, lse, g))
+    delta = launch_delta(o, g) if dq_kernel in WIDE_BWD else None
+    return (launch_dq(dq_kernel, q, k, v, o, lse, g, delta),
+            *launch_dkv(dkv_kernel, q, k, v, o, lse, g, delta))
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, g) -> torch.Tensor:

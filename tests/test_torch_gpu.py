@@ -4,10 +4,11 @@ forward), the int8 matmul (K4), the packed-int4 matmul (K5: its tile and
 GEMV forms), the fused ResBlock (K6: the tensor-core entry for bf16, the
 CUDA-core one for fp32) and the fused GEGLU FFN (K7); the build key; the serving modes'
 autograd and a small model; a small model's pipeline, untiled and tiled,
-and RGB-guided; the d = 512 attention under a gradient (plain math, against
-K1_wide + K2a_cc + K2b_cc); turbo at interval 1 bit-equal to the plain
-model; the small BSRNet and SCUNet cleaners against the CPU; a small LLaVA
-captioner.
+and RGB-guided; the wide backward (bf16, d = 512: the delta pre-pass,
+K2a_wide, K2b_wide) and the d = 512 attention under a gradient (from 4096
+tokens on K1_wide and the wide backward, against plain math); turbo at
+interval 1 bit-equal to the plain model; the small BSRNet and SCUNet
+cleaners against the CPU; a small LLaVA captioner.
 
 These tests need a card: they skip without one. The GPU machine has no JAX,
 and ``tests/conftest.py`` imports it, so run them there without the conftest:
@@ -220,7 +221,7 @@ def test_gradients_flow_through_tensor_core_flash_attention(cuda):
     out.backward(g)
     torch.cuda.synchronize()
     assert _moved(before, _fwd_launches() + _bwd_launches()) == (
-        _one_launch_of(fa.KERNEL_TC) + [1, 1, 0, 0])
+        _one_launch_of(fa.KERNEL_TC) + [1, 1, 0, 0, 0, 0, 0])
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
     assert torch.equal(out.detach(), o)
     for leaf, ref in zip(leaves, fa.flash_attention_bwd_ref(q, k, v, o, lse, g)):
@@ -228,10 +229,16 @@ def test_gradients_flow_through_tensor_core_flash_attention(cuda):
         assert (leaf.grad.float() - ref.float()).abs().max().item() <= _limit(ref, BF16_TOL)
 
 
+BWD_ENTRIES = (fa.KERNEL_DQ_TC, fa.KERNEL_DKV_TC, fa.KERNEL_DQ, fa.KERNEL_DKV, fa.KERNEL_DELTA,
+               fa.KERNEL_DQ_WIDE_TC, fa.KERNEL_DKV_WIDE_TC)
+WIDE_BWD_LAUNCH = [0, 0, 0, 0, 1, 1, 1]  # the delta pre-pass, K2a_wide, K2b_wide
+
+
 def _bwd_launches():
-    """Launch counts of the four backward entries: tensor-core K2a, K2b, then
-    the CUDA-core K2a, K2b."""
-    return [e.launches for e in (fa.KERNEL_DQ_TC, fa.KERNEL_DKV_TC, fa.KERNEL_DQ, fa.KERNEL_DKV)]
+    """Launch counts of the seven backward entries: tensor-core K2a, K2b,
+    the CUDA-core K2a, K2b, then the wide backward's delta pre-pass, K2a,
+    K2b."""
+    return [e.launches for e in BWD_ENTRIES]
 
 
 @pytest.mark.parametrize("b,sq,skv,h,d", [
@@ -243,7 +250,8 @@ def test_lse_and_backward_kernels_match_plain_versions(cuda, b, sq, skv, h, d, d
     """K1's lse, K2a's dq and K2b's dk, dv within tol * max|ref| of their
     plain versions (lse within FP32_TOL), ragged Sq and Skv, Sq != Skv, Sq or
     Skv below one tile; one launch of each per call, on the tensor-core
-    entries for bf16 at d = 64/128 and on the CUDA-core entries otherwise; a
+    entries for bf16 at d = 64/128, on the wide ones (after one delta
+    pre-pass) for bf16 at d = 512 and on the CUDA-core entries otherwise; a
     second backward is bit-identical (no atomics)."""
     q, k, v = _qkv(cuda, b, sq, skv, h, d, dtype)
     g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
@@ -252,9 +260,11 @@ def test_lse_and_backward_kernels_match_plain_versions(cuda, b, sq, skv, h, d, d
     before = _bwd_launches()
     grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
     torch.cuda.synchronize()
-    tensor_cores = dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS
+    bf16 = dtype == torch.bfloat16
     moved = [a - c for a, c in zip(_bwd_launches(), before)]
-    assert moved == ([1, 1, 0, 0] if tensor_cores else [0, 0, 1, 1])
+    assert moved == ([1, 1, 0, 0, 0, 0, 0] if bf16 and d in fa.TC_HEAD_DIMS else
+                     WIDE_BWD_LAUNCH if bf16 and d in fa.WIDE_TC_HEAD_DIMS else
+                     [0, 0, 1, 1, 0, 0, 0])
     assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
     o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v)
     refs = fa.flash_attention_bwd_ref(q, k, v, o, lse, g)
@@ -282,7 +292,7 @@ def test_tensor_core_backward_reads_strided_views(cuda, offset):
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
     before = _bwd_launches()
     grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
-    assert [a - c for a, c in zip(_bwd_launches(), before)] == [1, 1, 0, 0]
+    assert [a - c for a, c in zip(_bwd_launches(), before)] == [1, 1, 0, 0, 0, 0, 0]
     dense = fa.flash_attention_bwd(*(t.contiguous() for t in (q, k, v, o)), lse, g.contiguous())
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(grads, dense))
@@ -452,29 +462,124 @@ def test_small_cleaners_on_the_card_match_the_cpu(cuda, name):
     assert (out - ref).abs().max().item() <= FP32_TOL * ref.abs().max().item()
 
 
-def test_wide_attention_under_a_gradient_takes_plain_math_on_the_card(cuda):
-    """The VAE's d = 512 attention at 4096 tokens (a 512x512 decode) under a
-    gradient, as RGB guidance takes it: ``attention`` goes to plain math
-    (no kernel launch; ``FLASH_MIN_WIDE_GRAD``), and its gradients agree with
-    the flash route's (K1_wide, then K2a_cc and K2b_cc, one launch each)
-    within two bf16 ulps of each one's largest element."""
+def _wide_grad_case(cuda, b, sq, skv, h, seed=0):
+    q, k, v = _qkv(cuda, b, sq, skv, h, 512, torch.bfloat16, seed)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(seed + 9),
+                    device=cuda).bfloat16()
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("b,sq,skv,h", [
+    (1, 257, 257, 1), (1, 130, 77, 1), (2, 200, 260, 2), (1, 40, 300, 1), (1, 1000, 1000, 1),
+    (1, 64, 64, 1), (1, 8, 2100, 1),
+])
+def test_wide_backward_matches_plain_versions(cuda, b, sq, skv, h):
+    """The wide tensor-core K2a and K2b (bf16, d = 512) after the delta
+    pre-pass: ragged Sq and Skv (multiples of neither the 64-row q nor the
+    32-row kv tile), Sq != Skv either way, two heads, less than one tile;
+    one launch of each; dq, dk, dv within 2^-6 x max|ref| of the plain
+    versions, delta within 1e-4; a second backward bit-identical; each
+    entry alone (with delta given) gives the same bits."""
+    q, k, v, g = _wide_grad_case(cuda, b, sq, skv, h)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    before = _bwd_launches()
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    assert _moved(before, _bwd_launches()) == WIDE_BWD_LAUNCH
+    for out, ref in zip(grads, fa.flash_attention_bwd_ref(q, k, v, o, lse, g)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype and out.is_contiguous()
+        assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, BF16_TOL)
+    delta = fa.launch_delta(o, g)
+    delta_ref = fa.flash_attention_bwd_delta_ref(o, g)
+    assert delta.shape == (b, h, sq) and delta.dtype == torch.float32
+    assert (delta - delta_ref).abs().max().item() <= _limit(delta_ref, FP32_TOL)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, g)
+    alone = (fa.launch_dq(fa.KERNEL_DQ_WIDE_TC, q, k, v, o, lse, g, delta),
+             *fa.launch_dkv(fa.KERNEL_DKV_WIDE_TC, q, k, v, o, lse, g, delta))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(grads, again, alone))
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+def test_wide_backward_reads_strided_views(cuda, offset):
+    """bf16 d = 512 q, k, v as views of one projection output and dO as a
+    strided view, read in place (offset 0) or copied first because their
+    rows are not 16-byte aligned (offset 4 elements): the wide entries give
+    the same bits as on contiguous copies, within the limit of the plain
+    versions."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(1, 300, 3 * 512 + 8, generator=gen, device=cuda).bfloat16()
+    q, k, v = (t.reshape(1, 300, 1, 512)
+               for t in qkv[..., offset:offset + 1536].chunk(3, dim=-1))
+    g = torch.randn(1, 300, 1, 1024, generator=gen, device=cuda).bfloat16()[..., :512]
+    assert not (q.is_contiguous() or g.is_contiguous())
+    assert (q.data_ptr() % 16 == 0) == (offset == 0)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    before = _bwd_launches()
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, g)
+    assert _moved(before, _bwd_launches()) == WIDE_BWD_LAUNCH
+    dense = fa.flash_attention_bwd(*(t.contiguous() for t in (q, k, v, o)), lse, g.contiguous())
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(grads, dense))
+    for out, ref in zip(grads, fa.flash_attention_bwd_ref(q, k, v, o, lse, g)):
+        assert (out.float() - ref.float()).abs().max().item() <= _limit(ref, BF16_TOL)
+
+
+def test_wide_backward_entries_refuse_what_they_do_not_take(cuda):
+    """The wide K2a and K2b take bf16 at d = 512 with 16-byte aligned rows
+    of q, k, v and dO: launched on fp32, on bf16 at d = 256 or on rows that
+    start 8 bytes off they raise; the delta pre-pass refuses fp32 and
+    misaligned rows; none counts a launch."""
+    before = _bwd_launches()
+    for dtype, d in ((torch.float32, 512), (torch.bfloat16, 256)):
+        q, k, v = _qkv(cuda, 1, 64, 64, 1, d, dtype)
+        delta = torch.zeros(1, 1, 64, device=cuda)
+        lse = torch.zeros(1, 1, 64, device=cuda)
+        with pytest.raises(RuntimeError):
+            fa.launch_dq(fa.KERNEL_DQ_WIDE_TC, q, k, v, q, lse, q, delta)
+        with pytest.raises(RuntimeError):
+            fa.launch_dkv(fa.KERNEL_DKV_WIDE_TC, q, k, v, q, lse, q, delta)
+    with pytest.raises(RuntimeError):
+        fa.launch_delta(*_qkv(cuda, 1, 64, 64, 1, 512, torch.float32)[:2])
+    flat = torch.zeros(64 * 512 + 4, device=cuda, dtype=torch.bfloat16)
+    q = flat[4:].reshape(1, 64, 1, 512)
+    delta = torch.zeros(1, 1, 64, device=cuda)
+    with pytest.raises(RuntimeError):
+        fa.launch_dq(fa.KERNEL_DQ_WIDE_TC, q, q, q, q, delta, q, delta)
+    with pytest.raises(RuntimeError):
+        fa.launch_dkv(fa.KERNEL_DKV_WIDE_TC, q, q, q, q, delta, q, delta)
+    with pytest.raises(RuntimeError):
+        fa.launch_delta(q, q)
+    assert _bwd_launches() == before
+
+
+def test_wide_attention_under_a_gradient_takes_the_wide_backward_on_the_card(cuda):
+    """The VAE's d = 512 attention under a gradient, as RGB guidance takes
+    it: from FLASH_MIN_WIDE_GRAD tokens (4096, a 512x512 decode) ``attention``
+    launches K1_wide with lse, then the delta pre-pass, K2a_wide and K2b_wide
+    once each, and its gradients agree with plain math's (``impl="plain"``,
+    no launch) within two bf16 ulps of each one's largest element; one
+    token below, it takes plain math (no launch)."""
     from diffbir_tpu_torch.ops.attention import FLASH_MIN_WIDE_GRAD, attention
 
-    assert 4096 < FLASH_MIN_WIDE_GRAD
-    q, k, v = _qkv(cuda, 1, 4096, 4096, 1, 512, torch.bfloat16, seed=12)
-    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(13),
-                    device=cuda).to(torch.bfloat16)
+    assert FLASH_MIN_WIDE_GRAD == 4096
+    q, k, v, g = _wide_grad_case(cuda, 1, 4096, 4096, 1, seed=12)
     grads = {}
-    for route, fn in (("plain", attention), ("flash", fa.flash_attention)):
+    for route, kw in (("flash", {}), ("plain", {"impl": "plain"})):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         before = _fwd_launches() + _bwd_launches()
-        grads[route] = torch.autograd.grad(fn(*leaves), leaves, g)
+        grads[route] = torch.autograd.grad(attention(*leaves, **kw), leaves, g)
         torch.cuda.synchronize()
         moved = _moved(before, _fwd_launches() + _bwd_launches())
-        assert moved == ([0] * 9 if route == "plain"
-                         else _one_launch_of(fa.KERNEL_WIDE_TC) + [0, 0, 1, 1])
+        assert moved == ([0] * 12 if route == "plain"
+                         else _one_launch_of(fa.KERNEL_WIDE_TC) + WIDE_BWD_LAUNCH)
     for a, c in zip(grads["plain"], grads["flash"]):
-        assert (a.float() - c.float()).abs().max().item() <= 2 * _limit(c, BF16_TOL)
+        assert (a.float() - c.float()).abs().max().item() <= 2 * _limit(a, BF16_TOL)
+    below = [t[:, :4095].detach().clone().requires_grad_() for t in (q, k, v)]
+    before = _fwd_launches() + _bwd_launches()
+    torch.autograd.grad(attention(*below), below, g[:, :4095])
+    torch.cuda.synchronize()
+    assert _moved(before, _fwd_launches() + _bwd_launches()) == [0] * 12
 
 
 def test_turbo_at_interval_1_is_the_plain_model_on_the_card(cuda):

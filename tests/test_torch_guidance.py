@@ -20,8 +20,9 @@
   (mse) and in RGB (w_mse, through the decoder), 3 spaced steps at CFG 4.0
   on the stand-in prompts, against the JAX pipeline within 1 uint8 level
   (``test_torch_pipeline``'s limit), and moved off the unguided output.
-- The d = 512 dispatch under a gradient (``FLASH_MIN_WIDE_GRAD``): plain
-  math below it, flash from it; without a gradient ``FLASH_MIN_WIDE`` holds.
+- The d = 512 dispatch under a gradient (``FLASH_MIN_WIDE_GRAD``, 4096):
+  plain math below it, flash from it; without a gradient ``FLASH_MIN_WIDE``
+  holds.
 """
 
 import zlib
@@ -261,9 +262,11 @@ def test_guidance_refuses_other_samplers(guided_pipelines):
                                     FLASH_MIN_WIDE_GRAD])
 def test_wide_attention_under_a_gradient_takes_plain_math(monkeypatch, tokens):
     """d = 512 with a gradient of q goes to plain math below
-    FLASH_MIN_WIDE_GRAD and to flash from it; the same call without a
-    gradient follows FLASH_MIN_WIDE. Both callees are counted, not run."""
-    assert FLASH_MIN_WIDE_GRAD == 65536
+    FLASH_MIN_WIDE_GRAD (4096, the H100's reading: K1_wide and the wide
+    tensor-core K2a/K2b beat plain math under autograd from there) and to
+    flash from it; the same call without a gradient follows FLASH_MIN_WIDE.
+    Both callees are counted, not run."""
+    assert FLASH_MIN_WIDE_GRAD == 4096
     from diffbir_tpu_torch.ops import attention as attention_mod
 
     calls = []

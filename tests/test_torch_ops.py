@@ -260,6 +260,78 @@ def test_fwd_entries_state_the_rule(d, dtype, prescale_q):
     assert port_flash.TC_HEAD_DIMS == (64, 128) and port_flash.WIDE_TC_HEAD_DIMS == (512,)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+def test_bwd_entries_state_the_rule(d, dtype):
+    """bf16 at d = 64/128 takes the tensor-core K2a/K2b, bf16 at d = 512 the
+    wide tensor-core pair (after the delta pre-pass); fp32 at any d and bf16
+    at d = 256 the CUDA-core entries."""
+    q = torch.empty(1, 8, 1, d, dtype=dtype, device="meta")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and d in (64, 128):
+        expected = (port_flash.KERNEL_DQ_TC, port_flash.KERNEL_DKV_TC)
+    elif bf16 and d == 512:
+        expected = (port_flash.KERNEL_DQ_WIDE_TC, port_flash.KERNEL_DKV_WIDE_TC)
+    else:
+        expected = (port_flash.KERNEL_DQ, port_flash.KERNEL_DKV)
+    assert port_flash.bwd_entries(q) == expected
+    assert port_flash.WIDE_BWD == (port_flash.KERNEL_DQ_WIDE_TC, port_flash.KERNEL_DKV_WIDE_TC)
+
+
+def _flash_grads(monkeypatch, q, k, v, g, **kw):
+    """attention's (dq, dk, dv) at d = 512 with FLASH_MIN_WIDE_GRAD set to 16
+    tokens, so that the call takes the flash route under its gradient (on
+    the CPU the autograd Function over the plain versions of K1, the delta
+    pre-pass, K2a and K2b); asserts that it did and launched nothing."""
+    from diffbir_tpu_torch.ops import attention as attention_mod
+
+    monkeypatch.setattr(attention_mod, "FLASH_MIN_WIDE_GRAD", 16)
+    backward = port_flash.flash_attention_bwd
+    calls = []
+    monkeypatch.setattr(port_flash, "flash_attention_bwd",
+                        lambda *a: calls.append(a[0].shape) or backward(*a))
+    kernels = [e for e in vars(port_flash).values() if isinstance(e, _cuda.CudaKernel)]
+    before = [e.launches for e in kernels]
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    assert calls == [tuple(q.shape)]
+    assert [e.launches for e in kernels] == before
+    return [x.numpy() for x in grads]
+
+
+@pytest.mark.parametrize("s", [150, 77])
+def test_wide_flash_gradient_matches_jax_grad(monkeypatch, s):
+    """d = 512 self-attention under a gradient on the flash route, at ragged
+    lengths: (dq, dk, dv) within 1e-5 x max|ref| of jax.grad of the JAX
+    attention, fp32."""
+    import jax
+
+    from diffbir_tpu.ops.attention import attention as jax_attention
+
+    rng = np.random.default_rng(s)
+    q, k, v, g = (rng.standard_normal((1, s, 1, 512)).astype(np.float32) for _ in range(4))
+    refs = jax.grad(lambda *x: jnp.sum(jax_attention(*x) * g), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    for out, ref in zip(_flash_grads(monkeypatch, q, k, v, g), refs):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(out, ref, atol=1e-5 * np.abs(ref).max(), rtol=0)
+
+
+def test_wide_flash_gradient_of_a_gathered_band_matches_plain_math(monkeypatch):
+    """A band's d = 512 call under ``kv_gathered`` (75 queries against 150
+    gathered kv rows: Sq != Skv) on the flash route: (dq, dk, dv) within
+    1e-5 x max|ref| of the port's plain math under autograd, fp32."""
+    rng = np.random.default_rng(75)
+    q, g = (rng.standard_normal((1, 75, 1, 512)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, 150, 1, 512)).astype(np.float32) for _ in range(2))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    refs = torch.autograd.grad(plain_attention(*leaves), leaves, torch.from_numpy(g))
+    outs = _flash_grads(monkeypatch, q, k, v, g, kv_gathered=True)
+    for out, ref in zip(outs, refs):
+        np.testing.assert_allclose(out, ref.numpy(), atol=1e-5 * ref.abs().max().item(), rtol=0)
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.randn(1, 8, 1, 64)
     with pytest.raises(ValueError):

@@ -319,8 +319,11 @@ def jax_refs(data):
 # --------------------------------------------------------------------------- #
 # the route of the VAE's d = 512 attention on a band
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("skv,grad,route", [(4096, False, "flash"), (2048, False, "plain"),
-                                            (65536, True, "flash"), (32768, True, "plain")])
+@pytest.mark.parametrize("skv,grad,route", [
+    (attention_mod.FLASH_MIN_WIDE, False, "flash"),
+    (attention_mod.FLASH_MIN_WIDE // 2, False, "plain"),
+    (attention_mod.FLASH_MIN_WIDE_GRAD, True, "flash"),
+    (attention_mod.FLASH_MIN_WIDE_GRAD // 2, True, "plain")])
 def test_kv_gathered_wide_attention_takes_the_whole_images_route(monkeypatch, skv, grad,
                                                                   route):
     """A band's d = 512 call (q: the band's Skv / 2 tokens, k and v gathered)
