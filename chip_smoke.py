@@ -282,16 +282,22 @@ Phases (any failure exits non-zero before the last line is printed):
      [1,8192,1,512] x 16384 kv rows, once a process each), (g) SCUNet at
      512x512 and BSRNet on a 256x256 LQ, (h) SwinIR tensor-parallel at
      512x512, (i) the whole 1024x1024 sr request banded
-     (spatial_parallel_request, 2 steps) against SwinIRPipeline.run. Each
-     within PAR_TOL x max|ref| (each limit above its spread); six planted
-     faults (SP with zeroed halos, SP with GroupNorm statistics kept local,
-     TP without the row layers' all-reduce, SwinIR's roll without its wrap,
-     every band masked as the last, the Downsample's halo row from above)
-     must fail them; exact launches per process and K1's shapes (under SP
-     at Sq != Skv), none on another entry; per-process seconds and peak
-     memory, marked as two processes sharing one card. The workers build
-     their models while this process computes the references; K1 and
-     K1_wide are timed at the band shapes once they are done.
+     (spatial_parallel_request, 2 steps) against SwinIRPipeline.run; (j)
+     the "fused" and the "int8" serving modes, each on a copy of the model
+     (set_mode: the int8 weights quantised in place), as (a) under SP and
+     as (b) under TP, against one process in the same mode. Each within
+     PAR_TOL x max|ref| (each limit above its spread); seven planted faults
+     (SP with zeroed halos, SP with GroupNorm statistics kept local, TP
+     without the row layers' all-reduce, SwinIR's roll without its wrap,
+     every band masked as the last, the Downsample's halo row from above,
+     SP in the fused mode with K6 on the band alone) must fail them; exact
+     launches per process (K1; in the modes K3, K4, K4_gemv, K6, K7) and
+     K1's and K3's shapes (under SP at Sq != Skv), none on another entry;
+     per-process seconds and peak memory above the resident weights beside
+     one process's, marked as two processes sharing one card; each mode's
+     weights a process. The workers build their models while this process
+     computes the references; K1, K3 and K1_wide are timed at the band
+     shapes once they are done.
      [parallel_nccl]: the same four APIs at world size 1 on nccl in this
      process, bit-equal to the plain runs where the code path is the same
      (TP, both tile APIs, the request) and (a) within its limit.
@@ -1439,6 +1445,7 @@ def phase_d512_backward(fa):
         lib_ms = median_ms(lambda: torch.autograd.grad(out_lib, leaves, g.transpose(1, 2),
                                                        retain_graph=True), iters, 1)
         del out_lib
+        lib_delta_ms = median_ms(lambda: (g.float() * o.float()).sum(-1), iters, 1)
         in_bytes = nbytes(q, k, v, delta, lse, g)
         bounds = {"K2_delta": bound_ms(0, b, 1, sq, skv, 512, bf, nbytes(o, g, delta)),
                   "K2a_wide": bound_ms(3, b, 1, sq, skv, 512, bf, in_bytes + nbytes(grads[0])),
@@ -1448,16 +1455,17 @@ def phase_d512_backward(fa):
             f"{n} {t[n]:.4f} ms (plain "
             + (f"{plain_t[n]:.4f}" if n in plain_t else "not timed: its scores do not fit")
             + f", bound {bounds[n][0]:.4f} {bounds[n][1]}, {bounds[n][0] / t[n]:.1%} of it)"
-            for n in t) + f"; SDPA backward (dq, dk, dv) {lib_ms:.4f} ms; K2a_wide + K2b_wide "
+            for n in t) + f"; SDPA backward (dq, dk, dv) {lib_ms:.4f} ms; the library's delta "
+              f"((dO.float() * O.float()).sum(-1)) {lib_delta_ms:.4f} ms; K2a_wide + K2b_wide "
               f"{(bounds['K2a_wide'][0] + bounds['K2b_wide'][0]) / (t['K2a_wide'] + t['K2b_wide']):.1%}"
               " of their bounds")
         if (b, sq, skv) == (1, 16384, 16384):
             for n in t:
                 numbers[n] = {"ms": t[n], "plain_ms": plain_t[n], "bound_ms": bounds[n][0],
                               "bound_by": bounds[n][1],
-                              "library_ms": None if n == "K2_delta" else lib_ms,
-                              "shape": label, "library": None if n == "K2_delta"
-                              else "SDPA backward (dq, dk, dv)"}
+                              "library_ms": lib_delta_ms if n == "K2_delta" else lib_ms,
+                              "shape": label, "library": "(dO.float() * O.float()).sum(-1)"
+                              if n == "K2_delta" else "SDPA backward (dq, dk, dv)"}
         if sq == skv and sq in D512_GRAD_THRESHOLDS:
 
             def flash():
@@ -5283,6 +5291,29 @@ PAR_REQ_STEPS = 2
 PAR_MODELS = ("swinir", "encode", "sample", "decode", "scunet", "bsrnet", "tp_swinir")
 PAR_WIDE = ((1, TILED_SIZE ** 2 // 64 // PAR_WORLD, 1, 512), (1, TILED_SIZE ** 2 // 64, 1, 512))
 PAR_TOL.update({name: 4 * BF16_TOL for name in PAR_MODELS}, request=0.5)
+# (j): the serving modes, (a)'s SP call and (b)'s TP call in each, against
+# one process in the same mode, each spread as (a)'s and (b)'s. A process's
+# launches: K3 at every self-attention site (the whole image's tokens pick
+# the packed route, a band's queries against every band's k and v under
+# SP; this process's heads under TP), K6 at every ResBlock (whole: gathered
+# under SP, unsharded under TP), K7 at every FFN in the fused mode; K4 in
+# the int8 mode at every dense site of an unhoisted call under SP (the 32
+# timestep rows of batch 1 on the GEMV form), a hoisted step and its
+# tables under TP (the tile form throughout). Measured on an H100 80GB HBM3
+# at 700 W: one process's spreads 9.9e-3-1.10e-2; the two processes
+# 1.18e-2-1.42e-2, and TP int8 0 (bit-equal: the int8 mode shards only the
+# CLIP tower, and the call takes its text context whole). The limits
+# (4 x BF16_TOL) are 5.7-6.3x the spreads; the planted fault (K6 on the band
+# alone) reads 3.5x its limit.
+PAR_MODES = ("fused", "int8")
+PAR_MODE_LAUNCHES = {
+    "sp_fused": {"K3": K3_PER_CALL, "K6": K6_PER_CALL, "K7": K7_PER_CALL},
+    "tp_fused": {"K3": K3_PER_CALL, "K6": K6_PER_CALL, "K7": K7_PER_CALL},
+    "sp_int8": {"K3": K3_PER_CALL, "K4": K4_TILE_PER_CALL, "K4_gemv": K4_GEMV_PER_CALL,
+                "K6": K6_PER_CALL},
+    "tp_int8": {"K3": K3_PER_CALL, "K4": K4_PER_STEP + K4_PER_HOIST, "K6": K6_PER_CALL},
+}
+PAR_TOL.update({name: 4 * BF16_TOL for name in PAR_MODE_LAUNCHES})
 
 
 def par_k1_shapes(kind: str) -> dict:
@@ -5290,7 +5321,8 @@ def par_k1_shapes(kind: str) -> dict:
     ``kind``: "sp" (the bands of PAR_SP_HW^2 against every band's k/v),
     "request" ((i): the same at batch 2 for each step, and K1_wide's two),
     "tp" (batch 2 at PAR_TP_HW^2, a level's heads split where they
-    divide), "tiles" (5 tiles of PAR_TILE^2)."""
+    divide; "tp_int8": every head, the int8 mode's attention is whole),
+    "tiles" (5 tiles of PAR_TILE^2)."""
     from collections import Counter
 
     out = Counter()
@@ -5302,8 +5334,8 @@ def par_k1_shapes(kind: str) -> dict:
             s = tokens * (PAR_SP_HW // 64) ** 2
             b, n = (1, sites) if kind == "sp" else (2, sites * PAR_REQ_STEPS)
             out[((b, s // PAR_WORLD, heads, 64), (b, s, heads, 64))] += n
-        elif kind == "tp":
-            h = heads // PAR_WORLD if heads % PAR_WORLD == 0 else heads
+        elif kind in ("tp", "tp_int8"):
+            h = heads // PAR_WORLD if kind == "tp" and heads % PAR_WORLD == 0 else heads
             s = tokens * (PAR_TP_HW // 64) ** 2
             out[((2, s, h, 64), (2, s, h, 64))] += sites
         else:
@@ -5363,6 +5395,20 @@ def par_tp_call(cldm, d: dict, tables=None):
         tables = cldm.make_hoist_tables(d["c_txt"], d["grid"])
     return model_function(cldm, 1.0, tables)(
         d["x"], d["t"], {"c_txt": d["c_txt"], "c_img": d["c_img"]}).float()
+
+
+def par_k6_band_alone(m, group, x, emb, emb_out=None):
+    """The fused ResBlock's K6 on this band's rows, without the gather."""
+    from diffbir_tpu_torch.models.unet import ResBlock
+
+    return ResBlock.forward(m, x, emb, emb_out)
+
+
+def par_weights(model) -> int:
+    """Weights a process holds: parameters and int8 weight buffers."""
+    return sum(p.numel() for p in model.parameters()) + sum(
+        b.numel() for name, b in model.named_buffers()
+        if name.endswith(("weight_q", "weight_scale")))
 
 
 def par_zero_halos(x, group, below):
@@ -5480,6 +5526,7 @@ def parallel_worker(rank: int, port: int) -> None:
     models; the results to
     PAR_ROOT/rank<rank>.pt. Rank 1 builds its models from another seed:
     (d)'s broadcast makes them rank 0's, which the later runs use."""
+    import copy
     from collections import Counter
 
     import torch
@@ -5512,11 +5559,13 @@ def parallel_worker(rank: int, port: int) -> None:
         shapes.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         out[name] = {"s": time.perf_counter() - t0,
                      "peak": torch.cuda.max_memory_allocated() / 2**30,
+                     "above": (torch.cuda.max_memory_allocated() - resident) / 2**30,
                      "launches": {k: n for k, n in counts().items() if n},
                      "shapes": dict(shapes)}
         return res
@@ -5551,6 +5600,16 @@ def parallel_worker(rank: int, port: int) -> None:
                     out[key] = par_model_call(name, models, big).cpu()
             out["request_out"] = run("request", lambda: par_big_request(pipe, par_cuda(
                 inp["request"]), True))
+            for mode in PAR_MODES:  # (j): copies, since set_mode("int8") and TP work in place
+                model = copy.deepcopy(cldm).set_mode(mode)
+                if mode == "fused":  # first: K6's HWIO weight copies are made here
+                    with par_planted(inference, "_band_fused_resblock", par_k6_band_alone):
+                        out["sp_fused_band_alone"] = par_sp_call(model, sp).cpu()
+                out[f"sp_{mode}_out"] = run(f"sp_{mode}", lambda: par_sp_call(model, sp)).cpu()
+                run(f"tp_shard_{mode}", lambda: tp.tp_shard_(model))
+                out[f"tp_{mode}_out"] = run(f"tp_{mode}", lambda: par_tp_call(model, tpd)).cpu()
+                out[f"tp_{mode}_weights"] = par_weights(model)
+                del model
             run("tp_shard", lambda: tp.tp_shard_(cldm))
             out["tp_out"] = run("tp", lambda: par_tp_call(cldm, tpd)).cpu()
             with par_planted(tp, "_reduce_partial", lambda t, group: t):
@@ -5558,7 +5617,7 @@ def parallel_worker(rank: int, port: int) -> None:
             run("tp_swinir_shard", lambda: tp.tp_shard_(swinir))
             out["tp_swinir_out"] = run("tp_swinir", lambda: par_model_call(
                 "tp_swinir", models, big)).cpu()
-        out["tp_weights"] = sum(p.numel() for p in cldm.parameters())
+        out["tp_weights"] = par_weights(cldm)
         out["tp_swinir_weights"] = sum(p.numel() for p in swinir.parameters())
         torch.save(out, os.path.join(PAR_ROOT, f"rank{rank}.pt"))
     finally:
@@ -5648,6 +5707,34 @@ def par_k1_bands() -> None:
         print(f"{label} (the SP band, {sites} sites a call): max_abs_err {err:.3e}; "
               f"{card()} K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
               f"bound {bms:.4f} ms ({by})")
+
+
+def par_k3_band() -> None:
+    """K3 at (a)'s first band shape in the packed layout (q one band, k and
+    v every band's): one launch of K3, o against the plain version
+    (``flash_attention_ref(..., prescale_q=True)``, BF16_TOL x max|ref|),
+    median ms of K3, the plain version and SDPA beside the bound."""
+    import torch
+
+    from diffbir_tpu_torch.ops import flash_attention as fa
+
+    ((b, sq, h, d), (_, skv, _, _)), sites = next(iter(par_k1_shapes("sp").items()))
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    q, k, v = qkv_case(gen, (b, sq, skv, h, d), torch.bfloat16)
+    before = counts()
+    o = fa.flash_attention_fwd(q, k, v, prescale_q=True)
+    torch.cuda.synchronize()
+    n = launched_since(before)
+    check(n == {"K3": 1}, f"[parallel_inference] K3 at a band shape launched {n}")
+    label = f"[parallel_inference] K3 {b}x{sq}x{h}x{d} vs {skv} kv rows bf16"
+    err = hold(label, o, fa.flash_attention_ref(q, k, v, prescale_q=True), BF16_TOL)
+    ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, prescale_q=True), 10)
+    plain_ms = median_ms(lambda: fa.flash_attention_ref(q, k, v, prescale_q=True), 5)
+    lib_ms = median_ms(lambda: sdpa_fwd(q, k, v), 10)
+    bms, by = bound_ms(2, b, h, sq, skv, d, torch.bfloat16, nbytes(q, k, v, o))
+    print(f"{label} (the SP band in the packed layout, {sites} sites a call): max_abs_err "
+          f"{err:.3e}; {card()} K3 {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by})")
 
 
 def par_k1_wide_band() -> None:
@@ -5755,7 +5842,44 @@ def parallel_references() -> dict:
     return st
 
 
+def par_timed(st: dict, name: str, fn):
+    """``fn()`` in this process, as st[name + "_ref"]; its seconds and its
+    peak memory above the resident as st[name + "_s"] and
+    st[name + "_above"]."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ref = st[f"{name}_ref"] = fn()
+    torch.cuda.synchronize()
+    st[f"{name}_s"] = time.perf_counter() - t0
+    st[f"{name}_above"] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    return ref
+
+
+def par_sp_tp_references(st: dict, model, suffix: str) -> None:
+    """(a) and (b) (with ``suffix``, (j)'s in a mode) in one process: the
+    results, seconds, peak memory above the resident and spreads into
+    ``st``: (a)'s the forward as row 1 of a batch of 2, (b)'s its rows
+    swapped. The spreads' runs go first: the timed runs find the model
+    warm (K6's HWIO weight copies made)."""
+    spd, tp_ = st["sp"], st["tp"]
+    two = {"x": spd["x"].repeat(2, 1, 1, 1), "t": spd["t"].repeat(2),
+           "c_txt": spd["c_txt"].repeat(2, 1, 1), "c_img": spd["c_img"].repeat(2, 1, 1, 1)}
+    row = par_sp_call(model, two)[1:]
+    ref = par_timed(st, f"sp{suffix}", lambda: par_sp_call(model, spd))
+    st[f"sp{suffix}_spread"] = spread(f"(sp{suffix}), the forward as row 1 of 2", row, ref)
+    swapped = {**tp_, **par_swapped({k: tp_[k] for k in ("x", "c_img", "c_txt")})}
+    rows = par_tp_call(model, swapped)[[1, 0]]
+    ref = par_timed(st, f"tp{suffix}", lambda: par_tp_call(model, tp_))
+    st[f"tp{suffix}_spread"] = spread(f"(tp{suffix}), the rows swapped", rows, ref)
+
+
 def par_references() -> dict:
+    import copy
+
     import numpy as np
     import torch
 
@@ -5794,17 +5918,9 @@ def par_references() -> dict:
     os.replace(path + ".part", path)
     st = {"cldm": cldm, "swinir": swinir, "pipe": pipe, "sp": par_cuda(sp),
           "tp": par_cuda(tpd), "batch": par_cuda(batch)}
-    spd, tp_ = st["sp"], st["tp"]
+    spd = st["sp"]
     with torch.no_grad():
-        st["sp_ref"] = par_sp_call(cldm, spd)  # no process group: the plain forward
-        two = {"x": spd["x"].repeat(2, 1, 1, 1), "t": spd["t"].repeat(2),
-               "c_txt": spd["c_txt"].repeat(2, 1, 1), "c_img": spd["c_img"].repeat(2, 1, 1, 1)}
-        st["sp_spread"] = spread("(a), the forward as row 1 of 2",
-                                 par_sp_call(cldm, two)[1:], st["sp_ref"])
-        st["tp_ref"] = par_tp_call(cldm, tp_)
-        swapped = {**tp_, **par_swapped({k: tp_[k] for k in ("x", "c_img", "c_txt")})}
-        st["tp_spread"] = spread("(b), the rows swapped",
-                                 par_tp_call(cldm, swapped)[[1, 0]], st["tp_ref"])
+        par_sp_tp_references(st, cldm, "")  # no process group: the plain forwards
         st["tiles_ref"] = par_tiles_call(cldm, spd, False)
         st["tiles_spread"] = spread("(c), 3 tiles a call",
                                     par_tiles_call(cldm, spd, False, per=3), st["tiles_ref"])
@@ -5815,6 +5931,13 @@ def par_references() -> dict:
     par_model_references(st, models, par_cuda(big), par_cuda(request))
     st["tp_swinir_weights"] = sum(p.numel() for p in swinir.parameters())
     del models
+    st["tp_weights"] = par_weights(cldm)
+    for mode in PAR_MODES:  # (j), each mode on a copy
+        model = copy.deepcopy(cldm).set_mode(mode)
+        with torch.no_grad():
+            par_sp_tp_references(st, model, f"_{mode}")
+        st[f"tp_{mode}_weights"] = par_weights(model)
+        del model
     print(f"[parallel_inference] {card()} one process's references and spreads in "
           f"{time.perf_counter() - t0:.1f} s beside the workers (models built, inputs written "
           f"to {PAR_ROOT})")
@@ -5822,13 +5945,13 @@ def par_references() -> dict:
 
 
 def phase_parallel_inference(st: dict) -> dict:
-    """[parallel_inference]: (a)-(i) in the PAR_WORLD processes that
+    """[parallel_inference]: (a)-(j) in the PAR_WORLD processes that
     ``parallel_references`` started, joined here, against one process,
-    within PAR_TOL x max|ref|, each limit above its spread; six planted
-    faults that must fail; exact launches and K1's and K1_wide's shapes per
-    process (Sq != Skv under SP), none on any other entry; then K1 and
-    K1_wide timed at the band shapes. Returns the launches of the runs,
-    summed over the processes."""
+    within PAR_TOL x max|ref|, each limit above its spread; seven planted
+    faults that must fail; exact launches and K1's, K3's and K1_wide's
+    shapes per process (Sq != Skv under SP), none on any other entry; then
+    K1, K3 and K1_wide timed at the band shapes. Returns the launches of
+    the runs, summed over the processes."""
     import torch
 
     t0 = time.perf_counter()
@@ -5842,12 +5965,15 @@ def phase_parallel_inference(st: dict) -> dict:
     expected = {"broadcast": {}, "batch": CLI_DEFAULT, "sp": {"K1": step},
                 "tiles": {"K1": step}, "swinir": {}, "encode": wide, "sample": wide,
                 "decode": wide, "scunet": {}, "bsrnet": {},
-                "request": {"K1": step * PAR_REQ_STEPS, "K1_wide": 2}, "tp_shard": {},
+                "request": {"K1": step * PAR_REQ_STEPS, "K1_wide": 2}, **PAR_MODE_LAUNCHES,
+                **{f"tp_shard_{mode}": {} for mode in PAR_MODES}, "tp_shard": {},
                 "tp": {"K1": step}, "tp_swinir_shard": {}, "tp_swinir": {}}
     shapes = {"sp": par_k1_shapes("sp"), "tp": par_k1_shapes("tp"),
               "tiles": par_k1_shapes("tiles"), "request": par_k1_shapes("request"),
-              **{name: {PAR_WIDE: 1} for name in ("encode", "sample", "decode")}}
-    outs = ("sp", "tp", "tiles", "batch") + PAR_MODELS + ("request",)
+              **{name: {PAR_WIDE: 1} for name in ("encode", "sample", "decode")},
+              **{name: par_k1_shapes("tp_int8" if name == "tp_int8" else name[:2])
+                 for name in PAR_MODE_LAUNCHES}}
+    outs = ("sp", "tp", "tiles", "batch") + PAR_MODELS + ("request", *PAR_MODE_LAUNCHES)
     total = {k: 0 for k in KERNELS}
     for name in outs:
         check(st[f"{name}_spread"] <= PAR_TOL[name],
@@ -5863,7 +5989,7 @@ def phase_parallel_inference(st: dict) -> dict:
         for name, kind in shapes.items():
             want = {str(k): n for k, n in kind.items()}
             got = {str(k): n for k, n in r[name]["shapes"].items()}
-            check(got == want, f"[parallel_inference] rank {rank} {name}: K1 shapes {got}, "
+            check(got == want, f"[parallel_inference] rank {rank} {name}: K1/K3 shapes {got}, "
                                f"expected {want}")
         errs = {}
         for name in outs:
@@ -5888,7 +6014,14 @@ def phase_parallel_inference(st: dict) -> dict:
               + ", ".join(f"{q}x{k[1]} {n}" for (q, k), n in r["sp"]["shapes"].items())
               + "; TP " + ", ".join(f"{q} {n}" for (q, k), n in r["tp"]["shapes"].items())
               + "; (i) " + ", ".join(f"{q}x{k[1]} {n}"
-                                     for (q, k), n in r["request"]["shapes"].items()))
+                                     for (q, k), n in r["request"]["shapes"].items())
+              + "; K3 in the modes: (a)'s and (b)'s, TP int8 every head ("
+              + ", ".join(f"{q} {n}" for (q, k), n in r["tp_int8"]["shapes"].items()) + ")")
+        print(f"[parallel_inference] {card()} rank {rank} (j) seconds and peak memory above the "
+              f"resident weights a process (one process's): " + "; ".join(
+                  f"{name} {r[name]['s']:.3f} s, {r[name]['above']:.2f} GiB "
+                  f"({st[f'{name}_s']:.3f} s, {st[f'{name}_above']:.2f} GiB)"
+                  for name in ("sp", "tp", *PAR_MODE_LAUNCHES)))
         print(f"[parallel_inference] {card()} rank {rank} (f) peak memory a process against "
               f"one process's: " + "; ".join(
                   f"{name} {r[name]['peak']:.2f} GiB ({st[f'{name}_peak']:.2f})"
@@ -5896,23 +6029,27 @@ def phase_parallel_inference(st: dict) -> dict:
     for key in ("batch_out", "request_out"):
         check(torch.equal(torch.as_tensor(ranks[0][key]), torch.as_tensor(ranks[1][key])),
               f"[parallel_inference] the processes hold different gathered {key}")
-    for label, key, ref in (("SP with zeroed halos", "sp_zero_halos", st["sp_ref"]),
-                            ("SP with GroupNorm statistics kept local", "sp_local_gn",
-                             st["sp_ref"]),
-                            ("TP without the row layers' all-reduce", "tp_no_reduce",
-                             st["tp_ref"]),
-                            ("(e) SwinIR's shift without its wrap", "swinir_open_roll",
-                             st["swinir_ref"]),
-                            ("(e) every band masked as the last", "swinir_last_band",
-                             st["swinir_ref"]),
-                            ("(f) the Downsample's halo row from above", "encode_row_above",
-                             st["encode_ref"])):
-        tol = PAR_TOL[key.split("_")[0]]
-        planted(f"parallel_inference {label}", ranks[0][key], ref.cpu(), tol)
-    print(f"[parallel_inference] the TP processes hold {ranks[0]['tp_weights'] / 1e6:.1f} M "
-          f"weights each; TP SwinIR {ranks[0]['tp_swinir_weights'] / 1e6:.2f} M of "
+    for label, key, name in (("SP with zeroed halos", "sp_zero_halos", "sp"),
+                             ("SP with GroupNorm statistics kept local", "sp_local_gn", "sp"),
+                             ("TP without the row layers' all-reduce", "tp_no_reduce", "tp"),
+                             ("(e) SwinIR's shift without its wrap", "swinir_open_roll",
+                              "swinir"),
+                             ("(e) every band masked as the last", "swinir_last_band",
+                              "swinir"),
+                             ("(f) the Downsample's halo row from above", "encode_row_above",
+                              "encode"),
+                             ("(j) SP in the fused mode with K6 on the band alone",
+                              "sp_fused_band_alone", "sp_fused")):
+        planted(f"parallel_inference {label}", ranks[0][key], st[f"{name}_ref"].cpu(),
+                PAR_TOL[name])
+    print(f"[parallel_inference] the TP processes hold (weights and int8 weights, one "
+          f"process's): " + "; ".join(
+              f"{mode} {ranks[0][f'tp{sfx}_weights'] / 1e6:.1f} M ({st[f'tp{sfx}_weights'] / 1e6:.1f} M)"
+              for mode, sfx in (("default", ""), *((m, f"_{m}") for m in PAR_MODES)))
+          + f"; TP SwinIR {ranks[0]['tp_swinir_weights'] / 1e6:.2f} M of "
           f"{st['tp_swinir_weights'] / 1e6:.2f} M")
     par_k1_bands()  # timed once the workers are done: the card is this process's
+    par_k3_band()
     par_k1_wide_band()
     return total
 
@@ -6244,11 +6381,13 @@ def parallel_train_worker(rank: int, port: int) -> None:
         shapes.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         out[name] = {"s": time.perf_counter() - t0,
                      "peak": torch.cuda.max_memory_allocated() / 2**30,
+                     "above": (torch.cuda.max_memory_allocated() - resident) / 2**30,
                      "launches": {k: n for k, n in counts().items() if n},
                      "shapes": dict(shapes)}
         return res
@@ -6745,7 +6884,9 @@ def main() -> int:
                   "train_cli": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1},
                   "train_ddp": {"K1": 1, "K1_wide": 1, "K2a": 1, "K2b": 1},
                   "train_native": {}, "train_stage1": {}, "degrade_batch": {},
-                  "parallel_inference": CLI_DEFAULT, "parallel_nccl": CLI_DEFAULT,
+                  "parallel_inference": {**CLI_DEFAULT, "K3": 1, "K4": 1, "K4_gemv": 1,
+                                         "K6": 1, "K7": 1},
+                  "parallel_nccl": CLI_DEFAULT,
                   "parallel_train": {"K1": 1, "K2a": 1, "K2b": 1}}
         for path, expected in {**PER_REQUEST, **CAPTION_PATHS, **cli, **tiled,
                                **served}.items():

@@ -47,11 +47,14 @@ SwinIR window attention (bias and shift mask) and CLIP causal attention.
 The TPU's other dispatch threshold (flash only from 2048 tokens) is not
 carried over; the port sets its own from H100 measurements.
 
-Both d > 256 thresholds count the whole image's tokens: Skv, which under
-``kv_gathered`` is every band's and Sq only this band's. So a band of a
-spatially sharded VAE takes the route that the same image takes in one
-process (the 1024x1024 image's mid-block on two processes: [1,8192,1,512]
-queries against 16384 gathered kv rows, on K1_wide).
+Both d > 256 thresholds and the packed rule count the whole image's
+tokens: Skv, which under ``kv_gathered`` is every band's and Sq only this
+band's. So a band of a spatially sharded model takes the route that the
+same image takes in one process (the 1024x1024 image's VAE mid-block on
+two processes: [1,8192,1,512] queries against 16384 gathered kv rows, on
+K1_wide; a band of 1536 queries of a 3072-token image in the packed
+layout, on K3, as the JAX packed kernel takes the whole image's gathered
+queries).
 """
 
 from __future__ import annotations
@@ -123,8 +126,8 @@ def attention(
     bands of a spatially sharded image, whose queries q are one band
     (``parallel/inference.py``): the call takes the self-attention rule
     although Skv != Sq, and the d > 256 thresholds read Skv, the whole
-    image's tokens. Cross-attention (Skv != Sq, not gathered) keeps
-    the plain math."""
+    image's tokens, as the packed rule does. Cross-attention (Skv != Sq,
+    not gathered) keeps the plain math."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if layout not in FLASH_LAYOUTS:
@@ -140,6 +143,6 @@ def attention(
         return plain_attention(q, k, v, mask=mask, bias=bias)
     from .flash_attention import flash_attention
 
-    if layout == "packed" and packed_applies(q.shape[1]):
+    if layout == "packed" and packed_applies(skv if kv_gathered else sq):
         return flash_attention(q, k, v, prescale_q=True)
     return flash_attention(q, k, v)

@@ -38,11 +38,22 @@ process group every function is the plain run.
    equal within rounding (GSPMD's bit-equality does not carry over to
    reordered sums).
 
+   Every serving mode of the ControlLDM is banded. K4 (the int8 dense
+   layers) and K7 (the fused GEGLU FFN) work token by token and run on a
+   band unchanged; the packed K3 takes a band's queries against the
+   gathered k and v. A fused ResBlock (K6, float or int8 convs) gathers
+   every band's rows, runs K6 on the whole image's rows and keeps its
+   band's rows of the output: what GSPMD does around a ``pallas_call``,
+   which it cannot partition, so the math is JAX's. Each process then
+   computes every ResBlock whole and holds one block's whole activation
+   for the span of the call.
+
    Under autograd (guidance, training: a gradient with respect to ``x``,
    the condition or the weights) the band-aware layers differentiate
    through ``parallel/collectives.py``: the halo rows' gradients go back
    to their senders, the GroupNorm sums are all-reduced backward too, the
-   gathered k and v are reduce-scattered. The gradients are a band's, as
+   gathered k and v, and a fused ResBlock's gathered rows, are
+   reduce-scattered. The gradients are a band's, as
    the output is; the parameters' gradients are each process's part, to
    be summed over the processes.
 
@@ -67,7 +78,7 @@ from ..models.bsrnet import RRDBNet
 from ..models.layers import Conv2d, GroupNorm32, gn_fold_moments
 from ..models.scunet import SCUNet, WMSA
 from ..models.swinir import SCALE, Band, SwinBlock, SwinIR
-from ..models.unet import CrossAttention, Downsample
+from ..models.unet import CrossAttention, Downsample, ResBlock
 from ..models.vae import AttnBlock, AutoencoderKL
 from ..models.vae import Downsample as VAEDownsample
 from ..ops.attention import attention
@@ -76,7 +87,6 @@ from ..tiling import gaussian_weights, sliding_windows
 from ..utils.common import wavelet_reconstruction
 from . import collectives
 from .mesh import broadcast_
-from .tp import check_default_mode
 
 
 def _world(group=None) -> tuple:
@@ -339,6 +349,17 @@ def _band_attention(m: CrossAttention, group, x: torch.Tensor,
     return m.to_out(out.reshape(b, sq, -1))
 
 
+def _band_fused_resblock(m: ResBlock, group, x: torch.Tensor, emb: Optional[torch.Tensor],
+                         emb_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A fused ResBlock (K6) of this band of NCHW ``x``: every band's rows
+    gathered in rank order (``collectives.GatherBands``: reduce-scattered
+    backward), K6 on the whole image's rows, this band's rows of its
+    output."""
+    n, rank = _world(group)
+    whole = collectives.GatherBands.apply(x, group, 2)
+    return ResBlock.forward(m, whole, emb, emb_out).chunk(n, dim=2)[rank].contiguous()
+
+
 def _band_vae_attention(m: AttnBlock, group, x: torch.Tensor) -> torch.Tensor:
     """The VAE's single-head mid-block attention of this band's tokens to
     every band's: q local, k and v all-gathered in rank order
@@ -370,15 +391,21 @@ def _band(h: int, group) -> Band:
 def _band_layers(roots: Iterable[torch.nn.Module], group):
     """(module, its band-aware forward) for every layer of ``roots`` that
     reads across rows: 3x3 convolutions, the VAE's ``Downsample``,
-    GroupNorms, self-attention (the UNet's and the VAE's), shifted windows
-    (SwinIR's ``SwinBlock``, SCUNet's ``WMSA``). A convolution whose
-    kernel equals its stride without padding (SCUNet's k2s2) is local."""
+    GroupNorms, fused ResBlocks (whose layers K6 reads, not calls),
+    self-attention (the UNet's and the VAE's), shifted windows (SwinIR's
+    ``SwinBlock``, SCUNet's ``WMSA``). A convolution whose kernel equals its
+    stride without padding (SCUNet's k2s2) is local."""
     for root in roots:
         inner = {id(m.conv) for m in root.modules() if isinstance(m, VAEDownsample)}
+        inner.update(id(c) for m in root.modules() if isinstance(m, ResBlock) and m.fused
+                     for c in m.modules() if c is not m)
         for m in root.modules():
             if id(m) in inner:
                 continue
-            if isinstance(m, VAEDownsample):
+            if isinstance(m, ResBlock) and m.fused:
+                yield m, (lambda x, emb, emb_out=None, m=m:
+                          _band_fused_resblock(m, group, x, emb, emb_out))
+            elif isinstance(m, VAEDownsample):
                 yield m, (lambda x, m=m: _band_downsample(m, group, x))
             elif isinstance(m, Conv2d) and m.kernel_size != (1, 1):
                 if m.kernel_size == m.stride and m.padding == (0, 0):
@@ -555,8 +582,8 @@ class SpatialParallel:
 def spatial_parallel(model, group=None):
     """``model`` on this process's H band; ``spatial_shard`` makes a band,
     ``gather`` the whole from the bands (it has no backward: take a band's
-    loss on the band). The default serving mode only. Without a process
-    group each wrapper is the plain model.
+    loss on the band). A ControlLDM in any serving mode (see the module's
+    notes). Without a process group each wrapper is the plain model.
 
     - A ControlLDM: the denoiser (``fn(x, t, cond, control_scales,
       hoisted)``: IRControlNet -> scaled residuals -> UNet) on the band of
@@ -582,18 +609,11 @@ def spatial_parallel(model, group=None):
     the caller then holds them installed over the forward and the backward
     with ``with fn: loss_of(fn(...)).backward()``; such a call outside the
     context raises RuntimeError."""
-    what = "spatial parallelism (spatial_parallel)"
     if isinstance(model, AutoencoderKL):
-        wrapper, roots = SpatialParallelVAE(model, group), (model,)
-    elif isinstance(model, (SwinIR, SCUNet, RRDBNet)):
-        wrapper, roots = SpatialParallelCleaner(model, group), (model,)
-    else:
-        wrapper, roots = SpatialParallel(model, group), (model.unet, model.controlnet,
-                                                         model.vae)
-    if dist.is_initialized():
-        for root in roots:
-            check_default_mode(root, what)
-    return wrapper
+        return SpatialParallelVAE(model, group)
+    if isinstance(model, (SwinIR, SCUNet, RRDBNet)):
+        return SpatialParallelCleaner(model, group)
+    return SpatialParallel(model, group)
 
 
 @torch.no_grad()

@@ -55,13 +55,24 @@ SwinIR's ``qkv``; else 1), which
 ``tp_whole`` and ``tp_local`` read to gather the whole tensor or take this
 process's slice of one (``train/optim.py``: masters, moments, checkpoints).
 
+The serving modes (``ControlLDM.set_mode``) place their units as JAX's
+``tp_spec`` places their leaves, which shards only ``…/kernel`` leaves:
+
+- **int8**: a unit that holds an int8 layer (``QuantLinear``, ``QuantConv``)
+  stays whole ("int8"), as JAX leaves ``kernel_q`` and ``scale`` whole, and
+  K4 runs on whole weights. In the int8 mode every attention, FFN and
+  ResBlock unit of the UNet and the ControlNet is int8, so tensor
+  parallelism then shards only the CLIP tower, which the modes leave float;
+- **fused**: a ResBlock or FeedForward whose ``fused`` is set stays whole
+  ("fused"): K6 and K7 read whole weights, which is what JAX's gathers
+  around its ``pallas_call`` compute. An attention unit in the packed layout
+  is sharded by whole heads as in the default mode: K3 runs per head.
+
 The hoisted tables (``ControlLDM.make_hoist_tables``) made after
 ``tp_shard_`` hold this process's heads and channels: their cross-attention
 k/v and ``emb_layers`` rows come from the sharded weights. The training
-step makes none. The default serving mode only: the fused (K6/K7) and int8
-(K4) modes run their kernels on whole weights, and ``tp_shard_`` raises
-ValueError naming the mode. Without a process group, or with one process
-(JAX: a tensor axis of 1), it changes nothing.
+step makes none. Without a process group, or with one process (JAX: a
+tensor axis of 1), it changes nothing.
 """
 
 from __future__ import annotations
@@ -85,7 +96,8 @@ _COL_SUFFIXES = ("to_q", "to_k", "to_v", "net.0.proj", "in_layers.2", "qkv",
 _ROW_SUFFIXES = ("to_out.0", "net.2", "out_layers.3", "proj", "mlp.c_proj",
                  "mlp.fc2")
 # tp_plan's reasons for a placement
-REASONS = ("col", "row", "geglu", "qkv", "replicated", "heads", "groups", "pair")
+REASONS = ("col", "row", "geglu", "qkv", "replicated", "heads", "groups", "pair", "int8",
+           "fused")
 
 
 def tp_dim(name: str, weight: torch.Tensor, n: int) -> Optional[int]:
@@ -102,27 +114,6 @@ def tp_dim(name: str, weight: torch.Tensor, n: int) -> Optional[int]:
     if row and weight.shape[1] % n == 0:
         return 1
     return None
-
-
-def serving_mode(module: nn.Module) -> str:
-    """"int8", "fused" or "default": the serving mode that ``module``'s
-    layers are in (``ControlLDM.set_mode``)."""
-    mods = list(module.modules())
-    if any(isinstance(m, (QuantLinear, QuantConv)) for m in mods):
-        return "int8"
-    if any(isinstance(m, (ResBlock, FeedForward)) and m.fused for m in mods) or any(
-            isinstance(m, CrossAttention) and m.flash_layout == "packed" for m in mods):
-        return "fused"
-    return "default"
-
-
-def check_default_mode(module: nn.Module, what: str) -> None:
-    """ValueError unless ``module`` is in the default serving mode."""
-    mode = serving_mode(module)
-    if mode != "default":
-        raise ValueError(f"{what} runs the default serving mode only; this model is in the "
-                         f"{mode!r} mode, whose kernels (K6/K7/K4, packed K3) read whole "
-                         f"weights and activations: set_mode('default') first")
 
 
 # --------------------------------------------------------------------------- #
@@ -168,8 +159,12 @@ _UNIT_LEAVES = {
 
 
 def _unit_blocker(kind: str, m: nn.Module, n: int) -> Optional[str]:
-    """Why a unit stays replicated at ``n`` processes ("heads", "groups",
-    "pair"), or None where it shards."""
+    """Why a unit stays replicated at ``n`` processes ("int8", "fused",
+    "heads", "groups", "pair"), or None where it shards."""
+    if any(isinstance(c, (QuantLinear, QuantConv)) for c in m.modules()):
+        return "int8"
+    if kind in ("ff", "res") and m.fused:
+        return "fused"
     if kind == "attn":
         return None if m.heads % n == 0 else "heads"
     if kind == "win":
@@ -183,14 +178,25 @@ def _unit_blocker(kind: str, m: nn.Module, n: int) -> Optional[str]:
     return None if m[_MLP_KEYS[kind][0]].out_features % n == 0 else "pair"
 
 
+def _weights(module: nn.Module) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Every parameter of ``module``, and every int8 weight buffer
+    (``weight_q``, ``weight_scale``: JAX's ``kernel_q`` and ``scale``)."""
+    yield from module.named_parameters()
+    for name, b in module.named_buffers():
+        if name.rpartition(".")[2] in ("weight_q", "weight_scale"):
+            yield name, b
+
+
 def tp_plan(module: nn.Module, n: int) -> Dict[str, Tuple[Optional[int], str]]:
-    """Every parameter of ``module``: (the dimension ``tp_shard_`` shards it
-    along over ``n`` processes or None, the reason: one of ``REASONS``).
-    Where the dimension differs from ``tp_dim``'s, the reason says why:
-    "heads", "groups" or "pair"; "geglu" and "qkv" mark the interleaved
-    column slices of a GEGLU projection and of SwinIR's qkv projection."""
+    """Every parameter and int8 weight of ``module``: (the dimension
+    ``tp_shard_`` shards it along over ``n`` processes or None, the reason:
+    one of ``REASONS``). Where the dimension differs from ``tp_dim``'s, the
+    reason says why: "fused", "heads", "groups" or "pair"; "geglu" and
+    "qkv" mark the interleaved column slices of a GEGLU projection and of
+    SwinIR's qkv projection. The int8 weights of a unit are placed whole
+    under "int8", as ``tp_dim`` (JAX's ``tp_spec``) places them."""
     plan = {}
-    for name, p in module.named_parameters():
+    for name, p in _weights(module):
         d = tp_dim(name, p, n)
         plan[name] = (None, "replicated") if d is None else (None, "pair")
     for kind, prefix, m in _units(module):
@@ -199,8 +205,11 @@ def tp_plan(module: nn.Module, n: int) -> Dict[str, Tuple[Optional[int], str]]:
         for leaf, dim in [(c, 0) for c in cols] + [(r, 1) for r in rows]:
             name = _join(prefix, leaf)
             if blocker is not None:
-                if tp_dim(name, module.get_parameter(name), n) is not None:
+                if name in plan and tp_dim(name, module.get_parameter(name), n) is not None:
                     plan[name] = (None, blocker)
+                for quantised in (name + "_q", name + "_scale"):  # weight_q, weight_scale
+                    if quantised in plan:
+                        plan[quantised] = (None, blocker)
                 continue
             reason = "row" if dim else {"ff": "geglu", "win": "qkv"}.get(kind, "col")
             plan[name] = (dim, reason)
@@ -403,14 +412,13 @@ def tp_shard_(module: nn.Module, group=None) -> nn.Module:
     its slices (each parameter its ``requires_grad``), the column layers
     take their input through *f* and the row layers reduce through *g*.
     A unit sharded already is left as it is. Returns ``module``. Without a
-    process group, or at one process, nothing changes. ValueError in the
-    fused and int8 serving modes."""
+    process group, or at one process, nothing changes. Any serving mode:
+    its int8 and fused units stay whole (see the module's notes)."""
     if not dist.is_initialized():
         return module
     n = dist.get_world_size(group)
     if n == 1:
         return module
-    check_default_mode(module, "tensor parallelism (tp_shard_)")
     rank = dist.get_rank(group)
     for kind, _, m in list(_units(module)):
         if not hasattr(_COLUMN_OF[kind](m), "tp_group") and _unit_blocker(kind, m, n) is None:

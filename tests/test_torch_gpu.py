@@ -688,13 +688,17 @@ def _close(out, ref, tol):
     assert err <= limit, (err, limit)
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 3, 64), (1, 130, 2, 128), (2, 64, 20, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 256, 3, 64), (1, 130, 130, 2, 128),
+                                   (2, 64, 64, 20, 64), (1, 192, 384, 5, 64),
+                                   (2, 100, 300, 2, 64)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)])
 def test_prescaled_flash_matches_plain_version(cuda, shape, dtype, tol):
     """K3 (one launch on its own count: the tensor-core entry in bf16, the
     CUDA-core one in fp32; none on K1's) against the prescaled plain
-    version; in fp32 it is K1, bit for bit."""
-    q, k, v = _qkv(cuda, shape[0], shape[1], shape[1], shape[2], shape[3], dtype)
+    version, also at Sq != Skv (a band's queries against every band's k
+    and v, as spatial parallelism calls it); in fp32 it is K1, bit for
+    bit."""
+    q, k, v = _qkv(cuda, *shape[:3], *shape[3:], dtype)
     before = _fwd_launches()
     out = fa.flash_attention(q, k, v, prescale_q=True)
     torch.cuda.synchronize()
