@@ -4627,18 +4627,16 @@ def phase_train_cli(flist: str) -> dict:
         sizes = {n: os.path.getsize(os.path.join(exp, "checkpoints", n)) / 2**30 for n in ckpts}
         bare = statistics.median(TRAIN_STEP_S) if TRAIN_STEP_S else float("nan")
         med = statistics.median(trainer.step_seconds[1:])
-        busy = [s - w for s, w in zip(trainer.step_seconds, trainer.wait_seconds)]
         print(f"[train_cli] python -m diffbir_tpu_torch.train_stage2 --config {cfg_path}: "
               f"{run_s:.3f} s (models built and loaded, {TRAIN_CLI_STEPS} steps, "
               f"checkpoints); per step K1 {K1_PER_TRAIN_STEP}, K1_wide "
               f"{K1_WIDE_PER_TRAIN_STEP}, K2a and K2b {K2_SITES_PER_TRAIN_STEP} each, no "
               f"CUDA-core entry; losses {', '.join(f'{v:.5f}' for v in trainer.losses)}")
-        print(f"[train_cli] {card()} step seconds without the checkpoints' saves "
+        print(f"[train_cli] {card()} step seconds on the device (train.step spans) "
               f"{', '.join(f'{v:.3f}' for v in trainer.step_seconds)} (median after the "
               f"first {med:.3f} s, {TRAIN_BATCH / med:.2f} images/s; [train]'s bare step "
-              f"{bare:.3f} s, {TRAIN_BATCH / bare:.2f} images/s): waiting on next(it) "
-              f"{', '.join(f'{v:.3f}' for v in trainer.wait_seconds)} s, the rest "
-              f"{', '.join(f'{v:.3f}' for v in busy)} s; checkpoints "
+              f"{bare:.3f} s, {TRAIN_BATCH / bare:.2f} images/s); waiting on next(it) "
+              f"{', '.join(f'{v:.3f}' for v in trainer.wait_seconds)} s; checkpoints "
               + ", ".join(f"{n} {v:.3f} GiB" for n, v in sizes.items())
               + f" plus controlnet_<step>.pth, saved in "
               f"{', '.join(f'{v:.3f}' for v in trainer.save_seconds)} s; peak device memory "
@@ -4687,22 +4685,25 @@ def phase_train_cli(flist: str) -> dict:
               f"{TRAIN_CKPT_EVERY}.pt, then steps {TRAIN_CKPT_EVERY + 1}-{end} in {run_s:.3f} s "
               f"and a checkpoint at {end} in {resumed.save_seconds[-1]:.3f} s (losses "
               f"{', '.join(f'{v:.5f}' for v in resumed.losses)})")
-        steps = resumed.step_seconds[2:]
+        busy = resumed.step_seconds[2:]
         waits = resumed.wait_seconds[2:]
-        busy = [a - b for a, b in zip(steps, waits)]
+        # the window on the wall clock: from the wait for step `first`'s data
+        # to the checkpoint at `end`, which the loop begins after reading the
+        # last step's loss (log_every 1: each step's loss waits for its step)
+        wall = (resumed.save_spans[-1].start_ns - resumed.wait_spans[2].start_ns) / 1e9
         waited = sum(w > 0.01 for w in waits)
         first = TRAIN_CKPT_EVERY + 3
         print(f"[train_cli] {card()} steady window, steps {first}-{end} (after the resumed "
               f"loop's first two) with no checkpoint inside: "
-              f"{TRAIN_STEADY_STEPS * TRAIN_BATCH / sum(steps):.2f} images/s ({sum(steps):.3f} s "
-              f"of steps; [train]'s bare step {TRAIN_BATCH / bare:.2f}); waiting on next(it): "
+              f"{TRAIN_STEADY_STEPS * TRAIN_BATCH / wall:.2f} images/s ({wall:.3f} s on the "
+              f"wall clock; [train]'s bare step {TRAIN_BATCH / bare:.2f}); waiting on next(it): "
               f"total {sum(waits):.3f} s, median {statistics.median(waits):.3f} s, {waited} of "
-              f"{len(waits)} steps waited over 10 ms; the step's own work median "
+              f"{len(waits)} steps waited over 10 ms; the step's own device time median "
               f"{statistics.median(busy):.3f} s (bare {bare:.3f}); the worker's transform median "
               f"{statistics.median(transform_s):.3f} s a batch "
               f"({min(transform_s):.3f}-{max(transform_s):.3f}; alone in [train_data] "
               f"{TRAIN_DATA_S[0]})")
-        print("[train_cli] steady window per step (wait/rest s): " + ", ".join(
+        print("[train_cli] steady window per step (wait/step s): " + ", ".join(
             f"{w:.3f}/{b:.3f}" for w, b in zip(waits, busy)) + "; transform s: "
             + ", ".join(f"{t:.3f}" for t in transform_s))
 
@@ -4874,12 +4875,12 @@ def phase_train_ddp() -> dict:
                   "each, no CUDA-core entry; losses "
                   f"{', '.join(f'{v:.6f}' for v in trainer.losses)} (bit-equal to [train_cli]'s); {len(saved['masters'])} fp32 masters "
                   f"bit-equal to [train_cli]'s {DDP_STEPS}.pt; step seconds (wait on the data "
-                  "/ the rest) "
-                  + ", ".join(f"{w:.3f}/{t - w:.3f}" for t, w in zip(trainer.step_seconds,
-                                                                 trainer.wait_seconds))
+                  "/ the step on the device) "
+                  + ", ".join(f"{w:.3f}/{t:.3f}" for t, w in zip(trainer.step_seconds,
+                                                             trainer.wait_seconds))
                   + " ([train_cli]'s plain steps on the same batches " + ", ".join(
-                      f"{w:.3f}/{t - w:.3f}" for t, w in zip(TRAIN_CLI_RUN["step_s"],
-                                                             TRAIN_CLI_RUN["wait_s"]))
+                      f"{w:.3f}/{t:.3f}" for t, w in zip(TRAIN_CLI_RUN["step_s"],
+                                                         TRAIN_CLI_RUN["wait_s"]))
                   + "); the process group destroyed")
             del trainer
             torch.cuda.empty_cache()
@@ -5060,9 +5061,9 @@ def phase_train_stage1() -> dict:
           f"[train_stage1] step {trainer.step}, losses {trainer.losses}, val {trainer.val_psnr}")
     ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
     check(ckpts == [f"{steps}.pt"], f"[train_stage1] checkpoints {ckpts}")
-    timed = trainer.step_seconds[STAGE1_WARMUP:]
+    own = trainer.step_seconds[STAGE1_WARMUP:]
     waits = trainer.wait_seconds[STAGE1_WARMUP:]
-    own = [a - b for a, b in zip(timed, waits)]
+    timed = [a + b for a, b in zip(own, waits)]
     n_params = sum(p.numel() for p in trainer.model.parameters())
     print(f"[train_stage1] python -m diffbir_tpu_torch.train_stage1 --config {cfg}: "
           f"{run_s:.3f} s (SwinIR {n_params / 1e6:.2f} M params, bf16 with fp32 masters, AdamW "
@@ -5071,10 +5072,11 @@ def phase_train_stage1() -> dict:
           f"{trainer.val_psnr[0]:.3f} dB over {STAGE1_VAL} batches; 0 launches of every "
           f"kernel of the port (window attention is plain math)")
     print(f"[train_stage1] {card()} batch {bs} at {SIZE}x{SIZE}: steps "
-          f"{STAGE1_WARMUP + 1}-{steps} {', '.join(f'{v:.3f}' for v in timed)} s (median "
+          f"{STAGE1_WARMUP + 1}-{steps}, the data wait plus the step on the device "
+          f"{', '.join(f'{v:.3f}' for v in timed)} s (median "
           f"{statistics.median(timed):.3f} s/step, {bs * len(timed) / sum(timed):.2f} images/s); "
           f"waiting on the data {', '.join(f'{v:.3f}' for v in waits)} s (median "
-          f"{statistics.median(waits):.3f}); the step's own work "
+          f"{statistics.median(waits):.3f}); the step on the device "
           f"{', '.join(f'{v:.3f}' for v in own)} s (median {statistics.median(own):.3f}, "
           f"{bs / statistics.median(own):.2f} images/s); warm-up steps "
           f"{', '.join(f'{v:.3f}' for v in trainer.step_seconds[:STAGE1_WARMUP])} s; checkpoint "

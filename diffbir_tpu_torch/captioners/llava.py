@@ -86,11 +86,13 @@ class LLaVACaptioner:
         ``timings`` gets the seconds of "vision" (preprocessing, tower and
         projector), "prefill" and "decode" (see ``greedy_decode``, which also
         fills ``step_logits``)."""
-        clock = StageClock(timings, self.device)
+        clock = StageClock(timings, self.device, "caption")
         embeds = self.prompt_embeds(image)
         clock.lap("vision")
-        return self.model.language_model.greedy_decode(
+        out = self.model.language_model.greedy_decode(
             embeds, self.max_new_tokens, self.eos_id, timings, step_logits)
+        clock.finish()
+        return out
 
     def __call__(self, image) -> list:
         """The caption's token ids, cut at the first EOS."""

@@ -53,6 +53,7 @@ from ..ops.fused_resblock import quantize_conv_weight
 from ..ops.quant_matmul import QuantLinear
 from ..sampler.base import timestep_vector
 from ..tiling import make_tiled_fn
+from ..utils.common import host_to_device
 from .clip import CLIPTextEncoder
 from .layers import Linear, QuantConv
 from .unet import (
@@ -265,7 +266,7 @@ class ControlLDM(nn.Module):
         out = {}
         for root in (self.unet, self.controlnet):
             device = root.time_embed[0].weight.device
-            emb = root.embed(torch.as_tensor(np.asarray(ts_asc, np.float32), device=device))
+            emb = root.embed(host_to_device(np.asarray(ts_asc, np.float32), device))
             for m in root.modules():
                 if isinstance(m, ResBlock):
                     e = m.emb_layers(emb)

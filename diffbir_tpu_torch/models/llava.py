@@ -241,7 +241,7 @@ class LlamaForCausalLM(nn.Module):
         ``timings`` gets the seconds of "prefill" and "decode" and the
         number of "decode_steps"; ``step_logits`` gets the logits [B, V]
         each token was chosen from."""
-        clock = StageClock(timings, prompt_embeds.device)
+        clock = StageClock(timings, prompt_embeds.device, "caption")
         b, t0, _ = prompt_embeds.shape
         logits, cache = self.prefill(prompt_embeds, t0 + max_new_tokens)
         token = logits.argmax(dim=-1)
@@ -260,6 +260,7 @@ class LlamaForCausalLM(nn.Module):
             token = logits.argmax(dim=-1)
             steps += 1
         clock.lap("decode")
+        clock.finish()
         if timings is not None:
             timings["decode_steps"] = steps
         return out

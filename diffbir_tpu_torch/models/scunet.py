@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import plain_attention
+from ..utils.common import device_constant
 from .layers import Conv2d, ConvTranspose2d, LayerNormFp32, conv, dense
 from .swinir import Band, roll_hw, window_mask, window_partition, window_reverse
 
@@ -61,10 +62,10 @@ class WMSA(nn.Module):
             x = roll_hw(x, -(p // 2), band)
         q, k, v = (t.reshape(-1, p * p, heads, self.head_dim)
                    for t in self.embedding_layer(window_partition(x, p)).chunk(3, dim=-1))
-        rel = torch.as_tensor(relative_indices(p), device=x.device)
+        rel = device_constant(relative_indices, p, device=x.device)
         bias = self.relative_position_params[:, rel[..., 0], rel[..., 1]][None]
         if self.shifted:
-            m = torch.as_tensor(window_mask(h, w, p, p // 2, band), device=x.device)
+            m = window_mask(h, w, p, p // 2, band, x.device)
             bias = bias + m.repeat(q.shape[0] // m.shape[0], 1, 1)[:, None]
         out = plain_attention(q, k, v, bias=bias).reshape(-1, p * p, c)
         out = window_reverse(self.linear(out), p, h, w)

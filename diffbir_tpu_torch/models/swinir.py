@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import plain_attention
+from ..utils.common import device_constant
 from .layers import LayerNormFp32, conv, dense, nearest_upsample_2x
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -76,14 +77,14 @@ def roll_hw(y: torch.Tensor, shift: int, band: Optional[Band] = None) -> torch.T
     return torch.roll(y, shift, dims=1) if band is None else band.roll(y, shift)
 
 
-def window_mask(h: int, w: int, window: int, shift: int,
-                band: Optional[Band] = None) -> np.ndarray:
+def window_mask(h: int, w: int, window: int, shift: int, band: Optional[Band] = None,
+                device: torch.device = torch.device("cpu")) -> torch.Tensor:
     """``shift_attn_mask`` of an h x w map, or of ``band``'s window rows of
-    the whole image's."""
+    the whole image's, on ``device`` (``device_constant``: kept there)."""
     if band is None:
-        return shift_attn_mask(h, w, window, shift)
+        return device_constant(shift_attn_mask, h, w, window, shift, device=device)
     per_row = w // window
-    mask = shift_attn_mask(band.image_h, w, window, shift)
+    mask = device_constant(shift_attn_mask, band.image_h, w, window, shift, device=device)
     return mask[band.row0 // window * per_row: (band.row0 + h) // window * per_row]
 
 
@@ -110,15 +111,15 @@ class WindowAttention(nn.Module):
         self.qkv = dense(dim, 3 * dim, dtype=dtype, device=device)
         self.proj = dense(dim, dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, window: int, mask: Optional[np.ndarray]) -> torch.Tensor:
-        """x: (B*nW, N, C) with N = window^2; mask: host (nW, N, N) or None."""
+    def forward(self, x: torch.Tensor, window: int, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """x: (B*nW, N, C) with N = window^2; mask: (nW, N, N) or None."""
         bnw, n, c = x.shape
         heads = self.num_heads
         q, k, v = (t.reshape(bnw, n, heads, -1) for t in self.qkv(x).chunk(3, dim=-1))
-        idx = torch.as_tensor(relative_position_index(window).reshape(-1), device=x.device)
+        idx = device_constant(relative_position_index, window, device=x.device).reshape(-1)
         bias = self.relative_position_bias_table[idx].reshape(n, n, heads).permute(2, 0, 1)[None]
         if mask is not None:
-            m = torch.as_tensor(mask, device=x.device)[:, None]  # (nW, 1, N, N)
+            m = mask[:, None]  # (nW, 1, N, N)
             bias = bias + m.repeat(bnw // mask.shape[0], 1, 1, 1)
         out = plain_attention(q, k, v, bias=bias)
         return self.proj(out.reshape(bnw, n, -1))
@@ -153,7 +154,7 @@ class SwinBlock(nn.Module):
         y = self.norm1(x).reshape(b, h, w, c)
         if shift > 0:
             y = roll_hw(y, -shift, band)
-        mask = window_mask(h, w, window, shift, band) if shift > 0 else None
+        mask = window_mask(h, w, window, shift, band, x.device) if shift > 0 else None
         y = window_reverse(self.attn(window_partition(y, window), window, mask), window, h, w)
         if shift > 0:
             y = roll_hw(y, shift, band)
@@ -243,7 +244,8 @@ class SwinIR(nn.Module):
         if ph or pw:
             mode = "reflect" if ph < h_in and pw < w_in else "replicate"
             x = F.pad(x, (0, pw, 0, ph), mode=mode)
-        mean = torch.tensor(RGB_MEAN, dtype=x.dtype, device=x.device).reshape(1, 3, 1, 1)
+        mean = device_constant(np.asarray, RGB_MEAN, device=x.device, dtype=x.dtype)
+        mean = mean.reshape(1, 3, 1, 1)
         x = (x - mean).to(self.dtype)
 
         feat = self.conv_first(x)

@@ -80,6 +80,7 @@ from .utils.cond_fn import RGBSpaceGuidance
 from .utils.common import (
     StageClock,
     bicubic_resize,
+    host_to_device,
     pad_to_multiples_of,
     resize_short_edge_to,
     wavelet_reconstruction,
@@ -190,7 +191,7 @@ class Pipeline:
         ValueError for any other text."""
         if self.tokenizer is not None:
             ids = torch.as_tensor(np.asarray(self.tokenizer([prompt])), dtype=torch.long)
-            return ids.repeat(bs, 1).to(self.device)
+            return host_to_device(ids.repeat(bs, 1), self.device)
         if prompt:
             raise ValueError(f"prompt text {prompt!r} needs a tokenizer: pass tokenizer= to "
                              "the pipeline, or empty prompts")
@@ -254,6 +255,7 @@ class Pipeline:
                 sampler_type in ("spaced", "ddim") or sampler_type.startswith("edm")):
             raise ValueError(f"restoration guidance is not supported with sampler "
                              f"{sampler_type!r}; use spaced, ddim, or an edm_* sampler")
+        own_clock = clock is None
         clock = clock or StageClock(None, self.device)
         cldm = self.cldm
         bs, h0, w0, _ = cond_img.shape
@@ -339,6 +341,8 @@ class Pipeline:
         x = cldm.vae_decode(z[:, :h1, :w1, :], tiled=vae_decoder_tiled,
                             tile_size=vae_decoder_tile_size // 8, tile_mode=tile_mode)
         clock.lap("decode")
+        if own_clock:
+            clock.finish()
         return x[:, :h0, :w0, :]
 
     @torch.no_grad()
@@ -371,7 +375,9 @@ class Pipeline:
         (``eta``, ``s_churn``, ``s_tmin``, ``s_tmax``, ``s_noise``,
         ``order``). ``timings``: when a dict is given, seconds per stage
         (cleaner, condition, hoist, denoise, decode, colour_fix) are added
-        to it, each stage ended by a device sync."""
+        to it: each stage's device time between the CUDA events of its
+        ``pipeline.<stage>`` span (``StageClock``), read after the copy of
+        the result to the host; no stage waits for the device."""
         clock = StageClock(timings, self.device)
         lq = np.asarray(lq)
         orig_hw = lq.shape[1:3]
@@ -379,7 +385,7 @@ class Pipeline:
             ph, pw = (-lq.shape[1]) % 64, (-lq.shape[2]) % 64
             if ph or pw:
                 lq = np.pad(lq, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
-        lq_t = torch.as_tensor(lq, device=self.device).float().div(255.0).clamp(0, 1)
+        lq_t = host_to_device(lq, self.device).float().div(255.0).clamp(0, 1)
         self.set_output_size(tuple(lq_t.shape[1:3]))
         cond_img = self.apply_cleaner(lq_t, cleaner_tiled, cleaner_tile_size, cleaner_tile_stride)
         if any(s < self.min_cond_size for s in cond_img.shape[1:3]):
@@ -403,12 +409,14 @@ class Pipeline:
             sample, cond_img = sample[:, :ch, :cw], cond_img[:, :ch, :cw]
         sample = wavelet_reconstruction((sample + 1) / 2, cond_img)
         sample = bicubic_resize(sample, self.output_size)
-        out = (sample * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        out = (sample * 255.0).clamp(0, 255).to(torch.uint8)
+        clock.lap("colour_fix")
+        out = out.cpu().numpy()
+        clock.finish()
         if size_bucket and tuple(orig_hw) != tuple(lq.shape[1:3]):
             oh = round(orig_hw[0] * self.output_size[0] / lq.shape[1])
             ow = round(orig_hw[1] * self.output_size[1] / lq.shape[2])
             out = out[:, :oh, :ow]
-        clock.lap("colour_fix")
         return out
 
 

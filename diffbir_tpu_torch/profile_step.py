@@ -42,7 +42,9 @@ the condition image through the VAE decoder, on its output). Prints
 - a ``torch.profiler`` view of 3 steps through the kernels: device time by
   kernel, device kernels and ``aten::copy_`` calls per step, the device time
   of each of the port's kernels that ran, and the device's busy share of the
-  profiled window.
+  profiled window; with ``--trace``, a Chrome trace of them that holds the
+  program's spans (``utils.spans``: the training step's phases, the
+  pipeline's stages, each model call) on the profiler's clock.
 
 Run from the repository root on a machine with a card:
 
@@ -73,6 +75,7 @@ from .inference.__main__ import DEFAULT_POS_PROMPT as POS_PROMPT
 from .pipeline import EOT, SOT, SwinIRPipeline
 from .schedule import Schedule
 from .train import stage2
+from .utils import spans
 
 LATENT, CFG, SEED = 64, 4.0, 0
 # the tiled request: a 1024x1024 condition, every tiling at the CLI's sizes
@@ -396,16 +399,19 @@ def profile_steps(step, n: int, trace: str | None) -> dict:
 
     step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
+        marks = spans.clock_marks() if trace else None
         torch.cuda.synchronize()
     if trace:
         prof.export_chrome_trace(trace)
+        write_spans(trace, prof, marks, t0)
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in events]
-    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    ranges = [(e.time_range.start, e.time_range.end) for e in events]
+    window = max(e for _, e in ranges) - min(s for s, _ in ranges)
     busy = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
     ours = {name: [e.time_range.elapsed_us() for e in kernels if symbol in e.name]
             for name, symbol in KERNELS.items()}
@@ -416,6 +422,25 @@ def profile_steps(step, n: int, trace: str | None) -> dict:
             "ms_per_step": {k: sum(v) / 1e3 / n for k, v in ours.items()},
             "launches_per_step": {k: len(v) / n for k, v in ours.items()},
             "copies_per_step": copies / n, "busy_share": busy / window}
+
+
+def write_spans(trace: str, prof, marks, t0_ns: int) -> None:
+    """Add the program's spans (``utils.spans``) opened since ``t0_ns`` to
+    the Chrome trace ``trace`` the profiler wrote, shifted onto its clock by
+    the offset measured in the same profile (``spans.profiler_offset_ns``),
+    so that each idle gap of the device lies under the span the host was
+    in."""
+    import json
+
+    offset, unc = spans.profiler_offset_ns(prof, marks)
+    with open(trace) as f:
+        doc = json.load(f)
+    made = [s for s in spans.snapshot() if s.start_ns >= t0_ns and s.end_ns is not None]
+    doc["traceEvents"] += spans.chrome_events(made, offset - doc.get("baseTimeNanoseconds", 0))
+    with open(trace, "w") as f:
+        json.dump(doc, f)
+    print(f"[profile] {len(made)} spans of the program written to {trace}: perf_counter_ns + "
+          f"{offset} ns onto the profiler's clock, +- {unc / 1e3:.1f} us")
 
 
 def main(argv=None) -> int:

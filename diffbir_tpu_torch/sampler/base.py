@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..schedule import cfg_scale_schedule
+from ..utils import spans
 
 # model_fn(x, t_model, cond) -> eps/v prediction; cond = {"c_txt", "c_img"}
 ModelFn = Callable[[torch.Tensor, float, Mapping[str, torch.Tensor]], torch.Tensor]
@@ -41,7 +42,8 @@ class GuidedModel:
     ``raw(x2, t)`` is one model call on the batch the model sees (2B rows
     under CFG: x twice, ``batch(x)``); ``combine`` folds such an output back
     to B rows, ``o_uncond + cfg (o_cond - o_uncond)``; ``__call__`` is
-    both."""
+    both. Each model call is one ``model.call`` span (``utils.spans``: the
+    host's enqueue and, on a CUDA device, the stream's time)."""
 
     def __init__(self, model_fn: ModelFn, cond: Mapping[str, torch.Tensor],
                  uncond: Optional[Mapping[str, torch.Tensor]]):
@@ -54,7 +56,8 @@ class GuidedModel:
         return torch.cat([x, x], dim=0) if self.use_cfg else x
 
     def raw(self, x2: torch.Tensor, t: float) -> torch.Tensor:
-        return self.model_fn(x2, t, self.cond)
+        with spans.span("model.call", x2.device):
+            return self.model_fn(x2, t, self.cond)
 
     def combine(self, out: torch.Tensor, cfg_scale: float) -> torch.Tensor:
         if not self.use_cfg:

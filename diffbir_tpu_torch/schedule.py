@@ -12,6 +12,8 @@ which gather fp32 tables by timestep as the JAX ones do.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Dict
 
 import numpy as np
 import torch
@@ -80,17 +82,24 @@ class Schedule:
     def num_timesteps(self) -> int:
         return len(self.betas)
 
-    def _gather(self, table: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
-        """The fp32 table's rows at integer timesteps t [B], shaped to
-        broadcast against a rank-``ndim`` batch."""
-        tab = torch.as_tensor(table, dtype=torch.float32, device=t.device)
-        out = tab[t.long()]
-        return out.reshape(out.shape + (1,) * (ndim - out.dim()))
+    @functools.cached_property
+    def _on_device(self) -> Dict[torch.device, torch.Tensor]:
+        """sqrt(alpha_bar) and sqrt(1 - alpha_bar), fp32 [2, T], per device:
+        copied at their first use there and kept."""
+        return {}
 
     def _coeffs(self, t: torch.Tensor, ndim: int):
-        ac = np.cumprod(1.0 - self.betas, axis=0)
-        return (self._gather(np.sqrt(ac), t, ndim),
-                self._gather(np.sqrt(1.0 - ac), t, ndim))
+        """sqrt(alpha_bar_t) and sqrt(1 - alpha_bar_t) at integer timesteps t
+        [B], each shaped to broadcast against a rank-``ndim`` batch."""
+        tab = self._on_device.get(t.device)
+        if tab is None:
+            ac = np.cumprod(1.0 - self.betas, axis=0)
+            tab = torch.as_tensor(np.stack([np.sqrt(ac), np.sqrt(1.0 - ac)]),
+                                  dtype=torch.float32).to(t.device)
+            self._on_device[t.device] = tab
+        out = tab[:, t.long()]
+        shape = out.shape[1:] + (1,) * (ndim - out.dim() + 1)
+        return out[0].reshape(shape), out[1].reshape(shape)
 
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
                  noise: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,11 @@ Counterpart of the JAX repository's ``serve.py``:
   back to its own size;
 - one dispatcher thread runs the batches back to back on the card; an error
   reaches every request of its batch; ``stop`` ends it;
+- spans (``utils.spans``): ``server.queue`` per request (its ``put`` until
+  the collector takes it into a batch), ``server.collect`` per batch (the
+  first request taken until the batch closes; ``waited_ms`` past the last
+  member's arrival) and ``server.run`` (the pipeline call, parent of its
+  stage and model-call spans), each with the batch's request ids;
 - ``POST /restore`` {"image": <base64 PNG>, "task", "steps", "cfg_scale",
   "pos_prompt", "neg_prompt", "seed", "sampler"} -> {"image": <base64
   PNG>}; ``GET /healthz`` -> {"ok": true, "queue": N}.
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import itertools
 import json
 import queue
 import threading
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from .inference.__main__ import build_parser as cli_parser
+from .utils import spans
 from .utils.common import pil_bicubic_resize
 from .utils.image_io import decode_png, encode_png, to_rgb
 
@@ -52,15 +59,17 @@ MAX_SIZE = 2048  # the demo's output cap (run_gradio.MAX_SIZE)
 
 
 class _Request:
-    __slots__ = ("image", "key", "seed", "event", "result", "error")
+    __slots__ = ("image", "key", "seed", "event", "result", "error", "id", "t_put")
 
-    def __init__(self, image: np.ndarray, key: tuple, seed: int):
+    def __init__(self, image: np.ndarray, key: tuple, seed: int, rid: int):
         self.image = image          # uint8 HWC, upscaled and padded to the bucket
         self.key = key              # the batchable parameters
         self.seed = seed
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.id = rid               # the request's id in its spans
+        self.t_put = 0              # perf_counter_ns of its first put
 
 
 class BatchingServer:
@@ -73,6 +82,7 @@ class BatchingServer:
         self.size_bucket = size_bucket
         self.max_size = max_size
         self.q: "queue.Queue[_Request]" = queue.Queue()
+        self._ids = itertools.count()
         self._thread = threading.Thread(target=self._dispatch, daemon=True)
         self._thread.start()
 
@@ -91,7 +101,8 @@ class BatchingServer:
             image = np.pad(image, ((0, ph), (0, pw), (0, 0)), mode="edge")
         key = (str(task), image.shape[0], image.shape[1], int(steps), float(cfg_scale),
                str(pos), str(neg), str(sampler), int(seed))
-        req = _Request(image, key, int(seed))
+        req = _Request(image, key, int(seed), next(self._ids))
+        req.t_put = time.perf_counter_ns()
         self.q.put(req)
         req.event.wait()
         if req.error is not None:
@@ -111,6 +122,8 @@ class BatchingServer:
         first = self.q.get()
         if first is None:
             return None
+        t_first = time.perf_counter_ns()
+        spans.record("server.queue", first.t_put, t_first, requests=(first.id,))
         group, leftover = [first], []
         deadline = time.time() + self.max_wait
         while len(group) < self.batch:
@@ -124,9 +137,16 @@ class BatchingServer:
             if r is None:  # stop: after this group
                 leftover.append(r)
                 break
-            (group if r.key == first.key else leftover).append(r)
+            if r.key == first.key:
+                group.append(r)
+                spans.record("server.queue", r.t_put, time.perf_counter_ns(), requests=(r.id,))
+            else:
+                leftover.append(r)
         for r in leftover:
             self.q.put(r)
+        t_close = time.perf_counter_ns()
+        spans.record("server.collect", t_first, t_close, requests=[r.id for r in group],
+                     waited_ms=(t_close - max(r.t_put for r in group)) / 1e6)
         return group
 
     def _dispatch(self):
@@ -136,10 +156,11 @@ class BatchingServer:
                 return
             try:
                 task, _, _, steps, cfg, pos, neg, sampler, _ = group[0].key
-                out = self.pipelines[task].run(
-                    np.stack([r.image for r in group]), steps=steps, cfg_scale=cfg,
-                    pos_prompt=pos, neg_prompt=neg, sampler_type=sampler, seed=group[0].seed,
-                    size_bucket=self.size_bucket)
+                with spans.span("server.run", requests=[r.id for r in group]):
+                    out = self.pipelines[task].run(
+                        np.stack([r.image for r in group]), steps=steps, cfg_scale=cfg,
+                        pos_prompt=pos, neg_prompt=neg, sampler_type=sampler,
+                        seed=group[0].seed, size_bucket=self.size_bucket)
                 for i, r in enumerate(group):
                     r.result = out[i]
             except Exception as e:  # noqa: BLE001 - every waiter gets the error

@@ -21,13 +21,17 @@ processes, checkpoints and resume, the data iterator, tensorboard.
   "unavailable, python fallback" line and the Python path), through
   ``PrefetchIterator``: the transform in its worker thread, the batch staged
   on the device.
+- Timing (``utils.spans``): each step's ``train.step`` (``make_train_step``),
+  its wait on the data (``train.data_wait``, ``next_batch``) and the loop's
+  checkpoint saves (``train.save``): the trainer keeps these spans itself,
+  whether or not the recorder is on, and its ``step_seconds``,
+  ``wait_seconds`` and ``save_seconds`` read them.
 """
 
 from __future__ import annotations
 
 import os
 import re
-import time
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -41,6 +45,7 @@ from ..parallel.distributed import (
     sync_processes,
 )
 from ..parallel.mesh import DataParallel, broadcast_, data_size
+from ..utils import spans
 from .optim import MasterAdamW
 
 KEEP_CHECKPOINTS = 3
@@ -91,13 +96,12 @@ class TrainerBase:
         self.step = 0
         self.last_saved: Optional[int] = None
         self.optimizer: Optional[MasterAdamW] = None
-        # host seconds per step: waiting on the data, the whole step without
-        # its checkpoint (it ends in a device sync where the step logs: the
-        # loss is read), and the checkpoints' saves
-        self.wait_seconds: List[float] = []
-        self.step_seconds: List[float] = []
-        self.save_seconds: List[float] = []
         self.losses: List[float] = []
+        # the trainer's own spans, one a step: train.step, train.data_wait;
+        # and one a checkpoint: train.save
+        self.step_spans: List[spans.Span] = []
+        self.wait_spans: List[spans.Span] = []
+        self.save_spans: List[spans.Span] = []
 
     def log(self, msg: str) -> None:
         if self.main:
@@ -181,11 +185,27 @@ class TrainerBase:
         return PrefetchIterator(src, transform=transform, device_put=to_device(self.device))
 
     def next_batch(self, it) -> Dict:
-        """``next(it)``, its wait recorded."""
-        t0 = time.perf_counter()
-        batch = next(it)
-        self.wait_seconds.append(time.perf_counter() - t0)
-        return batch
+        """``next(it)``, its wait a ``train.data_wait`` span."""
+        with spans.span("train.data_wait", into=self.wait_spans):
+            return next(it)
 
     def run(self) -> "TrainerBase":  # pragma: no cover - overridden
         raise NotImplementedError
+
+    @property
+    def step_seconds(self) -> List[float]:
+        """Seconds of each step (its ``train.step``): on a CUDA device the
+        stream's, between events recorded before the step's first launch and
+        after its last (waiting for a step that has not completed yet), else
+        the host's; without the data wait, the logging and the saves."""
+        return [s.seconds()[0] for s in self.step_spans]
+
+    @property
+    def wait_seconds(self) -> List[float]:
+        """Host seconds each step waited on ``next(it)`` (``train.data_wait``)."""
+        return [s.host_ms / 1e3 for s in self.wait_spans]
+
+    @property
+    def save_seconds(self) -> List[float]:
+        """Host seconds of each of the loop's checkpoint saves (``train.save``)."""
+        return [s.host_ms / 1e3 for s in self.save_spans]

@@ -19,11 +19,12 @@ as JAX's ``jnp.sum`` over the batch sharded across its mesh is.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
 from ..parallel.mesh import DataParallel
+from ..utils import spans
 from ..utils.common import psnr
 from .optim import MasterAdamW
 
@@ -46,17 +47,25 @@ def init_train_state(model: torch.nn.Module, learning_rate: float = 1e-4,
     return make_optimizer(model, learning_rate, weight_decay, parallel)
 
 
-def make_train_step(model: torch.nn.Module, optimizer: MasterAdamW):
+def make_train_step(model: torch.nn.Module, optimizer: MasterAdamW,
+                    step_spans: Optional[List[spans.Span]] = None):
     """Returns train_step(batch) -> {"loss"} (a 0-dim fp32 tensor on the
     device, not synchronised). batch: {"gt": [0, 1] NHWC, "lq": [0, 1]
-    NHWC} on the model's device."""
+    NHWC} on the model's device. The spans and ``step_spans`` are stage
+    2's (``train.step`` over ``train.forward``, ``train.backward``,
+    ``train.optimizer``)."""
 
     def train_step(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        pred = model(batch["lq"])
-        loss = torch.sum((pred.float() - batch["gt"].float()) ** 2)
-        loss.backward()
-        optimizer.step(optimizer.gradients())
-        return {"loss": optimizer.reduce_metric(loss.detach())}
+        dev = batch["lq"].device
+        with spans.span("train.step", dev, into=step_spans):
+            with spans.span("train.forward", dev):
+                pred = model(batch["lq"])
+                loss = torch.sum((pred.float() - batch["gt"].float()) ** 2)
+            with spans.span("train.backward", dev):
+                loss.backward()
+            with spans.span("train.optimizer", dev):
+                optimizer.step(optimizer.gradients())
+            return {"loss": optimizer.reduce_metric(loss.detach())}
 
     return train_step
 

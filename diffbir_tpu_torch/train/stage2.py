@@ -33,7 +33,7 @@ tensor-parallel forwards under ``no_grad``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Mapping, Optional
+from typing import Callable, Dict, Iterable, List, Mapping, Optional
 
 import torch
 
@@ -41,6 +41,7 @@ from ..models.cldm import ControlLDM
 from ..parallel.mesh import DataParallel
 from ..parallel.tp import tp_shard_
 from ..schedule import Schedule
+from ..utils import spans
 from .optim import MasterAdamW
 
 Cleaner = Callable[[torch.Tensor], torch.Tensor]
@@ -118,20 +119,31 @@ def make_loss_fn(cldm: ControlLDM, schedule: Schedule, cleaner: Optional[Cleaner
 
 
 def make_train_step(cldm: ControlLDM, schedule: Schedule, optimizer: MasterAdamW,
-                    cleaner: Optional[Cleaner] = None, noise_aug_timestep: int = 0):
+                    cleaner: Optional[Cleaner] = None, noise_aug_timestep: int = 0,
+                    step_spans: Optional[List[spans.Span]] = None):
     """Returns train_step(batch, generator=None, draws=None) -> {"loss",
     "grad_norm"} (0-dim fp32 tensors on the device, not synchronised); see
     ``make_loss_fn`` for batch and draws. ``optimizer`` comes from
-    ``init_train_state``."""
+    ``init_train_state``. A step is a ``train.step`` span with the children
+    ``train.forward`` (the loss), ``train.backward`` and ``train.optimizer``
+    (the gradients' reduction and norm, the AdamW step), each with the
+    device's time on a CUDA device (``utils.spans``). ``step_spans``: a list
+    that gets each step's ``train.step``, opened then whether or not the
+    recorder is on (the trainer's own timing)."""
     loss_fn = make_loss_fn(cldm, schedule, cleaner, noise_aug_timestep)
 
     def train_step(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                    draws: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        loss = loss_fn(batch, generator, draws)
-        loss.backward()
-        grads = optimizer.gradients()
-        gnorm = optimizer.grad_norm(grads)
-        optimizer.step(grads)
-        return {"loss": optimizer.reduce_metric(loss.detach()), "grad_norm": gnorm}
+        dev = batch["gt"].device
+        with spans.span("train.step", dev, into=step_spans):
+            with spans.span("train.forward", dev):
+                loss = loss_fn(batch, generator, draws)
+            with spans.span("train.backward", dev):
+                loss.backward()
+            with spans.span("train.optimizer", dev):
+                grads = optimizer.gradients()
+                gnorm = optimizer.grad_norm(grads)
+                optimizer.step(grads)
+            return {"loss": optimizer.reduce_metric(loss.detach()), "grad_norm": gnorm}
 
     return train_step

@@ -44,6 +44,7 @@ from . import config as cfglib
 from .models.layers import random_init_
 from .train import stage1
 from .train.loop import DEFAULT_SEED, TrainerBase, run_trainer, tensorboard
+from .utils import spans
 
 VAL_BATCHES = 8
 
@@ -68,7 +69,8 @@ class Stage1Trainer(TrainerBase):
         self.replicate_(self.model)
         self.optimizer = stage1.init_train_state(self.model, float(self.tcfg["learning_rate"]),
                                                  parallel=self.parallel)
-        self.train_step = stage1.make_train_step(self.model, self.optimizer)
+        self.train_step = stage1.make_train_step(self.model, self.optimizer,
+                                                 step_spans=self.step_spans)
         self.val_step = stage1.make_val_step(self.model, self.parallel)
         self.val_psnr: List[float] = []
         self.maybe_resume()
@@ -105,7 +107,6 @@ class Stage1Trainer(TrainerBase):
         try:
             t0 = time.perf_counter()
             while self.step < int(tcfg["train_steps"]):
-                t_step = time.perf_counter()
                 batch = self.next_batch(it)
                 metrics = self.train_step(batch)
                 self.step += 1
@@ -117,7 +118,6 @@ class Stage1Trainer(TrainerBase):
                     self.log(f"step {self.step}: loss={loss:.1f} images/s={ips:.1f}")
                     if writer:
                         writer.add_scalar("train/loss", loss, self.step)
-                self.step_seconds.append(time.perf_counter() - t_step)
                 if has_val and self.step % int(tcfg["val_every"]) == 0:
                     vpsnr, n = self.validate()
                     self.val_psnr.append(vpsnr)
@@ -125,9 +125,8 @@ class Stage1Trainer(TrainerBase):
                     if writer:
                         writer.add_scalar("val/psnr", vpsnr, self.step)
                 if self.step % int(tcfg["ckpt_every"]) == 0:
-                    t_save = time.perf_counter()
-                    self.save()
-                    self.save_seconds.append(time.perf_counter() - t_save)
+                    with spans.span("train.save", into=self.save_spans):
+                        self.save()
                     self.log(f"saved checkpoint @ {self.step}")
         finally:
             it.close()

@@ -62,6 +62,7 @@ from .schedule import Schedule
 from .train import stage2
 from .parallel.distributed import process_seed
 from .train.loop import DEFAULT_SEED, TrainerBase, run_trainer, tensorboard
+from .utils import spans
 from .weights.convert import load_into, load_stable_diffusion, load_torch_state_dict
 
 PREVIEW_STEPS = 50
@@ -96,7 +97,8 @@ class Stage2Trainer(TrainerBase):
                                                  self.parallel)
         self.train_step = stage2.make_train_step(
             self.cldm, self.schedule, self.optimizer, self.cleaner,
-            noise_aug_timestep=int(self.tcfg.get("noise_aug_timestep", 0)))
+            noise_aug_timestep=int(self.tcfg.get("noise_aug_timestep", 0)),
+            step_spans=self.step_spans)
         self.maybe_resume()
 
     def _build_models(self, cldm_factory) -> None:
@@ -166,7 +168,6 @@ class Stage2Trainer(TrainerBase):
         try:
             t0 = time.perf_counter()
             while self.step < int(tcfg["train_steps"]):
-                t_step = time.perf_counter()
                 batch = self.next_batch(it)
                 dev_batch = {"gt": batch["gt"], "lq": batch["lq"], "tokens": self.tokens(batch)}
                 metrics = self.train_step(dev_batch, gen)
@@ -190,12 +191,10 @@ class Stage2Trainer(TrainerBase):
                                       grid.permute(0, 3, 1, 2).cpu().numpy(), self.step)
                     writer.add_images("train/lq", lq.permute(0, 3, 1, 2).float().cpu().numpy(),
                                       self.step)
-                self.step_seconds.append(time.perf_counter() - t_step)
                 if self.step % int(tcfg["ckpt_every"]) == 0:
-                    t_save = time.perf_counter()
-                    self.save()
-                    self.save_deployable()
-                    self.save_seconds.append(time.perf_counter() - t_save)
+                    with spans.span("train.save", into=self.save_spans):
+                        self.save()
+                        self.save_deployable()
                     self.log(f"saved checkpoints @ {self.step}")
         finally:
             it.close()

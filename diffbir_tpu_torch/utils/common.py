@@ -16,23 +16,44 @@ package's image metrics (the turbo drift readings use them).
 from __future__ import annotations
 
 import functools
-import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-_WAVELET_KERNEL = np.array(
-    [[0.0625, 0.125, 0.0625], [0.125, 0.25, 0.125], [0.0625, 0.125, 0.0625]],
-    np.float32,
-)
+from . import spans
+
+_WAVELET_KERNEL = ((0.0625, 0.125, 0.0625), (0.125, 0.25, 0.125), (0.0625, 0.125, 0.0625))
+
+
+def host_to_device(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype=dtype, device=device)`` for a request's
+    data without waiting for the device: on a CUDA device the host array is
+    staged in pinned memory and copied without blocking (a pageable copy
+    syncs the stream, which stalls the host until the device has caught
+    up), ordered after the stream's earlier work; the pinned block is held
+    until the copy ends. Constants take ``device_constant``."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=32)
+def device_constant(make: Callable[..., np.ndarray], *args, device: torch.device,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``make(*args)``, a constant of the host, as a tensor on ``device``:
+    built and copied at its first use and then kept, so that later calls
+    neither copy nor wait. Shared: read it, never write to it."""
+    return torch.as_tensor(make(*args), dtype=dtype).to(device)
 
 
 def wavelet_blur(image: torch.Tensor, radius: int) -> torch.Tensor:
     """Depthwise 3x3 blur dilated by ``radius`` with replicate padding."""
     c = image.shape[-1]
-    kernel = torch.as_tensor(_WAVELET_KERNEL, dtype=image.dtype, device=image.device)
+    kernel = device_constant(np.asarray, _WAVELET_KERNEL, device=image.device,
+                             dtype=image.dtype)
     kernel = kernel[None, None].repeat(c, 1, 1, 1)  # [C, 1, 3, 3]
     x = F.pad(image.permute(0, 3, 1, 2), (radius,) * 4, mode="replicate")
     return F.conv2d(x, kernel, dilation=radius, groups=c).permute(0, 2, 3, 1)
@@ -83,8 +104,8 @@ def bicubic_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     oh, ow = out_hw
     if (h, w) == (oh, ow):
         return x
-    wh = torch.as_tensor(cubic_weight_matrix(h, oh), dtype=x.dtype, device=x.device)
-    ww = torch.as_tensor(cubic_weight_matrix(w, ow), dtype=x.dtype, device=x.device)
+    wh = device_constant(cubic_weight_matrix, h, oh, device=x.device, dtype=x.dtype)
+    ww = device_constant(cubic_weight_matrix, w, ow, device=x.device, dtype=x.dtype)
     x = torch.einsum("oh,bhwc->bowc", wh, x)
     return torch.einsum("pw,bowc->bopc", ww, x)
 
@@ -239,18 +260,38 @@ def psnr(a: torch.Tensor, b: torch.Tensor, crop_border: int = 0,
 
 
 class StageClock:
-    """Seconds per stage of a request, each stage ended by a device sync; a
-    no-op when no dict is given."""
+    """The stages of one call as spans (``utils.spans``): each ``lap(stage)``
+    ends a ``<prefix>.<stage>`` span, begun at the clock's start or at the
+    lap before, with the device's time between two CUDA events on a CUDA
+    device; nothing waits for the device. With a dict ``out``, ``finish()``,
+    called once the call's result is on the host (a copy that waited for the
+    device), adds each stage's seconds to it: the device's on a CUDA device
+    (its last event waited for, where the caller's copy has not), else the
+    host's. Without ``out`` and with the recorder off, a no-op."""
 
-    def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
-        self.out, self.device = out, device
-        self.t = time.perf_counter()
+    def __init__(self, out: Optional[Dict[str, float]], device: torch.device,
+                 prefix: str = "pipeline"):
+        self.out, self.device, self.prefix = out, device, prefix
+        self.laps = []
+        self.cur = self._open()
+
+    def _open(self):
+        if self.out is None and not spans.enabled():
+            return None
+        return spans.open_span(None, self.device, push=False)
 
     def lap(self, stage: str) -> None:
-        if self.out is None:
+        if self.cur is None:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[stage] = self.out.get(stage, 0.0) + now - self.t
-        self.t = now
+        self.laps.append((stage, spans.close_span(self.cur, f"{self.prefix}.{stage}")))
+        self.cur = self._open()
+
+    def finish(self) -> None:
+        """Drop the span the last lap began; fill ``out``."""
+        if self.cur is not None:
+            spans.cancel(self.cur)
+            self.cur = None
+        if self.out is not None:
+            for stage, sp in self.laps:
+                self.out[stage] = self.out.get(stage, 0.0) + sp.seconds()[0]
+        self.laps = []

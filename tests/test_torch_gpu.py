@@ -1200,3 +1200,91 @@ def test_small_llava_captioner_matches_cpu(cuda):
         top2 = ref.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > limit
         assert torch.equal(tokens[0].cpu()[clear], ref_tokens[0][clear])
+
+
+def _runtime_records(prof):
+    """The profiler's CUDA runtime calls (host side), oldest first."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CPU and e.name.startswith("cuda")),
+                  key=lambda e: e.time_range.start)
+
+
+def _callers(e) -> str:
+    names, p = [], e.cpu_parent
+    while p is not None:
+        names.append(p.name)
+        p = p.cpu_parent
+    return f"{e.name} under {' < '.join(names) or 'no operator'}"
+
+
+def test_a_span_lies_on_the_profilers_timeline(cuda, monkeypatch):
+    """A span around a sleep kernel's launch, shifted by the measured offset
+    (``spans.profiler_offset_ns``), holds the launch's runtime record within
+    the offset's uncertainty; its device time holds the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffbir_tpu_torch.utils import spans
+
+    monkeypatch.setattr(spans, "_enabled", True)
+    torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with spans.span("test.sleep", cuda) as sp:
+            torch.cuda._sleep(2_000_000)
+        marks = spans.clock_marks()
+        torch.cuda.synchronize()
+    offset, unc = spans.profiler_offset_ns(prof, marks)
+    events = prof.profiler.kineto_results.events()
+    kernel = min((e for e in events if spans.MARK_KERNEL in e.name()
+                  and e.device_type().name == "CUDA"), key=lambda e: e.start_ns())
+    launch = next(e for e in events if e.device_type().name == "CPU" and "Launch" in e.name()
+                  and e.correlation_id() == kernel.correlation_id())
+    print(f"offset {offset} ns +- {unc} ns; launch {launch.start_ns()}-{launch.end_ns()}, span "
+          f"{sp.start_ns + offset}-{sp.end_ns + offset}; device {sp.seconds()[0] * 1e3:.4f} ms, "
+          f"kernel {(kernel.end_ns() - kernel.start_ns()) / 1e6:.4f} ms")
+    assert unc < 200_000
+    assert sp.start_ns + offset - unc <= launch.start_ns() <= launch.end_ns() <= (
+        sp.end_ns + offset + unc)
+    assert sp.seconds()[1] == "device"
+    assert sp.device_ms >= 0.9 * (kernel.end_ns() - kernel.start_ns()) / 1e6
+
+
+def test_pipeline_timings_wait_only_at_the_final_copy(cuda):
+    """``Pipeline.run(timings=)`` of the served pipeline (SwinIR cleaner,
+    shifted windows) on the card issues no device or stream sync before the
+    copy of its result to the host (the profiler's runtime records), and its
+    stages' device times add up to at most the call."""
+    import time
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffbir_tpu_torch.models.layers import random_init_
+    from diffbir_tpu_torch.models.swinir import SwinIR
+    from diffbir_tpu_torch.pipeline import SwinIRPipeline
+    from diffbir_tpu_torch.profile_step import stand_in_tokenizer
+    from diffbir_tpu_torch.schedule import Schedule
+
+    _, model = _small_fp32_pair(cuda)
+    swinir = SwinIR(embed_dim=16, depths=[2], num_heads=[2], window_size=4, mlp_ratio=2)
+    swinir = random_init_(swinir, torch.Generator().manual_seed(2)).to(cuda).eval()
+    pipe = SwinIRPipeline(swinir, model, Schedule.v21(), cuda, min_cond_size=64,
+                          tokenizer=stand_in_tokenizer())
+    lq = np.random.default_rng(5).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    kw = dict(steps=3, cfg_scale=4.0, pos_prompt="a photo", sampler_type="edm_dpm++_3m_sde")
+    pipe.run(lq, **kw)
+    torch.cuda.synchronize()
+    timings = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.run(lq, timings=timings, **kw)
+        wall = time.perf_counter() - t0
+    runtime = _runtime_records(prof)
+    last_copy = max(e.time_range.start for e in runtime if e.name.startswith("cudaMemcpy"))
+    syncs = [e for e in runtime if e.name in ("cudaDeviceSynchronize", "cudaStreamSynchronize")
+             and e.time_range.start < last_copy]
+    assert not syncs, "; ".join(_callers(e) for e in syncs)
+    assert list(timings) == ["cleaner", "condition", "hoist", "denoise", "decode", "colour_fix"]
+    assert all(v > 0 for v in timings.values()) and sum(timings.values()) <= wall

@@ -15,11 +15,16 @@ tensors zero), the frozen models unchanged; the preview; ``resume: 0``
 training from step 0, as JAX's truthy test does; ``fsdp`` and
 ``native_loader``, once refused, now training; and the refusals (an
 incomplete multi-process environment, a ``.parquet`` list, a missing
-checkpoint to resume). Several processes: ``test_torch_parallel.py``.
+checkpoint to resume); the trainer's own spans (``utils.spans``: each
+step's ``train.data_wait`` and ``train.step``, each checkpoint's
+``train.save``, the step's phases under its ``train.step``), which its
+``step_seconds``, ``wait_seconds`` and ``save_seconds`` read, with the
+recorder on and off. Several processes: ``test_torch_parallel.py``.
 """
 
 import os
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -30,6 +35,7 @@ from diffbir_tpu_torch.models import tokenizer
 from diffbir_tpu_torch.models.cldm import ControlLDM
 from diffbir_tpu_torch.models.layers import random_init_
 from diffbir_tpu_torch.models.swinir import SwinIR
+from diffbir_tpu_torch.utils import spans
 from diffbir_tpu_torch.utils.image_io import write_png
 from diffbir_tpu_torch.weights.convert import SD_MODULE_MAP
 
@@ -185,6 +191,33 @@ def test_logs_and_checkpoints(trained, files, capsys):
             assert torch.equal(getattr(trainer.cldm, name).state_dict()[k], v), (name, k)
     assert not torch.equal(trainer.cldm.controlnet.state_dict()["time_embed.0.weight"],
                            src.unet.state_dict()["time_embed.0.weight"])
+
+
+def test_trainer_spans(trained):
+    _, trainer = trained
+    own = sorted(trainer.wait_spans + trainer.step_spans + trainer.save_spans,
+                 key=lambda s: s.start_ns)
+    assert [s.name for s in own] == ["train.data_wait", "train.step", "train.save"] * 4
+    assert all(a.end_ns <= b.start_ns for a, b in zip(own, own[1:]))
+    ring = spans.snapshot()
+    for step in trainer.step_spans:
+        assert step in ring
+        phases = [s for s in ring if s.parent == step.id]
+        assert [s.name for s in phases] == ["train.forward", "train.backward",
+                                            "train.optimizer"]
+        assert all(step.start_ns <= s.start_ns <= s.end_ns <= step.end_ns for s in phases)
+        assert sum(s.host_ms for s in phases) <= step.host_ms
+    assert trainer.step_seconds == [s.host_ms / 1e3 for s in trainer.step_spans]
+    assert trainer.save_seconds == [s.host_ms / 1e3 for s in trainer.save_spans]
+
+
+def test_trainer_times_with_the_recorder_off(files, env, tmp_path, monkeypatch):
+    monkeypatch.setattr(spans, "_enabled", False)
+    t0 = time.perf_counter_ns()
+    trainer = run(write_config(files, tmp_path / "exp", steps=2, ckpt_every=2))
+    assert len(trainer.step_seconds) == len(trainer.wait_seconds) == 2
+    assert len(trainer.save_seconds) == 1 and all(v > 0 for v in trainer.step_seconds)
+    assert [s for s in spans.snapshot() if s.start_ns >= t0] == []
 
 
 def test_controlnet_init_from_unet(files, tmp_path, env):
