@@ -5550,7 +5550,8 @@ def parallel_worker(rank: int, port: int) -> None:
     launch_fwd = fa.launch_fwd
 
     def recording_launch(kernel, q, k, v, with_lse=False):
-        shapes.update([(tuple(q.shape), tuple(k.shape))])
+        if not torch.cuda.is_current_stream_capturing():   # a graph's capture runs nothing
+            shapes.update([(tuple(q.shape), tuple(k.shape))])
         return launch_fwd(kernel, q, k, v, with_lse)
 
     fa.launch_fwd = recording_launch

@@ -42,7 +42,7 @@ count and the cache) lives in the object; a request makes a fresh one.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -96,6 +96,10 @@ class ControlLDM(nn.Module):
         self.clip = clip
         self.controlnet = controlnet
         self.scale_factor = scale_factor
+        # bumped by every method that replaces the denoisers' modules or
+        # parameters or changes how they run (a CUDA graph of the denoiser
+        # call holds what it was captured on: ``models.denoiser_graph``)
+        self.version = 0
 
     @classmethod
     def sd21(cls, dtype: torch.dtype = torch.bfloat16, use_checkpoint: bool = False,
@@ -151,6 +155,7 @@ class ControlLDM(nn.Module):
         ControlNet attention site."""
         if layout not in ("folded", "packed"):
             raise ValueError(f"unknown flash layout {layout!r}")
+        self.version += 1
         for m in self._denoisers():
             if isinstance(m, CrossAttention):
                 m.flash_layout = layout
@@ -160,6 +165,7 @@ class ControlLDM(nn.Module):
         without touching a weight (the same tensors serve both). The FFN
         stays unfused where its dense sites are int8, as in JAX; int8 conv
         weights need the fused ResBlock."""
+        self.version += 1
         for m in self._denoisers():
             if isinstance(m, ResBlock):
                 if m.quant_conv and not resblock:
@@ -206,6 +212,7 @@ class ControlLDM(nn.Module):
         attention site of the model."""
         if impl not in ("auto", "plain"):
             raise ValueError(f"unknown attention impl {impl!r}")
+        self.version += 1
         for m in self.modules():
             if hasattr(m, "attn_impl"):
                 m.attn_impl = impl
@@ -258,20 +265,28 @@ class ControlLDM(nn.Module):
 
     @torch.no_grad()
     def hoist_emb_tables(self, ts_asc: Sequence[float], batch: int
-                         ) -> Dict[nn.Module, torch.Tensor]:
+                         ) -> Tuple[torch.Tensor, Dict[nn.Module, torch.Tensor]]:
         """Every ResBlock's ``emb_layers(embed(t))`` for all the model
-        timesteps ``ts_asc`` at once: {ResBlock: [T, batch, Cout]}, each row
-        repeated over the call batch once here, so that no step copies a
-        broadcast row (K6 reads ``e`` as [B, Cout])."""
-        out = {}
+        timesteps ``ts_asc`` at once: (packed [T, batch x sum Cout],
+        {ResBlock: [T, batch, Cout]}), each row repeated over the call batch
+        once here, so that no step copies a broadcast row (K6 reads ``e`` as
+        [B, Cout]). The tables are views of ``packed``: a step's rows of
+        every ResBlock lie side by side in its row of ``packed``, each
+        block's [batch, Cout] contiguous, in module order."""
+        rows = []
         for root in (self.unet, self.controlnet):
             device = root.time_embed[0].weight.device
             emb = root.embed(host_to_device(np.asarray(ts_asc, np.float32), device))
-            for m in root.modules():
-                if isinstance(m, ResBlock):
-                    e = m.emb_layers(emb)
-                    out[m] = e[:, None, :].expand(-1, batch, -1).contiguous()
-        return out
+            rows += [(m, m.emb_layers(emb)) for m in root.modules() if isinstance(m, ResBlock)]
+        t = len(ts_asc)
+        packed = torch.cat([e[:, None, :].expand(-1, batch, -1).reshape(t, -1) for _, e in rows],
+                           dim=1)
+        out, at = {}, 0
+        for m, e in rows:
+            width = batch * e.shape[1]
+            out[m] = packed[:, at: at + width].view(t, batch, e.shape[1])
+            at += width
+        return packed, out
 
     def make_hoist_tables(self, ctx_full: torch.Tensor,
                           model_ts: Optional[Sequence[float]] = None) -> "HoistTables":
@@ -282,8 +297,8 @@ class ControlLDM(nn.Module):
         if model_ts is None:
             return HoistTables(kv, None, ())
         ts_asc = np.unique(np.asarray(model_ts, np.float32))
-        return HoistTables(kv, self.hoist_emb_tables(ts_asc, ctx_full.shape[0]),
-                           tuple(float(t) for t in ts_asc))
+        packed, emb = self.hoist_emb_tables(ts_asc, ctx_full.shape[0])
+        return HoistTables(kv, emb, tuple(float(t) for t in ts_asc), packed)
 
     def vae_encode(self, image: torch.Tensor, sample: bool = True,
                    generator: Optional[torch.Generator] = None,
@@ -455,24 +470,35 @@ class CachedControlModel:
 class HoistTables:
     """A request's hoisted invariants (``ControlLDM.make_hoist_tables``):
     ``kv`` {attn2: [B, 77, 2 inner]}, ``emb`` {ResBlock: [T, B, Cout]} or
-    None, ``ts`` the T model timesteps in ascending order. ``lookup(t)``
-    gives a step's ``hoisted`` mapping by the host value of its model
-    timestep (no search on the device, nothing read back)."""
+    None (views of ``packed`` [T, B x sum Cout], see ``hoist_emb_tables``),
+    ``ts`` the T model timesteps in ascending order. ``lookup(t)`` gives a
+    step's ``hoisted`` mapping by the host value of its model timestep (no
+    search on the device, nothing read back); ``row(t)`` its row of the
+    timestep tables. ``move_kv`` hands the k/v over to other storage (a
+    CUDA graph's static inputs), so that one copy of them stays alive."""
 
-    def __init__(self, kv, emb, ts):
-        self.kv, self.emb, self.ts = kv, emb, ts
+    def __init__(self, kv, emb, ts, packed=None):
+        self.emb, self.ts, self.packed = emb, ts, packed
         self.row_of = {t: i for i, t in enumerate(ts)}
+        self.move_kv(kv)
+
+    def move_kv(self, kv) -> None:
+        """``kv`` in place of the k/v tables held so far, which are dropped."""
+        self.kv = kv
         # one mapping per row, built once: a step only picks its dict
-        self._rows = [] if emb is None else [
-            {**kv, **{m: tab[i] for m, tab in emb.items()}} for i in range(len(ts))]
+        self._rows = [] if self.emb is None else [
+            {**kv, **{m: tab[i] for m, tab in self.emb.items()}} for i in range(len(self.ts))]
+
+    def row(self, t: float) -> int:
+        key = float(np.float32(t))
+        if key not in self.row_of:
+            raise KeyError(f"model timestep {t} is not on the hoisted grid {self.ts}")
+        return self.row_of[key]
 
     def lookup(self, t: float) -> Mapping[nn.Module, torch.Tensor]:
         if self.emb is None:
             return self.kv
-        key = float(np.float32(t))
-        if key not in self.row_of:
-            raise KeyError(f"model timestep {t} is not on the hoisted grid {self.ts}")
-        return self._rows[self.row_of[key]]
+        return self._rows[self.row(t)]
 
 
 def _replace(root: nn.Module, name: str, new: nn.Module) -> None:
@@ -489,6 +515,7 @@ def quantize_dense_params(cldm: ControlLDM) -> ControlLDM:
     only). Biases, norms and convs stay float; the VAE and CLIP are left as
     they are. The counterpart of the JAX ``quantize_dense_params``: the
     result loads the state dict of ``sd21(quant_dense=True)``."""
+    cldm.version += 1
     for root in (cldm.unet, cldm.controlnet):
         for name, mod in list(root.named_modules()):
             if isinstance(mod, Linear) and any(
@@ -508,6 +535,7 @@ def quantize_conv_params(cldm: ControlLDM) -> ControlLDM:
     The ResBlocks must be fused (int8 convs exist only inside K6). The
     counterpart of the JAX ``quantize_conv_params``; composes with
     ``quantize_dense_params``."""
+    cldm.version += 1
     for root in (cldm.unet, cldm.controlnet):
         for name, block in list(root.named_modules()):
             if not isinstance(block, ResBlock) or block.quant_conv:

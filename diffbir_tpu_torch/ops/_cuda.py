@@ -11,6 +11,7 @@ an edited header rebuilds every source. There is no fallback: a missing
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -82,11 +85,19 @@ def build(source: Path) -> tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
+# the launches recorded into a CUDA graph that this thread captures
+# (``capture_tally``), which the device has not run
+_capture = threading.local()
+
+
 class CudaKernel:
     """One C entry point of one ``csrc/`` file, built and loaded at first use.
 
-    ``launches`` counts successful launches through :meth:`launch` and
-    nothing else, so a run can show which kernels its path went through.
+    ``launches`` counts the launches the device runs, so a run can show
+    which kernels its path went through: each successful launch through
+    :meth:`launch` but those recorded into a CUDA graph that is being
+    captured (which go to the capture's ``capture_tally``), and a graph's
+    recorded launches again at each of its replays (``count``).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -117,7 +128,31 @@ class CudaKernel:
         if rc != 0:
             msg = self._lib.cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            tally = getattr(_capture, "tally", None)
+            if tally is not None:
+                tally[self] = tally.get(self, 0) + 1
+        else:
+            self.launches += 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """A dict that collects {kernel: launches} of the launches this thread
+    records into a CUDA graph within the block (they are not counted in
+    ``launches``)."""
+    _capture.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def count(made: dict) -> None:
+    """Add ``made`` ({kernel: launches}, a graph's recorded launches) to the
+    counters: the graph has run once more."""
+    for k, n in made.items():
+        k.launches += n
 
 
 def load_all(kernels: Sequence[CudaKernel]) -> None:

@@ -69,6 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from .models.cldm import ControlLDM, HoistTables
+from .models.denoiser_graph import DenoiserCall
 from .sampler.base import ModelFn, Sampler, timestep_vector
 from .sampler.ddim import DDIMSampler
 from .sampler.dpms import DPMSolverSampler
@@ -123,12 +124,10 @@ def model_function(cldm: ControlLDM, strength: float = 1.0,
                    tables: Optional[HoistTables] = None) -> ModelFn:
     """The sampler's ``model_fn`` of a request: the ControlLDM at control
     scale ``strength`` on the step's [B] timestep vector, with the step's
-    rows of ``tables`` when hoisting (the pipeline's and profile_step's)."""
-    def model_fn(x, t, c):
-        return cldm(x, timestep_vector(t, x), c, control_scales=strength,
-                    hoisted=None if tables is None else tables.lookup(t))
-
-    return model_fn
+    rows of ``tables`` when hoisting (the pipeline's and profile_step's),
+    replayed as a CUDA graph where the call shows that to be safe
+    (``models.denoiser_graph``)."""
+    return DenoiserCall(cldm, strength, tables)
 
 
 def tile_model_function(cldm: ControlLDM, strength: float, lat_tile: int):
@@ -337,6 +336,7 @@ class Pipeline:
         z = sampler.sample(model_fn, start, cond, uncond, cfg_scale, steps,
                            generator=None if noise_table is not None else generator,
                            noise_table=noise_table, **guidance)
+        model_fn = tables = None   # the hoisted tables go before the decode
         clock.lap("denoise")
         x = cldm.vae_decode(z[:, :h1, :w1, :], tiled=vae_decoder_tiled,
                             tile_size=vae_decoder_tile_size // 8, tile_mode=tile_mode)

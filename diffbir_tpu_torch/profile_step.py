@@ -8,7 +8,8 @@ the batch, cond and uncond on the CLI's default prompts through a seeded
 stand-in tokenizer, through the model function the pipeline hands the
 sampler (``pipeline.model_function``: the hoisted context k/v and timestep
 tables of ``--sampler``'s grid for ``--steps`` steps, default 50 spaced;
-``--no-hoist`` the loop's own), at the grid's first timestep; with
+``--no-hoist`` the loop's own; a CUDA graph replay after its first call,
+``models.denoiser_graph``), at the grid's first timestep; with
 ``--mode fused`` or ``--mode int8`` the same step in
 the CLI's serving mode of that name ("fused": the fused ResBlock K6, the
 fused GEGLU FFN K7 and the packed flash layout K3; "int8": int8 dense

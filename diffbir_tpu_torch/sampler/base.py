@@ -43,7 +43,10 @@ class GuidedModel:
     under CFG: x twice, ``batch(x)``); ``combine`` folds such an output back
     to B rows, ``o_uncond + cfg (o_cond - o_uncond)``; ``__call__`` is
     both. Each model call is one ``model.call`` span (``utils.spans``: the
-    host's enqueue and, on a CUDA device, the stream's time)."""
+    host's enqueue and, on a CUDA device, the stream's time) with the
+    integer attribute ``graph``: the model function's ``graph`` after the
+    call (``models.denoiser_graph``: 0 eager, 1 captured as a CUDA graph, 2
+    replayed), 0 for one that has none."""
 
     def __init__(self, model_fn: ModelFn, cond: Mapping[str, torch.Tensor],
                  uncond: Optional[Mapping[str, torch.Tensor]]):
@@ -56,8 +59,11 @@ class GuidedModel:
         return torch.cat([x, x], dim=0) if self.use_cfg else x
 
     def raw(self, x2: torch.Tensor, t: float) -> torch.Tensor:
-        with spans.span("model.call", x2.device):
-            return self.model_fn(x2, t, self.cond)
+        with spans.span("model.call", x2.device) as sp:
+            out = self.model_fn(x2, t, self.cond)
+            if sp is not None:
+                sp.attrs["graph"] = getattr(self.model_fn, "graph", 0)
+            return out
 
     def combine(self, out: torch.Tensor, cfg_scale: float) -> torch.Tensor:
         if not self.use_cfg:
